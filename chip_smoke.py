@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of TaCo on one NVIDIA card.
+
+    python3 chip_smoke.py            # full size: 10^6 x 128 corpus, 1000 queries
+
+Phases, in order; any failure exits nonzero:
+  1. device  — require CUDA, print the card's name and power limit;
+  2. build   — compile the four kernels (one nvcc per source, in parallel);
+  3. kernels — hold each kernel against its plain PyTorch version on the card
+               at the main path's shapes and at a ragged shape, on integer
+               inputs (bitwise) and float inputs (stated tolerances), and time
+               kernel, plain version and one library call beside the bound;
+  4. main    — build a TaCo index over a SIFT1M-shaped corpus on the card with
+               use_kernels=True and answer 1000 queries at k = 10 and 100 in
+               both selection modes; every kernel's launch count must move,
+               recall@10 is checked against brute force and against the plain
+               path on the same index;
+  5. summary — the card's nvidia-smi line, one JSON line with every kernel's
+               numbers, and the final {"ok": true, ...} line.
+
+The full result is also written to chiprun_out/chip_smoke.json.
+
+It imports nothing of the JAX package; the corpus comes from the port's own
+seeded gmm_dataset.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
+#: non-tensor FLOP/s. Integer collision tests are counted at the same
+#: 32-bit non-tensor rate.
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+QUERIES = 1000
+SOURCES = {
+    "l2dist": ("src/repro_torch/csrc/l2dist.cu", "src/repro/kernels/l2dist.py:61"),
+    "kmeans_assign": ("src/repro_torch/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign.py:44"),
+    "schist": ("src/repro_torch/csrc/schist.cu", "src/repro/kernels/schist.py:125"),
+    "masked_rerank": ("src/repro_torch/csrc/masked_rerank.cu",
+                      "src/repro/kernels/masked_rerank.py:234"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def timed(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Mean device ms per call, CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernels(torch, corpus, queries, rng) -> dict:
+    """Phase 3: every kernel against its plain version on the card."""
+    import numpy as np
+
+    from repro_torch.core.activation import activation_taus
+    from repro_torch.core.selection import query_aware_threshold
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
+    from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
+    from repro_torch.kernels.schist import (
+        collision_bits,
+        collision_table,
+        schist_cuda,
+        schist_plain,
+        unpack_collision_bits,
+    )
+
+    dev = torch.device("cuda")
+    res = {}
+
+    def T(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
+
+    def ints(shape, lo=-8, hi=9):
+        return T(rng.integers(lo, hi, shape).astype(np.float32))
+
+    def floats(shape):
+        return T(rng.standard_normal(shape).astype(np.float32))
+
+    def scale_atol(x, y):  # cancellation floor of the |x|^2+|y|^2-2x.y form
+        return 1e-5 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+
+    # ---------------------------------------------------------- l2dist --
+    q, n_sub, sqrt_k, sd = QUERIES, 6, 32, 4
+    for shape in ((q, sqrt_k, sd), (37, 29, 5)):
+        x, y = ints(shape[::2]), ints(shape[1:])
+        check(torch.equal(l2dist_cuda(x, y), l2dist_plain(x, y)), f"l2dist int {shape}")
+        x, y = floats(shape[::2]), floats(shape[1:])
+        got, want = l2dist_cuda(x, y), l2dist_plain(x, y)
+        check(torch.allclose(got, want, rtol=1e-5, atol=scale_atol(x, y)),
+              f"l2dist float {shape}")
+    x, y = floats((q, sd)), floats((sqrt_k, sd))
+    got, want = l2dist_cuda(x, y), l2dist_plain(x, y)
+    m, nn = q, sqrt_k
+    b, by = bound_ms(4 * (m * sd + nn * sd + m * nn), m * nn * (2 * sd + 3) + 2 * sd * (m + nn))
+    res["l2dist"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=timed(torch, lambda: l2dist_cuda(x, y), 200),
+        plain_ms=timed(torch, lambda: l2dist_plain(x, y), 200),
+        bound_ms=b, bound_by=by,
+        library_ms=timed(torch, lambda: torch.cdist(x, y) ** 2, 200),
+        shape=f"x ({m}, {sd}), y ({nn}, {sd})")
+
+    # --------------------------------------------------- kmeans_assign --
+    n = corpus.shape[0]
+    for shape in ((n, sqrt_k, sd), (1003, 13, 3)):
+        x, c = ints(shape[::2]), ints(shape[1:])
+        ga, gd = kmeans_assign_cuda(x, c)
+        wa, wd = kmeans_assign_plain(x, c)
+        check(torch.equal(ga, wa) and torch.equal(gd, wd), f"kmeans_assign int {shape}")
+        x, c = floats(shape[::2]), floats(shape[1:])
+        ga, gd = kmeans_assign_cuda(x, c)
+        wa, wd = kmeans_assign_plain(x, c)
+        two = torch.topk(l2dist_plain(x, c), 2, dim=1, largest=False).values
+        clear = (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 0].clamp_min(1e-30)
+        check(bool(torch.equal(ga[clear], wa[clear])), f"kmeans_assign float argmin {shape}")
+        check(torch.allclose(gd, wd, rtol=1e-5, atol=scale_atol(x, c)),
+              f"kmeans_assign float min {shape}")
+    x, c = floats((n, sd)), floats((sqrt_k, sd))
+    ga, gd = kmeans_assign_cuda(x, c)
+    wa, wd = kmeans_assign_plain(x, c)
+    b, by = bound_ms(4 * (n * sd + sqrt_k * sd + 2 * n),
+                     n * sqrt_k * (2 * sd + 3) + 2 * sd * (n + sqrt_k))
+    res["kmeans_assign"] = dict(
+        max_abs_err=float((gd - wd).abs().max()),
+        ms=timed(torch, lambda: kmeans_assign_cuda(x, c), 50),
+        plain_ms=timed(torch, lambda: kmeans_assign_plain(x, c), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=timed(torch, lambda: torch.cdist(x, c).min(dim=1), 10),
+        argmin_agree=float((ga == wa).float().mean()),
+        shape=f"x ({n}, {sd}), c ({sqrt_k}, {sd})")
+
+    # ------------------------------------------- schist + masked_rerank --
+    def collision_case(n_sub, q, sqrt_k, n, alpha=0.05):
+        cells = T(rng.integers(0, sqrt_k * sqrt_k, (n_sub, n)), torch.int32)
+        sizes = torch.stack([torch.bincount(cells[s].long(), minlength=sqrt_k ** 2)
+                             for s in range(n_sub)]).to(torch.int32).reshape(n_sub, sqrt_k, sqrt_k)
+        d1s = T(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
+        d2s = T(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
+        taus, _ = activation_taus(d1s, d2s, sizes, alpha * n)
+        return collision_bits(collision_table(d1s, d2s, taus)), cells
+
+    big = (n_sub, q, sqrt_k, n)
+    for shape in (big, (3, 37, 5, 1003)):
+        bits, cells = collision_case(*shape)
+        got = schist_cuda(bits, cells, shape[0] + 1, q=shape[1])
+        want = schist_plain(bits, cells, shape[0] + 1, q=shape[1])
+        check(torch.equal(got, want), f"schist {shape}")
+        check(bool((got.sum(1) == shape[3]).all()), f"schist counts {shape}")
+    bits, cells = collision_case(*big)
+    hist = schist_cuda(bits, cells, n_sub + 1, q=q)
+    nbits = bits.numel() * 4
+    b, by = bound_ms(4 * n_sub * n + nbits + 4 * q * (n_sub + 1), q * n * n_sub)
+    res["schist"] = dict(
+        max_abs_err=float((hist - schist_plain(bits, cells, n_sub + 1, q=q)).abs().max()),
+        ms=timed(torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=q), 10),
+        plain_ms=timed(torch, lambda: schist_plain(bits, cells, n_sub + 1, q=q), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
+
+    def rerank_case(shape, data, qs, k):
+        n_sub_, q_, sqrt_k_, n_ = shape
+        bits, cells = collision_case(*shape)
+        hist = schist_plain(bits, cells, n_sub_ + 1, q=q_)
+        thresh, demand = query_aware_threshold(hist, 0.005 * n_, n_sub_)
+        norms = (data * data).sum(1)
+        return (bits, cells, thresh, qs, data, norms), demand
+
+    def compare_rerank(args_, k, exact: bool, what: str):
+        gd, gi = masked_rerank_cuda(*args_, k)
+        wd, wi = masked_rerank_plain(*args_, k)
+        if exact:
+            check(torch.equal(gi, wi) and torch.equal(gd, wd), f"masked_rerank int {what}")
+            return gd, gi, wd, wi
+        agree = float((gi == wi).float().mean())
+        fin = torch.isfinite(wd)
+        check(torch.equal(fin, torch.isfinite(gd)), f"masked_rerank filled slots {what}")
+        atol = scale_atol(args_[3], args_[4])
+        check(torch.allclose(gd[fin], wd[fin], rtol=1e-5, atol=atol), f"masked_rerank dists {what}")
+        check(agree >= 0.999, f"masked_rerank ids agree {agree:.5f} < 0.999 {what}")
+        return gd, gi, wd, wi
+
+    for shape, d, k in (((n_sub, q, sqrt_k, 65536), 128, 10),
+                        ((n_sub, q, sqrt_k, 65536), 128, 100),
+                        ((3, 37, 5, 1003), 20, 17)):
+        args_, _ = rerank_case(shape, ints((shape[3], d)), ints((shape[1], d)), k)
+        compare_rerank(args_, k, True, f"{shape} k={k}")
+    timings = {}
+    for k in (10, 100):
+        args_, demand = rerank_case(big, corpus, queries, k)
+        gd, gi, wd, wi = compare_rerank(args_, k, False, f"{big} k={k}")
+        fin = torch.isfinite(wd)
+        total = float(demand.sum())
+        d = corpus.shape[1]
+        b, by = bound_ms(
+            4 * n_sub * n + nbits + 4 * q + 4 * q * d + 4 * d * min(n, total) + 4 * n + 8 * q * k,
+            q * n * n_sub + total * (2 * d + 3))
+        mask_sc = None
+
+        def library():
+            nonlocal mask_sc
+            if mask_sc is None:
+                table = unpack_collision_bits(args_[0], q)
+                sc = torch.zeros((q, n), dtype=torch.uint8, device=dev)
+                for s in range(n_sub):
+                    sc += table[s][:, args_[1][s].long()]
+                mask_sc = sc >= args_[2][:, None].to(torch.uint8)
+            qn = (args_[3] * args_[3]).sum(1, keepdim=True)
+            dist = torch.addmm(args_[5][None, :], args_[3], args_[4].T, alpha=-2.0) + qn
+            return torch.topk(torch.where(mask_sc, dist, torch.inf), k, dim=1, largest=False)
+
+        library()
+        timings[k] = dict(
+            max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+            ms=timed(torch, lambda: masked_rerank_cuda(*args_, k), 5),
+            plain_ms=timed(torch, lambda: masked_rerank_plain(*args_, k), 1),
+            bound_ms=b, bound_by=by,
+            library_ms=timed(torch, library, 3),
+            ids_agree=float((gi == wi).float().mean()),
+            mean_candidates=total / q,
+            shape=f"Q {q}, n {n}, d {d}, k {k}")
+        del mask_sc
+        print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
+    res["masked_rerank"] = timings[10]
+    for name in ("l2dist", "kmeans_assign", "schist"):
+        print(f"kernel {name}: {json.dumps(res[name])}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_search(torch, index, queries) -> None:
+    """Device time by kernel over one k=10 query_aware search, from
+    torch.profiler, and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search_with_stats(queries, k=10)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    if total == 0:
+        print("profile: no device time in the trace (not measured)", flush=True)
+        return
+    print(f"profile: window {wall_us:.0f} us (profiled), device busy {total:.0f} us "
+          f"({100 * total / wall_us:.1f}%)", flush=True)
+    for dev_us, count, key in rows[:12]:
+        print(f"profile: {dev_us:10.0f} us {100 * dev_us / total:5.1f}% x{count:<5d} {key[:90]}",
+              flush=True)
+
+
+def phase_main(torch, corpus_np, queries_np) -> dict:
+    """Phase 4: the port's main path at full size through AnnIndex."""
+    import numpy as np
+
+    from repro_torch.ann import AnnIndex
+    from repro_torch.core.config import taco_config
+    from repro_torch.kernels import cuda
+    from repro_torch.utils import pairwise_sq_dists, recall_at_k
+
+    dev = torch.device("cuda")
+    queries = torch.as_tensor(queries_np).to(dev)
+    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, alpha=0.05,
+                      beta=0.005, k=10, rerank="masked_full", use_kernels=True)
+
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = AnnIndex.build(corpus_np, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"main: build {build_s:.3f} s, index_bytes {index.index_bytes}", flush=True)
+    index.search(queries[:8])  # warm-up: caches the per-index cell ids
+    runs = {}
+    for k in (10, 100):
+        for sel in ("query_aware", "fixed"):
+            view = index.replace_cfg(selection=sel)
+            times = []
+            for _rep in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ids, dists, stats = view.search_with_stats(queries, k=k)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            runs[(k, sel)] = (sorted(times)[1], ids, dists, stats)
+    launches = dict(cuda.launch_counts)
+    print(f"main: launches {json.dumps(launches)}", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+
+    profile_search(torch, index, queries)
+    gt = []
+    for lo in range(0, queries.shape[0], 100):
+        d = pairwise_sq_dists(queries[lo:lo + 100], index.sc_index.data)
+        gt.append(torch.topk(d, 10, dim=1, largest=False).indices)
+    gt = torch.cat(gt).cpu().numpy()
+    summary = {"build_s": build_s, "index_bytes": index.index_bytes, "searches": []}
+    # seconds: median of 3 host-clock runs of the whole batch, synchronized
+    for (k, sel), (secs, ids, dists, stats) in runs.items():
+        check(tuple(ids.shape) == (queries.shape[0], k), f"ids shape k={k}")
+        check(bool(torch.isfinite(dists[:, :10]).all()), f"finite top-10 dists k={k} {sel}")
+        ids_np = ids.cpu().numpy()
+        rec = recall_at_k(ids_np, gt, 10)
+        plain = index.replace_cfg(selection=sel, use_kernels=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pids, _pd, _ps = plain.search_with_stats(queries, k=k)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        prec = recall_at_k(pids.cpu().numpy(), gt, 10)
+        same = float(np.mean(pids.cpu().numpy() == ids_np))
+        row = dict(k=k, selection=sel, seconds=secs, qps=queries.shape[0] / secs,
+                   recall_at_10=rec, plain_recall_at_10=prec, plain_seconds=plain_s,
+                   ids_same_as_plain=same,
+                   mean_candidate_count=float(stats["candidate_count"].float().mean()))
+        print(f"main: search {json.dumps(row)}", flush=True)
+        check(abs(rec - prec) <= 0.005, f"recall kernel {rec} vs plain {prec} k={k} {sel}")
+        check(same >= 0.999, f"ids same as plain {same} < 0.999 k={k} {sel}")
+        summary["searches"].append(row)
+    summary["launches"] = launches
+    return summary
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1_000_000,
+                    help="corpus size (cut it for a quick first check of a new kernel)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    root = Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+
+    from repro_torch.data import gmm_dataset, make_queries
+    from repro_torch.kernels import cuda
+
+    # 1. device
+    line = card_line()
+    print(f"device: {line}", flush=True)
+    # 2. build
+    t0 = time.perf_counter()
+    reports = cuda.build_all()
+    build_kernels_s = time.perf_counter() - t0
+    print(f"build: kernels in {build_kernels_s:.2f} s", flush=True)
+    for name, log in reports.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"build: {name}: {ln.strip()}", flush=True)
+
+    t0 = time.perf_counter()
+    full = gmm_dataset(args.n + QUERIES, 128, seed=0)
+    corpus_np, queries_np = make_queries(full, QUERIES)
+    del full
+    print(f"data: {corpus_np.shape} corpus, {queries_np.shape} queries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    corpus = torch.as_tensor(corpus_np).cuda()
+    queries = torch.as_tensor(queries_np).cuda()
+
+    # 3. kernels against plain versions
+    kernels = phase_kernels(torch, corpus, queries, rng)
+    del corpus, queries
+    torch.cuda.empty_cache()
+    # 4. main path
+    main_res = phase_main(torch, corpus_np, queries_np)
+
+    # 5. summary
+    rows = []
+    for name, (src, replaces) in SOURCES.items():
+        r = kernels[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": main_res["launches"][name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    out = root / "chiprun_out" / "chip_smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
+                               "kernels": kernels, "main": main_res}, indent=1))
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

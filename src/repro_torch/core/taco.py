@@ -1,0 +1,262 @@
+"""TaCo — index build (paper Alg. 3) and the masked-full k-ANNS query
+(Alg. 6 with Alg. 5 in histogram space), as in ``repro.core.taco``.
+
+``build`` and ``query`` read the method (TaCo, SuCo, ablations) from
+``SCConfig``. The query runs the streaming two-pass pipeline: pass 1
+(:func:`repro_torch.kernels.ops.schist`) reduces the SC-scores to a per-query
+histogram, Alg. 5 reads the threshold off it, pass 2
+(:func:`repro_torch.kernels.ops.masked_rerank`) re-ranks every point at or
+above the threshold. ``cfg.use_kernels`` routes the centroid distances and
+both passes through the CUDA kernels when the index is on the card, exactly
+where the reference routes them through Pallas.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import transform as T
+from repro_torch.core.activation import activation_taus
+from repro_torch.core.config import SCConfig, resolve_rerank
+from repro_torch.core.imi import IMISubspace, build_imi_subspace, split_halves
+from repro_torch.core.selection import fixed_threshold_from_hist, query_aware_threshold
+from repro_torch.kernels import ops
+from repro_torch.kernels.schist import cell_ids, collision_bits, collision_table
+from repro_torch.utils import pairwise_sq_dists, resolve_device, round_bf16
+
+
+def _nbytes(*tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors if t is not None))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SCIndex:
+    """A built subspace-collision index (TaCo or SuCo family)."""
+
+    transform: T.SubspaceTransform | None  # entropy-averaging transform (TaCo)
+    dim_perm: torch.Tensor | None  # raw-dim permutation (SuCo, Def. 4)
+    subspaces: tuple[IMISubspace, ...]
+    data: torch.Tensor  # (n, d) original data, used for re-ranking
+    sub_dims: tuple[int, ...] = ()
+    #: (n,) float32 ``||x||^2`` per point, computed once at build time
+    data_norms: torch.Tensor | None = None
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def index_bytes(self) -> int:
+        """Index memory footprint as the reference counts it (excludes the
+        dataset, and the derived :attr:`cells` stack)."""
+        size = sum(
+            _nbytes(s.centroids1, s.centroids2, s.assign1, s.assign2, s.cell_sizes)
+            for s in self.subspaces
+        )
+        if self.transform is not None:
+            size += _nbytes(self.transform.mean, self.transform.basis,
+                            self.transform.eigvals)
+        return size + _nbytes(self.dim_perm, self.data_norms)
+
+    @functools.cached_property
+    def cells(self) -> torch.Tensor:
+        """(N_s, n) int32 combined IMI cell ids, computed once per index."""
+        sqrt_k = self.subspaces[0].sqrt_k
+        return torch.stack([
+            cell_ids(s.assign1, s.assign2, sqrt_k) for s in self.subspaces
+        ]).contiguous()
+
+    @functools.cached_property
+    def cell_sizes(self) -> torch.Tensor:
+        """(N_s, sqrt_k, sqrt_k) int32 stacked cell-size grids."""
+        return torch.stack([s.cell_sizes for s in self.subspaces])
+
+
+def _project(index: SCIndex, x: torch.Tensor) -> torch.Tensor:
+    if index.transform is not None:
+        return T.apply_transform(index.transform, x)
+    return x.to(torch.float32)[:, index.dim_perm.long()]
+
+
+def _sub_slices(sub_dims: tuple[int, ...]) -> list[tuple[int, int]]:
+    offs, out = 0, []
+    for d in sub_dims:
+        out.append((offs, offs + d))
+        offs += d
+    return out
+
+
+def suco_dim_partition(d: int, n_subspaces: int, rng: np.random.Generator):
+    """Paper Def. 4 subspace sampling: random dims without replacement,
+    N_s-1 subspaces of s = floor(d/N_s) dims, the last takes the rest."""
+    s = d // n_subspaces
+    perm = rng.permutation(d)
+    sub_dims = tuple([s] * (n_subspaces - 1) + [d - s * (n_subspaces - 1)])
+    return perm.astype(np.int32), sub_dims
+
+
+def build(data, cfg: SCConfig, *, device: str | torch.device = "cuda") -> SCIndex:
+    """Paper Algorithm 3 (plus Alg. 1/2 when cfg.transform == 'entropy').
+
+    ``data`` (n, d) goes to ``device`` (the card by default). With
+    ``cfg.use_kernels`` the k-means assignment runs through the CUDA kernel
+    there."""
+    dev = resolve_device(device)
+    data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
+    n, d = data.shape
+    gen = torch.Generator().manual_seed(cfg.seed)
+    impl = "auto" if cfg.use_kernels else "torch"
+
+    if cfg.transform == "entropy":
+        tr = T.fit_transform(data, cfg.n_subspaces, cfg.subspace_dim)
+        projected = T.apply_transform(tr, data)
+        perm = None
+        sub_dims = (cfg.subspace_dim,) * cfg.n_subspaces
+    elif cfg.transform == "none":
+        tr = None
+        perm_np, sub_dims = suco_dim_partition(d, cfg.n_subspaces, np.random.default_rng(cfg.seed))
+        perm = torch.as_tensor(perm_np, device=dev)
+        projected = data[:, perm.long()]
+    else:
+        raise ValueError(f"unknown transform {cfg.transform!r}")
+
+    subspaces = tuple(
+        build_imi_subspace(projected[:, lo:hi], cfg.sqrt_k, cfg.kmeans_iters,
+                           cfg.kmeans_init, generator=gen, impl=impl)
+        for lo, hi in _sub_slices(sub_dims)
+    )
+    return SCIndex(
+        transform=tr,
+        dim_perm=perm,
+        subspaces=subspaces,
+        data=data,
+        sub_dims=sub_dims,
+        data_norms=torch.sum(data * data, dim=1),
+    )
+
+
+def index_from_arrays(arrays: dict, sub_dims, device: str | torch.device = "cuda") -> SCIndex:
+    """An index from plain arrays (numpy or tensors), e.g. the leaves of an
+    index built by ``repro``. Keys: ``transform.mean``, ``transform.basis``,
+    ``transform.eigvals`` (or none of them), ``dim_perm`` (or absent),
+    ``subspaces.<i>.{centroids1,centroids2,assign1,assign2,cell_sizes}``,
+    ``data`` and ``data_norms``."""
+    dev = resolve_device(device)
+
+    def get(name, dtype):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype).to(dev).contiguous()
+
+    sub_dims = tuple(int(s) for s in sub_dims)
+    tr = None
+    if "transform.basis" in arrays:
+        tr = T.SubspaceTransform(
+            mean=get("transform.mean", torch.float32),
+            basis=get("transform.basis", torch.float32),
+            eigvals=get("transform.eigvals", torch.float32),
+            n_subspaces=len(sub_dims),
+            subspace_dim=sub_dims[0],
+        )
+    perm = get("dim_perm", torch.int32) if arrays.get("dim_perm") is not None else None
+    subspaces = tuple(
+        IMISubspace(
+            centroids1=get(f"subspaces.{i}.centroids1", torch.float32),
+            centroids2=get(f"subspaces.{i}.centroids2", torch.float32),
+            assign1=get(f"subspaces.{i}.assign1", torch.int32),
+            assign2=get(f"subspaces.{i}.assign2", torch.int32),
+            cell_sizes=get(f"subspaces.{i}.cell_sizes", torch.int32),
+        )
+        for i in range(len(sub_dims))
+    )
+    data = get("data", torch.float32)
+    norms = (get("data_norms", torch.float32) if arrays.get("data_norms") is not None
+             else torch.sum(data * data, dim=1))
+    return SCIndex(transform=tr, dim_perm=perm, subspaces=subspaces, data=data,
+                   sub_dims=sub_dims, data_norms=norms)
+
+
+def _centroid_distances(index: SCIndex, queries: torch.Tensor, use_kernels: bool,
+                        precision: str = "f32"):
+    """Per-subspace distances to both centroid halves: stacked (N_s, Q,
+    sqrt_k). ``precision="bf16"`` rounds the projected queries and the
+    centroids through bfloat16 first, so both passes read identically
+    derived distances."""
+    dist_fn = ops.l2dist if use_kernels else pairwise_sq_dists
+    pq = _project(index, queries)
+    if precision == "bf16":
+        pq = round_bf16(pq)
+    d1s, d2s = [], []
+    for (lo, hi), sub in zip(_sub_slices(index.sub_dims), index.subspaces):
+        q_sub = pq[:, lo:hi]
+        s1, _ = split_halves(hi - lo)
+        c1, c2 = sub.centroids1, sub.centroids2
+        if precision == "bf16":
+            c1, c2 = round_bf16(c1), round_bf16(c2)
+        d1s.append(dist_fn(q_sub[:, :s1], c1))
+        d2s.append(dist_fn(q_sub[:, s1:], c2))
+    return torch.stack(d1s), torch.stack(d2s)
+
+
+def _collision_inputs(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
+    """Alg. 6 lines 3-5 without the SC matrix: centroid distances,
+    activation thresholds, the per-index cell ids and the retrieved counts."""
+    d1s, d2s = _centroid_distances(index, queries, cfg.use_kernels, cfg.precision)
+    taus, retrieved = activation_taus(
+        d1s, d2s, index.cell_sizes, cfg.alpha * index.n, method=cfg.activation)
+    return d1s, d2s, index.cells, taus, retrieved
+
+
+def query(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None):
+    """Paper Algorithm 6: returns (ids (Q, k), sq_dists (Q, k))."""
+    ids, dists, _stats = query_with_stats(index, queries, cfg, k=k)
+    return ids, dists
+
+
+def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None):
+    """Alg. 6 with diagnostics; ``k`` overrides ``cfg.k`` per call."""
+    k = cfg.k if k is None else int(k)
+    queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
+    if resolve_rerank(cfg) == "masked_full":
+        return _query_masked_full(index, queries, cfg, k)
+    raise NotImplementedError("the gather re-rank path is not ported yet; use rerank='masked_full'")
+
+
+def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: int):
+    """Streaming two-pass query: pass 1 histograms the SC-scores, Alg. 5
+    (or the fixed budget) reads the threshold off the histogram, pass 2
+    re-ranks every point at or above it with a running top-k. The
+    collision table is built once and read by both passes.
+
+    Stats keys as in ``repro``: taus, retrieved, sc_threshold,
+    candidate_count (== candidate_demand, nothing is clamped), truncated."""
+    impl = "auto" if cfg.use_kernels else "torch"
+    d1s, d2s, cells, taus, retrieved = _collision_inputs(index, queries, cfg)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    q = queries.shape[0]
+    hist = ops.schist(bits, cells, cfg.n_subspaces + 1, q=q, impl=impl)
+    beta_n = float(cfg.beta * index.n)
+    if cfg.selection == "query_aware":
+        thresh, demand = query_aware_threshold(hist, beta_n, cfg.n_subspaces)
+    elif cfg.selection == "fixed":
+        thresh, demand = fixed_threshold_from_hist(hist, beta_n, index.n)
+    else:
+        raise ValueError(f"unknown selection mode {cfg.selection!r}")
+    ids, dists = ops.masked_rerank(
+        bits, cells, thresh, index.data, index.data_norms, queries, k,
+        impl=impl, precision=cfg.precision,
+    )
+    stats = {
+        "taus": taus,
+        "retrieved": retrieved,
+        "sc_threshold": thresh,
+        "candidate_count": demand,
+        "candidate_demand": demand,
+        "truncated": torch.zeros(q, dtype=torch.bool, device=queries.device),
+    }
+    return ids, dists, stats

@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at small shapes. Marked ``cuda``: skipped where no CUDA device is present;
+run on a machine with one by ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_cuda_kernels.py``. Integer-valued inputs make every sum
+exact, so all outputs match bit for bit."""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _ints(rng, shape, dev, lo=-8, hi=9):
+    return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (37, 29, 5), (1000, 32, 4)])
+def test_l2dist_kernel(dev, m, n, d):
+    from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
+
+    rng = np.random.default_rng(m)
+    x, y = _ints(rng, (m, d), dev), _ints(rng, (n, d), dev)
+    assert torch.equal(l2dist_cuda(x, y), l2dist_plain(x, y))
+
+
+@pytest.mark.parametrize("n,k,d", [(1003, 13, 3), (5000, 32, 4), (257, 100, 40)])
+def test_kmeans_assign_kernel(dev, n, k, d):
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
+
+    rng = np.random.default_rng(n)
+    x, c = _ints(rng, (n, d), dev, -3, 4), _ints(rng, (k, d), dev, -3, 4)
+    ga, gd = kmeans_assign_cuda(x, c)
+    wa, wd = kmeans_assign_plain(x, c)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+
+
+def _collision(rng, n_sub, q, sqrt_k, n, dev):
+    from repro_torch.kernels.schist import collision_bits, collision_table
+
+    d1s = torch.as_tensor(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32), device=dev)
+    d2s = torch.as_tensor(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32), device=dev)
+    taus = torch.as_tensor(rng.uniform(1, 5, (n_sub, q)).astype(np.float32), device=dev)
+    cells = torch.as_tensor(rng.integers(0, sqrt_k * sqrt_k, (n_sub, n)), dtype=torch.int32,
+                            device=dev)
+    return collision_bits(collision_table(d1s, d2s, taus)), cells
+
+
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n", [(2, 3, 5, 50), (4, 33, 32, 1030), (6, 64, 32, 20000)])
+def test_schist_kernel(dev, n_sub, q, sqrt_k, n):
+    from repro_torch.kernels.schist import schist_cuda, schist_plain
+
+    bits, cells = _collision(np.random.default_rng(q), n_sub, q, sqrt_k, n, dev)
+    got = schist_cuda(bits, cells, n_sub + 1, q=q)
+    assert torch.equal(got, schist_plain(bits, cells, n_sub + 1, q=q))
+    assert bool((got.sum(1) == n).all())
+
+
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n,d,k", [
+    (2, 3, 5, 50, 16, 5), (4, 5, 32, 1030, 16, 17), (3, 1, 8, 40, 8, 40),
+    (6, 40, 16, 9000, 128, 100), (3, 20, 8, 3000, 24, 700),
+])
+def test_masked_rerank_kernel(dev, n_sub, q, sqrt_k, n, d, k):
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
+
+    rng = np.random.default_rng(n + k)
+    bits, cells = _collision(rng, n_sub, q, sqrt_k, n, dev)
+    data, queries = _ints(rng, (n, d), dev), _ints(rng, (q, d), dev)
+    thresh = torch.as_tensor(rng.integers(0, n_sub + 1, q), dtype=torch.int32, device=dev)
+    norms = (data * data).sum(1)
+    args = (bits, cells, thresh, queries, data, norms, k)
+    gd, gi = masked_rerank_cuda(*args)
+    wd, wi = masked_rerank_plain(*args)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
