@@ -5,20 +5,29 @@
 
 Phases, in order; any failure exits nonzero:
   1. device  — require CUDA, print the card's name and power limit;
-  2. build   — compile the four kernels (one nvcc per source, in parallel);
+  2. build   — compile the five kernels (one nvcc per source, in parallel);
   3. kernels — hold each kernel against its plain PyTorch version on the card
                at the main path's shapes and at a ragged shape, on integer
                inputs (bitwise) and float inputs (stated tolerances), and time
                kernel, plain version and one library call beside the bound;
-  4. main    — build a TaCo index over a SIFT1M-shaped corpus on the card with
+  4. masked  — build a TaCo index over a SIFT1M-shaped corpus on the card with
                use_kernels=True and answer 1000 queries at k = 10 and 100 in
-               both selection modes; every kernel's launch count must move,
-               recall@10 is checked against brute force and against the plain
-               path on the same index;
-  5. summary — the card's nvidia-smi line, one JSON line with every kernel's
+               both selection modes with rerank="masked_full"; recall@10 is
+               checked against brute force and against the plain path on the
+               same index;
+  5. gather  — the same index with the default rerank="gather" at k = 10 and
+               100 in both selection modes, and a SuCo index (linear
+               activation, fixed selection) built at full width; each run is
+               held against the plain path, the query-aware runs also against
+               masked-full; heap and linear activation against sort on the
+               first 100 queries;
+  6. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
-The full result is also written to chiprun_out/chip_smoke.json.
+Each path's kernels must be launched in its own run: the launch counts are
+set to 0 just before the path is driven and read just after (build:
+kmeans_assign; masked: l2dist, schist, masked_rerank; gather: l2dist,
+scscore). The full result is also written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
 seeded gmm_dataset.
@@ -45,6 +54,13 @@ SOURCES = {
     "schist": ("src/repro_torch/csrc/schist.cu", "src/repro/kernels/schist.py:125"),
     "masked_rerank": ("src/repro_torch/csrc/masked_rerank.cu",
                       "src/repro/kernels/masked_rerank.py:234"),
+    "scscore": ("src/repro_torch/csrc/scscore.cu", "src/repro/kernels/scscore.py:63"),
+}
+#: the kernels each path must launch in its own run
+PATHS = {
+    "build": ("kmeans_assign",),
+    "masked": ("l2dist", "schist", "masked_rerank"),
+    "gather": ("l2dist", "scscore"),
 }
 
 
@@ -100,6 +116,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         schist_plain,
         unpack_collision_bits,
     )
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
 
     dev = torch.device("cuda")
     res = {}
@@ -194,6 +211,25 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         bound_ms=b, bound_by=by, library_ms=None,
         shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
 
+    # --------------------------------------------------------- scscore --
+    # the ragged shapes: Q not a multiple of 32, n not a multiple of the chunk
+    for shape in (big, (n_sub, 100, sqrt_k, 20000), (3, 37, 5, 1003)):
+        bits, cells = collision_case(*shape)
+        got = scscore_cuda(bits, cells, q=shape[1])
+        check(torch.equal(got, scscore_plain(bits, cells, q=shape[1])), f"scscore {shape}")
+        del got
+    bits, cells = collision_case(*big)
+    sc = scscore_cuda(bits, cells, q=q)
+    b, by = bound_ms(4 * q * n + 4 * n_sub * n + nbits, q * n * n_sub)
+    res["scscore"] = dict(
+        max_abs_err=float((sc - scscore_plain(bits, cells, q=q)).abs().max()),
+        ms=timed(torch, lambda: scscore_cuda(bits, cells, q=q), 10),
+        plain_ms=timed(torch, lambda: scscore_plain(bits, cells, q=q), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
+    del sc
+    torch.cuda.empty_cache()
+
     def rerank_case(shape, data, qs, k):
         n_sub_, q_, sqrt_k_, n_ = shape
         bits, cells = collision_case(*shape)
@@ -258,25 +294,31 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         del mask_sc
         print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     res["masked_rerank"] = timings[10]
-    for name in ("l2dist", "kmeans_assign", "schist"):
+    for name in ("l2dist", "kmeans_assign", "schist", "scscore"):
         print(f"kernel {name}: {json.dumps(res[name])}", flush=True)
     torch.cuda.empty_cache()
     return res
 
 
-def profile_search(torch, index, queries) -> None:
-    """Device time by kernel over one k=10 query_aware search, from
-    torch.profiler, and the device's busy share of the window."""
+def profile_search(torch, view, queries, label: str) -> None:
+    """Device time by kernel over one k=10 search of ``view`` (an index
+    with the pipeline to profile), from torch.profiler, and the device's
+    busy share of the window. Only device-side events count: a host-side
+    op (``aten::...``) also reports the device time of the kernels it
+    launched, and summing both would count that time twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search_with_stats(queries, k=10)
+        view.search_with_stats(queries, k=10)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
@@ -285,85 +327,197 @@ def profile_search(torch, index, queries) -> None:
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     if total == 0:
-        print("profile: no device time in the trace (not measured)", flush=True)
+        print(f"profile {label}: no device time in the trace (not measured)", flush=True)
         return
-    print(f"profile: window {wall_us:.0f} us (profiled), device busy {total:.0f} us "
+    print(f"profile {label}: window {wall_us:.0f} us (profiled), device busy {total:.0f} us "
           f"({100 * total / wall_us:.1f}%)", flush=True)
     for dev_us, count, key in rows[:12]:
-        print(f"profile: {dev_us:10.0f} us {100 * dev_us / total:5.1f}% x{count:<5d} {key[:90]}",
-              flush=True)
+        print(f"profile {label}: {dev_us:10.0f} us {100 * dev_us / total:5.1f}% x{count:<5d} "
+              f"{key[:90]}", flush=True)
 
 
-def phase_main(torch, corpus_np, queries_np) -> dict:
-    """Phase 4: the port's main path at full size through AnnIndex."""
-    import numpy as np
-
-    from repro_torch.ann import AnnIndex
-    from repro_torch.core.config import taco_config
+def run_path(torch, name: str, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; return
+    its result and the counts read just after. Fails if a kernel of the
+    path was launched no time."""
     from repro_torch.kernels import cuda
-    from repro_torch.utils import pairwise_sq_dists, recall_at_k
-
-    dev = torch.device("cuda")
-    queries = torch.as_tensor(queries_np).to(dev)
-    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, alpha=0.05,
-                      beta=0.005, k=10, rerank="masked_full", use_kernels=True)
 
     cuda.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(cuda.launch_counts)
+    print(f"{name}: launches {json.dumps(launches)}", flush=True)
+    for kernel in PATHS[name]:
+        check(launches[kernel] > 0, f"kernel {kernel} was not launched on the {name} path")
+    return out, launches
+
+
+def build_index(torch, corpus_np, cfg, label: str):
+    """(index, build seconds): AnnIndex.build on the card, synchronized."""
+    from repro_torch.ann import AnnIndex
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = AnnIndex.build(corpus_np, cfg)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    print(f"main: build {build_s:.3f} s, index_bytes {index.index_bytes}", flush=True)
-    index.search(queries[:8])  # warm-up: caches the per-index cell ids
-    runs = {}
-    for k in (10, 100):
-        for sel in ("query_aware", "fixed"):
-            view = index.replace_cfg(selection=sel)
-            times = []
-            for _rep in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ids, dists, stats = view.search_with_stats(queries, k=k)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            runs[(k, sel)] = (sorted(times)[1], ids, dists, stats)
-    launches = dict(cuda.launch_counts)
-    print(f"main: launches {json.dumps(launches)}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    print(f"{label}: build {build_s:.3f} s, index_bytes {index.index_bytes}", flush=True)
+    return index, build_s
 
-    profile_search(torch, index, queries)
-    gt = []
-    for lo in range(0, queries.shape[0], 100):
-        d = pairwise_sq_dists(queries[lo:lo + 100], index.sc_index.data)
-        gt.append(torch.topk(d, 10, dim=1, largest=False).indices)
-    gt = torch.cat(gt).cpu().numpy()
-    summary = {"build_s": build_s, "index_bytes": index.index_bytes, "searches": []}
-    # seconds: median of 3 host-clock runs of the whole batch, synchronized
-    for (k, sel), (secs, ids, dists, stats) in runs.items():
-        check(tuple(ids.shape) == (queries.shape[0], k), f"ids shape k={k}")
-        check(bool(torch.isfinite(dists[:, :10]).all()), f"finite top-10 dists k={k} {sel}")
-        ids_np = ids.cpu().numpy()
-        rec = recall_at_k(ids_np, gt, 10)
-        plain = index.replace_cfg(selection=sel, use_kernels=False)
+
+def search_runs(torch, index, queries, settings) -> dict:
+    """For each (k, selection): seconds (median of 3 synchronized host-clock
+    runs of the whole batch), ids, dists, stats (without the SC matrix of
+    the gather pipeline) and the peak bytes allocated."""
+    runs = {}
+    for k, sel in settings:
+        view = index.replace_cfg(selection=sel)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, dists, stats = view.search_with_stats(queries, k=k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            stats.pop("sc", None)
+        runs[(k, sel)] = dict(seconds=sorted(times)[1], ids=ids, dists=dists, stats=stats,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+    return runs
+
+
+def against_plain(torch, index, queries, gt, run, k: int, sel: str, label: str) -> dict:
+    """The run's row: QPS, recall@10, and the plain path (use_kernels=False)
+    on the same index, held to the stated limits."""
+    import numpy as np
+
+    from repro_torch.utils import recall_at_k
+
+    ids, dists, stats = run["ids"], run["dists"], run["stats"]
+    check(tuple(ids.shape) == (queries.shape[0], k), f"{label} ids shape k={k}")
+    check(bool(torch.isfinite(dists[:, :10]).all()), f"{label} finite top-10 dists k={k} {sel}")
+    ids_np = ids.cpu().numpy()
+    rec = recall_at_k(ids_np, gt, 10)
+    plain = index.replace_cfg(selection=sel, use_kernels=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pids, _pd, _ps = plain.search_with_stats(queries, k=k)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del _ps
+    prec = recall_at_k(pids.cpu().numpy(), gt, 10)
+    same = float(np.mean(pids.cpu().numpy() == ids_np))
+    secs = run["seconds"]
+    row = dict(k=k, selection=sel, seconds=secs, qps=queries.shape[0] / secs,
+               recall_at_10=rec, plain_recall_at_10=prec, plain_seconds=plain_s,
+               ids_same_as_plain=same,
+               mean_candidate_count=float(stats["candidate_count"].float().mean()),
+               truncated_share=float(stats["truncated"].float().mean()),
+               peak_gib=run["peak_bytes"] / 2**30)
+    check(abs(rec - prec) <= 0.005, f"{label} recall kernel {rec} vs plain {prec} k={k} {sel}")
+    check(same >= 0.999, f"{label} ids same as plain {same} < 0.999 k={k} {sel}")
+    return row
+
+
+SETTINGS = [(k, sel) for k in (10, 100) for sel in ("query_aware", "fixed")]
+
+
+def phase_masked(torch, corpus_np, queries, gt) -> tuple:
+    """Phase 4: build the TaCo index and answer the batch with the
+    masked-full pipeline through AnnIndex. Returns (index, summary, runs)."""
+    from repro_torch.core.config import taco_config
+
+    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, alpha=0.05,
+                      beta=0.005, k=10, rerank="masked_full", use_kernels=True)
+    (index, build_s), build_launches = run_path(
+        torch, "build", lambda: build_index(torch, corpus_np, cfg, "masked"))
+    index.search(queries[:8])  # warm-up: caches the per-index cell ids
+    runs, launches = run_path(torch, "masked", lambda: search_runs(torch, index, queries, SETTINGS))
+    profile_search(torch, index, queries, "masked")
+    summary = {"build_s": build_s, "index_bytes": index.index_bytes, "searches": [],
+               "build_launches": build_launches, "launches": launches}
+    for (k, sel), run in runs.items():
+        row = against_plain(torch, index, queries, gt, run, k, sel, "masked")
+        print(f"masked: search {json.dumps(row)}", flush=True)
+        summary["searches"].append(row)
+    return index, summary, runs
+
+
+def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> dict:
+    """Phase 5: the default gather pipeline on the TaCo index, then on a
+    SuCo index built at full width, each run held against the plain path
+    (and the query-aware runs against masked-full); the heap and linear
+    activations against sort on the first 100 queries."""
+    import numpy as np
+
+    from repro_torch.core.config import suco_config
+
+    summary = {"searches": []}
+    gather = taco_index.replace_cfg(rerank="gather")
+    gather.search(queries[:8])  # warm-up
+    runs, launches = run_path(torch, "gather",
+                              lambda: search_runs(torch, gather, queries, SETTINGS))
+    summary["launches"] = launches
+    profile_search(torch, gather, queries, "gather")
+    for (k, sel), run in runs.items():
+        row = against_plain(torch, gather, queries, gt, run, k, sel, "gather")
+        if sel == "query_aware":
+            kept = ~run["stats"]["truncated"].cpu().numpy()
+            masked_ids = masked_runs[(k, sel)]["ids"].cpu().numpy()
+            same = float(np.mean(run["ids"].cpu().numpy()[kept] == masked_ids[kept]))
+            row["ids_same_as_masked_full"] = same
+            check(same >= 0.999, f"gather ids same as masked-full {same} < 0.999 k={k}")
+        row["config"] = "taco"
+        print(f"gather: search {json.dumps(row)}", flush=True)
+        summary["searches"].append(row)
+    del runs
+    torch.cuda.empty_cache()
+
+    cfg = suco_config(n_subspaces=6, n_clusters=1024, alpha=0.05, beta=0.005, k=10,
+                      use_kernels=True)
+    (suco, build_s), build_launches = run_path(
+        torch, "build", lambda: build_index(torch, corpus_np, cfg, "gather suco"))
+    summary.update(suco_build_s=build_s, suco_build_launches=build_launches)
+    suco.search(queries[:8])
+    settings = [(k, "fixed") for k in (10, 100)]
+    runs, launches = run_path(torch, "gather", lambda: search_runs(torch, suco, queries, settings))
+    summary["suco_launches"] = launches
+    for (k, sel), run in runs.items():
+        row = against_plain(torch, suco, queries, gt, run, k, sel, "gather suco")
+        row["config"] = "suco"
+        print(f"gather: search {json.dumps(row)}", flush=True)
+        summary["searches"].append(row)
+    del runs, suco
+    torch.cuda.empty_cache()
+
+    # activations: heap and linear must find sort's tau on the card
+    head = queries[:100]
+    _ids, _d, want = gather.search_with_stats(head, k=10)
+    summary["activations"] = {}
+    for method in ("heap", "linear"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pids, _pd, _ps = plain.search_with_stats(queries, k=k)
+        _ids, _d, got = gather.replace_cfg(activation=method).search_with_stats(head, k=10)
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        prec = recall_at_k(pids.cpu().numpy(), gt, 10)
-        same = float(np.mean(pids.cpu().numpy() == ids_np))
-        row = dict(k=k, selection=sel, seconds=secs, qps=queries.shape[0] / secs,
-                   recall_at_10=rec, plain_recall_at_10=prec, plain_seconds=plain_s,
-                   ids_same_as_plain=same,
-                   mean_candidate_count=float(stats["candidate_count"].float().mean()))
-        print(f"main: search {json.dumps(row)}", flush=True)
-        check(abs(rec - prec) <= 0.005, f"recall kernel {rec} vs plain {prec} k={k} {sel}")
-        check(same >= 0.999, f"ids same as plain {same} < 0.999 k={k} {sel}")
-        summary["searches"].append(row)
-    summary["launches"] = launches
+        row = dict(seconds=time.perf_counter() - t0,
+                   taus_equal=bool(torch.equal(got["taus"], want["taus"])),
+                   retrieved_differ=int((got["retrieved"] != want["retrieved"]).sum()),
+                   problems=int(want["taus"].numel()))
+        print(f"gather: activation {method} vs sort, first 100 queries: {json.dumps(row)}",
+              flush=True)
+        check(row["taus_equal"], f"activation {method}: tau differs from sort")
+        summary["activations"][method] = row
     return summary
+
+
+def brute_force_top10(torch, corpus, queries):
+    from repro_torch.utils import pairwise_sq_dists
+
+    gt = []
+    for lo in range(0, queries.shape[0], 100):
+        d = pairwise_sq_dists(queries[lo:lo + 100], corpus)
+        gt.append(torch.topk(d, 10, dim=1, largest=False).indices)
+    return torch.cat(gt).cpu().numpy()
 
 
 def main(argv=None) -> int:
@@ -409,27 +563,35 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     corpus = torch.as_tensor(corpus_np).cuda()
     queries = torch.as_tensor(queries_np).cuda()
+    gt = brute_force_top10(torch, corpus, queries)
 
     # 3. kernels against plain versions
     kernels = phase_kernels(torch, corpus, queries, rng)
-    del corpus, queries
+    del corpus
     torch.cuda.empty_cache()
-    # 4. main path
-    main_res = phase_main(torch, corpus_np, queries_np)
+    # 4. masked-full path, 5. gather path
+    index, masked, masked_runs = phase_masked(torch, corpus_np, queries, gt)
+    gather = phase_gather(torch, index, corpus_np, queries, gt, masked_runs)
 
-    # 5. summary
+    # 6. summary: each kernel's launches over every path run above
+    launches = {name: 0 for name in SOURCES}
+    for counts in (masked["build_launches"], masked["launches"], gather["launches"],
+                   gather["suco_build_launches"], gather["suco_launches"]):
+        for name, count in counts.items():
+            launches[name] += count
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": main_res["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     out = root / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
-                               "kernels": kernels, "main": main_res}, indent=1))
+                               "kernels": kernels, "masked": masked, "gather": gather},
+                              indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

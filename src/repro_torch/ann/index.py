@@ -3,9 +3,9 @@
     from repro_torch.ann import AnnIndex
     from repro_torch.core.config import taco_config
 
-    index = AnnIndex.build(data, taco_config(k=10, rerank="masked_full"))
-    ids, dists = index.search(queries)
-    ids, dists, stats = index.search_with_stats(queries, k=100)
+    index = AnnIndex.build(data, taco_config(k=10))
+    ids, dists = index.search(queries)               # gather re-rank
+    ids, dists, stats = index.search_with_stats(queries, k=100, rerank="masked_full")
 
 The index lives on the card unless ``device="cpu"`` is asked for; results
 come back as tensors on the index's device. Save/load, the searcher cache,

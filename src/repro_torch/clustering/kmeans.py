@@ -35,6 +35,29 @@ def lloyd_step(data: torch.Tensor, centroids: torch.Tensor, impl: str = "auto"):
     return new_centroids, assign
 
 
+def _kmeanspp_init(data: torch.Tensor, k: int, generator: torch.Generator | None):
+    """k-means++ seeding: sample points one by one with probability
+    proportional to the squared distance to the nearest chosen centroid.
+
+    The draws come from the CPU ``generator`` (one index, then k - 1
+    uniforms); each pick is a ``searchsorted`` of ``total * (1 - u)`` in the
+    running sum of the distances on the data's device, so the seeding is
+    repeatable for a seed on one device."""
+    n = data.shape[0]
+    first = torch.randint(n, (1,), generator=generator).to(data.device)
+    uniforms = torch.rand((k - 1,), generator=generator, dtype=torch.float64)
+    centroids = torch.zeros((k, data.shape[1]), dtype=torch.float32, device=data.device)
+    centroids[0] = data[first[0]]
+    dmin = torch.sum((data - centroids[0]) ** 2, dim=1)
+    for i in range(1, k):
+        cdf = torch.cumsum(dmin, dim=0)
+        r = cdf[-1:] * (1.0 - float(uniforms[i - 1]))
+        idx = torch.clamp_max(torch.searchsorted(cdf, r), n - 1)
+        centroids[i] = data[idx[0]]
+        dmin = torch.minimum(dmin, torch.sum((data - centroids[i]) ** 2, dim=1))
+    return centroids
+
+
 def kmeans(
     data: torch.Tensor,
     k: int,
@@ -48,7 +71,8 @@ def kmeans(
     """K-means clustering: (centroids (k, d), assignments (n,) int32).
 
     ``init="random"`` takes k distinct points drawn with ``generator`` (a
-    CPU ``torch.Generator``); ``init_centroids`` replaces the draw."""
+    CPU ``torch.Generator``), ``init="kmeans++"`` seeds with it;
+    ``init_centroids`` replaces the draw."""
     data = data.to(torch.float32).contiguous()
     if init_centroids is not None:
         centroids = init_centroids.to(device=data.device, dtype=torch.float32)
@@ -56,7 +80,7 @@ def kmeans(
         idx = torch.randperm(data.shape[0], generator=generator)[:k]
         centroids = data[idx.to(data.device)]
     elif init == "kmeans++":
-        raise NotImplementedError("k-means++ initialization is not ported yet")
+        centroids = _kmeanspp_init(data, k, generator)
     else:
         raise ValueError(f"unknown kmeans init {init!r}")
     for _ in range(iters):

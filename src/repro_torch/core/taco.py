@@ -1,14 +1,23 @@
-"""TaCo — index build (paper Alg. 3) and the masked-full k-ANNS query
-(Alg. 6 with Alg. 5 in histogram space), as in ``repro.core.taco``.
+"""TaCo — index build (paper Alg. 3) and the k-ANNS query (Alg. 6), as in
+``repro.core.taco``.
 
 ``build`` and ``query`` read the method (TaCo, SuCo, ablations) from
-``SCConfig``. The query runs the streaming two-pass pipeline: pass 1
-(:func:`repro_torch.kernels.ops.schist`) reduces the SC-scores to a per-query
-histogram, Alg. 5 reads the threshold off it, pass 2
-(:func:`repro_torch.kernels.ops.masked_rerank`) re-ranks every point at or
-above the threshold. ``cfg.use_kernels`` routes the centroid distances and
-both passes through the CUDA kernels when the index is on the card, exactly
-where the reference routes them through Pallas.
+``SCConfig``. ``cfg.rerank`` picks one of two query pipelines:
+
+  * ``gather`` (the default): the full (Q, n) SC matrix
+    (:func:`compute_sc_scores`), up to ``cap`` candidates per query
+    (:func:`repro_torch.core.selection.select_candidates`), and an exact
+    re-rank of the gathered candidates (:func:`rerank`);
+  * ``masked_full``: the streaming two-pass pipeline. Pass 1
+    (:func:`repro_torch.kernels.ops.schist`) reduces the SC-scores to a
+    per-query histogram, Alg. 5 reads the threshold off it, pass 2
+    (:func:`repro_torch.kernels.ops.masked_rerank`) re-ranks every point at
+    or above the threshold.
+
+Both read one collision table per batch. ``cfg.use_kernels`` routes the
+centroid distances and the SC counting (and pass 2) through the CUDA kernels
+when the index is on the card, exactly where the reference routes them
+through Pallas.
 """
 from __future__ import annotations
 
@@ -22,10 +31,15 @@ from repro_torch.core import transform as T
 from repro_torch.core.activation import activation_taus
 from repro_torch.core.config import SCConfig, resolve_rerank
 from repro_torch.core.imi import IMISubspace, build_imi_subspace, split_halves
-from repro_torch.core.selection import fixed_threshold_from_hist, query_aware_threshold
+from repro_torch.core.scoring import sc_scores
+from repro_torch.core.selection import (
+    fixed_threshold_from_hist,
+    query_aware_threshold,
+    select_candidates,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.schist import cell_ids, collision_bits, collision_table
-from repro_torch.utils import pairwise_sq_dists, resolve_device, round_bf16
+from repro_torch.utils import pairwise_sq_dists, resolve_device, round_bf16, topk_smallest
 
 
 def _nbytes(*tensors) -> int:
@@ -72,6 +86,12 @@ class SCIndex:
         return torch.stack([
             cell_ids(s.assign1, s.assign2, sqrt_k) for s in self.subspaces
         ]).contiguous()
+
+    @functools.cached_property
+    def assignments(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(a1s, a2s): the (N_s, n) int32 stacked half-cell assignments."""
+        return (torch.stack([s.assign1 for s in self.subspaces]).contiguous(),
+                torch.stack([s.assign2 for s in self.subspaces]).contiguous())
 
     @functools.cached_property
     def cell_sizes(self) -> torch.Tensor:
@@ -212,6 +232,47 @@ def _collision_inputs(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
     return d1s, d2s, index.cells, taus, retrieved
 
 
+def compute_sc_scores(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
+    """Collision counting (Alg. 6 lines 3-7): SC-scores (Q, n) int32 and
+    the activation diagnostics. With ``cfg.use_kernels`` the count runs on
+    the packed collision table (the ``scscore`` kernel on the card), else
+    through the plain per-subspace gathers of :func:`sc_scores`."""
+    d1s, d2s, cells, taus, retrieved = _collision_inputs(index, queries, cfg)
+    if cfg.use_kernels:
+        bits = collision_bits(collision_table(d1s, d2s, taus))
+        sc = ops.scscore(bits, cells, q=queries.shape[0])
+    else:
+        a1s, a2s = index.assignments
+        sc = sc_scores(d1s, d2s, a1s, a2s, taus)
+    return sc, {"taus": taus, "retrieved": retrieved}
+
+
+def data_norms_of(index: SCIndex) -> torch.Tensor:
+    """``||x||^2`` per point: the index's precomputed norms, or derived
+    when it has none."""
+    if index.data_norms is not None:
+        return index.data_norms
+    return torch.sum(index.data * index.data, dim=1)
+
+
+def rerank(data: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tensor,
+           valid: torch.Tensor, k: int, data_norms: torch.Tensor):
+    """Exact distances over the candidates and a masked top-k: (ids (Q, k)
+    int32, sq_dists (Q, k) f32), id -1 / +inf where fewer than k candidates
+    are valid; ties go to the lowest slot. The distances are
+    ``max(||q||^2 - 2 q.x + ||x||^2, 0)`` with the precomputed norms, as in
+    the reference."""
+    cand = cand_ids.long()
+    cross = torch.bmm(data[cand], queries[:, :, None])[:, :, 0]  # (Q, cap)
+    q_norms = torch.sum(queries * queries, dim=1)
+    dists = torch.clamp_min(q_norms[:, None] - 2.0 * cross + data_norms[cand], 0.0)
+    dists = torch.where(valid, dists, torch.inf)
+    top_d, pos = topk_smallest(dists, k)
+    top_ids = torch.gather(cand_ids, 1, pos)
+    filled = torch.isfinite(top_d)
+    return torch.where(filled, top_ids, -1), torch.where(filled, top_d, torch.inf)
+
+
 def query(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None):
     """Paper Algorithm 6: returns (ids (Q, k), sq_dists (Q, k))."""
     ids, dists, _stats = query_with_stats(index, queries, cfg, k=k)
@@ -224,7 +285,20 @@ def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = 
     queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
     if resolve_rerank(cfg) == "masked_full":
         return _query_masked_full(index, queries, cfg, k)
-    raise NotImplementedError("the gather re-rank path is not ported yet; use rerank='masked_full'")
+    sc, stats = compute_sc_scores(index, queries, cfg)
+    # floor the cap at the runtime k so large-k overrides stay servable
+    cap = min(index.n, max(cfg.cap_for(index.n), k))
+    cand_ids, valid, thresh, count = select_candidates(
+        sc, float(cfg.beta * index.n), cfg.n_subspaces, cap, mode=cfg.selection)
+    ids, dists = rerank(index.data, queries, cand_ids, valid, k, data_norms_of(index))
+    stats.update(
+        sc_threshold=thresh,
+        candidate_count=torch.clamp_max(count, cap),  # actually re-ranked
+        candidate_demand=count,  # Alg. 5 demand before the clamp
+        truncated=count > cap,  # strictly: count == cap drops nothing
+        sc=sc,
+    )
+    return ids, dists, stats
 
 
 def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: int):
@@ -248,7 +322,7 @@ def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: 
     else:
         raise ValueError(f"unknown selection mode {cfg.selection!r}")
     ids, dists = ops.masked_rerank(
-        bits, cells, thresh, index.data, index.data_norms, queries, k,
+        bits, cells, thresh, index.data, data_norms_of(index), queries, k,
         impl=impl, precision=cfg.precision,
     )
     stats = {

@@ -22,6 +22,7 @@ from repro_torch.kernels.masked_rerank import (
     masked_rerank_plain,
 )
 from repro_torch.kernels.schist import schist_cuda, schist_plain
+from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
 from repro_torch.utils import round_bf16
 
 
@@ -59,6 +60,14 @@ def schist(bits, cells, n_levels: int, *, q: int, impl: str = "auto") -> torch.T
     if not _use_kernel(impl, bits):
         return schist_plain(bits, cells, n_levels, q=q)
     return schist_cuda(bits.contiguous(), cells.contiguous(), n_levels, q=q)
+
+
+def scscore(bits, cells, *, q: int, impl: str = "auto") -> torch.Tensor:
+    """Full SC-score matrix (q, n) int32 from the packed collision table
+    ``bits`` and the (N_s, n) cell ids."""
+    if not _use_kernel(impl, bits):
+        return scscore_plain(bits, cells, q=q)
+    return scscore_cuda(bits.contiguous(), cells.contiguous(), q=q)
 
 
 def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils import pairwise_sq_dists
+from repro_torch.utils import pairwise_sq_dists, topk_smallest
 
 
 def l2dist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -40,13 +40,6 @@ def schist_ref(d1s, d2s, a1s, a2s, taus, n_levels: int) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def stable_topk_smallest(dist: torch.Tensor, k: int):
-    """(values, positions) of the k smallest entries per row; ties go to
-    the lowest position, as the stable ``lax.top_k``."""
-    vals, pos = torch.sort(dist, dim=1, stable=True)
-    return vals[:, :k], pos[:, :k]
-
-
 def masked_rerank_ref(d1s, d2s, a1s, a2s, taus, thresh, queries, data,
                       data_norms, k: int):
     """Masked full re-rank spec: exact distances of every point with
@@ -58,7 +51,7 @@ def masked_rerank_ref(d1s, d2s, a1s, a2s, taus, thresh, queries, data,
     qn = torch.sum(q * q, dim=1, keepdim=True)
     dist = torch.clamp_min(qn - 2.0 * (q @ x.T) + data_norms[None, :], 0.0)
     dist = torch.where(sc >= thresh[:, None], dist, torch.inf)
-    top_d, ids = stable_topk_smallest(dist, k)
+    top_d, ids = topk_smallest(dist, k)
     ids = torch.where(torch.isfinite(top_d), ids, -1)
     vecs = data[ids.clamp_min(0)]
     diff = vecs - queries[:, None, :]

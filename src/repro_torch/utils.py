@@ -1,4 +1,5 @@
-"""Shared small utilities of the port: device choice, distances, recall."""
+"""Shared small utilities of the port: device choice, distances, top-k,
+recall."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,6 +28,13 @@ def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = torch.sum(y * y, dim=-1, keepdim=True).T  # (1, N)
     d = x2 + y2 - 2.0 * (x @ y.T)
     return torch.clamp_min(d, 0.0)
+
+
+def topk_smallest(values: torch.Tensor, k: int):
+    """(values, positions) of the k smallest entries along the last axis;
+    ties go to the lowest position, as in the stable ``lax.top_k``."""
+    vals, pos = torch.sort(values, dim=-1, stable=True)
+    return vals[..., :k], pos[..., :k]
 
 
 def recall_at_k(result_ids, gt_ids, k: int) -> float:

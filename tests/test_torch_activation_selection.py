@@ -1,9 +1,11 @@
-"""Sort activation and candidate selection of the port against the reference,
-bit for bit: tau and the retrieved count (ties included), the Alg. 5
-threshold (also against the literal sequential oracle), the fixed-budget
-threshold, and the configuration constructors."""
+"""Activation and candidate selection of the port against the reference,
+bit for bit: tau and the retrieved count of every activation (ties
+included), the batched min-heaps, the Alg. 5 threshold (also against the
+literal sequential oracle), the fixed-budget threshold, the gather path's
+histogram, rank cut and compaction, and the configuration constructors."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,13 +14,21 @@ import torch
 from repro.core import config as jconfig
 from repro.core.activation import activation_taus as j_activation_taus
 from repro.core.activation import sort_activation as j_sort_activation
+from repro.core.heap import heap_make as j_heap_make
+from repro.core.heap import heap_pop as j_heap_pop
+from repro.core.heap import heap_push as j_heap_push
 from repro.core.selection import (
     _alg5_threshold_reference,
 )
+from repro.core.selection import compact_above_threshold as j_compact
 from repro.core.selection import fixed_budget as j_fixed_budget
+from repro.core.selection import fixed_threshold as j_fixed_threshold
 from repro.core.selection import fixed_threshold_from_hist as j_fixed_from_hist
 from repro.core.selection import query_aware_threshold as j_query_aware
-from repro_torch.core import config
+from repro.core.selection import sc_histogram as j_sc_histogram
+from repro.core.selection import select_candidates as j_select_candidates
+from repro_torch.core import config, heap
+from repro_torch.core import selection as sel
 from repro_torch.core.activation import activation_taus, sort_activation
 from repro_torch.core.selection import (
     fixed_budget,
@@ -87,11 +97,130 @@ def test_activation_taus_batched_bitwise(n_sub, q, sqrt_k):
         np.testing.assert_array_equal(_bits(ret[s].numpy()), _bits(np.asarray(wr)))
 
 
+def _activation_case(seed, integer: bool):
+    rng = np.random.default_rng(seed)
+    n_sub, q, sqrt_k = 3, 7, (4, 8, 12, 16)[seed % 4]
+    if integer:  # many equal cell sums
+        d1s = rng.integers(0, 4, (n_sub, q, sqrt_k)).astype(np.float32)
+        d2s = rng.integers(0, 4, (n_sub, q, sqrt_k)).astype(np.float32)
+    else:
+        d1s = rng.uniform(0, 5, (n_sub, q, sqrt_k)).astype(np.float32)
+        d2s = rng.uniform(0, 5, (n_sub, q, sqrt_k)).astype(np.float32)
+    return d1s, d2s, rng.integers(0, 6, (n_sub, sqrt_k, sqrt_k)).astype(np.int32)
+
+
+def _check_activation(method, d1s, d2s, sizes, alpha_ns):
+    for alpha_n in alpha_ns:
+        taus, ret = activation_taus(*[torch.from_numpy(a) for a in (d1s, d2s, sizes)],
+                                    alpha_n, method=method)
+        for s in range(d1s.shape[0]):
+            wt, wr = j_activation_taus(jnp.asarray(d1s[s]), jnp.asarray(d2s[s]),
+                                       jnp.asarray(sizes[s]), alpha_n, method=method)
+            np.testing.assert_array_equal(_bits(taus[s].numpy()), _bits(np.asarray(wt)))
+            np.testing.assert_array_equal(_bits(ret[s].numpy()), _bits(np.asarray(wr)))
+
+
 @pytest.mark.parametrize("method", ["heap", "linear"])
 def test_unported_activations_raise(method):
+    """Once a gap, now a gate: heap and linear activation run, bitwise
+    equal to the reference on float and on tied integer distances."""
+    for seed in range(4):
+        d1s, d2s, sizes = _activation_case(seed, integer=bool(seed % 2))
+        _check_activation(method, d1s, d2s, sizes, (0.0, 1.0, 40.0, 150.0, 1e6))
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("method", ["heap", "linear", "sort_lax", "sort"])
+def test_activations_bitwise(method, integer):
+    for seed in range(4, 10):
+        d1s, d2s, sizes = _activation_case(seed, integer)
+        _check_activation(method, d1s, d2s, sizes, (7.0, 77.0, 300.0))
+
+
+def test_activation_rejects_an_unknown_method():
     d = torch.zeros((1, 1, 2))
-    with pytest.raises(NotImplementedError):
-        activation_taus(d, d, torch.ones((1, 2, 2), dtype=torch.int32), 1.0, method=method)
+    with pytest.raises(ValueError):
+        activation_taus(d, d, torch.ones((1, 2, 2), dtype=torch.int32), 1.0, method="bogus")
+
+
+_J_PUSH, _J_POP = jax.jit(j_heap_push), jax.jit(j_heap_pop)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_min_heaps_follow_the_reference(seed):
+    """Pushes and pops on a batch of heaps, with equal keys and per-row
+    masks, leave every slot as the reference's heap does."""
+    rng = np.random.default_rng(seed)
+    batch, cap = 5, 9
+    ours = heap.heap_make(batch, cap)
+    theirs = [j_heap_make(cap) for _ in range(batch)]
+    for _step in range(40):
+        push = rng.random() < 0.6
+        room = ours.size.numpy() < cap if push else ours.size.numpy() > 0
+        on = (rng.random(batch) < 0.8) & room
+        key = rng.integers(0, 5, batch).astype(np.float32)
+        val = rng.integers(0, 100, batch).astype(np.int32)
+        if push:
+            heap.heap_push(ours, torch.from_numpy(key), torch.from_numpy(val), torch.from_numpy(on))
+        else:
+            heap.heap_pop(ours, torch.from_numpy(on))
+        for b in np.flatnonzero(on):
+            theirs[b] = (_J_PUSH(theirs[b], jnp.float32(key[b]), jnp.int32(val[b]))
+                         if push else _J_POP(theirs[b]))
+        top_k, top_v = heap.heap_top(ours)
+        for b in range(batch):
+            np.testing.assert_array_equal(ours.keys[b].numpy(), np.asarray(theirs[b].keys))
+            np.testing.assert_array_equal(ours.vals[b].numpy(), np.asarray(theirs[b].vals))
+            assert int(ours.size[b]) == int(theirs[b].size)
+            assert top_k[b] == ours.keys[b, 0] and top_v[b] == ours.vals[b, 0]
+
+
+def _sc_matrix(rng, q, n, n_s):
+    sc = rng.integers(0, n_s + 1, (q, n)).astype(np.int32)
+    sc[: q // 2] = np.minimum(sc[: q // 2], 2)  # rows with few high scores
+    return sc
+
+
+@pytest.mark.parametrize("q,n,n_s,seed", [(8, 300, 6, 0), (5, 1000, 3, 1), (3, 50, 1, 2)])
+def test_sc_histogram_bitwise(q, n, n_s, seed):
+    sc = _sc_matrix(np.random.default_rng(seed), q, n, n_s)
+    got = sel.sc_histogram(torch.from_numpy(sc), n_s)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_sc_histogram(jnp.asarray(sc), n_s)))
+
+
+@pytest.mark.parametrize("beta_n", [0.3, 10.0, 47.5, 5000.0])
+def test_fixed_threshold_bitwise(beta_n):
+    sc = _sc_matrix(np.random.default_rng(5), 9, 400, 6)
+    th, cnt = sel.fixed_threshold(torch.from_numpy(sc), beta_n, 6)
+    wth, wcnt = j_fixed_threshold(jnp.asarray(sc), beta_n, 6)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(wth))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    hist_th, _ = fixed_threshold_from_hist(sel.sc_histogram(torch.from_numpy(sc), 6), beta_n, 400)
+    np.testing.assert_array_equal(th.numpy(), hist_th.numpy())
+
+
+@pytest.mark.parametrize("cap", [1, 17, 120, 400])
+def test_compact_above_threshold_bitwise(cap):
+    rng = np.random.default_rng(cap)
+    sc = _sc_matrix(rng, 7, 400, 6)
+    thresh = rng.integers(0, 7, 7).astype(np.int32)
+    got = sel.compact_above_threshold(torch.from_numpy(sc), torch.from_numpy(thresh), cap)
+    want = j_compact(jnp.asarray(sc), jnp.asarray(thresh), cap)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", ["query_aware", "fixed"])
+@pytest.mark.parametrize("cap", [5, 40, 300])
+def test_select_candidates_bitwise(mode, cap):
+    sc = _sc_matrix(np.random.default_rng(cap), 6, 300, 4)
+    got = sel.select_candidates(torch.from_numpy(sc), 12.0, 4, cap, mode)
+    want = j_select_candidates(jnp.asarray(sc), 12.0, 4, cap, mode=mode)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError):
+        sel.select_candidates(torch.from_numpy(sc), 12.0, 4, cap, "bogus")
 
 
 def _random_hists(rng, q, n_s, hi):
@@ -112,6 +241,7 @@ def test_query_aware_threshold_bitwise(n_s, beta_n, seed):
     assert th.dtype == torch.int32 and cnt.dtype == torch.int32
     for row, t in zip(hist, th.numpy()):
         assert t == _alg5_threshold_reference(row, beta_n, n_s)
+        assert t == sel._alg5_threshold_reference(row, beta_n, n_s)
 
 
 def test_query_aware_threshold_f32_rounding():

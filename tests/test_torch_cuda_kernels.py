@@ -78,3 +78,47 @@ def test_masked_rerank_kernel(dev, n_sub, q, sqrt_k, n, d, k):
     gd, gi = masked_rerank_cuda(*args)
     wd, wi = masked_rerank_plain(*args)
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n", [
+    (2, 3, 5, 50), (4, 33, 32, 1030), (6, 64, 32, 20000), (3, 37, 8, 8193),
+])
+def test_scscore_kernel(dev, n_sub, q, sqrt_k, n):
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
+
+    bits, cells = _collision(np.random.default_rng(q + n), n_sub, q, sqrt_k, n, dev)
+    got = scscore_cuda(bits, cells, q=q)
+    assert torch.equal(got, scscore_plain(bits, cells, q=q))
+    assert int(got.min()) >= 0 and int(got.max()) <= n_sub
+
+
+@pytest.mark.parametrize("rerank", ["gather", "masked_full"])
+@pytest.mark.parametrize("selection", ["query_aware", "fixed"])
+def test_query_on_the_card_matches_the_cpu(dev, rerank, selection):
+    """Both pipelines end to end: the kernel route on the card against the
+    plain route on the CPU, on an index with integer centroids (every f32
+    sum exact), bit for bit."""
+    import dataclasses
+
+    from repro_torch.core import taco
+    from repro_torch.core.config import taco_config
+
+    rng = np.random.default_rng(5)
+    data = rng.integers(-10, 11, (3000, 24)).astype(np.float32)
+    queries = torch.as_tensor(rng.integers(-10, 11, (40, 24)).astype(np.float32))
+    cfg = taco_config(n_subspaces=3, subspace_dim=6, n_clusters=64, alpha=0.05, beta=0.02,
+                      transform="none", rerank=rerank, selection=selection, k=10)
+    built = taco.build(data, cfg, device="cpu")
+    arrays = {"data": built.data, "dim_perm": built.dim_perm}
+    for i, sub in enumerate(built.subspaces):
+        sub = dataclasses.replace(sub, centroids1=sub.centroids1.round(),
+                                  centroids2=sub.centroids2.round())
+        for name in ("centroids1", "centroids2", "assign1", "assign2", "cell_sizes"):
+            arrays[f"subspaces.{i}.{name}"] = getattr(sub, name)
+    cpu = taco.index_from_arrays(arrays, built.sub_dims, device="cpu")
+    card = taco.index_from_arrays(arrays, built.sub_dims, device=dev)
+    wi, wd, ws = taco.query_with_stats(cpu, queries, cfg)
+    gi, gd, gs = taco.query_with_stats(card, queries, dataclasses.replace(cfg, use_kernels=True))
+    assert torch.equal(gi.cpu(), wi) and torch.equal(gd.cpu(), wd)
+    for key in ("sc_threshold", "candidate_demand", "truncated"):
+        assert torch.equal(gs[key].cpu(), ws[key]), key

@@ -1,5 +1,6 @@
-"""The port's masked-full query on an index built by ``repro`` and carried
-across with ``index_from_arrays``.
+"""The port's masked-full query (and, in one check, the default gather
+query) on an index built by ``repro`` and carried across with
+``index_from_arrays``.
 
 On an integer-valued index (integer corpus and queries, rounded centroids,
 and for the entropy transform an integer mean and a 0/1 basis) every f32
@@ -108,9 +109,18 @@ def test_use_kernels_on_cpu_takes_the_plain_path(int_index):
 
 
 def test_gather_rerank_is_not_ported(int_index):
-    _t, _ref, port, queries = int_index
-    with pytest.raises(NotImplementedError):
-        taco.query(port, torch.from_numpy(queries), taco_config(**dict(CFG, rerank="gather")))
+    """Once a gap, now a gate: the default ``rerank="gather"`` searches,
+    bitwise equal to the reference (tests/test_torch_gather.py has the
+    full sweep)."""
+    transform, ref, port, queries = int_index
+    kw = dict(CFG, transform=transform, rerank="gather", k=10)
+    assert taco_config().rerank == "gather"
+    wi, wd, ws = jtaco.query_with_stats(ref, jnp.asarray(queries), j_taco_config(**kw))
+    gi, gd, gs = AnnIndex(sc_index=port, cfg=taco_config(**kw)).search_with_stats(queries)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    for key in ("sc", "sc_threshold", "candidate_count", "candidate_demand", "truncated"):
+        np.testing.assert_array_equal(gs[key].numpy(), np.asarray(ws[key]), err_msg=key)
 
 
 @pytest.fixture(scope="module")
