@@ -5,29 +5,43 @@
 
 Phases, in order; any failure exits nonzero:
   1. device  — require CUDA, print the card's name and power limit;
-  2. build   — compile the five kernels (one nvcc per source, in parallel);
-  3. kernels — hold each kernel against its plain PyTorch version on the card
-               at the main path's shapes and at a ragged shape, on integer
-               inputs (bitwise) and float inputs (stated tolerances), and time
-               kernel, plain version and one library call beside the bound;
-  4. masked  — build a TaCo index over a SIFT1M-shaped corpus on the card with
-               use_kernels=True and answer 1000 queries at k = 10 and 100 in
-               both selection modes with rerank="masked_full"; recall@10 is
-               checked against brute force and against the plain path on the
-               same index;
-  5. gather  — the same index with the default rerank="gather" at k = 10 and
+  2. build   — compile the six kernels (one nvcc per source, in parallel);
+  3. kernels — hold each ANN kernel against its plain PyTorch version on the
+               card at the main path's shapes and at a ragged shape, on
+               integer inputs (bitwise) and float inputs (stated tolerances),
+               and time kernel, plain version and one library call beside the
+               bound;
+  4. flash   — ops.flash_attention at the attention widths of granite-3-2b
+               (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
+               heads of 128, causal, bf16 and f32), S = T = 4096, plus a
+               ragged non-causal case; each held against the plain version
+               (bf16 also against the plain version in f32) and timed beside
+               its bound and scaled_dot_product_attention;
+  5. masked  — build a TaCo index over a SIFT1M-shaped corpus on the card with
+               use_kernels=True and answer 1000 queries (padded to the 1024
+               bucket by the searcher) at k = 10 and 100 in both selection
+               modes with rerank="masked_full"; recall@10 is checked against
+               brute force and against the plain path on the same index;
+  6. gather  — the same index with the default rerank="gather" at k = 10 and
                100 in both selection modes, and a SuCo index (linear
                activation, fixed selection) built at full width; each run is
                held against the plain path, the query-aware runs also against
                masked-full; heap and linear activation against sort on the
                first 100 queries;
-  6. summary — the card's nvidia-smi line, one JSON line with every kernel's
+  7. persist — AnnIndex.save of the TaCo and the SuCo index to a temporary
+               directory, AnnIndex.load on the card: every array bitwise equal,
+               and masked-full and gather ids and dists of one batch bitwise
+               equal to the in-memory index's; a repeated batch hits the
+               searcher's cache;
+  8. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
 set to 0 just before the path is driven and read just after (build:
-kmeans_assign; masked: l2dist, schist, masked_rerank; gather: l2dist,
-scscore). The full result is also written to chiprun_out/chip_smoke.json.
+kmeans_assign; flash: flash_attention; masked: l2dist, schist,
+masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
+masked_rerank, scscore). The full result is also written to
+chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
 seeded gmm_dataset.
@@ -38,6 +52,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +61,8 @@ from pathlib import Path
 #: 32-bit non-tensor rate.
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+#: dense bf16 tensor-core FLOP/s (same data sheet)
+BF16_TENSOR_OPS = 989e12
 QUERIES = 1000
 SOURCES = {
     "l2dist": ("src/repro_torch/csrc/l2dist.cu", "src/repro/kernels/l2dist.py:61"),
@@ -55,12 +72,16 @@ SOURCES = {
     "masked_rerank": ("src/repro_torch/csrc/masked_rerank.cu",
                       "src/repro/kernels/masked_rerank.py:234"),
     "scscore": ("src/repro_torch/csrc/scscore.cu", "src/repro/kernels/scscore.py:63"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:99"),
 }
 #: the kernels each path must launch in its own run
 PATHS = {
     "build": ("kmeans_assign",),
     "masked": ("l2dist", "schist", "masked_rerank"),
     "gather": ("l2dist", "scscore"),
+    "flash": ("flash_attention",),
+    "persist": ("l2dist", "schist", "masked_rerank", "scscore"),
 }
 
 
@@ -80,8 +101,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+def bound_ms(nbytes: float, ops: float, rate: float = F32_OPS) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -101,7 +122,7 @@ def timed(torch, fn, reps: int, warmup: int = 1) -> float:
 
 
 def phase_kernels(torch, corpus, queries, rng) -> dict:
-    """Phase 3: every kernel against its plain version on the card."""
+    """Phase 3: every ANN kernel against its plain version on the card."""
     import numpy as np
 
     from repro_torch.core.activation import activation_taus
@@ -300,6 +321,96 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
     return res
 
 
+#: (label, BH, KV heads, S, T, hd, causal, dtype): granite-3-2b (32 query
+#: heads of 2048/32 = 64; its 8 KV heads repeated to 32 by the caller, as
+#: the op takes equal BH) and qwen1.5-4b (MHA, 20 heads of 128) at
+#: S = T = 4096, and a ragged non-causal case. Both head dims run in f32 and
+#: bf16. The first row is the one in the kernels line.
+FLASH_CASES = (
+    ("granite-3-2b bf16", 32, 8, 4096, 4096, 64, True, "bfloat16"),
+    ("granite-3-2b f32", 32, 8, 4096, 4096, 64, True, "float32"),
+    ("qwen1.5-4b bf16", 20, 20, 4096, 4096, 128, True, "bfloat16"),
+    ("qwen1.5-4b f32", 20, 20, 4096, 4096, 128, True, "float32"),
+    ("ragged non-causal bf16", 32, 32, 4000, 4097, 64, False, "bfloat16"),
+)
+#: rtol = atol against the plain version in the same dtype. f32 keeps the
+#: reference tests' 2e-5 (tests/test_kernels.py:136). bf16 is tighter than
+#: their 5e-2, which was set at 32 keys: at 4096 keys a late row's output is
+#: about 0.03, so 1e-2 sits above one bf16 rounding flip of an output below
+#: 1 (<= 0.0039) and below a typical late value.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+#: bf16 is also held against the plain version run in f32 on the same
+#: (upcast) inputs: the kernel accumulates in f32 and rounds once, so it may
+#: differ by one bf16 rounding (half an ulp, at most 2^-8 relative; 2^-7 is
+#: allowed) plus the f32 tolerance twice over. This holds every row, late
+#: ones too, to about one percent of its value.
+FLASH_BF16_VS_F32 = (2.0 ** -7, 4e-5)
+
+
+def phase_flash(torch) -> dict:
+    """Phase 4: ops.flash_attention on every case (the path run), then each
+    case against the plain version, timed beside its bound and SDPA."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = []
+    for label, bh, kv_heads, s, t, hd, causal, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((bh, s, hd), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((kv_heads, t, hd), generator=gen, device="cuda").to(dt)
+                .repeat_interleave(bh // kv_heads, dim=0) for _ in range(2))
+        inputs.append((q, k, v, causal))
+    outs, launches = run_path(torch, "flash",
+                              lambda: [ops.flash_attention(*a) for a in inputs])
+    rows = []
+    for (label, bh, _kv, s, t, hd, causal, dtype), (q, k, v, _c), got in zip(
+            FLASH_CASES, inputs, outs):
+        want = flash_attention_plain(q, k, v, causal)
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        check(tuple(got.shape) == (bh, s, hd) and got.dtype == q.dtype, f"flash {label} shape")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash {label}: max abs err {err} above {tol}")
+        err_f32 = used = None
+        if dtype == "bfloat16":
+            want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+            diff = (got.float() - want).abs()
+            rtol, atol = FLASH_BF16_VS_F32
+            err_f32 = float(diff.max())
+            # worst share of the allowed error any element uses (<= 1 passes)
+            used = float((diff / (atol + rtol * want.abs())).max())
+            check(used <= 1.0, f"flash {label}: {used} of the allowed error against "
+                               f"the f32 plain version (max abs err {err_f32})")
+            del diff
+        del want
+        torch.cuda.empty_cache()
+        # unmasked (query, key) pairs: top-left causal keeps min(q + 1, T) keys
+        pairs = bh * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
+        flops = 4 * hd * pairs
+        nbytes = q.element_size() * bh * hd * (2 * s + 2 * t)
+        b32, by32 = bound_ms(nbytes, flops, F32_OPS)
+        b16, by16 = bound_ms(nbytes, flops, BF16_TENSOR_OPS)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row = dict(case=label, shape=f"BH {bh}, S {s}, T {t}, hd {hd}, causal {causal}, {dtype}",
+                   max_abs_err=err, tolerance=tol, max_abs_err_vs_f32=err_f32,
+                   share_of_allowed_vs_f32=used,
+                   ms=timed(torch, lambda: flash_attention_cuda(q, k, v, causal), 5),
+                   plain_ms=timed(torch, lambda: flash_attention_plain(q, k, v, causal), 2),
+                   library_ms=timed(torch, lambda: sdpa(q[None], k[None], v[None],
+                                                        is_causal=causal), 10),
+                   gflop=flops / 1e9, bound_f32_ms=b32, bound_f32_by=by32,
+                   bound_bf16_tensor_ms=b16, bound_bf16_tensor_by=by16)
+        # the least time for the work at its input type's peak rate; the
+        # kernel itself runs on the float32 CUDA cores (bound_f32_ms)
+        row["bound_ms"], row["bound_by"] = (b32, by32) if dtype == "float32" else (b16, by16)
+        row["tflops"] = flops / row["ms"] / 1e9
+        print(f"flash: {json.dumps(row)}", flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return {"cases": rows, "launches": launches}
+
+
 def profile_search(torch, view, queries, label: str) -> None:
     """Device time by kernel over one k=10 search of ``view`` (an index
     with the pipeline to profile), from torch.profiler, and the device's
@@ -367,8 +478,9 @@ def build_index(torch, corpus_np, cfg, label: str):
 
 def search_runs(torch, index, queries, settings) -> dict:
     """For each (k, selection): seconds (median of 3 synchronized host-clock
-    runs of the whole batch), ids, dists, stats (without the SC matrix of
-    the gather pipeline) and the peak bytes allocated."""
+    runs of the whole batch through the facade, which pads it to its
+    bucket and returns numpy), ids, dists, stats and the peak bytes
+    allocated."""
     runs = {}
     for k, sel in settings:
         view = index.replace_cfg(selection=sel)
@@ -380,7 +492,6 @@ def search_runs(torch, index, queries, settings) -> dict:
             ids, dists, stats = view.search_with_stats(queries, k=k)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            stats.pop("sc", None)
         runs[(k, sel)] = dict(seconds=sorted(times)[1], ids=ids, dists=dists, stats=stats,
                               peak_bytes=torch.cuda.max_memory_allocated())
     return runs
@@ -395,9 +506,8 @@ def against_plain(torch, index, queries, gt, run, k: int, sel: str, label: str) 
 
     ids, dists, stats = run["ids"], run["dists"], run["stats"]
     check(tuple(ids.shape) == (queries.shape[0], k), f"{label} ids shape k={k}")
-    check(bool(torch.isfinite(dists[:, :10]).all()), f"{label} finite top-10 dists k={k} {sel}")
-    ids_np = ids.cpu().numpy()
-    rec = recall_at_k(ids_np, gt, 10)
+    check(bool(np.isfinite(dists[:, :10]).all()), f"{label} finite top-10 dists k={k} {sel}")
+    rec = recall_at_k(ids, gt, 10)
     plain = index.replace_cfg(selection=sel, use_kernels=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -405,14 +515,14 @@ def against_plain(torch, index, queries, gt, run, k: int, sel: str, label: str) 
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     del _ps
-    prec = recall_at_k(pids.cpu().numpy(), gt, 10)
-    same = float(np.mean(pids.cpu().numpy() == ids_np))
+    prec = recall_at_k(pids, gt, 10)
+    same = float(np.mean(pids == ids))
     secs = run["seconds"]
     row = dict(k=k, selection=sel, seconds=secs, qps=queries.shape[0] / secs,
                recall_at_10=rec, plain_recall_at_10=prec, plain_seconds=plain_s,
                ids_same_as_plain=same,
-               mean_candidate_count=float(stats["candidate_count"].float().mean()),
-               truncated_share=float(stats["truncated"].float().mean()),
+               mean_candidate_count=float(stats["candidate_count"].mean()),
+               truncated_share=float(stats["truncated"].mean()),
                peak_gib=run["peak_bytes"] / 2**30)
     check(abs(rec - prec) <= 0.005, f"{label} recall kernel {rec} vs plain {prec} k={k} {sel}")
     check(same >= 0.999, f"{label} ids same as plain {same} < 0.999 k={k} {sel}")
@@ -423,7 +533,7 @@ SETTINGS = [(k, sel) for k in (10, 100) for sel in ("query_aware", "fixed")]
 
 
 def phase_masked(torch, corpus_np, queries, gt) -> tuple:
-    """Phase 4: build the TaCo index and answer the batch with the
+    """Phase 5: build the TaCo index and answer the batch with the
     masked-full pipeline through AnnIndex. Returns (index, summary, runs)."""
     from repro_torch.core.config import taco_config
 
@@ -443,14 +553,18 @@ def phase_masked(torch, corpus_np, queries, gt) -> tuple:
     return index, summary, runs
 
 
-def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> dict:
-    """Phase 5: the default gather pipeline on the TaCo index, then on a
+def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tuple:
+    """Phase 6: the default gather pipeline on the TaCo index, then on a
     SuCo index built at full width, each run held against the plain path
     (and the query-aware runs against masked-full); the heap and linear
-    activations against sort on the first 100 queries."""
+    activations against sort on the first 100 queries. Returns (summary,
+    the SuCo index)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.core.config import suco_config
+    from repro_torch.core.taco import query_with_stats
 
     summary = {"searches": []}
     gather = taco_index.replace_cfg(rerank="gather")
@@ -462,9 +576,9 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> dict
     for (k, sel), run in runs.items():
         row = against_plain(torch, gather, queries, gt, run, k, sel, "gather")
         if sel == "query_aware":
-            kept = ~run["stats"]["truncated"].cpu().numpy()
-            masked_ids = masked_runs[(k, sel)]["ids"].cpu().numpy()
-            same = float(np.mean(run["ids"].cpu().numpy()[kept] == masked_ids[kept]))
+            kept = ~run["stats"]["truncated"]
+            masked_ids = masked_runs[(k, sel)]["ids"]
+            same = float(np.mean(run["ids"][kept] == masked_ids[kept]))
             row["ids_same_as_masked_full"] = same
             check(same >= 0.999, f"gather ids same as masked-full {same} < 0.999 k={k}")
         row["config"] = "taco"
@@ -487,17 +601,19 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> dict
         row["config"] = "suco"
         print(f"gather: search {json.dumps(row)}", flush=True)
         summary["searches"].append(row)
-    del runs, suco
+    del runs
     torch.cuda.empty_cache()
 
-    # activations: heap and linear must find sort's tau on the card
+    # activations: heap and linear must find sort's tau on the card; tau and
+    # the retrieved counts are internal stats, so read from query_with_stats
     head = queries[:100]
-    _ids, _d, want = gather.search_with_stats(head, k=10)
+    _ids, _d, want = query_with_stats(gather.sc_index, head, gather.cfg, k=10)
     summary["activations"] = {}
     for method in ("heap", "linear"):
+        cfg = dataclasses.replace(gather.cfg, activation=method)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _ids, _d, got = gather.replace_cfg(activation=method).search_with_stats(head, k=10)
+        _ids, _d, got = query_with_stats(gather.sc_index, head, cfg, k=10)
         torch.cuda.synchronize()
         row = dict(seconds=time.perf_counter() - t0,
                    taus_equal=bool(torch.equal(got["taus"], want["taus"])),
@@ -507,6 +623,71 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> dict
               flush=True)
         check(row["taus_equal"], f"activation {method}: tau differs from sort")
         summary["activations"][method] = row
+    return summary, suco
+
+
+def save_and_load(torch, index, label: str) -> tuple:
+    """(loaded index, row): AnnIndex.save to a temporary directory and
+    AnnIndex.load on the card, host clock, every array checked bitwise."""
+    from repro_torch.ann import AnnIndex
+    from repro_torch.ann.persistence import leaves_of
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "index")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        loaded = AnnIndex.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    got, want = leaves_of(loaded.sc_index), leaves_of(index.sc_index)
+    check(len(got) == len(want), f"persist {label}: leaf count")
+    check(all(g.device == w.device and torch.equal(g, w) for g, w in zip(got, want)),
+          f"persist {label}: a reloaded array differs")
+    check(loaded.cfg == index.cfg, f"persist {label}: config differs")
+    row = dict(save_s=save_s, load_s=load_s, bytes_on_disk=disk, leaves=len(got))
+    print(f"persist {label}: {json.dumps(row)}", flush=True)
+    return loaded, row
+
+
+def phase_persist(torch, taco_index, suco_index, queries) -> dict:
+    """Phase 7: save and reload the TaCo index (and the SuCo index, which
+    carries a dim_perm); one batch of masked-full and one of gather, k = 10,
+    query-aware, on the reloaded index must equal the in-memory index's bit
+    for bit, and a repeated batch must hit the searcher's cache."""
+    import numpy as np
+
+    summary = {}
+    loaded, summary["taco"] = save_and_load(torch, taco_index, "taco")
+    reruns = ("masked_full", "gather")
+    view = loaded.replace_cfg(selection="query_aware")
+    results, launches = run_path(
+        torch, "persist", lambda: [view.search(queries, k=10, rerank=r) for r in reruns])
+    summary["launches"] = launches
+    for rerank, (ids, dists) in zip(reruns, results):
+        want_ids, want_d = taco_index.replace_cfg(selection="query_aware").search(
+            queries, k=10, rerank=rerank)
+        check(np.array_equal(ids, want_ids) and
+              np.array_equal(dists.view(np.uint32), want_d.view(np.uint32)),
+              f"persist: reloaded {rerank} results differ from the built index")
+    searcher = view._default_searcher()
+    before = dict(searcher.compile_counts)
+    view.search(queries, k=10, rerank="masked_full")
+    check(searcher.compile_counts == before and set(before.values()) == {1},
+          "persist: a repeated batch shape missed the searcher's cache")
+    summary["compile_counts"] = {f"bucket {b}, k {k}, rerank {c.rerank}": n
+                                 for (b, k, c), n in before.items()}
+    print(f"persist: compile_counts {json.dumps(summary['compile_counts'])}", flush=True)
+
+    suco, summary["suco"] = save_and_load(torch, suco_index, "suco")
+    check(suco.sc_index.transform is None and suco.sc_index.dim_perm is not None,
+          "persist suco: dim_perm / transform structure")
+    for got, want in zip(suco.search(queries, k=10), suco_index.search(queries, k=10)):
+        check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              "persist suco: reloaded results differ")
     return summary
 
 
@@ -565,18 +746,23 @@ def main(argv=None) -> int:
     queries = torch.as_tensor(queries_np).cuda()
     gt = brute_force_top10(torch, corpus, queries)
 
-    # 3. kernels against plain versions
+    # 3. ANN kernels against plain versions, 4. flash attention
     kernels = phase_kernels(torch, corpus, queries, rng)
     del corpus
     torch.cuda.empty_cache()
-    # 4. masked-full path, 5. gather path
+    flash = phase_flash(torch)
+    kernels["flash_attention"] = flash["cases"][0]
+    # 5. masked-full path, 6. gather path, 7. save / load
     index, masked, masked_runs = phase_masked(torch, corpus_np, queries, gt)
-    gather = phase_gather(torch, index, corpus_np, queries, gt, masked_runs)
+    gather, suco = phase_gather(torch, index, corpus_np, queries, gt, masked_runs)
+    del masked_runs
+    persist = phase_persist(torch, index, suco, queries)
 
-    # 6. summary: each kernel's launches over every path run above
+    # 8. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
-    for counts in (masked["build_launches"], masked["launches"], gather["launches"],
-                   gather["suco_build_launches"], gather["suco_launches"]):
+    for counts in (flash["launches"], masked["build_launches"], masked["launches"],
+                   gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
+                   persist["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -590,8 +776,8 @@ def main(argv=None) -> int:
     out = root / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
-                               "kernels": kernels, "masked": masked, "gather": gather},
-                              indent=1))
+                               "kernels": kernels, "flash": flash, "masked": masked,
+                               "gather": gather, "persist": persist}, indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

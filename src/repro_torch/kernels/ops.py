@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
 from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
 from repro_torch.kernels.masked_rerank import (
@@ -89,3 +90,12 @@ def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
     else:
         bd, bi = masked_rerank_plain(bits, cells, thresh, q_op, x_op, norms, k)
     return finalize_topk(bd, bi, data, queries, k)
+
+
+def flash_attention(q, k, v, causal: bool = True, impl: str = "auto") -> torch.Tensor:
+    """Fused softmax attention (BH, S, hd) in q's dtype; the (S, T) scores
+    never reach device memory. The kernel masks ragged S and T itself, so
+    nothing is padded."""
+    if not _use_kernel(impl, q):
+        return flash_attention_plain(q, k, v, causal)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)

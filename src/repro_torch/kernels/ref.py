@@ -57,3 +57,17 @@ def masked_rerank_ref(d1s, d2s, a1s, a2s, taus, thresh, queries, data,
     diff = vecs - queries[:, None, :]
     exact = torch.where(ids >= 0, torch.sum(diff * diff, dim=-1), torch.inf)
     return ids.to(torch.int32), exact
+
+
+def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Softmax attention oracle, q (BH, S, hd), k/v (BH, T, hd): float32
+    scores masked to -1e30 above the diagonal (top-left aligned), softmax,
+    P.V in float32, cast back to q's dtype."""
+    s = torch.einsum("bsd,btd->bst", q.to(torch.float32), k.to(torch.float32))
+    s = s * (q.shape[-1] ** -0.5)
+    if causal:
+        keep = (torch.arange(k.shape[1], device=q.device)[None, :]
+                <= torch.arange(q.shape[1], device=q.device)[:, None])
+        s = torch.where(keep, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.to(torch.float32)).to(q.dtype)

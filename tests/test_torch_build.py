@@ -97,7 +97,7 @@ def test_kmeanspp_build_searches():
         ref = jtaco.build(data, j_taco_config(**kw))
         wi, _ = jtaco.query(ref, jnp.asarray(queries), j_taco_config(**kw))
         gi, _ = AnnIndex.build(data, taco_config(**kw), device="cpu").search(queries)
-        r_port.append(recall_at_k(gi.numpy(), gt, 10))
+        r_port.append(recall_at_k(gi, gt, 10))
         r_ref.append(recall_at_k(np.asarray(wi), gt, 10))
     assert abs(np.mean(r_port) - np.mean(r_ref)) <= 0.03, (r_port, r_ref)
 
@@ -176,7 +176,7 @@ def test_port_build_recall_matches_reference_build(transform):
     wi, _ = jtaco.query(ref, jnp.asarray(queries), j_taco_config(**kw))
     index = AnnIndex.build(data, taco_config(**kw, use_kernels=True), device="cpu")
     gi, _ = index.search(queries)
-    r_port, r_ref = recall_at_k(gi.numpy(), gt, 10), recall_at_k(np.asarray(wi), gt, 10)
+    r_port, r_ref = recall_at_k(gi, gt, 10), recall_at_k(np.asarray(wi), gt, 10)
     assert abs(r_port - r_ref) <= 0.03, (r_port, r_ref)
     sc = index.sc_index
     assert sc.data_norms.shape == (4096,) and sc.cells.shape == (4, 4096)

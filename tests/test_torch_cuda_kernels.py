@@ -122,3 +122,37 @@ def test_query_on_the_card_matches_the_cpu(dev, rerank, selection):
     assert torch.equal(gi.cpu(), wi) and torch.equal(gd.cpu(), wd)
     for key in ("sc_threshold", "candidate_demand", "truncated"):
         assert torch.equal(gs[key].cpu(), ws[key]), key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,t,hd,causal", [
+    (2, 16, 16, 8, True), (3, 32, 32, 16, False), (1, 150, 150, 16, True),
+    (2, 64, 130, 24, False), (2, 100, 257, 16, False), (2, 300, 200, 64, True),
+    (1, 129, 129, 128, True), (2, 70, 50, 96, False),
+])
+def test_flash_attention_kernel(dev, bh, s, t, hd, causal, dtype):
+    """Ragged S and T, S != T both ways, every head-dim template; against
+    the plain version at the reference tests' tolerances."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    rng = np.random.default_rng(bh * 1000 + s + t + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.standard_normal((bh, n, hd)).astype(np.float32),
+                               device=dev).to(dt) for n in (s, t, t))
+    got = flash_attention_cuda(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    assert got.dtype == dt and got.shape == (bh, s, hd)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_rejects(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    x = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.zeros((1, 4, 129), device=dev),) * 3)
+    with pytest.raises(ValueError, match="S, T >= 1"):
+        flash_attention_cuda(x, x[:, :0], x[:, :0])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(x.half(), x.half(), x.half())

@@ -202,6 +202,8 @@ def test_default_config_searches_through_the_facade(gmm_index):
     index = AnnIndex.build(port.data, taco_config(**cfg), device="cpu")
     assert index.cfg.rerank == "gather"
     ids, dists, stats = index.search_with_stats(queries)
-    assert ids.shape == (16, 10) and bool(torch.isfinite(dists).all())
-    assert stats["sc"].shape == (16, 4096) and stats["truncated"].dtype == torch.bool
-    assert recall_at_k(ids.numpy(), gt, 10) >= 0.5
+    assert ids.shape == (16, 10) and bool(np.isfinite(dists).all())
+    assert stats["truncated"].dtype == np.bool_ and set(stats) == {"truncated", "candidate_count"}
+    _i, _d, full = taco.query_with_stats(index.sc_index, torch.from_numpy(queries), index.cfg)
+    assert full["sc"].shape == (16, 4096) and full["truncated"].dtype == torch.bool
+    assert recall_at_k(ids, gt, 10) >= 0.5

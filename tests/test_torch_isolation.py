@@ -1,5 +1,5 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither ``jax`` nor ``repro`` (checked in a fresh interpreter, since this
+none of ``jax``, ``ml_dtypes`` and ``repro`` (checked in a fresh interpreter, since this
 test process already imports both); no source file of the port, nor
 chip_smoke.py, imports them; the entry points default to the card and raise
 without one; and a kernel wrapper never falls back to its plain version."""
@@ -28,11 +28,14 @@ def _port_modules() -> list[str]:
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.core.taco" in mods and "repro_torch.kernels.cuda" in mods
+    assert {"repro_torch.batching", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.ann.persistence", "repro_torch.ann.searcher",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -57,7 +60,7 @@ def _imported_names(path: Path) -> list[str]:
 def test_no_jax_or_repro_import_in_source(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), f"{path} imports {name}"
 
 
 def test_kernel_sources_exist_for_every_kernel():
