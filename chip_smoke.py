@@ -16,7 +16,8 @@ Phases, in order; any failure exits nonzero:
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
                ragged non-causal case; each held against the plain version
                (bf16 also against the plain version in f32) and timed beside
-               its bound and scaled_dot_product_attention;
+               its bound and scaled_dot_product_attention; the kernel's
+               ptxas report (kept in chip_smoke.json) must show no spills;
   5. masked  — build a TaCo index over a SIFT1M-shaped corpus on the card with
                use_kernels=True and answer 1000 queries (padded to the 1024
                bucket by the searcher) at k = 10 and 100 in both selection
@@ -350,6 +351,7 @@ FLASH_BF16_VS_F32 = (2.0 ** -7, 4e-5)
 def phase_flash(torch) -> dict:
     """Phase 4: ops.flash_attention on every case (the path run), then each
     case against the plain version, timed beside its bound and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
@@ -361,8 +363,11 @@ def phase_flash(torch) -> dict:
         k, v = (torch.randn((kv_heads, t, hd), generator=gen, device="cuda").to(dt)
                 .repeat_interleave(bh // kv_heads, dim=0) for _ in range(2))
         inputs.append((q, k, v, causal))
+    copies = fa.aligned_copies
     outs, launches = run_path(torch, "flash",
                               lambda: [ops.flash_attention(*a) for a in inputs])
+    copies = fa.aligned_copies - copies
+    check(copies == 0, f"flash: {copies} aligned copies on the path's shapes")
     rows = []
     for (label, bh, _kv, s, t, hd, causal, dtype), (q, k, v, _c), got in zip(
             FLASH_CASES, inputs, outs):
@@ -401,14 +406,18 @@ def phase_flash(torch) -> dict:
                                                         is_causal=causal), 10),
                    gflop=flops / 1e9, bound_f32_ms=b32, bound_f32_by=by32,
                    bound_bf16_tensor_ms=b16, bound_bf16_tensor_by=by16)
-        # the least time for the work at its input type's peak rate; the
-        # kernel itself runs on the float32 CUDA cores (bound_f32_ms)
+        # the least time for the work at its input type's peak rate: f32 on
+        # the CUDA cores, bf16 on the tensor cores
         row["bound_ms"], row["bound_by"] = (b32, by32) if dtype == "float32" else (b16, by16)
+        if dtype == "bfloat16":
+            # the kernel's own work: P.V twice (P as bf16 hi + lo), 6 hd a pair
+            row["bound_split_ms"] = bound_ms(nbytes, 6 * hd * pairs, BF16_TENSOR_OPS)[0]
         row["tflops"] = flops / row["ms"] / 1e9
+        row["vs_library"] = row["ms"] / row["library_ms"]
         print(f"flash: {json.dumps(row)}", flush=True)
         rows.append(row)
         torch.cuda.empty_cache()
-    return {"cases": rows, "launches": launches}
+    return {"cases": rows, "launches": launches, "aligned_copies": copies}
 
 
 def profile_search(torch, view, queries, label: str) -> None:
@@ -730,10 +739,13 @@ def main(argv=None) -> int:
     reports = cuda.build_all()
     build_kernels_s = time.perf_counter() - t0
     print(f"build: kernels in {build_kernels_s:.2f} s", flush=True)
+    ptxas = {}
     for name, log in reports.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"build: {name}: {ln.strip()}", flush=True)
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln or "wgmma" in ln
+                       or "Compiling entry" in ln]
+        for ln in ptxas[name]:
+            print(f"build: {name}: {ln}", flush=True)
 
     t0 = time.perf_counter()
     full = gmm_dataset(args.n + QUERIES, 128, seed=0)
@@ -751,6 +763,9 @@ def main(argv=None) -> int:
     del corpus
     torch.cuda.empty_cache()
     flash = phase_flash(torch)
+    flash["ptxas"] = ptxas["flash_attention"]
+    check(all("0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in flash["ptxas"] if "spill" in ln), "flash_attention: ptxas reports spills")
     kernels["flash_attention"] = flash["cases"][0]
     # 5. masked-full path, 6. gather path, 7. save / load
     index, masked, masked_runs = phase_masked(torch, corpus_np, queries, gt)

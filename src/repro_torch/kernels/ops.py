@@ -95,7 +95,7 @@ def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
 def flash_attention(q, k, v, causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """Fused softmax attention (BH, S, hd) in q's dtype; the (S, T) scores
     never reach device memory. The kernel masks ragged S and T itself, so
-    nothing is padded."""
+    they are never padded."""
     if not _use_kernel(impl, q):
         return flash_attention_plain(q, k, v, causal)
     return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)

@@ -129,6 +129,13 @@ def test_query_on_the_card_matches_the_cpu(dev, rerank, selection):
     (2, 16, 16, 8, True), (3, 32, 32, 16, False), (1, 150, 150, 16, True),
     (2, 64, 130, 24, False), (2, 100, 257, 16, False), (2, 300, 200, 64, True),
     (1, 129, 129, 128, True), (2, 70, 50, 96, False),
+    # the key ring wraps several times (T >= 4 key tiles of 128)
+    (2, 200, 700, 64, False), (1, 600, 600, 64, True),
+    # head dims across both templates; 20 takes the wrapper's aligned copy
+    (2, 40, 300, 8, False), (2, 77, 600, 20, True), (1, 130, 520, 24, False),
+    (1, 520, 520, 96, True), (1, 300, 600, 128, False),
+    # one query row; more queries than keys under the causal mask
+    (3, 1, 300, 64, True), (2, 1, 50, 128, False), (2, 300, 70, 64, True),
 ])
 def test_flash_attention_kernel(dev, bh, s, t, hd, causal, dtype):
     """Ragged S and T, S != T both ways, every head-dim template; against
@@ -144,6 +151,48 @@ def test_flash_attention_kernel(dev, bh, s, t, hd, causal, dtype):
     assert got.dtype == dt and got.shape == (bh, s, hd)
     tol = 2e-5 if dtype == "float32" else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_offset_view(dev, dtype):
+    """Inputs that are views at an offset of one element (bases not 16-byte
+    aligned) go through the wrapper's aligned copy and give the same
+    result."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, dtype)
+    bh, s, t, hd = 2, 150, 260, 64
+
+    def view(n):
+        flat = torch.as_tensor(rng.standard_normal(bh * n * hd + 1).astype(np.float32),
+                               device=dev).to(dt)
+        return flat[1:].view(bh, n, hd)
+
+    q, k, v = view(s), view(t), view(t)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    got = flash_attention_cuda(q, k, v, True)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, True).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_against_f32(dev, hd, causal):
+    """The bf16 kernel against the plain version run in f32 on the same
+    (upcast) inputs, per element within 2^-7 |x| + 4e-5: one rounding of
+    the output plus f32 noise. It holds only if P enters P.V with more
+    than bf16's precision (the kernel's hi + lo split)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    rng = np.random.default_rng(hd + causal)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 1024, hd)).astype(np.float32),
+                               device=dev).to(torch.bfloat16) for _ in range(3))
+    got = flash_attention_cuda(q, k, v, causal).float()
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    used = float(((got - want).abs() / (4e-5 + 2.0 ** -7 * want.abs())).max())
+    assert used <= 1.0, used
 
 
 def test_flash_attention_kernel_rejects(dev):

@@ -73,3 +73,38 @@ def test_cpu_tensor_takes_the_plain_version_and_the_kernel_never_falls_back():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)
     assert dict(cuda.launch_counts) == before
+
+
+def _emulate_bf16_kernel(q, k, v, causal, split_p):
+    """The bf16 kernel's arithmetic in plain torch, without its tiling: f32
+    scores of bf16 inputs, exp against the row max, P.V with P as one bf16
+    rounding (``split_p=False``) or as bf16 hi + lo (``split_p=True``), f32
+    sums, the output rounded once to bf16."""
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * q.shape[-1] ** -0.5
+    if causal:
+        keep = torch.arange(k.shape[1])[None, :] <= torch.arange(q.shape[1])[:, None]
+        s = torch.where(keep, s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    out = torch.einsum("bst,btd->bsd", hi, v.float())
+    if split_p:
+        out = out + torch.einsum("bst,btd->bsd", (p - hi).to(torch.bfloat16).float(), v.float())
+    return (out / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def test_bf16_p_needs_the_hi_lo_split():
+    """Why the kernel's P.V takes P as hi + lo: against the f32 oracle at
+    the card check's 2^-7 |x| + 4e-5 per element, one bf16 rounding of P
+    uses many times the allowance (a row's output sums hundreds of rounded
+    weights, and outputs near 0 meet only the 4e-5 floor), the split well
+    under it."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(14, 2, 512, 512, 64))
+    want = ops.flash_attention(q.float(), k.float(), v.float(), impl="torch")
+    allowed = 4e-5 + 2.0 ** -7 * want.abs()
+
+    def share(split_p):
+        got = _emulate_bf16_kernel(q, k, v, True, split_p).float()
+        return float(((got - want).abs() / allowed).max())
+
+    assert share(True) <= 0.6
+    assert share(False) > 1.0
