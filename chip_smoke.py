@@ -10,7 +10,9 @@ Phases, in order; any failure exits nonzero:
                card at the main path's shapes and at a ragged shape, on
                integer inputs (bitwise) and float inputs (stated tolerances),
                and time kernel, plain version and one library call beside the
-               bound;
+               bound; masked_rerank's launch geometry and resident warps per
+               SM are printed at k = 10 and 100, and its ptxas report (kept
+               in chip_smoke.json) must show no spills;
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -130,7 +132,12 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
     from repro_torch.core.selection import query_aware_threshold
     from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
     from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
-    from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
+    from repro_torch.kernels.masked_rerank import (
+        masked_rerank_cuda,
+        masked_rerank_plain,
+        rerank_geometry,
+        rerank_resident_warps,
+    )
     from repro_torch.kernels.schist import (
         collision_bits,
         collision_table,
@@ -312,7 +319,10 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
             library_ms=timed(torch, library, 3),
             ids_agree=float((gi == wi).float().mean()),
             mean_candidates=total / q,
-            shape=f"Q {q}, n {n}, d {d}, k {k}")
+            shape=f"Q {q}, n {n}, d {d}, k {k}",
+            geometry=dict(zip(("lanes", "warps", "chunk", "n_chunks", "smem_bytes"),
+                              rerank_geometry(n, k, n_sub, sqrt_k ** 2, d))),
+            resident_warps_per_sm=rerank_resident_warps(n, k, n_sub, sqrt_k ** 2, d))
         del mask_sc
         print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     res["masked_rerank"] = timings[10]
@@ -764,8 +774,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash = phase_flash(torch)
     flash["ptxas"] = ptxas["flash_attention"]
-    check(all("0 bytes spill stores, 0 bytes spill loads" in ln
-              for ln in flash["ptxas"] if "spill" in ln), "flash_attention: ptxas reports spills")
+    kernels["masked_rerank"]["ptxas"] = ptxas["masked_rerank"]
+    for name in ("flash_attention", "masked_rerank"):
+        check(all("0 bytes spill stores, 0 bytes spill loads" in ln
+                  for ln in ptxas[name] if "spill" in ln), f"{name}: ptxas reports spills")
     kernels["flash_attention"] = flash["cases"][0]
     # 5. masked-full path, 6. gather path, 7. save / load
     index, masked, masked_runs = phase_masked(torch, corpus_np, queries, gt)

@@ -23,10 +23,12 @@ MAX_SUBSPACES = 16
 MAX_SMEM = 232448
 #: points per chunk of pass a before the chunk count is capped
 CHUNK = 4096
-#: cap on partial entries per query (n_chunks * warps * k) that pass b merges
+#: cap on partial entries per query (n_chunks * k) that pass b merges
 MAX_PARTIAL = 8192
-#: shared memory pass a aims a block at, so that a few blocks share an SM
-SMEM_TARGET = 100 * 1024
+#: warps of a block of pass a (its ``__launch_bounds__``)
+WARPS = 8
+#: shared memory of one warp's ring of 64 (point, query) pairs
+RING_BYTES = 64 * 8
 
 
 def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
@@ -54,17 +56,51 @@ def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
     return best_d, best_i
 
 
-def rerank_chunks(n: int, k: int, warps: int) -> int:
-    """Point chunks of pass a: one per CHUNK points, capped so the partial
-    lists (one per chunk and warp) hold at most MAX_PARTIAL entries per
-    query."""
-    return max(1, min(math.ceil(n / CHUNK), MAX_PARTIAL // (k * warps)))
+def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int):
+    """Launch geometry of pass a, as ``csrc/masked_rerank.cu`` lays out
+    shared memory: ``(lanes, warps, chunk, n_chunks, smem_bytes)``.
+
+    A block takes ``lanes`` queries (16 above k = 512, so the top-k state
+    fits) and ``chunk`` points; its ``warps`` share one top-k state and each
+    has its own ring. Shared memory: the heaps (k x lanes entries of 8
+    bytes), the rings, |q|^2 and the locks (256 bytes), the collision table
+    (N_s x k2 words) and, where they still fit, the query rows at a stride
+    of d + 4 floats (d + 1 if d % 4). The chunk count is capped so the
+    partial lists hold at most MAX_PARTIAL entries per query."""
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"masked_rerank: the kernel supports 0 < k <= {MAX_K}, got {k}")
+    if n_sub > MAX_SUBSPACES:
+        raise ValueError(f"masked_rerank: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
+    lanes = 32 if k <= 512 else 16
+    base = n_sub * k2 * 4 + k * lanes * 8 + 256
+    warps = min(WARPS, (MAX_SMEM - base) // RING_BYTES)
+    if warps < 1:
+        raise ValueError("masked_rerank: collision table and top-k state exceed shared memory")
+    smem = base + warps * RING_BYTES
+    rows = lanes * (d + 4 if d % 4 == 0 else d + 1) * 4
+    if smem + rows <= MAX_SMEM:
+        smem += rows
+    n_chunks = max(1, min(math.ceil(n / CHUNK), MAX_PARTIAL // k))
+    chunk = max(1, math.ceil(n / n_chunks))
+    return lanes, warps, chunk, n_chunks, smem
+
+
+def rerank_resident_warps(n: int, k: int, n_sub: int, k2: int, d: int) -> int:
+    """Warps of pass a resident on one SM at this geometry (the CUDA
+    occupancy calculator; needs the card)."""
+    lanes, warps, _, _, _ = rerank_geometry(n, k, n_sub, k2, d)
+    blocks = ctypes.c_int(0)
+    fn = cuda.library("masked_rerank").masked_rerank_occupancy
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    if fn(d, n_sub, k2, k, lanes, warps, ctypes.byref(blocks)) != 0:
+        raise RuntimeError("masked_rerank: occupancy query failed")
+    return blocks.value * warps
 
 
 def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int):
-    """Kernel launch (pass a, then pass b, on the current stream). The
-    collision table of one 32-query tile plus 1-4 warps' top-k states
-    must fit in a block's shared memory."""
+    """Kernel launch (pass a, then pass b, on the current stream), at
+    :func:`rerank_geometry`'s geometry."""
     cuda.check_cuda(
         "masked_rerank", bits, cells, thresh, queries, data, data_norms,
         dtypes=(torch.int32, torch.int32, torch.int32, torch.float32,
@@ -75,19 +111,9 @@ def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int):
     if (cells.shape != (n_sub, n) or data.shape[1] != d or thresh.shape != (q,)
             or data_norms.shape != (n,) or qt != (q + 31) // 32):
         raise ValueError("masked_rerank: input shapes disagree")
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"masked_rerank: the kernel supports 0 < k <= {MAX_K}, got {k}")
-    if n_sub > MAX_SUBSPACES:
-        raise ValueError(f"masked_rerank: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
-    lanes = 32 if k <= 512 else 16
-    table, state = n_sub * k2 * 4, k * lanes * 8
-    if table + state > MAX_SMEM:
-        raise ValueError("masked_rerank: collision table and top-k state exceed shared memory")
-    warps = max(1, min(4, (SMEM_TARGET - table) // state))
-    n_chunks = rerank_chunks(n, k, warps)
-    chunk = max(1, math.ceil(n / n_chunks))
-    part_d = torch.empty((q, n_chunks * warps, k), dtype=torch.float32, device=data.device)
-    part_i = torch.empty((q, n_chunks * warps, k), dtype=torch.int32, device=data.device)
+    lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d)
+    part_d = torch.empty((q, n_chunks, k), dtype=torch.float32, device=data.device)
+    part_i = torch.empty((q, n_chunks, k), dtype=torch.int32, device=data.device)
     best_d = torch.empty((q, k), dtype=torch.float32, device=data.device)
     best_i = torch.empty((q, k), dtype=torch.int32, device=data.device)
     cuda.launch(

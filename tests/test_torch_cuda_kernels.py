@@ -62,22 +62,67 @@ def test_schist_kernel(dev, n_sub, q, sqrt_k, n):
     assert bool((got.sum(1) == n).all())
 
 
-@pytest.mark.parametrize("n_sub,q,sqrt_k,n,d,k", [
-    (2, 3, 5, 50, 16, 5), (4, 5, 32, 1030, 16, 17), (3, 1, 8, 40, 8, 40),
-    (6, 40, 16, 9000, 128, 100), (3, 20, 8, 3000, 24, 700),
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n,d,k,case", [
+    (2, 3, 5, 50, 16, 5, "random"), (4, 5, 32, 1030, 16, 17, "random"),
+    (3, 1, 8, 40, 8, 40, "random"), (6, 40, 16, 9000, 128, 100, "random"),
+    (3, 20, 8, 3000, 24, 700, "random"),
+    # threshold 0: every point passes, the rings fill on every group
+    (4, 33, 16, 5000, 16, 10, "all"), (3, 20, 8, 3000, 24, 1024, "all"),
+    # threshold N_s + 1: nothing passes, every slot stays (+inf, -1)
+    (3, 40, 8, 2000, 24, 100, "none"),
+    # 37 distinct rows: equal distances resolve to the lowest id across
+    # chunks, lanes and warps
+    (3, 20, 8, 9000, 16, 50, "dup"), (2, 33, 8, 13000, 8, 1024, "dup"),
+    # the 16-lane tile; d not a multiple of 4 (no float4 path); Q = 1, 33
+    (3, 20, 8, 3000, 24, 1024, "random"), (2, 1, 5, 700, 3, 7, "random"),
+    (4, 33, 32, 5003, 22, 17, "all"), (4, 33, 32, 5003, 22, 17, "random"),
 ])
-def test_masked_rerank_kernel(dev, n_sub, q, sqrt_k, n, d, k):
+def test_masked_rerank_kernel(dev, n_sub, q, sqrt_k, n, d, k, case):
     from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
 
     rng = np.random.default_rng(n + k)
     bits, cells = _collision(rng, n_sub, q, sqrt_k, n, dev)
-    data, queries = _ints(rng, (n, d), dev), _ints(rng, (q, d), dev)
-    thresh = torch.as_tensor(rng.integers(0, n_sub + 1, q), dtype=torch.int32, device=dev)
+    if case == "dup":
+        data = _ints(rng, (37, d), dev)[torch.as_tensor(rng.integers(0, 37, n), device=dev)]
+    else:
+        data = _ints(rng, (n, d), dev)
+    queries = _ints(rng, (q, d), dev)
+    thresh = {"random": rng.integers(0, n_sub + 1, q), "dup": rng.integers(0, 2, q),
+              "all": np.zeros(q), "none": np.full(q, n_sub + 1)}[case]
+    thresh = torch.as_tensor(thresh, dtype=torch.int32, device=dev)
     norms = (data * data).sum(1)
     args = (bits, cells, thresh, queries, data, norms, k)
     gd, gi = masked_rerank_cuda(*args)
     wd, wi = masked_rerank_plain(*args)
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    if case == "none":
+        assert bool((gi == -1).all()) and bool(torch.isinf(gd).all())
+
+
+def test_masked_rerank_kernel_unaligned_rows(dev):
+    """Rows at an offset of one float (no float4 path) give the same
+    result."""
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
+
+    rng = np.random.default_rng(3)
+    n, d, q, k = 4000, 16, 40, 10
+    bits, cells = _collision(rng, 3, q, 8, n, dev)
+    data = _ints(rng, (n * d + 1,), dev)[1:].view(n, d)
+    queries = _ints(rng, (q * d + 1,), dev)[1:].view(q, d)
+    assert data.data_ptr() % 16 != 0 and data.is_contiguous()
+    thresh = torch.as_tensor(rng.integers(0, 4, q), dtype=torch.int32, device=dev)
+    args = (bits, cells, thresh, queries, data, (data * data).sum(1), k)
+    gd, gi = masked_rerank_cuda(*args)
+    wd, wi = masked_rerank_plain(*args)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def test_masked_rerank_resident_warps(dev):
+    """The occupancy query answers at the main path's k = 10 and k = 100."""
+    from repro_torch.kernels.masked_rerank import rerank_resident_warps
+
+    for k in (10, 100):
+        assert rerank_resident_warps(10 ** 6, k, 6, 1024, 128) >= 8
 
 
 @pytest.mark.parametrize("n_sub,q,sqrt_k,n", [
