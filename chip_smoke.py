@@ -131,7 +131,13 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
     from repro_torch.core.activation import activation_taus
     from repro_torch.core.selection import query_aware_threshold
     from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
-    from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
+    from repro_torch.core.taco import _half_slices
+    from repro_torch.kernels.l2dist import (
+        l2dist_cuda,
+        l2dist_pairs_cuda,
+        l2dist_pairs_plain,
+        l2dist_plain,
+    )
     from repro_torch.kernels.masked_rerank import (
         masked_rerank_cuda,
         masked_rerank_plain,
@@ -171,17 +177,37 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         got, want = l2dist_cuda(x, y), l2dist_plain(x, y)
         check(torch.allclose(got, want, rtol=1e-5, atol=scale_atol(x, y)),
               f"l2dist float {shape}")
-    x, y = floats((q, sd)), floats((sqrt_k, sd))
-    got, want = l2dist_cuda(x, y), l2dist_plain(x, y)
-    m, nn = q, sqrt_k
-    b, by = bound_ms(4 * (m * sd + nn * sd + m * nn), m * nn * (2 * sd + 3) + 2 * sd * (m + nn))
+    # the main path's batch: 2 N_s = 12 (subspace, half) pairs of half-dim 4
+    # in one launch, bitwise equal to one single-pair launch per pair
+    slices = _half_slices((2 * sd,) * n_sub)
+    for x_sh, y_sh, sl in (((q, 2 * sd * n_sub), (2 * n_sub, sqrt_k, sd), slices),
+                           ((37, 65), (6, 29, 12), _half_slices((21, 21, 23)))):
+        x, y = floats(x_sh), floats(y_sh)
+        for p, (_c, w) in enumerate(sl):
+            y[p, :, w:] = 0
+        got = l2dist_pairs_cuda(x, sl, y)
+        singles = torch.stack([l2dist_cuda(x[:, c:c + w].contiguous(), y[p, :, :w].contiguous())
+                               for p, (c, w) in enumerate(sl)])
+        check(torch.equal(got, singles), f"l2dist pairs vs single launches {x_sh} {y_sh}")
+        want = l2dist_pairs_plain(x, sl, y)
+        check(torch.allclose(got, want, rtol=1e-5, atol=scale_atol(x, y.flatten(0, 1))),
+              f"l2dist pairs float {x_sh} {y_sh}")
+    x, y = floats((q, 2 * sd * n_sub)), floats((2 * n_sub, sqrt_k, sd))
+    xb = torch.stack([x[:, c:c + w] for c, w in slices])
+    got, want = l2dist_pairs_cuda(x, slices, y), l2dist_pairs_plain(x, slices, y)
+    pairs = len(slices)
+    b, by = bound_ms(4 * (q * 2 * sd * n_sub + pairs * sqrt_k * sd + pairs * q * sqrt_k),
+                     pairs * (q * sqrt_k * (2 * sd + 3) + 2 * sd * (q + sqrt_k)))
     res["l2dist"] = dict(
         max_abs_err=float((got - want).abs().max()),
-        ms=timed(torch, lambda: l2dist_cuda(x, y), 200),
-        plain_ms=timed(torch, lambda: l2dist_plain(x, y), 200),
+        ms=timed(torch, lambda: l2dist_pairs_cuda(x, slices, y), 200),
+        # the parent's path: a contiguous copy of each slice, one launch a pair
+        single_launches_ms=timed(torch, lambda: [l2dist_cuda(x[:, c:c + w].contiguous(), y[p])
+                                                 for p, (c, w) in enumerate(slices)], 200),
+        plain_ms=timed(torch, lambda: l2dist_pairs_plain(x, slices, y), 200),
         bound_ms=b, bound_by=by,
-        library_ms=timed(torch, lambda: torch.cdist(x, y) ** 2, 200),
-        shape=f"x ({m}, {sd}), y ({nn}, {sd})")
+        library_ms=timed(torch, lambda: torch.cdist(xb, y) ** 2, 200),
+        shape=f"{pairs} pairs, x ({q}, {2 * sd * n_sub}), half-dim {sd}, sqrt_k {sqrt_k}")
 
     # --------------------------------------------------- kmeans_assign --
     n = corpus.shape[0]
@@ -466,10 +492,11 @@ def profile_search(torch, view, queries, label: str) -> None:
               f"{key[:90]}", flush=True)
 
 
-def run_path(torch, name: str, fn):
+def run_path(torch, name: str, fn, batches: int | None = None):
     """Run ``fn`` with every launch count set to 0 just before it; return
     its result and the counts read just after. Fails if a kernel of the
-    path was launched no time."""
+    path was launched no time, or, for a run of ``batches`` query batches,
+    if ``l2dist`` was not launched exactly once a batch."""
     from repro_torch.kernels import cuda
 
     cuda.reset_launch_counts()
@@ -479,6 +506,9 @@ def run_path(torch, name: str, fn):
     print(f"{name}: launches {json.dumps(launches)}", flush=True)
     for kernel in PATHS[name]:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched on the {name} path")
+    if batches is not None:
+        check(launches["l2dist"] == batches,
+              f"{name}: l2dist launched {launches['l2dist']} times in {batches} batches")
     return out, launches
 
 
@@ -561,7 +591,8 @@ def phase_masked(torch, corpus_np, queries, gt) -> tuple:
     (index, build_s), build_launches = run_path(
         torch, "build", lambda: build_index(torch, corpus_np, cfg, "masked"))
     index.search(queries[:8])  # warm-up: caches the per-index cell ids
-    runs, launches = run_path(torch, "masked", lambda: search_runs(torch, index, queries, SETTINGS))
+    runs, launches = run_path(torch, "masked", lambda: search_runs(torch, index, queries, SETTINGS),
+                              batches=3 * len(SETTINGS))
     profile_search(torch, index, queries, "masked")
     summary = {"build_s": build_s, "index_bytes": index.index_bytes, "searches": [],
                "build_launches": build_launches, "launches": launches}
@@ -589,7 +620,8 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
     gather = taco_index.replace_cfg(rerank="gather")
     gather.search(queries[:8])  # warm-up
     runs, launches = run_path(torch, "gather",
-                              lambda: search_runs(torch, gather, queries, SETTINGS))
+                              lambda: search_runs(torch, gather, queries, SETTINGS),
+                              batches=3 * len(SETTINGS))
     summary["launches"] = launches
     profile_search(torch, gather, queries, "gather")
     for (k, sel), run in runs.items():
@@ -613,7 +645,8 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
     summary.update(suco_build_s=build_s, suco_build_launches=build_launches)
     suco.search(queries[:8])
     settings = [(k, "fixed") for k in (10, 100)]
-    runs, launches = run_path(torch, "gather", lambda: search_runs(torch, suco, queries, settings))
+    runs, launches = run_path(torch, "gather", lambda: search_runs(torch, suco, queries, settings),
+                              batches=3 * len(settings))
     summary["suco_launches"] = launches
     for (k, sel), run in runs.items():
         row = against_plain(torch, suco, queries, gt, run, k, sel, "gather suco")
@@ -684,7 +717,8 @@ def phase_persist(torch, taco_index, suco_index, queries) -> dict:
     reruns = ("masked_full", "gather")
     view = loaded.replace_cfg(selection="query_aware")
     results, launches = run_path(
-        torch, "persist", lambda: [view.search(queries, k=10, rerank=r) for r in reruns])
+        torch, "persist", lambda: [view.search(queries, k=10, rerank=r) for r in reruns],
+        batches=len(reruns))
     summary["launches"] = launches
     for rerank, (ids, dists) in zip(reruns, results):
         want_ids, want_d = taco_index.replace_cfg(selection="query_aware").search(

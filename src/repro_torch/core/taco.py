@@ -69,7 +69,7 @@ class SCIndex:
     @property
     def index_bytes(self) -> int:
         """Index memory footprint as the reference counts it (excludes the
-        dataset, and the derived :attr:`cells` stack)."""
+        dataset, and the derived :attr:`cells` and centroid stacks)."""
         size = sum(
             _nbytes(s.centroids1, s.centroids2, s.assign1, s.assign2, s.cell_sizes)
             for s in self.subspaces
@@ -86,6 +86,27 @@ class SCIndex:
         return torch.stack([
             cell_ids(s.assign1, s.assign2, sqrt_k) for s in self.subspaces
         ]).contiguous()
+
+    @functools.cached_property
+    def stacked_centroids(self) -> torch.Tensor:
+        """(2 N_s, sqrt_k, d_max) float32: every subspace's ``centroids1``,
+        then every ``centroids2``, zero-padded to the widest half (the
+        batched ``l2dist`` operand, in :func:`_half_slices` order); computed
+        once per index."""
+        halves = ([s.centroids1 for s in self.subspaces]
+                  + [s.centroids2 for s in self.subspaces])
+        d_max = max(c.shape[1] for c in halves)
+        out = torch.zeros((len(halves), halves[0].shape[0], d_max), dtype=torch.float32,
+                          device=self.device)
+        for p, c in enumerate(halves):
+            out[p, :, :c.shape[1]] = c
+        return out
+
+    @functools.cached_property
+    def stacked_centroids_bf16(self) -> torch.Tensor:
+        """:attr:`stacked_centroids` rounded through bfloat16 once, for
+        ``precision="bf16"`` queries."""
+        return round_bf16(self.stacked_centroids)
 
     @functools.cached_property
     def assignments(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,6 +132,18 @@ def _sub_slices(sub_dims: tuple[int, ...]) -> list[tuple[int, int]]:
         out.append((offs, offs + d))
         offs += d
     return out
+
+
+def _half_slices(sub_dims: tuple[int, ...]) -> tuple[tuple[int, int], ...]:
+    """(first column, width) in the projected query of every subspace's
+    first half, then of every second half: the pairs of
+    :attr:`SCIndex.stacked_centroids`."""
+    firsts, seconds = [], []
+    for lo, hi in _sub_slices(sub_dims):
+        s1, s2 = split_halves(hi - lo)
+        firsts.append((lo, s1))
+        seconds.append((lo + s1, s2))
+    return tuple(firsts + seconds)
 
 
 def suco_dim_partition(d: int, n_subspaces: int, rng: np.random.Generator):
@@ -206,11 +239,16 @@ def _centroid_distances(index: SCIndex, queries: torch.Tensor, use_kernels: bool
     """Per-subspace distances to both centroid halves: stacked (N_s, Q,
     sqrt_k). ``precision="bf16"`` rounds the projected queries and the
     centroids through bfloat16 first, so both passes read identically
-    derived distances."""
-    dist_fn = ops.l2dist if use_kernels else pairwise_sq_dists
+    derived distances. With ``use_kernels`` every (subspace, half) pair goes
+    through one batched ``l2dist`` (one kernel launch on the card)."""
     pq = _project(index, queries)
     if precision == "bf16":
         pq = round_bf16(pq)
+    if use_kernels:
+        cents = index.stacked_centroids_bf16 if precision == "bf16" else index.stacked_centroids
+        dists = ops.l2dist_pairs(pq, _half_slices(index.sub_dims), cents)
+        n_sub = len(index.subspaces)
+        return dists[:n_sub], dists[n_sub:]
     d1s, d2s = [], []
     for (lo, hi), sub in zip(_sub_slices(index.sub_dims), index.subspaces):
         q_sub = pq[:, lo:hi]
@@ -218,8 +256,8 @@ def _centroid_distances(index: SCIndex, queries: torch.Tensor, use_kernels: bool
         c1, c2 = sub.centroids1, sub.centroids2
         if precision == "bf16":
             c1, c2 = round_bf16(c1), round_bf16(c2)
-        d1s.append(dist_fn(q_sub[:, :s1], c1))
-        d2s.append(dist_fn(q_sub[:, s1:], c2))
+        d1s.append(pairwise_sq_dists(q_sub[:, :s1], c1))
+        d2s.append(pairwise_sq_dists(q_sub[:, s1:], c2))
     return torch.stack(d1s), torch.stack(d2s)
 
 

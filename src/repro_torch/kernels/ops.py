@@ -16,7 +16,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
-from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_plain
+from repro_torch.kernels.l2dist import (
+    l2dist_cuda,
+    l2dist_pairs_cuda,
+    l2dist_pairs_plain,
+    l2dist_plain,
+)
 from repro_torch.kernels.masked_rerank import (
     finalize_topk,
     masked_rerank_cuda,
@@ -46,6 +51,15 @@ def l2dist(x, y, impl: str = "auto") -> torch.Tensor:
     if not _use_kernel(impl, x):
         return l2dist_plain(x, y)
     return l2dist_cuda(_f32(x), _f32(y))
+
+
+def l2dist_pairs(x, slices, y, impl: str = "auto") -> torch.Tensor:
+    """Squared L2 distances (P, M, N) for a list of pairs: pair p compares
+    the columns ``slices[p] = (col, dim)`` of x (M, D) with ``y[p, :, :dim]``
+    of the zero-padded y (P, N, d_max). One kernel launch on the card."""
+    if not _use_kernel(impl, x):
+        return l2dist_pairs_plain(x, slices, y)
+    return l2dist_pairs_cuda(_f32(x), slices, _f32(y))
 
 
 def kmeans_assign(x, c, impl: str = "auto"):

@@ -30,6 +30,34 @@ def test_l2dist_kernel(dev, m, n, d):
     assert torch.equal(l2dist_cuda(x, y), l2dist_plain(x, y))
 
 
+@pytest.mark.parametrize("sqrt_k", [5, 32])
+@pytest.mark.parametrize("q", [1, 37, 1000])
+@pytest.mark.parametrize("sub_dims", [(8, 8, 8, 8, 8, 8), (21, 21, 23)])
+def test_l2dist_pairs_kernel(dev, sub_dims, q, sqrt_k):
+    """One batched launch equals one single-pair launch per (subspace,
+    half) bit for bit on float inputs: halves of 4/4 (TaCo) and 10/11,
+    11/12 (SuCo over 65 dims)."""
+    from repro_torch.core.taco import _half_slices
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_pairs_cuda, l2dist_pairs_plain
+
+    rng = np.random.default_rng(q * sqrt_k + len(sub_dims))
+    slices = _half_slices(sub_dims)
+    d_max = max(w for _c, w in slices)
+    x = torch.as_tensor(rng.standard_normal((q, sum(sub_dims))).astype(np.float32), device=dev)
+    y = torch.zeros((len(slices), sqrt_k, d_max), device=dev)
+    for p, (_c, w) in enumerate(slices):
+        y[p, :, :w] = torch.as_tensor(rng.standard_normal((sqrt_k, w)).astype(np.float32))
+    cuda.reset_launch_counts()
+    got = l2dist_pairs_cuda(x, slices, y)
+    assert cuda.launch_counts["l2dist"] == 1
+    want = torch.stack([l2dist_cuda(x[:, c:c + w].contiguous(), y[p, :, :w].contiguous())
+                        for p, (c, w) in enumerate(slices)])
+    assert torch.equal(got, want)
+    plain = l2dist_pairs_plain(x, slices, y)
+    assert torch.allclose(got, plain, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("n,k,d", [(1003, 13, 3), (5000, 32, 4), (257, 100, 40)])
 def test_kmeans_assign_kernel(dev, n, k, d):
     from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
