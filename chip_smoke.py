@@ -124,6 +124,18 @@ def timed(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: schist against its plain version, as in the card tests: (N_s, Q, K, n,
+#: table fill). n below one 2048-point chunk, not a multiple of it, 10^6.
+SCHIST_CASES = (
+    (1, 1, 1024, 1000, "random"), (3, 33, 25, 5003, "random"),
+    (6, 37, 1024, 20017, "random"), (6, 1000, 1024, 10 ** 6, "random"),
+    (3, 1, 64, 10 ** 6, "random"), (8, 1000, 512, 20017, "random"),
+    (16, 33, 256, 4099, "random"), (16, 1025, 2048, 20017, "random"),
+    (16, 37, 2048, 1000, "random"), (6, 1025, 1024, 10 ** 6, "ones"),
+    (6, 1000, 1024, 2100, "zeros"), (16, 1025, 2048, 5003, "ones"),
+)
+
+
 def phase_kernels(torch, corpus, queries, rng) -> dict:
     """Phase 3: every ANN kernel against its plain version on the card."""
     import numpy as np
@@ -148,6 +160,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         collision_bits,
         collision_table,
         schist_cuda,
+        schist_geometry,
         schist_plain,
         unpack_collision_bits,
     )
@@ -255,6 +268,20 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         want = schist_plain(bits, cells, shape[0] + 1, q=shape[1])
         check(torch.equal(got, want), f"schist {shape}")
         check(bool((got.sum(1) == shape[3]).all()), f"schist counts {shape}")
+    # the card tests' shapes: packed words drawn at random (padding bits
+    # set too), all ones and all zeros; N_s 16 at K 2048 holds one tile
+    for n_s, q_, k2, n_, fill in SCHIST_CASES:
+        qt = (q_ + 31) // 32
+        if fill == "random":
+            words = T(rng.integers(-2 ** 31, 2 ** 31, (qt, n_s, k2)), torch.int32)
+        else:
+            words = torch.full((qt, n_s, k2), -1 if fill == "ones" else 0, dtype=torch.int32,
+                               device=dev)
+        cells = T(rng.integers(0, k2, (n_s, n_)), torch.int32)
+        got = schist_cuda(words, cells, n_s + 1, q=q_)
+        check(torch.equal(got, schist_plain(words, cells, n_s + 1, q=q_)),
+              f"schist {(n_s, q_, k2, n_, fill)}")
+        check(bool((got.sum(1) == n_).all()), f"schist counts {(n_s, q_, k2, n_, fill)}")
     bits, cells = collision_case(*big)
     hist = schist_cuda(bits, cells, n_sub + 1, q=q)
     nbits = bits.numel() * 4
@@ -264,7 +291,9 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         ms=timed(torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=q), 10),
         plain_ms=timed(torch, lambda: schist_plain(bits, cells, n_sub + 1, q=q), 2),
         bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
+        shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}",
+        geometry=dict(zip(("tiles", "warps", "smem_bytes", "tile_groups"),
+                          schist_geometry(q, n_sub, sqrt_k ** 2))))
 
     # --------------------------------------------------------- scscore --
     # the ragged shapes: Q not a multiple of 32, n not a multiple of the chunk

@@ -52,3 +52,55 @@ __device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
   }
   return x;
 }
+
+// ---- helpers of schist.cu's multi-tile kernel ----------------------------
+
+// The same 32 x 32 bit transpose as transpose32, three instructions a round:
+// a shuffle, a rotate (a funnel shift) and a bit select with per-lane masks
+// computed once.
+struct Transpose32 {
+  uint32_t keep[5];
+  int rot[5];
+  __device__ __forceinline__ explicit Transpose32(int lane) {
+    const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                               0x33333333u, 0x55555555u};
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int s = 16 >> i;
+      const bool upper = lane & s;
+      keep[i] = upper ? ~masks[i] : masks[i];
+      rot[i] = upper ? 32 - s : s;
+    }
+  }
+  // Transposes every word of x; round by round over all words, so the
+  // shuffles of one round are independent and overlap their latency.
+  template <int A, int B>
+  __device__ __forceinline__ void operator()(uint32_t (&x)[A][B]) const {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const uint32_t other = __shfl_xor_sync(kFull, x[a][b], 16 >> i);
+          const uint32_t moved = __funnelshift_l(other, other, rot[i]);
+          x[a][b] = (x[a][b] & keep[i]) | (moved & ~keep[i]);
+        }
+    }
+  }
+};
+
+// Adds two collision words a and b (weight 1 each) into the NP bit-planes of
+// a per-bit counter: a full adder into plane 0, then the carry ripples up.
+template <int NP>
+__device__ __forceinline__ void add2_planes(uint32_t (&p)[NP], uint32_t a,
+                                            uint32_t b) {
+  uint32_t carry = (p[0] & a) | (p[0] & b) | (a & b);
+  p[0] ^= a ^ b;
+#pragma unroll
+  for (int k = 1; k < NP; ++k) {
+    const uint32_t t = p[k] & carry;
+    p[k] ^= carry;
+    carry = t;
+  }
+}

@@ -17,11 +17,40 @@ import torch
 
 from repro_torch.kernels import cuda
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 MAX_SUBSPACES = 16
 MAX_SMEM = 232448
-#: points per block of the kernel's grid
-CHUNK = 8192
+#: points per work item of the kernel's persistent grid
+CHUNK = 2048
+#: query tiles a block may hold (a power of two)
+MAX_TILES = 8
+#: per-lane count registers (tiles x levels) a block may hold
+MAX_COUNTERS = 64
+#: depth of each warp's cell-id ring (``kStages`` in csrc/schist.cu)
+STAGES = 3
+
+
+def schist_geometry(q: int, n_sub: int, k2: int):
+    """Launch geometry of the kernel: (tiles T, warps, smem bytes, query
+    tile groups). T is the most tiles (a power of two, at most 8, no more
+    than the batch has) whose tables, count registers, per-block counts and
+    cell-id rings fit; warps shrink from 8 before T does. Raises only where
+    one tile's table does not fit, as the kernel always has."""
+    if not 1 <= n_sub <= MAX_SUBSPACES:
+        raise ValueError(f"schist: 1 to {MAX_SUBSPACES} subspaces, got {n_sub}")
+    if (n_sub * k2 + 4 * (n_sub + 1) * 32) * 4 > MAX_SMEM:
+        raise ValueError(f"schist: a {n_sub} x {k2} collision table exceeds shared memory")
+    qt = (q + 31) // 32
+    levels = min(1 << n_sub.bit_length(), MAX_SUBSPACES + 1)  # count registers a tile
+    for tiles in (8, 4, 2, 1):
+        if tiles > 1 and (tiles >= 2 * qt or tiles * levels > MAX_COUNTERS):
+            continue
+        for warps in (8, 4, 2, 1):
+            smem = 4 * (n_sub * (k2 + 1) * tiles + tiles * (n_sub + 1) * 32
+                        + warps * STAGES * n_sub * 32)
+            if smem <= MAX_SMEM:
+                return tiles, warps, smem, -(-qt // tiles)
+    raise AssertionError("unreachable: one tile with one warp always fits")
 
 
 def collision_table(d1s, d2s, taus) -> torch.Tensor:
@@ -91,12 +120,9 @@ def schist_cuda(bits, cells, n_levels: int, *, q: int) -> torch.Tensor:
         raise ValueError(
             f"schist: bits {tuple(bits.shape)}, cells {tuple(cells.shape)}, "
             f"n_levels {n_levels}, q {q} disagree")
-    if n_sub > MAX_SUBSPACES:
-        raise ValueError(f"schist: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
-    if (n_sub * k2 + 4 * n_levels * 32) * 4 > MAX_SMEM:
-        raise ValueError(f"schist: a {n_sub} x {k2} collision table exceeds shared memory")
+    tiles, warps, smem, _groups = schist_geometry(q, n_sub, k2)
     out = torch.empty((q, n_levels), dtype=torch.int32, device=bits.device)
     cuda.launch("schist", "schist_i32", _ARGS, cuda.ptr(bits), cuda.ptr(cells),
-                cuda.ptr(out), q, n, n_sub, k2, min(CHUNK, max(n, 1)),
+                cuda.ptr(out), q, n, n_sub, k2, tiles, warps, CHUNK, smem,
                 cuda.stream(bits.device))
     return out

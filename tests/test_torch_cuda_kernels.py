@@ -90,6 +90,46 @@ def test_schist_kernel(dev, n_sub, q, sqrt_k, n):
     assert bool((got.sum(1) == n).all())
 
 
+@pytest.mark.parametrize("n_sub,q,k2,n,fill", [
+    # N_s 1, 3, 6, 16; Q 1, 33, 37, 1000, 1025; n below one 2048-point chunk,
+    # not a multiple of it, and 10^6
+    (1, 1, 1024, 1000, "random"), (3, 33, 25, 5003, "random"),
+    (6, 37, 1024, 20017, "random"), (6, 1000, 1024, 10 ** 6, "random"),
+    (3, 1, 64, 10 ** 6, "random"), (8, 1000, 512, 20017, "random"),
+    (16, 33, 256, 4099, "random"),
+    # one tile a block: a 16 x 2048 table
+    (16, 1025, 2048, 20017, "random"), (16, 37, 2048, 1000, "random"),
+    # every cell activated (all points at level N_s) or none (level 0)
+    (6, 1025, 1024, 10 ** 6, "ones"), (6, 1000, 1024, 2100, "zeros"),
+    (16, 1025, 2048, 5003, "ones"),
+])
+def test_schist_kernel_tiles(dev, n_sub, q, k2, n, fill):
+    """The multi-tile persistent kernel against the plain version on
+    random packed words (the padding bits of the last tile set too), and
+    on all-ones and all-zeros tables; every row sums to n."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.schist import schist_cuda, schist_geometry, schist_plain
+
+    rng = np.random.default_rng(n_sub * q + n)
+    qt = (q + 31) // 32
+    if fill == "random":
+        words = rng.integers(-2 ** 31, 2 ** 31, (qt, n_sub, k2))
+    else:
+        words = np.full((qt, n_sub, k2), -1 if fill == "ones" else 0)
+    bits = torch.as_tensor(words, dtype=torch.int32, device=dev)
+    cells = torch.as_tensor(rng.integers(0, k2, (n_sub, n)), dtype=torch.int32, device=dev)
+    cuda.reset_launch_counts()
+    got = schist_cuda(bits, cells, n_sub + 1, q=q)
+    assert cuda.launch_counts["schist"] == 1
+    want = schist_plain(bits, cells, n_sub + 1, q=q)
+    assert torch.equal(got, want)
+    assert bool((got.sum(1) == n).all())
+    if fill != "random":
+        assert bool((got[:, n_sub if fill == "ones" else 0] == n).all())
+    if (n_sub, k2) == (16, 2048):
+        assert schist_geometry(q, n_sub, k2)[0] == 1
+
+
 @pytest.mark.parametrize("n_sub,q,sqrt_k,n,d,k,case", [
     (2, 3, 5, 50, 16, 5, "random"), (4, 5, 32, 1030, 16, 17, "random"),
     (3, 1, 8, 40, 8, 40, "random"), (6, 40, 16, 9000, 128, 100, "random"),
