@@ -10,9 +10,15 @@ Phases, in order; any failure exits nonzero:
                card at the main path's shapes and at a ragged shape, on
                integer inputs (bitwise) and float inputs (stated tolerances),
                and time kernel, plain version and one library call beside the
-               bound; masked_rerank's launch geometry and resident warps per
-               SM are printed at k = 10 and 100, and its ptxas report (kept
-               in chip_smoke.json) must show no spills;
+               bound; the batched l2dist (a batch's 12 (subspace, half)
+               pairs in one launch) must equal one single-pair launch per
+               pair bit for bit on float inputs, and is timed beside those
+               12 launches; schist is also held against its plain version
+               on the card tests' shapes, and its launch geometry (tiles a
+               block) is kept in chip_smoke.json; masked_rerank's launch
+               geometry and resident warps per SM are printed at k = 10 and
+               100, and its ptxas report (kept in chip_smoke.json) must show
+               no spills;
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -43,8 +49,8 @@ Each path's kernels must be launched in its own run: the launch counts are
 set to 0 just before the path is driven and read just after (build:
 kmeans_assign; flash: flash_attention; masked: l2dist, schist,
 masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
-masked_rerank, scscore). The full result is also written to
-chiprun_out/chip_smoke.json.
+masked_rerank, scscore), and l2dist exactly once a query batch. The full
+result is also written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
 seeded gmm_dataset.
