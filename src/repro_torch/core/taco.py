@@ -39,7 +39,7 @@ from repro_torch.core.selection import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.schist import cell_ids, collision_bits, collision_table
-from repro_torch.utils import pairwise_sq_dists, resolve_device, round_bf16, topk_smallest
+from repro_torch.utils import resolve_device, round_bf16, topk_smallest
 
 
 def _nbytes(*tensors) -> int:
@@ -239,26 +239,16 @@ def _centroid_distances(index: SCIndex, queries: torch.Tensor, use_kernels: bool
     """Per-subspace distances to both centroid halves: stacked (N_s, Q,
     sqrt_k). ``precision="bf16"`` rounds the projected queries and the
     centroids through bfloat16 first, so both passes read identically
-    derived distances. With ``use_kernels`` every (subspace, half) pair goes
-    through one batched ``l2dist`` (one kernel launch on the card)."""
+    derived distances. Every (subspace, half) pair goes through one batched
+    ``l2dist`` (one kernel launch on the card with ``use_kernels``)."""
     pq = _project(index, queries)
     if precision == "bf16":
         pq = round_bf16(pq)
-    if use_kernels:
-        cents = index.stacked_centroids_bf16 if precision == "bf16" else index.stacked_centroids
-        dists = ops.l2dist_pairs(pq, _half_slices(index.sub_dims), cents)
-        n_sub = len(index.subspaces)
-        return dists[:n_sub], dists[n_sub:]
-    d1s, d2s = [], []
-    for (lo, hi), sub in zip(_sub_slices(index.sub_dims), index.subspaces):
-        q_sub = pq[:, lo:hi]
-        s1, _ = split_halves(hi - lo)
-        c1, c2 = sub.centroids1, sub.centroids2
-        if precision == "bf16":
-            c1, c2 = round_bf16(c1), round_bf16(c2)
-        d1s.append(pairwise_sq_dists(q_sub[:, :s1], c1))
-        d2s.append(pairwise_sq_dists(q_sub[:, s1:], c2))
-    return torch.stack(d1s), torch.stack(d2s)
+    cents = index.stacked_centroids_bf16 if precision == "bf16" else index.stacked_centroids
+    dists = ops.l2dist_pairs(pq, _half_slices(index.sub_dims), cents,
+                             impl="auto" if use_kernels else "torch")
+    n_sub = len(index.subspaces)
+    return dists[:n_sub], dists[n_sub:]
 
 
 def _collision_inputs(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):

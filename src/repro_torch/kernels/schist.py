@@ -22,8 +22,6 @@ MAX_SUBSPACES = 16
 MAX_SMEM = 232448
 #: points per work item of the kernel's persistent grid
 CHUNK = 2048
-#: query tiles a block may hold (a power of two)
-MAX_TILES = 8
 #: per-lane count registers (tiles x levels) a block may hold
 MAX_COUNTERS = 64
 #: depth of each warp's cell-id ring (``kStages`` in csrc/schist.cu)

@@ -17,7 +17,6 @@ import torch
 from repro_torch.kernels.schist import (
     CHUNK,
     MAX_SMEM,
-    MAX_TILES,
     STAGES,
     collision_bits,
     collision_table,
@@ -39,7 +38,7 @@ def _parent_takes(n_sub, k2):
 def test_schist_geometry(q, n_sub, k2):
     tiles, warps, smem, groups = schist_geometry(q, n_sub, k2)
     qt = (q + 31) // 32
-    assert tiles in (1, 2, 4, 8) and tiles <= MAX_TILES
+    assert tiles in (1, 2, 4, 8)
     # no more tiles than the batch has, rounded up to a power of two
     assert tiles == 1 or tiles < 2 * qt
     levels = min(1 << n_sub.bit_length(), 17)
