@@ -13,12 +13,15 @@ Phases, in order; any failure exits nonzero:
                bound; the batched l2dist (a batch's 12 (subspace, half)
                pairs in one launch) must equal one single-pair launch per
                pair bit for bit on float inputs, and is timed beside those
-               12 launches; schist is also held against its plain version
-               on the card tests' shapes, and its launch geometry (tiles a
-               block) is kept in chip_smoke.json; masked_rerank's launch
-               geometry and resident warps per SM are printed at k = 10 and
-               100, and its ptxas report (kept in chip_smoke.json) must show
-               no spills;
+               12 launches; so is the batched kmeans_assign (a build's 12
+               pairs in one launch) at TaCo's halves of 4 and SuCo's of
+               10/11, 11/12 padded to 12, also bitwise against its plain
+               version on integer inputs; schist is also held against its
+               plain version on the card tests' shapes, and its launch
+               geometry (tiles a block) is kept in chip_smoke.json;
+               masked_rerank's launch geometry and resident warps per SM
+               are printed at k = 10 and 100, and its ptxas report (kept in
+               chip_smoke.json) must show no spills;
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -27,10 +30,15 @@ Phases, in order; any failure exits nonzero:
                its bound and scaled_dot_product_attention; the kernel's
                ptxas report (kept in chip_smoke.json) must show no spills;
   5. masked  — build a TaCo index over a SIFT1M-shaped corpus on the card with
-               use_kernels=True and answer 1000 queries (padded to the 1024
+               use_kernels=True (its k-means in lockstep over all 12 (subspace,
+               half) pairs) under torch.profiler (host clock, device busy
+               time, top device and host operations), time one more build
+               without it, and answer 1000 queries (padded to the 1024
                bucket by the searcher) at k = 10 and 100 in both selection
                modes with rerank="masked_full"; recall@10 is checked against
-               brute force and against the plain path on the same index;
+               brute force and against the plain path on the same index; a
+               SuCo index over an integer-valued 10^5 x 128 corpus must equal
+               one k-means per (subspace, half) on the card bit for bit;
   6. gather  — the same index with the default rerank="gather" at k = 10 and
                100 in both selection modes, and a SuCo index (linear
                activation, fixed selection) built at full width; each run is
@@ -49,8 +57,9 @@ Each path's kernels must be launched in its own run: the launch counts are
 set to 0 just before the path is driven and read just after (build:
 kmeans_assign; flash: flash_attention; masked: l2dist, schist,
 masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
-masked_rerank, scscore), and l2dist exactly once a query batch. The full
-result is also written to chiprun_out/chip_smoke.json.
+masked_rerank, scscore), l2dist exactly once a query batch and
+kmeans_assign exactly kmeans_iters + 1 times a build. The full result is
+also written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
 seeded gmm_dataset.
@@ -142,6 +151,70 @@ SCHIST_CASES = (
 )
 
 
+def kmeans_pairs_case(torch, label: str, n: int, k: int, dims, ints, floats,
+                      scale_atol) -> dict:
+    """The batched kmeans_assign at P = len(dims) pairs of n points and k
+    centroids, pair p of width dims[p], zero-padded to a multiple of 4:
+    integer inputs bit for bit against the plain version; float inputs bit
+    for bit against one single-pair launch per pair at its own width, and
+    against the plain version (argmin where the two nearest are clearly
+    apart, the min within the l2dist tolerance). Timed beside the 12 single
+    launches, the plain version, ``torch.cdist(xs, cs).min(-1)`` on the
+    stack and the bound."""
+    from repro_torch.kernels.kmeans_assign import (
+        kmeans_assign_cuda,
+        kmeans_assign_pairs_cuda,
+        kmeans_assign_pairs_plain,
+    )
+    from repro_torch.kernels.l2dist import l2dist_plain
+
+    n_pairs, w = len(dims), -(-max(dims) // 4) * 4
+
+    def stack(draw):
+        xs = torch.zeros((n_pairs, n, w), device="cuda")
+        cs = torch.zeros((n_pairs, k, w), device="cuda")
+        for p, d in enumerate(dims):
+            xs[p, :, :d], cs[p, :, :d] = draw((n, d)), draw((k, d))
+        return xs, cs
+
+    xs, cs = stack(ints)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    wa, wd = kmeans_assign_pairs_plain(xs, cs, dims)
+    check(torch.equal(ga, wa) and torch.equal(gd, wd), f"kmeans_assign pairs int {label}")
+    xs, cs = stack(floats)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    halves = [(xs[p, :, :d].contiguous(), cs[p, :, :d].contiguous()) for p, d in enumerate(dims)]
+    for p, (x, c) in enumerate(halves):
+        sa, sdm = kmeans_assign_cuda(x, c)
+        check(torch.equal(ga[p], sa) and torch.equal(gd[p].view(torch.int32),
+                                                     sdm.view(torch.int32)),
+              f"kmeans_assign pairs vs single launch {label} pair {p}")
+    wa, wd = kmeans_assign_pairs_plain(xs, cs, dims)
+    agree = 0.0
+    for p, (x, c) in enumerate(halves):
+        two = torch.topk(l2dist_plain(x, c), 2, dim=1, largest=False).values
+        clear = (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 0].clamp_min(1e-30)
+        check(bool(torch.equal(ga[p][clear], wa[p][clear])),
+              f"kmeans_assign pairs float argmin {label} pair {p}")
+        check(torch.allclose(gd[p], wd[p], rtol=1e-5, atol=scale_atol(x, c)),
+              f"kmeans_assign pairs float min {label} pair {p}")
+        agree += float((ga[p] == wa[p]).float().mean()) / n_pairs
+        del two, clear
+    b, by = bound_ms(4 * (n_pairs * n * w + n_pairs * k * w + 2 * n_pairs * n),
+                     sum(n * k * (2 * d + 3) + 2 * d * (n + k) for d in dims))
+    row = dict(
+        max_abs_err=float((gd - wd).abs().max()),
+        ms=timed(torch, lambda: kmeans_assign_pairs_cuda(xs, cs, dims), 50),
+        single_launches_ms=timed(torch, lambda: [kmeans_assign_cuda(x, c) for x, c in halves], 50),
+        plain_ms=timed(torch, lambda: kmeans_assign_pairs_plain(xs, cs, dims), 3),
+        bound_ms=b, bound_by=by,
+        library_ms=timed(torch, lambda: torch.cdist(xs, cs).min(dim=-1), 3),
+        argmin_agree=agree,
+        shape=f"{n_pairs} pairs, x ({n}, {w}) (widths {dims}), c ({k}, {w})")
+    print(f"kernel kmeans_assign {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
 def phase_kernels(torch, corpus, queries, rng) -> dict:
     """Phase 3: every ANN kernel against its plain version on the card."""
     import numpy as np
@@ -229,6 +302,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         shape=f"{pairs} pairs, x ({q}, {2 * sd * n_sub}), half-dim {sd}, sqrt_k {sqrt_k}")
 
     # --------------------------------------------------- kmeans_assign --
+    # the single-pair entry: the main path's half and a ragged shape
     n = corpus.shape[0]
     for shape in ((n, sqrt_k, sd), (1003, 13, 3)):
         x, c = ints(shape[::2]), ints(shape[1:])
@@ -244,18 +318,19 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         check(torch.allclose(gd, wd, rtol=1e-5, atol=scale_atol(x, c)),
               f"kmeans_assign float min {shape}")
     x, c = floats((n, sd)), floats((sqrt_k, sd))
-    ga, gd = kmeans_assign_cuda(x, c)
-    wa, wd = kmeans_assign_plain(x, c)
-    b, by = bound_ms(4 * (n * sd + sqrt_k * sd + 2 * n),
-                     n * sqrt_k * (2 * sd + 3) + 2 * sd * (n + sqrt_k))
-    res["kmeans_assign"] = dict(
-        max_abs_err=float((gd - wd).abs().max()),
-        ms=timed(torch, lambda: kmeans_assign_cuda(x, c), 50),
-        plain_ms=timed(torch, lambda: kmeans_assign_plain(x, c), 10),
-        bound_ms=b, bound_by=by,
-        library_ms=timed(torch, lambda: torch.cdist(x, c).min(dim=1), 10),
-        argmin_agree=float((ga == wa).float().mean()),
-        shape=f"x ({n}, {sd}), c ({sqrt_k}, {sd})")
+    one_pair_ms = timed(torch, lambda: kmeans_assign_cuda(x, c), 50)
+    # the build's launch: its 2 N_s = 12 (subspace, half) pairs, TaCo's
+    # halves of 4 and SuCo's (128 dims over 6 subspaces) of 10/11 and 11/12
+    # zero-padded to 12, and a ragged case
+    rows = {label: kmeans_pairs_case(torch, label, n_, k_, dims, ints, floats, scale_atol)
+            for label, n_, k_, dims in (("taco", n, sqrt_k, [sd] * 2 * n_sub),
+                                        ("suco", n, sqrt_k, [10, 11] * 5 + [11, 12]),
+                                        ("ragged", 1003, 13, [3, 5, 7]))}
+    res["kmeans_assign"] = dict(rows["taco"], one_pair_ms=one_pair_ms,
+                                one_pair_shape=f"x ({n}, {sd}), c ({sqrt_k}, {sd})",
+                                suco=rows["suco"], ragged=rows["ragged"])
+    del x, c
+    torch.cuda.empty_cache()
 
     # ------------------------------------------- schist + masked_rerank --
     def collision_case(n_sub, q, sqrt_k, n, alpha=0.05):
@@ -527,11 +602,103 @@ def profile_search(torch, view, queries, label: str) -> None:
               f"{key[:90]}", flush=True)
 
 
-def run_path(torch, name: str, fn, batches: int | None = None):
+def profile_build(torch, corpus_np, cfg, label: str):
+    """(index, build seconds, profile): AnnIndex.build from host memory under
+    torch.profiler. The profile holds the host clock of the window, the
+    device's busy time (device-side events only, as in
+    :func:`profile_search`), the top device operations, and the top host
+    operations by their own (self) CPU time, which shows the host-side work
+    outside the device's: the CPU generator's ``randperm``s, the pageable
+    host-to-device copy of the corpus, ``eigh``'s solver, one-time set-up
+    in the process's first build, and the waits on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ann import AnnIndex
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index = AnnIndex.build(corpus_np, cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    wall_us = build_s * 1e6
+    print(f"{label}: build {build_s:.3f} s (profiled), index_bytes {index.index_bytes}",
+          flush=True)
+    device, host = [], []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            rows = device
+        else:
+            us, rows = evt.self_cpu_time_total, host
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    device.sort(reverse=True)
+    host.sort(reverse=True)
+    busy = sum(r[0] for r in device)
+    out = dict(wall_us=wall_us, device_busy_us=busy, host_self_us=sum(r[0] for r in host),
+               top_device=[dict(us=us, count=c, op=key) for us, c, key in device[:12]],
+               top_host=[dict(us=us, count=c, op=key) for us, c, key in host[:15]])
+    if busy == 0:
+        print("profile build: no device time in the trace (not measured)", flush=True)
+    print(f"profile build: window {wall_us:.0f} us (profiled), device busy {busy:.0f} us "
+          f"({100 * busy / wall_us:.1f}%), host ops' self time {out['host_self_us']:.0f} us",
+          flush=True)
+    for us, count, key in device[:12]:
+        print(f"profile build: device {us:10.0f} us {100 * us / wall_us:5.1f}% x{count:<5d} "
+              f"{key[:90]}", flush=True)
+    for us, count, key in host[:15]:
+        print(f"profile build: host   {us:10.0f} us {100 * us / wall_us:5.1f}% x{count:<5d} "
+              f"{key[:90]}", flush=True)
+    return index, build_s, out
+
+
+def integer_build_check(torch) -> dict:
+    """A SuCo index over an integer-valued 10^5 x 128 corpus (values in
+    [-20, 20]) built on the card, the halves of 10/11 and 11/12 dims in one
+    lockstep k-means padded to 12, against one k-means per (subspace, half)
+    run on the card in this call: every array bit for bit. Float32 sums of
+    integers below 2^24 are exact in any order, so the card's atomics in
+    ``index_add_`` cannot tell the two apart; the distances to the
+    non-integer means then agree only if the batched kernel's arithmetic is
+    the single-pair one."""
+    import numpy as np
+
+    from repro_torch.clustering import kmeans
+    from repro_torch.core import imi, taco
+    from repro_torch.core.config import suco_config
+
+    data = np.random.default_rng(7).integers(-20, 21, (100_000, 128)).astype(np.float32)
+    cfg = suco_config(n_subspaces=6, n_clusters=1024, alpha=0.05, beta=0.005, k=10,
+                      use_kernels=True)
+    index = taco.build(data, cfg)
+    projected = taco._project(index, torch.as_tensor(data, device="cuda"))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    for s, ((lo, hi), sub) in enumerate(zip(taco._sub_slices(index.sub_dims), index.subspaces)):
+        s1, _s2 = imi.split_halves(hi - lo)
+        c1, a1 = kmeans(projected[:, lo:lo + s1], cfg.sqrt_k, cfg.kmeans_iters, cfg.kmeans_init,
+                        generator=gen)
+        c2, a2 = kmeans(projected[:, lo + s1:hi], cfg.sqrt_k, cfg.kmeans_iters, cfg.kmeans_init,
+                        generator=gen)
+        same = (torch.equal(sub.centroids1, c1) and torch.equal(sub.centroids2, c2)
+                and torch.equal(sub.assign1, a1) and torch.equal(sub.assign2, a2)
+                and torch.equal(sub.cell_sizes, imi.cell_sizes(a1, a2, cfg.sqrt_k)))
+        check(same, f"integer SuCo build: subspace {s} differs from the per-pair k-means")
+    row = dict(n=data.shape[0], sub_dims=list(index.sub_dims), subspaces=len(index.subspaces),
+               bitwise=True)
+    print(f"build: integer SuCo index equals the per-pair k-means: {json.dumps(row)}", flush=True)
+    return row
+
+
+def run_path(torch, name: str, fn, expect: dict | None = None):
     """Run ``fn`` with every launch count set to 0 just before it; return
     its result and the counts read just after. Fails if a kernel of the
-    path was launched no time, or, for a run of ``batches`` query batches,
-    if ``l2dist`` was not launched exactly once a batch."""
+    path was launched no time, or if a kernel named in ``expect`` was not
+    launched exactly that many times (``l2dist`` once a query batch,
+    ``kmeans_assign`` once a Lloyd iteration and once more a build)."""
     from repro_torch.kernels import cuda
 
     cuda.reset_launch_counts()
@@ -541,9 +708,9 @@ def run_path(torch, name: str, fn, batches: int | None = None):
     print(f"{name}: launches {json.dumps(launches)}", flush=True)
     for kernel in PATHS[name]:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched on the {name} path")
-    if batches is not None:
-        check(launches["l2dist"] == batches,
-              f"{name}: l2dist launched {launches['l2dist']} times in {batches} batches")
+    for kernel, count in (expect or {}).items():
+        check(launches[kernel] == count,
+              f"{name}: {kernel} launched {launches[kernel]} times, expected {count}")
     return out, launches
 
 
@@ -623,14 +790,20 @@ def phase_masked(torch, corpus_np, queries, gt) -> tuple:
 
     cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, alpha=0.05,
                       beta=0.005, k=10, rerank="masked_full", use_kernels=True)
-    (index, build_s), build_launches = run_path(
-        torch, "build", lambda: build_index(torch, corpus_np, cfg, "masked"))
+    # the process's first build, profiled; then one more, unprofiled
+    (index, build_s, build_profile), build_launches = run_path(
+        torch, "build", lambda: profile_build(torch, corpus_np, cfg, "masked"),
+        expect={"kmeans_assign": cfg.kmeans_iters + 1})
+    warm_build_s = build_index(torch, corpus_np, cfg, "masked again")[1]
+    integer_build = integer_build_check(torch)
     index.search(queries[:8])  # warm-up: caches the per-index cell ids
     runs, launches = run_path(torch, "masked", lambda: search_runs(torch, index, queries, SETTINGS),
-                              batches=3 * len(SETTINGS))
+                              expect={"l2dist": 3 * len(SETTINGS)})
     profile_search(torch, index, queries, "masked")
-    summary = {"build_s": build_s, "index_bytes": index.index_bytes, "searches": [],
-               "build_launches": build_launches, "launches": launches}
+    summary = {"build_s": build_s, "warm_build_s": warm_build_s,
+               "index_bytes": index.index_bytes, "searches": [],
+               "build_launches": build_launches, "build_profile": build_profile,
+               "integer_build": integer_build, "launches": launches}
     for (k, sel), run in runs.items():
         row = against_plain(torch, index, queries, gt, run, k, sel, "masked")
         print(f"masked: search {json.dumps(row)}", flush=True)
@@ -656,7 +829,7 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
     gather.search(queries[:8])  # warm-up
     runs, launches = run_path(torch, "gather",
                               lambda: search_runs(torch, gather, queries, SETTINGS),
-                              batches=3 * len(SETTINGS))
+                              expect={"l2dist": 3 * len(SETTINGS)})
     summary["launches"] = launches
     profile_search(torch, gather, queries, "gather")
     for (k, sel), run in runs.items():
@@ -676,12 +849,13 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
     cfg = suco_config(n_subspaces=6, n_clusters=1024, alpha=0.05, beta=0.005, k=10,
                       use_kernels=True)
     (suco, build_s), build_launches = run_path(
-        torch, "build", lambda: build_index(torch, corpus_np, cfg, "gather suco"))
+        torch, "build", lambda: build_index(torch, corpus_np, cfg, "gather suco"),
+        expect={"kmeans_assign": cfg.kmeans_iters + 1})
     summary.update(suco_build_s=build_s, suco_build_launches=build_launches)
     suco.search(queries[:8])
     settings = [(k, "fixed") for k in (10, 100)]
     runs, launches = run_path(torch, "gather", lambda: search_runs(torch, suco, queries, settings),
-                              batches=3 * len(settings))
+                              expect={"l2dist": 3 * len(settings)})
     summary["suco_launches"] = launches
     for (k, sel), run in runs.items():
         row = against_plain(torch, suco, queries, gt, run, k, sel, "gather suco")
@@ -753,7 +927,7 @@ def phase_persist(torch, taco_index, suco_index, queries) -> dict:
     view = loaded.replace_cfg(selection="query_aware")
     results, launches = run_path(
         torch, "persist", lambda: [view.search(queries, k=10, rerank=r) for r in reruns],
-        batches=len(reruns))
+        expect={"l2dist": len(reruns)})
     summary["launches"] = launches
     for rerank, (ids, dists) in zip(reruns, results):
         want_ids, want_d = taco_index.replace_cfg(selection="query_aware").search(

@@ -1,3 +1,9 @@
-from repro_torch.clustering.kmeans import kmeans, kmeans_assign, lloyd_step
+from repro_torch.clustering.kmeans import (
+    kmeans,
+    kmeans_assign,
+    kmeans_pairs,
+    lloyd_step,
+    lloyd_step_pairs,
+)
 
-__all__ = ["kmeans", "kmeans_assign", "lloyd_step"]
+__all__ = ["kmeans", "kmeans_assign", "kmeans_pairs", "lloyd_step", "lloyd_step_pairs"]

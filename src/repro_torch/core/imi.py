@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.clustering import kmeans, kmeans_assign
+from repro_torch.clustering import kmeans_assign, kmeans_pairs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,26 +28,56 @@ def split_halves(dim: int) -> tuple[int, int]:
     return dim // 2, dim - dim // 2
 
 
-def build_imi_subspace(
-    sub_data: torch.Tensor,
+def half_columns(sub_dims) -> list[tuple[int, int]]:
+    """(first column, width) of every (subspace, half) of the projected
+    data, in (subspace, half) order."""
+    out, col = [], 0
+    for d in sub_dims:
+        s1, s2 = split_halves(d)
+        out += [(col, s1), (col + s1, s2)]
+        col += d
+    return out
+
+
+def build_imi_subspaces(
+    projected: torch.Tensor,
+    sub_dims,
     sqrt_k: int,
     iters: int,
     init: str = "random",
     *,
     generator: torch.Generator | None = None,
     impl: str = "auto",
-) -> IMISubspace:
-    """Cluster both halves of one subspace and record assignments/sizes."""
-    s1, _s2 = split_halves(sub_data.shape[1])
-    c1, a1 = kmeans(sub_data[:, :s1], sqrt_k, iters, init, generator=generator, impl=impl)
-    c2, a2 = kmeans(sub_data[:, s1:], sqrt_k, iters, init, generator=generator, impl=impl)
-    return IMISubspace(
-        centroids1=c1,
-        centroids2=c2,
-        assign1=a1.to(torch.int32),
-        assign2=a2.to(torch.int32),
-        cell_sizes=cell_sizes(a1, a2, sqrt_k),
-    )
+) -> tuple[IMISubspace, ...]:
+    """Cluster both halves of every subspace and record assignments/sizes.
+
+    The 2 N_s halves of ``projected`` (n, sum(sub_dims)) are laid out once
+    as a (2 N_s, n, w) stack, zero-padded to the widest half rounded up to
+    a multiple of 4 (16-byte rows for the kernel), and clustered by one
+    k-means in lockstep (:func:`kmeans_pairs`); the initial centroids are
+    drawn in (subspace, half) order, as one k-means per half would draw
+    them. The stack is freed on return."""
+    halves = half_columns(sub_dims)
+    dims = [d for _c, d in halves]
+    w = -(-max(dims) // 4) * 4
+    xs = torch.zeros((len(halves), projected.shape[0], w), dtype=torch.float32,
+                     device=projected.device)
+    for p, (col, d) in enumerate(halves):
+        xs[p, :, :d] = projected[:, col:col + d]
+    cents, assign = kmeans_pairs(xs, sqrt_k, iters, init, dims=dims, generator=generator,
+                                 impl=impl)
+    del xs
+    subspaces = []
+    for s in range(len(sub_dims)):
+        a1, a2 = assign[2 * s], assign[2 * s + 1]
+        subspaces.append(IMISubspace(
+            centroids1=cents[2 * s, :, :dims[2 * s]].contiguous(),
+            centroids2=cents[2 * s + 1, :, :dims[2 * s + 1]].contiguous(),
+            assign1=a1,
+            assign2=a2,
+            cell_sizes=cell_sizes(a1, a2, sqrt_k),
+        ))
+    return tuple(subspaces)
 
 
 def cell_sizes(a1: torch.Tensor, a2: torch.Tensor, sqrt_k: int) -> torch.Tensor:

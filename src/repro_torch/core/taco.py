@@ -30,7 +30,7 @@ import torch
 from repro_torch.core import transform as T
 from repro_torch.core.activation import activation_taus
 from repro_torch.core.config import SCConfig, resolve_rerank
-from repro_torch.core.imi import IMISubspace, build_imi_subspace, split_halves
+from repro_torch.core.imi import IMISubspace, build_imi_subspaces, half_columns
 from repro_torch.core.scoring import sc_scores
 from repro_torch.core.selection import (
     fixed_threshold_from_hist,
@@ -138,12 +138,8 @@ def _half_slices(sub_dims: tuple[int, ...]) -> tuple[tuple[int, int], ...]:
     """(first column, width) in the projected query of every subspace's
     first half, then of every second half: the pairs of
     :attr:`SCIndex.stacked_centroids`."""
-    firsts, seconds = [], []
-    for lo, hi in _sub_slices(sub_dims):
-        s1, s2 = split_halves(hi - lo)
-        firsts.append((lo, s1))
-        seconds.append((lo + s1, s2))
-    return tuple(firsts + seconds)
+    halves = half_columns(sub_dims)
+    return tuple(halves[0::2] + halves[1::2])
 
 
 def suco_dim_partition(d: int, n_subspaces: int, rng: np.random.Generator):
@@ -180,11 +176,8 @@ def build(data, cfg: SCConfig, *, device: str | torch.device = "cuda") -> SCInde
     else:
         raise ValueError(f"unknown transform {cfg.transform!r}")
 
-    subspaces = tuple(
-        build_imi_subspace(projected[:, lo:hi], cfg.sqrt_k, cfg.kmeans_iters,
-                           cfg.kmeans_init, generator=gen, impl=impl)
-        for lo, hi in _sub_slices(sub_dims)
-    )
+    subspaces = build_imi_subspaces(projected, sub_dims, cfg.sqrt_k, cfg.kmeans_iters,
+                                    cfg.kmeans_init, generator=gen, impl=impl)
     return SCIndex(
         transform=tr,
         dim_perm=perm,

@@ -15,7 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
+from repro_torch.kernels.kmeans_assign import (
+    kmeans_assign_cuda,
+    kmeans_assign_pairs_cuda,
+    kmeans_assign_pairs_plain,
+    kmeans_assign_plain,
+)
 from repro_torch.kernels.l2dist import (
     l2dist_cuda,
     l2dist_pairs_cuda,
@@ -67,6 +72,15 @@ def kmeans_assign(x, c, impl: str = "auto"):
     if not _use_kernel(impl, x):
         return kmeans_assign_plain(x, c)
     return kmeans_assign_cuda(_f32(x), _f32(c))
+
+
+def kmeans_assign_pairs(xs, cs, dims=None, impl: str = "auto"):
+    """(assignments (P, n) int32, min sq dists (P, n) f32) for P pairs
+    zero-padded to one width, pair p being ``xs[p, :, :dims[p]]`` against
+    ``cs[p, :, :dims[p]]``. One kernel launch on the card."""
+    if not _use_kernel(impl, xs):
+        return kmeans_assign_pairs_plain(xs, cs, dims)
+    return kmeans_assign_pairs_cuda(_f32(xs), _f32(cs), dims)
 
 
 def schist(bits, cells, n_levels: int, *, q: int, impl: str = "auto") -> torch.Tensor:

@@ -69,6 +69,104 @@ def test_kmeans_assign_kernel(dev, n, k, d):
     assert torch.equal(ga, wa) and torch.equal(gd, wd)
 
 
+def _padded_pairs(rng, n_pairs, n, k, dims, w, dev, ints: bool):
+    """xs (P, n, w), cs (P, k, w) with pair p's first dims[p] columns drawn
+    (small integers, or normal floats) and zeros past them."""
+    xs = torch.zeros((n_pairs, n, w), device=dev)
+    cs = torch.zeros((n_pairs, k, w), device=dev)
+    for p, d in enumerate(dims):
+        for t, rows in ((xs, n), (cs, k)):
+            a = rng.integers(-3, 4, (rows, d)) if ints else rng.standard_normal((rows, d))
+            t[p, :, :d] = torch.as_tensor(a.astype(np.float32), device=dev)
+    return xs, cs
+
+
+@pytest.mark.parametrize("n_pairs", [1, 3, 12])
+@pytest.mark.parametrize("w", [3, 4, 12, 128])
+@pytest.mark.parametrize("k", [13, "max"])
+def test_kmeans_assign_pairs_kernel(dev, n_pairs, w, k):
+    """One launch for P pairs against the plain version, bit for bit on
+    integer inputs (many exact ties: the first index wins): ragged n, pairs
+    of unequal widths zero-padded to w, k up to the shared-memory limit."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.kmeans_assign import (
+        MAX_SMEM,
+        kmeans_assign_pairs_cuda,
+        kmeans_assign_pairs_plain,
+    )
+
+    k = MAX_SMEM // (4 * (w + 1)) if k == "max" else k
+    dims = [max(1, w - p % 3) for p in range(n_pairs)]
+    rng = np.random.default_rng(n_pairs * 1000 + w)
+    xs, cs = _padded_pairs(rng, n_pairs, 1003, k, dims, w, dev, ints=True)
+    cuda.reset_launch_counts()
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    assert cuda.launch_counts["kmeans_assign"] == 1
+    wa, wd = kmeans_assign_pairs_plain(xs, cs, dims)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("n_pairs", [1, 3])
+@pytest.mark.parametrize("n,k,d", [(1003, 13, 3), (5000, 32, 4), (257, 100, 40), (4099, 32, 11)])
+def test_kmeans_assign_pairs_equal_single_launches_on_floats(dev, n_pairs, n, k, d):
+    """Float inputs: the batched launch over pairs padded to a multiple of 4
+    equals, bit for bit, the single-pair entry at each pair's own width
+    (zero padding changes no fmaf chain)."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_pairs_cuda
+
+    rng = np.random.default_rng(n + d)
+    dims = [d] * n_pairs
+    xs, cs = _padded_pairs(rng, n_pairs, n, k, dims, -(-d // 4) * 4, dev, ints=False)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    for p in range(n_pairs):
+        sa, sd = kmeans_assign_cuda(xs[p, :, :d].contiguous(), cs[p, :, :d].contiguous())
+        assert torch.equal(ga[p], sa) and torch.equal(gd[p].view(torch.int32),
+                                                      sd.view(torch.int32))
+
+
+def test_kmeans_assign_pairs_kernel_rejects(dev):
+    from repro_torch.kernels.kmeans_assign import (
+        MAX_SMEM,
+        kmeans_assign_cuda,
+        kmeans_assign_pairs_cuda,
+    )
+
+    for w in (4, 128):
+        k = MAX_SMEM // (4 * (w + 1)) + 1
+        with pytest.raises(ValueError):
+            kmeans_assign_pairs_cuda(torch.zeros((2, 10, w), device=dev),
+                                     torch.zeros((2, k, w), device=dev))
+        with pytest.raises(ValueError):
+            kmeans_assign_cuda(torch.zeros((10, w), device=dev), torch.zeros((k, w), device=dev))
+    with pytest.raises(ValueError):
+        kmeans_assign_pairs_cuda(torch.zeros((2, 10, 132), device=dev),
+                                 torch.zeros((2, 4, 132), device=dev))
+    with pytest.raises(ValueError):
+        kmeans_assign_pairs_cuda(torch.zeros((2, 10, 4), device=dev),
+                                 torch.zeros((3, 4, 4), device=dev))
+
+
+def test_build_on_the_card_matches_per_pair_build_on_integers(dev):
+    """A SuCo build on the card (halves of 6/7 and 7/7 padded to 8) on an
+    integer-valued corpus, where every float32 sum is exact in any order,
+    equals bit for bit one k-means per (subspace, half) run on the card."""
+    from repro_torch.clustering import kmeans
+    from repro_torch.core import imi, taco
+    from repro_torch.core.config import suco_config
+
+    data = np.random.default_rng(1).integers(-20, 21, (20000, 40)).astype(np.float32)
+    cfg = suco_config(n_subspaces=3, n_clusters=49, use_kernels=True)
+    index = taco.build(data, cfg, device=dev)
+    projected = taco._project(index, torch.as_tensor(data, device=dev))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    for (lo, hi), sub in zip(taco._sub_slices(index.sub_dims), index.subspaces):
+        s1, _s2 = imi.split_halves(hi - lo)
+        c1, a1 = kmeans(projected[:, lo:lo + s1], cfg.sqrt_k, cfg.kmeans_iters, generator=gen)
+        c2, a2 = kmeans(projected[:, lo + s1:hi], cfg.sqrt_k, cfg.kmeans_iters, generator=gen)
+        assert torch.equal(sub.centroids1, c1) and torch.equal(sub.centroids2, c2)
+        assert torch.equal(sub.assign1, a1) and torch.equal(sub.assign2, a2)
+
+
 def _collision(rng, n_sub, q, sqrt_k, n, dev):
     from repro_torch.kernels.schist import collision_bits, collision_table
 
