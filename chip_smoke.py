@@ -21,7 +21,11 @@ Phases, in order; any failure exits nonzero:
                geometry (tiles a block) is kept in chip_smoke.json;
                masked_rerank's launch geometry and resident warps per SM
                are printed at k = 10 and 100, and its ptxas report (kept in
-               chip_smoke.json) must show no spills;
+               chip_smoke.json) must show no spills; masked_rerank with a
+               tombstone bitmap (10 % excluded, integer inputs, bitwise; 1 %
+               at the main path's shapes, timed beside the kernel without
+               one) must equal its plain version and return no excluded
+               point;
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -50,15 +54,34 @@ Phases, in order; any failure exits nonzero:
                and masked-full and gather ids and dists of one batch bitwise
                equal to the in-memory index's; a repeated batch hits the
                searcher's cache;
-  8. summary — the card's nvidia-smi line, one JSON line with every kernel's
+  8. mutable — the TaCo index as the base of a MutableAnnIndex: delete
+               10,000 base ids (among them the exact top-10 of the first 100
+               queries), insert 4,000 rows (50 exact copies of live base
+               rows), delete 1,000 of them (rows/s of each); 1000 queries at
+               k = 10 and 100, query-aware, masked-full (the tombstones
+               excluded in masked_rerank) and gather (the reference's
+               over-fetch), each batch held against the plain path on the
+               same state (ids >= 99.9 %, recall@10 against brute force over
+               the live corpus within 0.005, no deleted id returned) and
+               timed beside the immutable index; the delta scan's device ms;
+               durability="sync": fsync'd append latency, checkpoint(), more
+               mutations, MutableAnnIndex.load(path, wal_dir=...) bitwise
+               equal in state and results; compact() (a 10^6-row rebuild on
+               the card) against a rebuild oracle (every array bit for bit,
+               ids >= 99.9 %, recall within 0.005), and bit for bit in
+               arrays and results on an integer-valued 10^5 x 128 SuCo
+               corpus;
+  9. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
 set to 0 just before the path is driven and read just after (build:
 kmeans_assign; flash: flash_attention; masked: l2dist, schist,
 masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
-masked_rerank, scscore), l2dist exactly once a query batch and
-kmeans_assign exactly kmeans_iters + 1 times a build. The full result is
+masked_rerank, scscore; mutable: l2dist, schist and masked_rerank exactly
+once a masked-full batch, l2dist and scscore once a gather batch; compact:
+kmeans_assign), l2dist exactly once a query batch and kmeans_assign exactly
+kmeans_iters + 1 times a build. The full result is
 also written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
@@ -100,6 +123,9 @@ PATHS = {
     "gather": ("l2dist", "scscore"),
     "flash": ("flash_attention",),
     "persist": ("l2dist", "schist", "masked_rerank", "scscore"),
+    "mutable": ("l2dist", "schist", "masked_rerank"),
+    "mutable_gather": ("l2dist", "scscore"),
+    "compact": ("kmeans_assign",),
 }
 
 
@@ -232,6 +258,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
     from repro_torch.kernels.masked_rerank import (
         masked_rerank_cuda,
         masked_rerank_plain,
+        pack_exclusion,
         rerank_geometry,
         rerank_resident_warps,
     )
@@ -403,9 +430,9 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         norms = (data * data).sum(1)
         return (bits, cells, thresh, qs, data, norms), demand
 
-    def compare_rerank(args_, k, exact: bool, what: str):
-        gd, gi = masked_rerank_cuda(*args_, k)
-        wd, wi = masked_rerank_plain(*args_, k)
+    def compare_rerank(args_, k, exact: bool, what: str, exclude=None):
+        gd, gi = masked_rerank_cuda(*args_, k, exclude)
+        wd, wi = masked_rerank_plain(*args_, k, exclude)
         if exact:
             check(torch.equal(gi, wi) and torch.equal(gd, wd), f"masked_rerank int {what}")
             return gd, gi, wd, wi
@@ -422,6 +449,9 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                         ((3, 37, 5, 1003), 20, 17)):
         args_, _ = rerank_case(shape, ints((shape[3], d)), ints((shape[1], d)), k)
         compare_rerank(args_, k, True, f"{shape} k={k}")
+        # a tombstone bitmap over 10 % of the points, bitwise too
+        words = pack_exclusion(rng.random(shape[3]) < 0.1).to(dev)
+        compare_rerank(args_, k, True, f"{shape} k={k} exclusion", words)
     timings = {}
     for k in (10, 100):
         args_, demand = rerank_case(big, corpus, queries, k)
@@ -460,6 +490,25 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                               rerank_geometry(n, k, n_sub, sqrt_k ** 2, d))),
             resident_warps_per_sm=rerank_resident_warps(n, k, n_sub, sqrt_k ** 2, d))
         del mask_sc
+        # the mutable index's tombstones: 1 % of the points excluded
+        excluded = rng.random(n) < 0.01
+        words = pack_exclusion(excluded).to(dev)
+        xd, xi, xwd, xwi = compare_rerank(args_, k, False, f"{big} k={k} exclusion", words)
+        returned = xi[xi >= 0].cpu().numpy()
+        check(not excluded[returned].any(), f"masked_rerank returned an excluded point k={k}")
+        xfin = torch.isfinite(xwd)
+        timings[k]["exclusion"] = dict(
+            excluded=int(excluded.sum()),
+            max_abs_err=float((xd[xfin] - xwd[xfin]).abs().max()) if xfin.any() else 0.0,
+            ids_agree=float((xi == xwi).float().mean()),
+            ms=timed(torch, lambda: masked_rerank_cuda(*args_, k, words), 5),
+            ms_without=timed(torch, lambda: masked_rerank_cuda(*args_, k), 5),
+            plain_ms=timed(torch, lambda: masked_rerank_plain(*args_, k, words), 1),
+            bitmap_bytes=words.numel() * 4,
+            bound_ms=bound_ms(4 * n_sub * n + nbits + 4 * q + 4 * q * d + 4 * d * min(n, total)
+                              + 4 * n + 8 * q * k + words.numel() * 4,
+                              q * n * n_sub + total * (2 * d + 3))[0])
+        del xd, xi, xwd, xwi
         print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     res["masked_rerank"] = timings[10]
     for name in ("l2dist", "kmeans_assign", "schist", "scscore"):
@@ -661,10 +710,10 @@ def integer_build_check(torch) -> dict:
     [-20, 20]) built on the card, the halves of 10/11 and 11/12 dims in one
     lockstep k-means padded to 12, against one k-means per (subspace, half)
     run on the card in this call: every array bit for bit. Float32 sums of
-    integers below 2^24 are exact in any order, so the card's atomics in
-    ``index_add_`` cannot tell the two apart; the distances to the
-    non-integer means then agree only if the batched kernel's arithmetic is
-    the single-pair one."""
+    integers below 2^24 are exact in any order, so the Lloyd sums of 12
+    pairs and of one cannot differ; the distances to the non-integer means
+    then agree only if the batched kernel's arithmetic is the single-pair
+    one."""
     import numpy as np
 
     from repro_torch.clustering import kmeans
@@ -953,6 +1002,295 @@ def phase_persist(torch, taco_index, suco_index, queries) -> dict:
     return summary
 
 
+def _median_s(torch, fn, reps: int = 3):
+    """(median host seconds of ``reps`` synchronized calls, last result)."""
+    times, out = [], None
+    for _rep in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], out
+
+
+def churn(torch, m, corpus_np, gt, rng) -> dict:
+    """The mutable phase's churn on ``m``: delete 10,000 base ids (the exact
+    top-10 of the first 100 queries among them), insert 4,000 rows of the
+    port's gmm_dataset under another seed (50 of them exact copies of live
+    base rows), delete 1,000 of the inserted rows; batches of 100 inserts
+    and of 1,000 / 100 deletes, host clock. Returns the row and the deleted
+    ids."""
+    import numpy as np
+
+    from repro_torch.data import gmm_dataset
+
+    n = corpus_np.shape[0]
+    top = np.unique(gt[:100, :10])
+    rest = np.setdiff1d(rng.choice(n, 12_000, replace=False), top)[:10_000 - top.size]
+    base_kill = rng.permutation(np.concatenate([top, rest]))
+    check(base_kill.size == 10_000, "mutable: 10,000 distinct base ids to delete")
+    fresh = gmm_dataset(4_000, corpus_np.shape[1], seed=1)
+    live_base = np.setdiff1d(np.arange(n), base_kill)
+    fresh[rng.choice(4_000, 50, replace=False)] = corpus_np[rng.choice(live_base, 50,
+                                                                       replace=False)]
+    t0 = time.perf_counter()
+    for lo in range(0, 10_000, 1_000):
+        m.delete(base_kill[lo:lo + 1_000])
+    base_delete_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new_ids = np.concatenate([m.insert(fresh[lo:lo + 100]) for lo in range(0, 4_000, 100)])
+    insert_s = time.perf_counter() - t0
+    delta_kill = rng.choice(new_ids, 1_000, replace=False)
+    t0 = time.perf_counter()
+    for lo in range(0, 1_000, 100):
+        m.delete(delta_kill[lo:lo + 100])
+    delta_delete_s = time.perf_counter() - t0
+    row = dict(insert_rows_per_s=4_000 / insert_s, insert_batch=100,
+               base_delete_rows_per_s=10_000 / base_delete_s, base_delete_batch=1_000,
+               delta_delete_rows_per_s=1_000 / delta_delete_s, delta_delete_batch=100,
+               top10_of_first_100_deleted=int(top.size), stats=m.stats())
+    print(f"mutable: churn {json.dumps(row)}", flush=True)
+    check(m.maybe_compact() is None, "mutable: the churn crossed a default compaction trigger")
+    return row, np.concatenate([base_kill, delta_kill])
+
+
+def live_top10(torch, m, queries):
+    """Brute-force top-10 over the live corpus, as external ids."""
+    vecs, ids = m.live_corpus()
+    return ids[brute_force_top10(torch, torch.as_tensor(vecs).cuda(), queries)]
+
+
+def mutable_searches(torch, m, index, queries, gt_live, dead) -> list:
+    """1000 queries at k = 10 and 100, query-aware, both pipelines, on the
+    churned index: the launch counts of each batch (one l2dist, one schist
+    and one masked_rerank a masked-full batch; one l2dist and one scscore a
+    gather batch), the plain path on the same state, recall against brute
+    force over the live corpus, no deleted id returned, and the immutable
+    index's batch seconds in the same call."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.ann.mutable import MutableSearcher, base_fetch_k
+    from repro_torch.utils import recall_at_k
+
+    plain = MutableSearcher(m)
+    plain.cfg = dataclasses.replace(m.cfg, use_kernels=False)
+    kernels = {"masked_full": {"l2dist": 1, "schist": 1, "masked_rerank": 1, "scscore": 0},
+               "gather": {"l2dist": 1, "scscore": 1, "schist": 0, "masked_rerank": 0}}
+    st = m._state
+    rows = []
+    for rerank in ("masked_full", "gather"):
+        m.search(queries[:8], k=10, rerank=rerank)  # warm-up
+        for k in (10, 100):
+            cfg = dataclasses.replace(m.cfg, selection="query_aware", rerank=rerank)
+            (secs, (ids, dists, stats)), launches = run_path(
+                torch, "mutable" if rerank == "masked_full" else "mutable_gather",
+                lambda: _median_s(torch, lambda: m.search_with_stats(
+                    queries, k=k, beta=None, rerank=rerank)),
+                expect={name: 3 * c for name, c in kernels[rerank].items()})
+            imm_s, _ = _median_s(torch, lambda: index.search(queries, k=k, rerank=rerank))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pids, _pd, _ps = plain.search_with_stats(queries, k=k, rerank=rerank)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            rec, prec = recall_at_k(ids, gt_live, 10), recall_at_k(pids, gt_live, 10)
+            same = float(np.mean(pids == ids))
+            row = dict(rerank=rerank, k=k, selection="query_aware", seconds=secs,
+                       immutable_seconds=imm_s, plain_seconds=plain_s,
+                       qps=queries.shape[0] / secs, recall_at_10=rec,
+                       plain_recall_at_10=prec, ids_same_as_plain=same,
+                       base_k=base_fetch_k(st, k, cfg),
+                       gather_cap=min(st.n_base, max(cfg.cap_for(st.n_base),
+                                                     base_fetch_k(st, k, cfg))),
+                       mean_candidate_count=float(stats["candidate_count"].mean()),
+                       launches=launches)
+            print(f"mutable: search {json.dumps(row)}", flush=True)
+            check(tuple(ids.shape) == (queries.shape[0], k), f"mutable ids shape {rerank} k={k}")
+            check(bool(np.isfinite(dists[:, :10]).all()), f"mutable finite top-10 {rerank} k={k}")
+            check(not np.isin(ids, dead).any() and not np.isin(pids, dead).any(),
+                  f"mutable: a deleted id was returned ({rerank} k={k})")
+            check(abs(rec - prec) <= 0.005, f"mutable recall {rec} vs plain {prec} {rerank} k={k}")
+            check(same >= 0.999, f"mutable ids same as plain {same} < 0.999 {rerank} k={k}")
+            rows.append(row)
+    return rows
+
+
+def delta_scan_ms(torch, m, queries) -> dict:
+    """Device ms of the delta segment's exact scan (one (Q, m_pad) product,
+    mask, stable top-k) at the churned state's delta, Q = 1024."""
+    from repro_torch.ann.mutable import _delta_topk
+    from repro_torch.ann.searcher import _padded_on
+
+    st = m._state
+    rows, norms, live, _ids = st.delta_padded()
+    qp = _padded_on(queries, 1024, torch.device("cuda"))
+    out = {"delta_rows": st.n_delta_rows, "delta_live": st.n_delta_live,
+           "m_pad": int(rows.shape[0])}
+    for k in (10, 100):
+        out[f"k{k}_ms"] = timed(torch, lambda: _delta_topk(qp, rows, norms, live, k), 20)
+    print(f"mutable: delta scan {json.dumps(out)}", flush=True)
+    return out
+
+
+def durability(torch, index, queries) -> dict:
+    """durability="sync" over the same base: per-call latency of fsync'd
+    appends (inserts of 10 rows, deletes of 10 ids), then checkpoint(),
+    more mutations and MutableAnnIndex.load(path, wal_dir=...): the state,
+    the base's arrays and search ids and dists bitwise equal, replay
+    seconds recorded."""
+    import numpy as np
+
+    from repro_torch.ann import MutableAnnIndex
+    from repro_torch.ann.persistence import leaves_of
+
+    rng = np.random.default_rng(3)
+    d = index.d
+    with tempfile.TemporaryDirectory() as tmp:
+        wal_dir, snap = str(Path(tmp) / "wal"), str(Path(tmp) / "snap")
+        m = index.mutable(durability="sync", wal_dir=wal_dir)
+        lat = {"insert": [], "delete": []}
+        kill = rng.choice(index.n, 2_000, replace=False)
+        for i in range(100):
+            t0 = time.perf_counter()
+            m.insert(rng.standard_normal((10, d)).astype(np.float32))
+            lat["insert"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            m.delete(kill[10 * i:10 * i + 10])
+            lat["delete"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        m.checkpoint(snap)
+        checkpoint_s = time.perf_counter() - t0
+        for i in range(100, 120):
+            m.insert(rng.standard_normal((10, d)).astype(np.float32))
+            m.delete(kill[10 * i:10 * i + 10])
+        want = {r: m.search(queries, k=10, rerank=r) for r in ("masked_full", "gather")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = MutableAnnIndex.load(snap, wal_dir=wal_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        replayed = loaded._wal.records_replayed
+        a, b = loaded._state, m._state
+        check(all(np.array_equal(getattr(a, f), getattr(b, f))
+                  for f in ("base_ids", "tombstones", "delta", "delta_ids", "delta_live")),
+              "durability: the replayed state differs")
+        check(all(torch.equal(x, y) for x, y in zip(leaves_of(a.base.sc_index),
+                                                    leaves_of(b.base.sc_index))),
+              "durability: a reloaded base array differs")
+        check(loaded.stats()["next_id"] == m.stats()["next_id"]
+              and loaded.generation == m.generation, "durability: counters differ")
+        for r, (wi, wd) in want.items():
+            gi, gd = loaded.search(queries, k=10, rerank=r)
+            check(np.array_equal(gi, wi) and np.array_equal(gd.view(np.uint32),
+                                                            wd.view(np.uint32)),
+                  f"durability: reloaded {r} results differ")
+        loaded.close()
+        m.close()
+    ms = {kind: np.asarray(v) * 1e3 for kind, v in lat.items()}
+    row = {f"sync_{kind}_ms_p50": float(np.percentile(v, 50)) for kind, v in ms.items()}
+    row.update({f"sync_{kind}_ms_p99": float(np.percentile(v, 99)) for kind, v in ms.items()})
+    row.update(checkpoint_s=checkpoint_s, load_with_replay_s=load_s, records_replayed=replayed)
+    check(replayed == 40, f"durability: {replayed} records replayed, expected 40")
+    print(f"mutable: durability {json.dumps(row)}", flush=True)
+    return row
+
+
+def integer_compaction_check(torch) -> dict:
+    """Compaction on an integer-valued 10^5 x 128 SuCo corpus after churn,
+    on the card: the installed base equals a rebuild over the live corpus
+    (``rebuild_oracle``) in every array, and search ids and dists equal bit
+    for bit."""
+    import numpy as np
+
+    from repro_torch.ann import MutableAnnIndex
+    from repro_torch.ann.persistence import leaves_of
+    from repro_torch.core.config import suco_config
+
+    rng = np.random.default_rng(11)
+    data = rng.integers(-20, 21, (100_000, 128)).astype(np.float32)
+    cfg = suco_config(n_subspaces=6, n_clusters=1024, alpha=0.05, beta=0.005, k=10,
+                      use_kernels=True)
+    m = MutableAnnIndex.build(data, cfg)
+    m.delete(rng.choice(100_000, 1_000, replace=False))
+    fresh = rng.integers(-20, 21, (500, 128)).astype(np.float32)
+    fresh[:20] = data[rng.choice(100_000, 20, replace=False)]
+    m.delete(m.insert(fresh)[::5])
+    m.compact()
+    oracle, id_map = m.rebuild_oracle()
+    same = all(torch.equal(x, y) for x, y in zip(leaves_of(m._state.base.sc_index),
+                                                  leaves_of(oracle.sc_index)))
+    check(same, "integer compaction: the installed base differs from the rebuild oracle")
+    queries = data[:64] + 1
+    for rerank in ("masked_full", "gather"):
+        gi, gd = m.search(queries, k=10, rerank=rerank)
+        oi, od = oracle.search(queries, k=10, rerank=rerank)
+        check(np.array_equal(gi, np.where(oi >= 0, id_map[np.maximum(oi, 0)], -1))
+              and np.array_equal(gd.view(np.uint32), od.view(np.uint32)),
+              f"integer compaction: {rerank} results differ from the rebuild oracle")
+    row = dict(n=100_000, n_live=m.n_live, bitwise=True)
+    print(f"mutable: integer SuCo compaction equals the rebuild oracle: {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+def phase_mutable(torch, index, corpus_np, queries, gt) -> dict:
+    """Phase 8: the persist phase's TaCo index (use_kernels=True) as the
+    base of a MutableAnnIndex: churn, search against the plain path and
+    brute force over the live corpus, the delta scan, sync durability with
+    crash-style replay, and compaction against a rebuild oracle."""
+    import numpy as np
+
+    from repro_torch.utils import recall_at_k
+
+    rng = np.random.default_rng(5)
+    m = index.mutable()
+    summary = {}
+    summary["churn"], dead = churn(torch, m, corpus_np, gt, rng)
+    st = m._state
+    gt_live = live_top10(torch, m, queries)
+    summary["searches"] = mutable_searches(torch, m, index, queries, gt_live, dead)
+    summary["delta_scan"] = delta_scan_ms(torch, m, queries)
+    summary["durability"] = durability(torch, index, queries)
+
+    n_live = st.n_live
+    (report, launches) = run_path(torch, "compact", lambda: _median_s(torch, m.compact, 1),
+                                  expect={"kmeans_assign": index.cfg.kmeans_iters + 1})
+    compact_s, report = report
+    check(not report.delta_only and report.n_live == n_live and not m.dirty,
+          "compaction: report or state")
+    oracle, id_map = m.rebuild_oracle()
+    # builds on the card repeat bit for bit, so compaction IS the oracle
+    from repro_torch.ann.persistence import leaves_of
+
+    check(all(torch.equal(x, y) for x, y in zip(leaves_of(m._state.base.sc_index),
+                                                 leaves_of(oracle.sc_index))),
+          "compaction: the installed base differs from the rebuild oracle")
+    rows = []
+    for rerank in ("masked_full", "gather"):
+        ids, _d = m.search(queries, k=10, rerank=rerank)
+        oi, _od = oracle.search(queries, k=10, rerank=rerank)
+        oids = np.where(oi >= 0, id_map[np.maximum(oi, 0)], -1)
+        same = float(np.mean(ids == oids))
+        rec, orec = recall_at_k(ids, gt_live, 10), recall_at_k(oids, gt_live, 10)
+        check(same >= 0.999, f"compaction: ids same as the rebuild oracle {same} < 0.999")
+        check(abs(rec - orec) <= 0.005, f"compaction: recall {rec} vs oracle {orec}")
+        check(not np.isin(ids, dead).any(), f"compaction: a deleted id was returned ({rerank})")
+        rows.append(dict(rerank=rerank, ids_same_as_oracle=same, recall_at_10=rec,
+                         oracle_recall_at_10=orec))
+    summary["compaction"] = dict(seconds=compact_s, reclaimed=report.reclaimed,
+                                 n_live=report.n_live, launches=launches,
+                                 arrays_equal_oracle=True, against_oracle=rows)
+    print(f"mutable: compaction {json.dumps(summary['compaction'])}", flush=True)
+    del oracle
+    summary["integer_compaction"] = integer_compaction_check(torch)
+    summary["launches"] = [r["launches"] for r in summary["searches"]] + [launches]
+    torch.cuda.empty_cache()
+    return summary
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -1027,12 +1365,16 @@ def main(argv=None) -> int:
     gather, suco = phase_gather(torch, index, corpus_np, queries, gt, masked_runs)
     del masked_runs
     persist = phase_persist(torch, index, suco, queries)
+    del suco
+    torch.cuda.empty_cache()
+    # 8. the mutable index over the same base
+    mutable = phase_mutable(torch, index, corpus_np, queries, gt)
 
     # 8. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
-                   persist["launches"]):
+                   persist["launches"], *mutable["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -1047,7 +1389,8 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
                                "kernels": kernels, "flash": flash, "masked": masked,
-                               "gather": gather, "persist": persist}, indent=1))
+                               "gather": gather, "persist": persist,
+                               "mutable": mutable}, indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

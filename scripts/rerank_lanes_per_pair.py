@@ -122,7 +122,8 @@ def main() -> int:
                 for dt in (torch.float32, torch.int32)]
         best = [torch.empty((q, k), dtype=dt, device=data.device)
                 for dt in (torch.float32, torch.int32)]
-        rc = fn(*(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, norms, *part, *best)),
+        rc = fn(*(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, norms)),
+                ctypes.c_void_p(None), *(cuda.ptr(t) for t in (*part, *best)),
                 q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device))
         if rc != 0:
             raise RuntimeError(f"octet variant: CUDA error {rc}")

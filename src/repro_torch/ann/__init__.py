@@ -1,3 +1,56 @@
-from repro_torch.ann.index import AnnIndex
+"""repro_torch.ann — the ANN lifecycle facade of the port (mirrors
+``repro.ann``)::
 
-__all__ = ["AnnIndex"]
+    index = AnnIndex.build(data, cfg)      # on the card by default
+    index.save(path); AnnIndex.load(path)  # the reference's directory format
+    index.searcher()                       # owns the (bucket, k, cfg) cache
+
+Mutation rides the same facade (:mod:`repro_torch.ann.mutable` /
+:mod:`repro_torch.ann.compaction`)::
+
+    mutable = index.mutable()              # delta segment + tombstones
+    ids = mutable.insert(vectors); mutable.delete(ids[:2])
+    mutable.maybe_compact()                # policy-driven rebuild
+    mutable.save(path)                     # ONE-commit base+delta+tombstones
+
+Durability (:mod:`repro_torch.ann.wal`)::
+
+    mutable = index.mutable(durability="sync", wal_dir=wal)  # crash-safe
+    MutableAnnIndex.load(path, wal_dir=wal)  # snapshot + WAL replay
+"""
+from repro_torch.ann.index import AnnIndex
+from repro_torch.ann.persistence import (
+    load_index,
+    load_mutable_index,
+    save_index,
+    save_mutable_index,
+)
+from repro_torch.ann.searcher import (
+    AnnBatchResult,
+    Searcher,
+    SingleDeviceSearcher,
+    make_searcher,
+)
+from repro_torch.ann.compaction import CompactionPolicy, CompactionReport
+from repro_torch.ann.mutable import MutableAnnIndex, MutableSearcher
+from repro_torch.ann.wal import FaultInjectingFile, WalRecord, WriteAheadLog, read_wal
+
+__all__ = [
+    "AnnBatchResult",
+    "AnnIndex",
+    "CompactionPolicy",
+    "CompactionReport",
+    "FaultInjectingFile",
+    "MutableAnnIndex",
+    "MutableSearcher",
+    "Searcher",
+    "SingleDeviceSearcher",
+    "WalRecord",
+    "WriteAheadLog",
+    "load_index",
+    "load_mutable_index",
+    "make_searcher",
+    "read_wal",
+    "save_index",
+    "save_mutable_index",
+]

@@ -9,14 +9,17 @@
     ids, dists = index.search(queries)               # gather re-rank
     ids, dists, stats = index.search_with_stats(queries, k=100, rerank="masked_full")
     s = index.searcher()                             # owns the function cache
+    mutable = index.mutable()                        # inserts, deletes, compaction
 
 The index lives on the card unless ``device="cpu"`` is asked for. Search
 returns what the reference returns: numpy ``ids`` (Q, k) int32 and
 ``dists`` (Q, k) float32, and the stats ``truncated`` and
 ``candidate_count``; :func:`repro_torch.core.taco.query_with_stats` keeps
 every internal stat. The directory format is the reference's, so an index
-saved by either package loads in the other. The serving engine, the
-sharded searcher and mutation are not ported yet.
+saved by either package loads in the other. Mutation (delta segment,
+tombstones, write-ahead log, compaction) lives in
+:mod:`repro_torch.ann.mutable`. The serving engine and the sharded
+searcher are not ported yet.
 """
 from __future__ import annotations
 
@@ -82,6 +85,17 @@ class AnnIndex:
         if s is None:
             s = self._searcher = self.searcher("single")
         return s
+
+    def mutable(self, *, policy=None, **kwargs):
+        """Wrap this (immutable) index as the base segment of a
+        :class:`~repro_torch.ann.mutable.MutableAnnIndex` on the index's
+        device: delta-segment inserts, tombstone deletes and policy-driven
+        compaction back into a fresh base. The built index is shared, not
+        copied. Durability kwargs (``durability=``, ``wal_dir=``) pass
+        through — see :mod:`repro_torch.ann.wal`."""
+        from repro_torch.ann.mutable import MutableAnnIndex
+
+        return MutableAnnIndex(self, policy=policy, **kwargs)
 
     def replace_cfg(self, **changes) -> "AnnIndex":
         """A view of the same built index with config fields replaced."""

@@ -19,7 +19,9 @@ functions. It owns
 Only the single-device placement is ported: a cached entry is a plain
 closure over :func:`repro_torch.core.taco.query_with_stats` (the gather
 pipeline syncs the host, so there is no CUDA graph to capture yet). The
-corpus-sharded placement, the searcher's metrics counters and the kernel
+function cache counts into the reference's metric families
+(``taco_searcher_compiles_total``, ``taco_searcher_fn_cache_hits_total``)
+on the port's own registry. The corpus-sharded placement and the kernel
 autotune cache are not ported yet.
 """
 from __future__ import annotations
@@ -33,6 +35,18 @@ import torch
 from repro_torch.batching import ANN_BATCH_BUCKETS, bucket_size, pad_rows
 from repro_torch.core.config import SCConfig
 from repro_torch.core.taco import SCIndex, query_with_stats
+from repro_torch.obs import metrics as obsm
+
+# Process-wide searcher metric families (repro_torch.obs registry): the
+# function cache's behaviour across every searcher instance.
+_M_COMPILES = obsm.counter(
+    "taco_searcher_compiles_total",
+    "Query executables compiled (one per new (bucket, k, cfg) key)",
+)
+_M_FN_HITS = obsm.counter(
+    "taco_searcher_fn_cache_hits_total",
+    "Executable-cache hits (batch reused a compiled query fn)",
+)
 
 
 @dataclasses.dataclass
@@ -84,10 +98,12 @@ class Searcher:
         if key not in self._fns:
             self._fns[key] = self._compile(bucket, k, cfg)
             self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+            _M_COMPILES.inc()
             while len(self._fns) > self.max_cached_fns:
                 self._fns.popitem(last=False)
         else:
             self._fns.move_to_end(key)
+            _M_FN_HITS.inc()
         return self._fns[key]
 
     def _compile(self, bucket: int, k: int, cfg: SCConfig):
@@ -98,6 +114,11 @@ class Searcher:
         """Run one already-padded ``(bucket, d)`` float32 query batch that
         lies on the index's device."""
         raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        """Device the padded query batch is placed on."""
+        return self.index.device
 
     @property
     def dim(self) -> int:
@@ -134,7 +155,7 @@ class Searcher:
             q = q[None]
         n_rows = q.shape[0]
         bucket = bucket_size(n_rows, ANN_BATCH_BUCKETS)
-        res = self.run_padded(bucket, k, cfg, _padded_on(q, bucket, self.index.device))
+        res = self.run_padded(bucket, k, cfg, _padded_on(q, bucket, self.device))
         stats = {"truncated": res.truncated[:n_rows],
                  "candidate_count": res.candidate_count[:n_rows]}
         ids, dists = res.ids[:n_rows], res.dists[:n_rows]
@@ -156,15 +177,22 @@ class SingleDeviceSearcher(Searcher):
     def _compile(self, bucket: int, k: int, cfg: SCConfig):
         index = self.index
 
-        def fn(queries):
-            ids, dists, stats = query_with_stats(index, queries, cfg, k=k)
+        def fn(queries, exclude=None):
+            ids, dists, stats = query_with_stats(index, queries, cfg, k=k, exclude=exclude)
             # only the O(Q) stats leave: the (Q, n) SC matrix is dropped here
             return ids, dists, stats["truncated"], stats["candidate_count"]
 
         return fn
 
+    def run_padded_device(self, bucket, k, cfg, queries, *, exclude=None):
+        """:meth:`run_padded` with the results left on the index's device:
+        (ids, dists, truncated, candidate_count) tensors. ``exclude``: a
+        masked-full exclusion bitmap, see
+        :func:`repro_torch.core.taco.query_with_stats`."""
+        return self.fn_for(bucket, k, cfg)(queries, exclude)
+
     def run_padded(self, bucket, k, cfg, queries) -> AnnBatchResult:
-        ids, dists, truncated, count = self.fn_for(bucket, k, cfg)(queries)
+        ids, dists, truncated, count = self.run_padded_device(bucket, k, cfg, queries)
         return AnnBatchResult(
             ids=ids.to(torch.int32).cpu().numpy(),
             dists=dists.to(torch.float32).cpu().numpy(),

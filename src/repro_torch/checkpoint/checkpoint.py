@@ -25,8 +25,9 @@ from typing import Any
 import numpy as np
 
 #: the dtypes a leaf may have: numpy's own, so no extension-dtype package is
-#: needed to read them back (an index has no other)
-DTYPES = ("float32", "int32")
+#: needed to read them back (an index has no other; a mutable index adds its
+#: tombstone and live masks)
+DTYPES = ("float32", "int32", "bool")
 
 
 def _step_dir(directory: str, step: int) -> str:

@@ -5,15 +5,18 @@ Lloyd runs as one Python loop over P independent problems in lockstep (the
 build's 2 N_s (subspace, half) pairs, or the one problem of :func:`kmeans`).
 Each step assigns every pair with one
 :func:`repro_torch.kernels.ops.kmeans_assign_pairs` call (one CUDA kernel
-launch on the card) and recomputes all P k means with one ``index_add_``
-into P k bins. An empty cluster keeps its previous centroid.
+launch on the card) and recomputes all P k means. An empty cluster keeps
+its previous centroid.
 
-On the CPU ``index_add_`` adds rows in order, so each bin sums the same rows
-in the same order as one loop per pair would, and P problems in lockstep
-give bit for bit what P separate runs give. On the card ``index_add_`` sums
-floats with atomics in no fixed order, so a build there is not bitwise
-repeatable, with one pair or with many; on integer-valued data, where
-float32 sums below 2^24 are exact in any order, it is.
+On the CPU the sums are one ``index_add_`` into P k bins, which adds rows in
+order, so each bin sums the same rows in the same order as one loop per pair
+would, and P problems in lockstep give bit for bit what P separate runs
+give. On the card ``index_add_`` would add floats with atomics in no fixed
+order, and two builds of one corpus would differ; there the sums are
+products of one-hot assignment segments with the rows (``bmm``, IEEE
+float32, segments of a fixed size) reduced in a fixed order, so a build on
+the card repeats bit for bit. A compaction is such a build, and
+so equals a rebuild over the same live corpus, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,8 +41,12 @@ def lloyd_step_pairs(xs: torch.Tensor, centroids: torch.Tensor, dims=None,
     assign, _ = ops.kmeans_assign_pairs(xs, centroids, dims, impl=impl)
     offsets = torch.arange(n_pairs, device=xs.device)[:, None] * k
     idx = (assign.long() + offsets).reshape(-1)
-    sums = torch.zeros((n_pairs * k, w), dtype=torch.float32, device=xs.device)
-    sums.index_add_(0, idx, xs.reshape(-1, w))
+    if xs.device.type == "cuda":
+        sums = _onehot_sums(xs, assign, k).reshape(-1, w)
+    else:
+        sums = torch.zeros((n_pairs * k, w), dtype=torch.float32, device=xs.device)
+        sums.index_add_(0, idx, xs.reshape(-1, w))
+    # counts of 1.0 are exact below 2^24 in any order of addition
     counts = torch.zeros((n_pairs * k,), dtype=torch.float32, device=xs.device)
     counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
     new_centroids = torch.where(
@@ -47,6 +54,39 @@ def lloyd_step_pairs(xs: torch.Tensor, centroids: torch.Tensor, dims=None,
         centroids.reshape(-1, w),
     )
     return new_centroids.reshape(n_pairs, k, w), assign
+
+
+#: one-hot floats a block of rows takes: P x rows x k stay near 512 MB
+_ONEHOT_FLOATS = 1 << 27
+#: rows one small product sums; the products' partial sums are then added
+#: by a reduction over segments. A single (k, n) x (n, w) product would run
+#: on k w / tile blocks and leave the card idle
+_SEGMENT = 2048
+
+
+def _onehot_sums(xs: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
+    """(P, k, w) per-cluster sums of xs (P, n, w) under assign (P, n): the
+    rows in blocks, each block cut into segments of ``_SEGMENT`` rows
+    (zero-padded), one batched product of each segment's one-hot
+    assignments with its rows, the segments' partial sums reduced in a
+    fixed order, the blocks added in order. No atomics, so the same inputs
+    give the same bits; the sizes are constants, so the order never depends
+    on the card."""
+    n_pairs, n, w = xs.shape
+    step = max(1, _ONEHOT_FLOATS // (n_pairs * k * _SEGMENT)) * _SEGMENT
+    sums = torch.zeros((n_pairs, k, w), dtype=torch.float32, device=xs.device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        segs = -(-(hi - lo) // _SEGMENT)
+        rows = segs * _SEGMENT
+        onehot = torch.zeros((n_pairs, rows, k), dtype=torch.float32, device=xs.device)
+        onehot[:, :hi - lo].scatter_(2, assign[:, lo:hi, None].long(), 1.0)
+        x = torch.zeros((n_pairs, rows, w), dtype=torch.float32, device=xs.device)
+        x[:, :hi - lo] = xs[:, lo:hi]
+        part = torch.bmm(onehot.view(n_pairs * segs, _SEGMENT, k).transpose(1, 2),
+                         x.view(n_pairs * segs, _SEGMENT, w))
+        sums += part.view(n_pairs, segs, k, w).sum(dim=1)
+    return sums
 
 
 def lloyd_step(data: torch.Tensor, centroids: torch.Tensor, impl: str = "auto"):

@@ -300,12 +300,21 @@ def query(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None):
     return ids, dists
 
 
-def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None):
-    """Alg. 6 with diagnostics; ``k`` overrides ``cfg.k`` per call."""
+def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = None,
+                     exclude: torch.Tensor | None = None):
+    """Alg. 6 with diagnostics; ``k`` overrides ``cfg.k`` per call.
+
+    ``exclude`` (masked-full only) is an exclusion bitmap
+    (:func:`repro_torch.kernels.masked_rerank.pack_exclusion`) on the
+    index's device: those points are never returned, while the histogram,
+    the threshold and ``candidate_count`` still count them. A mutable
+    index passes its tombstones here."""
     k = cfg.k if k is None else int(k)
     queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
     if resolve_rerank(cfg) == "masked_full":
-        return _query_masked_full(index, queries, cfg, k)
+        return _query_masked_full(index, queries, cfg, k, exclude)
+    if exclude is not None:
+        raise ValueError("exclude is supported by the masked_full pipeline only")
     sc, stats = compute_sc_scores(index, queries, cfg)
     # floor the cap at the runtime k so large-k overrides stay servable
     cap = min(index.n, max(cfg.cap_for(index.n), k))
@@ -322,7 +331,8 @@ def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = 
     return ids, dists, stats
 
 
-def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: int):
+def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: int,
+                       exclude: torch.Tensor | None = None):
     """Streaming two-pass query: pass 1 histograms the SC-scores, Alg. 5
     (or the fixed budget) reads the threshold off the histogram, pass 2
     re-ranks every point at or above it with a running top-k. The
@@ -344,7 +354,7 @@ def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: 
         raise ValueError(f"unknown selection mode {cfg.selection!r}")
     ids, dists = ops.masked_rerank(
         bits, cells, thresh, index.data, data_norms_of(index), queries, k,
-        impl=impl, precision=cfg.precision,
+        impl=impl, precision=cfg.precision, exclude=exclude,
     )
     stats = {
         "taus": taus,

@@ -57,6 +57,13 @@
 // rows, 24 MB of ids); the ~17 GB of row reads per pair are L2 and L1
 // traffic. The rows in flight at once are the few groups that each of the
 // ~8 chunks held by resident blocks is at, far below half of L2.
+// Exclusion (a mutable index's tombstones): an optional bitmap of
+// ceil(n/32) words, bit p % 32 of word p / 32 set for an excluded point. A
+// lane reads its point's word where it forms the point's query mask and
+// clears the mask if the bit is set, so an excluded point is never scored
+// and never enters a heap; the 32 lanes of a warp read one or two words, a
+// broadcast. A null pointer skips the read. The histogram of pass 1 (schist)
+// still counts excluded points, as the base index does.
 // k <= 1024; above k = 512 the query tile shrinks to 16 lanes so the top-k
 // state fits in shared memory. A block has up to 8 warps, fewer only where
 // their rings would not fit; the query rows stay in global memory where
@@ -155,7 +162,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
     const uint32_t* __restrict__ bits, const int* __restrict__ cells,
     const int* __restrict__ thresh, const float* __restrict__ queries,
     const float* __restrict__ data, const float* __restrict__ norms,
-    float* __restrict__ part_d, int* __restrict__ part_i, int q, int n, int d,
+    const uint32_t* __restrict__ excl, float* __restrict__ part_d,
+    int* __restrict__ part_i, int q, int n, int d,
     int n_sub, int k2, int k, int chunk, int n_chunks, int lanes, bool rows_in, bool vec) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const int warps = blockDim.x / 32;
@@ -256,6 +264,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
     // bit i: the point passes for query i (a threshold of 0 passes every
     // point, so the points past the chunk's end are cleared here)
     uint32_t rest = valid ? ((gt | eq) & act) : 0u;
+    // an excluded point passes for no query
+    if (excl != nullptr && valid && ((__ldg(excl + (p >> 5)) >> (p & 31)) & 1u)) rest = 0u;
     // each step queues one pair of every lane that has one left
     while (__any_sync(kFull, rest != 0)) {
       const unsigned offer = __ballot_sync(kFull, rest != 0);
@@ -397,11 +407,13 @@ const char* masked_rerank_error_string(int code) {
 
 // bits (ceil(q/32), n_sub, k2) int32; cells (n_sub, n) int32; thresh (q,)
 // int32; queries (q, d), data (n, d), norms (n,) float32; part_d/part_i
-// (q, n_chunks, k) scratch; out_d/out_i (q, k). lanes is 32 or 16 queries
-// a block; warps (1..8) a block of pass a, sharing one top-k state.
+// (q, n_chunks, k) scratch; out_d/out_i (q, k); excl (ceil(n/32),) words of
+// excluded points, or null. lanes is 32 or 16 queries a block; warps (1..8)
+// a block of pass a, sharing one top-k state.
 int masked_rerank_f32(const uint32_t* bits, const int* cells,
                       const int* thresh, const float* queries,
-                      const float* data, const float* norms, float* part_d,
+                      const float* data, const float* norms,
+                      const uint32_t* excl, float* part_d,
                       int* part_i, float* out_d, int* out_i, int q, int n,
                       int d, int n_sub, int k2, int k, int chunk,
                       int n_chunks, int lanes, int warps,
@@ -419,7 +431,7 @@ int masked_rerank_f32(const uint32_t* bits, const int* cells,
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid_a((q + lanes - 1) / lanes, n_chunks);
   rerank_chunk_kernel<<<grid_a, 32 * warps, smem_a, stream>>>(
-      bits, cells, thresh, queries, data, norms, part_d, part_i, q, n, d,
+      bits, cells, thresh, queries, data, norms, excl, part_d, part_i, q, n, d,
       n_sub, k2, k, chunk, n_chunks, lanes, rows_in, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -4,7 +4,8 @@
 Both return the per-query k best ``(distance, id)`` pairs over the points
 with ``SC >= thresh[q]``, sorted ascending on that compound key (lowest id
 first on equal distances), with ``(+inf, -1)`` in the slots that no point
-fills. :func:`finalize_topk` then canonicalizes the order and recomputes the
+fills. An optional exclusion bitmap (:func:`pack_exclusion`: a mutable
+index's tombstones) removes points from that set. :func:`finalize_topk` then canonicalizes the order and recomputes the
 returned distances exactly from the original vectors, as in ``repro``.
 """
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda
 from repro_torch.kernels.schist import block_sc, unpack_collision_bits
 
-_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 MAX_K = 1024
 MAX_SUBSPACES = 16
 MAX_SMEM = 232448
@@ -31,13 +33,31 @@ WARPS = 8
 RING_BYTES = 64 * 8
 
 
+def pack_exclusion(excluded) -> torch.Tensor:
+    """A (n,) bool mask (numpy or tensor) as the kernels' exclusion bitmap:
+    (ceil(n/32),) int32 words, bit ``p % 32`` of word ``p // 32`` set for
+    an excluded point ``p``. Packed on the host, as a tensor on the CPU."""
+    mask = np.asarray(excluded.cpu() if torch.is_tensor(excluded) else excluded, bool)
+    packed = np.packbits(mask, bitorder="little")
+    packed = np.pad(packed, (0, -packed.size % 4))
+    return torch.from_numpy(packed.view("<i4").copy())
+
+
+def unpack_exclusion(words: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n,) bool mask of a :func:`pack_exclusion` bitmap."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> shifts) & 1).reshape(-1)[:n].bool()
+
+
 def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
-                        *, block: int = 4096):
+                        exclude=None, *, block: int = 4096):
     """Running top-k over point blocks (``repro``'s masked_rerank_stream):
-    ((Q, k) dists, (Q, k) ids), no (Q, n) intermediate."""
+    ((Q, k) dists, (Q, k) ids), no (Q, n) intermediate. ``exclude`` is a
+    :func:`pack_exclusion` bitmap of points that never pass, or None."""
     q = queries.shape[0]
     n = cells.shape[1]
     table = unpack_collision_bits(bits, q)
+    keep = None if exclude is None else ~unpack_exclusion(exclude, n)
     q_norms = torch.sum(queries * queries, dim=1)
     best_d = torch.full((q, k), torch.inf, dtype=torch.float32, device=data.device)
     best_i = torch.full((q, k), -1, dtype=torch.int32, device=data.device)
@@ -46,7 +66,10 @@ def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
         sc = block_sc(table, cells[:, lo:hi])
         dist = torch.clamp_min(
             q_norms[:, None] - 2.0 * (queries @ data[lo:hi].T) + data_norms[None, lo:hi], 0.0)
-        dist = torch.where(sc >= thresh[:, None], dist, torch.inf)
+        mask = sc >= thresh[:, None]
+        if keep is not None:
+            mask &= keep[None, lo:hi]
+        dist = torch.where(mask, dist, torch.inf)
         ids = torch.arange(lo, hi, dtype=torch.int32, device=data.device)
         cmb_d = torch.cat([best_d, dist], dim=1)
         cmb_i = torch.cat([best_i, ids.expand(q, -1)], dim=1)
@@ -98,18 +121,23 @@ def rerank_resident_warps(n: int, k: int, n_sub: int, k2: int, d: int) -> int:
     return blocks.value * warps
 
 
-def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int):
+def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
+                       exclude=None):
     """Kernel launch (pass a, then pass b, on the current stream), at
-    :func:`rerank_geometry`'s geometry."""
+    :func:`rerank_geometry`'s geometry. ``exclude`` is a
+    :func:`pack_exclusion` bitmap on the card, or None (a null pointer: the
+    kernel reads no bitmap)."""
     cuda.check_cuda(
         "masked_rerank", bits, cells, thresh, queries, data, data_norms,
+        *(() if exclude is None else (exclude,)),
         dtypes=(torch.int32, torch.int32, torch.int32, torch.float32,
-                torch.float32, torch.float32))
+                torch.float32, torch.float32, torch.int32))
     qt, n_sub, k2 = bits.shape
     q, d = queries.shape
     n = data.shape[0]
     if (cells.shape != (n_sub, n) or data.shape[1] != d or thresh.shape != (q,)
-            or data_norms.shape != (n,) or qt != (q + 31) // 32):
+            or data_norms.shape != (n,) or qt != (q + 31) // 32
+            or (exclude is not None and exclude.shape != ((n + 31) // 32,))):
         raise ValueError("masked_rerank: input shapes disagree")
     lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d)
     part_d = torch.empty((q, n_chunks, k), dtype=torch.float32, device=data.device)
@@ -118,8 +146,9 @@ def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int):
     best_i = torch.empty((q, k), dtype=torch.int32, device=data.device)
     cuda.launch(
         "masked_rerank", "masked_rerank_f32", _ARGS,
-        *(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, data_norms,
-                                part_d, part_i, best_d, best_i)),
+        *(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, data_norms)),
+        ctypes.c_void_p(None) if exclude is None else cuda.ptr(exclude),
+        *(cuda.ptr(t) for t in (part_d, part_i, best_d, best_i)),
         q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device))
     return best_d, best_i
 

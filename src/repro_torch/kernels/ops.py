@@ -100,8 +100,12 @@ def scscore(bits, cells, *, q: int, impl: str = "auto") -> torch.Tensor:
 
 
 def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
-                  impl: str = "auto", precision: str = "f32"):
+                  impl: str = "auto", precision: str = "f32", exclude=None):
     """Masked re-rank: ((Q, k) ids int32, (Q, k) exact sq dists f32).
+
+    ``exclude`` is an exclusion bitmap
+    (:func:`repro_torch.kernels.masked_rerank.pack_exclusion`, on the data's
+    device) of points that never pass the mask, or None.
 
     ``precision="bf16"`` rounds the query and data operands through bfloat16
     before the float32 kernel (or plain version), as the reference's jnp
@@ -114,9 +118,10 @@ def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
     norms = _f32(data_norms)
     if _use_kernel(impl, bits):
         bd, bi = masked_rerank_cuda(bits.contiguous(), cells.contiguous(), thresh,
-                                    q_op, x_op, norms, k)
+                                    q_op, x_op, norms, k,
+                                    None if exclude is None else exclude.contiguous())
     else:
-        bd, bi = masked_rerank_plain(bits, cells, thresh, q_op, x_op, norms, k)
+        bd, bi = masked_rerank_plain(bits, cells, thresh, q_op, x_op, norms, k, exclude)
     return finalize_topk(bd, bi, data, queries, k)
 
 

@@ -167,6 +167,22 @@ def test_build_on_the_card_matches_per_pair_build_on_integers(dev):
         assert torch.equal(sub.assign1, a1) and torch.equal(sub.assign2, a2)
 
 
+@pytest.mark.parametrize("config", ["taco", "suco"])
+def test_builds_on_the_card_repeat_bit_for_bit(dev, config):
+    """Two builds of one float corpus on the card give the same arrays bit
+    for bit (the Lloyd update sums by one-hot products, not float atomics),
+    so a compaction equals a rebuild over the same live corpus."""
+    from repro_torch.ann.persistence import leaves_of
+    from repro_torch.core import taco
+    from repro_torch.core.config import suco_config, taco_config
+
+    data = np.random.default_rng(2).standard_normal((30000, 40)).astype(np.float32)
+    cfg = (taco_config(n_subspaces=3, subspace_dim=6, n_clusters=256, use_kernels=True)
+           if config == "taco" else suco_config(n_subspaces=3, n_clusters=256, use_kernels=True))
+    a, b = taco.build(data, cfg, device=dev), taco.build(data, cfg, device=dev)
+    assert all(torch.equal(x, y) for x, y in zip(leaves_of(a), leaves_of(b)))
+
+
 def _collision(rng, n_sub, q, sqrt_k, n, dev):
     from repro_torch.kernels.schist import collision_bits, collision_table
 
@@ -281,6 +297,45 @@ def test_masked_rerank_kernel_unaligned_rows(dev):
     gd, gi = masked_rerank_cuda(*args)
     wd, wi = masked_rerank_plain(*args)
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n,d,k,share,case", [
+    (4, 33, 16, 5003, 16, 10, 0.01, "random"), (3, 20, 8, 9000, 24, 1024, 0.3, "all"),
+    (6, 40, 16, 9000, 128, 100, 0.5, "random"), (2, 7, 8, 1000, 8, 17, 1.0, "all"),
+    (3, 33, 8, 13000, 8, 50, 0.05, "dup"),
+])
+def test_masked_rerank_kernel_exclusion(dev, n_sub, q, sqrt_k, n, d, k, share, case):
+    """A tombstone bitmap: the kernel equals the plain version with the same
+    bitmap, returns no excluded point, and its rows are those of a larger-k
+    call without the bitmap with the excluded points dropped."""
+    from repro_torch.kernels.masked_rerank import (
+        masked_rerank_cuda,
+        masked_rerank_plain,
+        pack_exclusion,
+    )
+
+    rng = np.random.default_rng(n + k)
+    bits, cells = _collision(rng, n_sub, q, sqrt_k, n, dev)
+    if case == "dup":
+        data = _ints(rng, (37, d), dev)[torch.as_tensor(rng.integers(0, 37, n), device=dev)]
+    else:
+        data = _ints(rng, (n, d), dev)
+    queries = _ints(rng, (q, d), dev)
+    thresh = np.zeros(q) if case == "all" else rng.integers(0, n_sub + 1, q)
+    thresh = torch.as_tensor(thresh, dtype=torch.int32, device=dev)
+    excluded = rng.random(n) < share
+    words = pack_exclusion(excluded).to(dev)
+    args = (bits, cells, thresh, queries, data, (data * data).sum(1), k)
+    gd, gi = masked_rerank_cuda(*args, words)
+    wd, wi = masked_rerank_plain(*args, words)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    ids = gi[gi >= 0].cpu().numpy()
+    assert not excluded[ids].any()
+    if k + int(excluded.sum()) <= 1024:
+        bd, bi = masked_rerank_cuda(*args[:-1], k + int(excluded.sum()))
+        for row in range(q):
+            keep = [j for j, i in enumerate(bi[row].tolist()) if i < 0 or not excluded[i]]
+            assert torch.equal(gi[row], bi[row, keep[:k]])
 
 
 def test_masked_rerank_resident_warps(dev):

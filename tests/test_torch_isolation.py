@@ -30,7 +30,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert "repro_torch.core.taco" in mods and "repro_torch.kernels.cuda" in mods
     assert {"repro_torch.batching", "repro_torch.checkpoint.checkpoint",
             "repro_torch.ann.persistence", "repro_torch.ann.searcher",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention", "repro_torch.ann.mutable",
+            "repro_torch.ann.wal", "repro_torch.ann.compaction", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.export",
+            "repro_torch.serving", "repro_torch.serving.scheduler"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,16 +75,28 @@ def test_kernel_sources_exist_for_every_kernel():
         assert f"{name}_error_string" in src
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
-    from repro_torch.ann import AnnIndex
+    from repro_torch.ann import AnnIndex, MutableAnnIndex
     from repro_torch.core import taco
     from repro_torch.core.config import taco_config
 
     data = torch.zeros((64, 8))
+    cfg = taco_config(n_subspaces=2, subspace_dim=2, n_clusters=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        AnnIndex.build(data, taco_config(n_subspaces=2, subspace_dim=2, n_clusters=4))
+        AnnIndex.build(data, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MutableAnnIndex.build(data, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MutableAnnIndex(cfg=cfg, dim=8)  # a delta-only index
+    # AnnIndex.mutable keeps the base where it lies: the card by default
+    assert AnnIndex.build(data, cfg, device="cpu").mutable().device.type == "cpu"
+    saved = MutableAnnIndex(cfg=cfg, dim=8, device="cpu").save(str(tmp_path / "m"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MutableAnnIndex.load(saved)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AnnIndex.load(saved)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         taco.build(data, taco_config(n_subspaces=2, subspace_dim=2, n_clusters=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):

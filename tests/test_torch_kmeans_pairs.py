@@ -1,6 +1,7 @@
 """The build's k-means in lockstep: P independent (points, centroids) pairs,
 zero-padded to one width, assigned by one call and updated by one
-``index_add_`` per Lloyd iteration. On the CPU it must give bit for bit
+``index_add_`` per Lloyd iteration (on the card, by one-hot products, held
+here against ``index_add_`` on integers). On the CPU it must give bit for bit
 what one k-means per pair gives (the loop written out below, as the port
 ran it before), draw for draw from one seeded generator, and follow
 ``repro``'s Lloyd step on integer data."""
@@ -186,3 +187,26 @@ def test_build_assigns_once_per_iteration(name, monkeypatch):
     cfg = CONFIGS[name]
     taco.build(gmm_dataset(1200, 40, seed=1), cfg, device="cpu")
     assert calls == {"pairs": cfg.kmeans_iters + 1, "single": 0}
+
+
+@pytest.mark.parametrize("segment,step", [(None, None), (64, 1000), (7, 37), (4096, 1)])
+def test_onehot_sums_equal_index_add_on_integers(monkeypatch, segment, step):
+    """The card's Lloyd sums (one-hot products over row segments, reduced
+    in a fixed order, block by block) equal the CPU's ``index_add_`` sums
+    where every float32 sum is exact, for any segment and block size (a
+    segment longer than the rows, blocks of one segment and ragged ends
+    included)."""
+    import importlib
+
+    kmod = importlib.import_module("repro_torch.clustering.kmeans")
+    if segment is not None:
+        monkeypatch.setattr(kmod, "_SEGMENT", segment)
+        monkeypatch.setattr(kmod, "_ONEHOT_FLOATS", step * segment * 3 * 16)
+    rng = np.random.default_rng(4)
+    xs, _ = _stack(rng, 3, 5000, [4, 3, 4], integer=True)
+    assign = torch.as_tensor(rng.integers(0, 16, (3, 5000)), dtype=torch.int32)
+    want = torch.zeros((3 * 16, 4))
+    idx = (assign.long() + torch.arange(3)[:, None] * 16).reshape(-1)
+    want.index_add_(0, idx, xs.reshape(-1, 4))
+    got = kmod._onehot_sums(xs, assign, 16)
+    assert torch.equal(got.reshape(-1, 4), want)
