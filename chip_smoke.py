@@ -71,7 +71,33 @@ Phases, in order; any failure exits nonzero:
                ids >= 99.9 %, recall within 0.005), and bit for bit in
                arrays and results on an integer-valued 10^5 x 128 SuCo
                corpus;
-  9. summary — the card's nvidia-smi line, one JSON line with every kernel's
+  9. engine  — the same index served through index.engine (default gather,
+               every third request k = 5, every third beta x 2, every fourth
+               masked-full, one request a held-out query): synchronous at
+               max_batch 64 and 256 (ids against a direct search of each
+               request's group >= 99.9 %, recall@10 within 0.005 of it, every
+               request answered once, one l2dist a batch, one schist and one
+               masked_rerank a masked-full batch, one scscore a gather batch,
+               batches and compiles per bucket as the groups predict); the
+               stream again through the result cache (every request a hit,
+               no kernel launched); async with four producers and a 50 ms
+               deadline (ids against the sync run >= 99.9 %, none lost or
+               duplicated), then admission control (AdmissionErrors seen =
+               telemetry's shed); a MutableAnnIndex served async while churn
+               waves and two background compactions swap into the engine (a
+               batch after the swap equals mutable.search bit for bit, no
+               deleted id, probe recall within 0.01 of brute force over the
+               live corpus); one engine batch of 64 of each pipeline under
+               torch.profiler; the three query kernels and l2dist are also
+               timed at the bucket of 64 in the kernels phase;
+ 10. serve   — python -m repro_torch.launch.serve_ann in a child process at
+               10^6 x 128: async, four producers, a 50 ms deadline, churn
+               with a durable WAL and compactions swapped into the engine,
+               recall probes, masked-full, a mutable save; then a restart
+               from the save that replays the WAL and verifies recovery
+               (post-compaction bitwise MATCH); each must exit 0, print its
+               telemetry and launch the path's kernels in its process;
+ 11. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -80,8 +106,10 @@ kmeans_assign; flash: flash_attention; masked: l2dist, schist,
 masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
 masked_rerank, scscore; mutable: l2dist, schist and masked_rerank exactly
 once a masked-full batch, l2dist and scscore once a gather batch; compact:
-kmeans_assign), l2dist exactly once a query batch and kmeans_assign exactly
-kmeans_iters + 1 times a build. The full result is
+kmeans_assign; engine: l2dist, schist, masked_rerank, scscore, exactly as
+the sync runs' batches predict; serve: l2dist, schist, masked_rerank,
+kmeans_assign, counted in the launcher's own process), l2dist exactly once
+a query batch and kmeans_assign exactly kmeans_iters + 1 times a build. The full result is
 also written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
@@ -126,6 +154,8 @@ PATHS = {
     "mutable": ("l2dist", "schist", "masked_rerank"),
     "mutable_gather": ("l2dist", "scscore"),
     "compact": ("kmeans_assign",),
+    "engine": ("l2dist", "schist", "masked_rerank", "scscore"),
+    "serve": ("l2dist", "schist", "masked_rerank", "kmeans_assign"),
 }
 
 
@@ -327,6 +357,8 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         bound_ms=b, bound_by=by,
         library_ms=timed(torch, lambda: torch.cdist(xb, y) ** 2, 200),
         shape=f"{pairs} pairs, x ({q}, {2 * sd * n_sub}), half-dim {sd}, sqrt_k {sqrt_k}")
+    x64 = floats((64, 2 * sd * n_sub))  # the serving engine's bucket of 64
+    res["l2dist"]["bucket64_ms"] = timed(torch, lambda: l2dist_pairs_cuda(x64, slices, y), 200)
 
     # --------------------------------------------------- kmeans_assign --
     # the single-pair entry: the main path's half and a ragged shape
@@ -402,6 +434,10 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}",
         geometry=dict(zip(("tiles", "warps", "smem_bytes", "tile_groups"),
                           schist_geometry(q, n_sub, sqrt_k ** 2))))
+    # the serving engine's batch: the bucket of 64 queries
+    bits, cells = collision_case(n_sub, 64, sqrt_k, n)
+    res["schist"]["bucket64_ms"] = timed(torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=64),
+                                         10)
 
     # --------------------------------------------------------- scscore --
     # the ragged shapes: Q not a multiple of 32, n not a multiple of the chunk
@@ -420,6 +456,8 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         bound_ms=b, bound_by=by, library_ms=None,
         shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
     del sc
+    bits, cells = collision_case(n_sub, 64, sqrt_k, n)
+    res["scscore"]["bucket64_ms"] = timed(torch, lambda: scscore_cuda(bits, cells, q=64), 10)
     torch.cuda.empty_cache()
 
     def rerank_case(shape, data, qs, k):
@@ -509,6 +547,8 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                               + 4 * n + 8 * q * k + words.numel() * 4,
                               q * n * n_sub + total * (2 * d + 3))[0])
         del xd, xi, xwd, xwi
+        args64, _ = rerank_case((n_sub, 64, sqrt_k, n), corpus, queries[:64], k)
+        timings[k]["bucket64_ms"] = timed(torch, lambda: masked_rerank_cuda(*args64, k), 5)
         print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     res["masked_rerank"] = timings[10]
     for name in ("l2dist", "kmeans_assign", "schist", "scscore"):
@@ -615,19 +655,24 @@ def phase_flash(torch) -> dict:
     return {"cases": rows, "launches": launches, "aligned_copies": copies}
 
 
-def profile_search(torch, view, queries, label: str) -> None:
+def profile_search(torch, view, queries, label: str) -> dict:
     """Device time by kernel over one k=10 search of ``view`` (an index
-    with the pipeline to profile), from torch.profiler, and the device's
-    busy share of the window. Only device-side events count: a host-side
-    op (``aten::...``) also reports the device time of the kernels it
-    launched, and summing both would count that time twice."""
+    with the pipeline to profile); see :func:`profile_call`."""
+    return profile_call(torch, lambda: view.search_with_stats(queries, k=10), label)
+
+
+def profile_call(torch, fn, label: str) -> dict:
+    """Device time by kernel over one call of ``fn``, from torch.profiler,
+    and the device's busy share of the window. Only device-side events
+    count: a host-side op (``aten::...``) also reports the device time of
+    the kernels it launched, and summing both would count that time twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        view.search_with_stats(queries, k=10)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -643,12 +688,14 @@ def profile_search(torch, view, queries, label: str) -> None:
     total = sum(r[0] for r in rows)
     if total == 0:
         print(f"profile {label}: no device time in the trace (not measured)", flush=True)
-        return
+        return {"wall_us": wall_us, "device_busy_us": None}
     print(f"profile {label}: window {wall_us:.0f} us (profiled), device busy {total:.0f} us "
           f"({100 * total / wall_us:.1f}%)", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"profile {label}: {dev_us:10.0f} us {100 * dev_us / total:5.1f}% x{count:<5d} "
               f"{key[:90]}", flush=True)
+    return {"wall_us": wall_us, "device_busy_us": total,
+            "top_device": [dict(us=us, count=c, op=key) for us, c, key in rows[:12]]}
 
 
 def profile_build(torch, corpus_np, cfg, label: str):
@@ -1291,6 +1338,385 @@ def phase_mutable(torch, index, corpus_np, queries, gt) -> dict:
     return summary
 
 
+#: the engine phase's stream on an engine whose default is gather: every
+#: third request k = 5, every third beta x 2, every fourth masked-full
+ENGINE_MASKED_EVERY = 4
+
+
+def engine_stream(cfg, queries_np) -> list:
+    """The engine phase's request fields, one request a held-out query."""
+    return [dict(query=q, k=5 if i % 3 == 1 else None,
+                 beta=cfg.beta * 2 if i % 3 == 2 else None,
+                 rerank="masked_full" if i % ENGINE_MASKED_EVERY == 0 else None)
+            for i, q in enumerate(queries_np)]
+
+
+def sync_batches(cfg, stream, max_batch: int):
+    """What one synchronous ``engine.search`` of the whole stream executes:
+    ceil(n / max_batch) batches a (k, cfg) group. Returns (masked-full
+    batches, gather batches, query functions made per bucket)."""
+    from repro_torch.ann.searcher import effective_query_params
+    from repro_torch.batching import ANN_BATCH_BUCKETS, bucket_size
+    from repro_torch.core.config import resolve_rerank
+
+    groups: dict = {}
+    for r in stream:
+        key = effective_query_params(cfg, r["k"], r["beta"], r["rerank"])
+        groups[key] = groups.get(key, 0) + 1
+    buckets = tuple(b for b in ANN_BATCH_BUCKETS if b <= max_batch)
+    masked = gather = 0
+    per_bucket: dict = {}
+    for (_k, c), n in groups.items():
+        sizes = [max_batch] * (n // max_batch) + ([n % max_batch] if n % max_batch else [])
+        if resolve_rerank(c) == "masked_full":
+            masked += len(sizes)
+        else:
+            gather += len(sizes)
+        for b in {bucket_size(x, buckets) for x in sizes}:
+            per_bucket[b] = per_bucket.get(b, 0) + 1
+    return masked, gather, per_bucket
+
+
+def direct_ids(view, stream):
+    """Each request's ids from a direct ``search_with_stats`` of its group
+    (same k, beta, rerank) as one batch through the facade."""
+    import numpy as np
+
+    groups: dict = {}
+    for i, r in enumerate(stream):
+        groups.setdefault((r["k"], r["beta"], r["rerank"]), []).append(i)
+    out = [None] * len(stream)
+    for (k, beta, rerank), idx in groups.items():
+        q = np.stack([stream[i]["query"] for i in idx])
+        ids, _d, _s = view.search_with_stats(q, k=k, beta=beta, rerank=rerank)
+        for row, i in enumerate(idx):
+            out[i] = ids[row]
+    return out
+
+
+def same_share(got, want) -> float:
+    """The share of requests whose ids equal."""
+    import numpy as np
+
+    return float(np.mean([np.array_equal(g, w) for g, w in zip(got, want)]))
+
+
+def produce(engine, reqs, producers: int = 4):
+    """``producers`` threads submit slices of ``reqs`` to an async engine and
+    wait on their futures. Returns (seconds, results by request index (None
+    where shed), AdmissionErrors seen, request ids handed out)."""
+    import threading
+
+    from repro_torch.serving import AdmissionError
+
+    results = [None] * len(reqs)
+    shed = [0] * producers
+    rids: list = []
+    errors: list = []
+
+    def producer(p):
+        try:
+            futures = []
+            for j in range(p, len(reqs), producers):
+                try:
+                    futures.append((j, engine.submit(reqs[j])))
+                except AdmissionError:
+                    shed[p] += 1
+            for j, f in futures:
+                results[j] = f.result(timeout=120.0)
+                rids.append(f.request_id)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(p,)) for p in range(producers)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300.0)
+    secs = time.perf_counter() - t0
+    check(not errors and all(not th.is_alive() for th in threads), f"engine producers: {errors}")
+    return secs, results, sum(shed), rids
+
+
+def engine_row(t: dict, secs: float, n: int) -> dict:
+    """The telemetry numbers an engine run is recorded by."""
+    return dict(seconds=secs, qps=n / secs, telemetry_qps=t["queries_per_sec"],
+                p50_ms=t["latency_p50_s"] * 1e3, p99_ms=t["latency_p99_s"] * 1e3,
+                batches=t["batches"], served=t["requests_served"],
+                compiles_per_bucket=t["compiles_per_bucket"],
+                early_closes=t["batches_closed_early"], deadline_misses=t["deadline_misses"],
+                queue_peak=t["queue_depth_peak"], shed=t["shed"],
+                cache_hits=t["result_cache_hits"])
+
+
+def engine_mutable(torch, view, reqs, queries_np) -> dict:
+    """The mutable engine: churn waves with background compactions swapped
+    into a live async engine while four producers submit; then a batch
+    after the swap against ``mutable.search`` bit for bit, no deleted id,
+    and the recall probes against brute force over the live corpus."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.ann import CompactionPolicy
+    from repro_torch.ann.mutable import churn_wave
+    from repro_torch.serving import AnnRequest
+    from repro_torch.utils import recall_at_k
+
+    m = view.mutable(policy=CompactionPolicy(max_delta_rows=1024))
+    engine = m.engine(max_batch=64, recall_probe_every=50, async_mode=True)
+    engine.search(reqs[:64], timeout=120.0)  # warm-up
+    engine.reset_telemetry()
+    gen0, n0 = engine.index_generation, m.stats()["next_id"]
+    rng = np.random.default_rng(9)
+    live_ids: list = []
+    handles: list = []
+
+    def churn():
+        for _wave in range(8):  # 256 inserts a wave: a compaction every fourth
+            h = churn_wave(m, rng, live_ids, 256, engine=engine, background=True)
+            if h is not None:
+                handles.append(h)
+                h.result(timeout=300.0)
+
+    def run():
+        th = threading.Thread(target=churn)
+        th.start()
+        out = produce(engine, reqs)
+        th.join(300.0)
+        check(not th.is_alive(), "mutable engine: the churn did not finish")
+        return out
+
+    (secs, results, _shed, _rids), launches = run_path(torch, "engine", run)
+    t = engine.telemetry()
+    check(all(r is not None for r in results), "mutable engine: a request was lost")
+    check(len(handles) == 2 and all(h.error is None for h in handles),
+          f"mutable engine: {len(handles)} compactions, expected 2")
+    check(t["index_swaps"] == len(handles) and t["index_generation"] > gen0,
+          "mutable engine: the compaction did not swap into the engine")
+    check(launches["kmeans_assign"] == len(handles) * (view.cfg.kmeans_iters + 1)
+          and launches["l2dist"] == t["batches"],
+          f"mutable engine: launches {launches} vs {t['batches']} batches")
+    row = dict(engine_row(t, secs, len(reqs)), compactions=len(handles),
+               compaction_s=[h.report.duration_s for h in handles],
+               generation=t["index_generation"], swaps=t["index_swaps"],
+               probes=t["recall_probe_count"], probes_skipped=t["recall_probe_skipped"],
+               launches=launches)
+    # after the swap: a batch of 64 equals mutable.search at the same bucket
+    q64 = queries_np[:64]
+    post = engine.search([AnnRequest(query=q) for q in q64], timeout=120.0)
+    want_i, want_d = m.search(q64)
+    got_i, got_d = np.stack([r.ids for r in post]), np.stack([r.dists for r in post])
+    check(np.array_equal(got_i, want_i) and np.array_equal(got_d.view(np.uint32),
+                                                           want_d.view(np.uint32)),
+          "mutable engine: a batch after the swap differs from mutable.search")
+    deleted = np.setdiff1d(np.arange(n0, m.stats()["next_id"]), np.asarray(live_ids))
+    check(deleted.size > 0 and not np.isin(got_i, deleted).any(),
+          "mutable engine: a deleted id was returned")
+    # the probes: one group, one submitter, so the probed requests are every
+    # 50th in submission order; their brute-force recall over the live corpus
+    engine.reset_telemetry()
+    pq = queries_np[:500]
+    futures = [engine.submit(AnnRequest(query=q)) for q in pq]
+    served = np.stack([f.result(timeout=120.0).ids for f in futures])
+    t = engine.telemetry()
+    engine.close()
+    probed = np.arange(49, len(pq), 50)
+    gt_live = live_top10(torch, m, torch.as_tensor(pq[probed]).cuda())
+    bf = recall_at_k(served[probed], gt_live, 10)
+    check(t["recall_probe_count"] == len(probed) and t["recall_probe_skipped"] == 0,
+          f"mutable engine: {t['recall_probe_count']} probes counted")
+    check(abs(t["live_recall_at_k"] - bf) <= 0.01,
+          f"mutable engine: probe recall {t['live_recall_at_k']} vs brute force {bf}")
+    row.update(post_swap_bitwise=True, deleted=int(deleted.size),
+               live_recall_at_k=t["live_recall_at_k"], brute_force_recall_at_10=bf)
+    print(f"engine: mutable {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_engine(torch, index, queries_np, gt) -> dict:
+    """Phase 9: the TaCo index served through ``index.engine`` (gather by
+    default, every fourth request masked-full): sync at max_batch 64 and
+    256 against direct searches with exact launch counts, the result
+    cache's pass (no kernel launched), async with four producers, admission
+    control, the mutable engine across a compaction, and one profiled
+    engine batch of 64 of each pipeline."""
+    import numpy as np
+
+    from repro_torch.kernels import cuda
+    from repro_torch.serving import AnnRequest
+    from repro_torch.utils import recall_at_k
+
+    view = index.replace_cfg(rerank="gather")
+    stream = engine_stream(view.cfg, queries_np)
+    reqs = [AnnRequest(**r) for r in stream]
+    n = len(reqs)
+    direct = direct_ids(view, stream)
+    k10 = [i for i, r in enumerate(stream) if r["k"] is None]
+    direct_rec = recall_at_k(np.stack([direct[i][:10] for i in k10]), gt[k10], 10)
+    summary = {"requests": n, "launches": [], "sync": {}}
+    sync64 = None
+    for max_batch in (64, 256):
+        engine = view.engine(max_batch=max_batch)
+        engine.search(reqs)  # warm-up: every (bucket, k, cfg) key once
+        engine.reset_telemetry()
+        masked_b, gather_b, per_bucket = sync_batches(view.cfg, stream, max_batch)
+        (secs, results), launches = run_path(
+            torch, "engine", lambda: _median_s(torch, lambda: engine.search(reqs), 1),
+            expect={"l2dist": masked_b + gather_b, "schist": masked_b,
+                    "masked_rerank": masked_b, "scscore": gather_b, "kmeans_assign": 0})
+        summary["launches"].append(launches)
+        t = engine.telemetry()
+        check(len(results) == n and t["requests_served"] == n and not engine._undelivered,
+              f"engine sync {max_batch}: not every request answered once")
+        check(t["batches"] == masked_b + gather_b and t["compiles_per_bucket"] == per_bucket,
+              f"engine sync {max_batch}: batches {t['batches']} / compiles "
+              f"{t['compiles_per_bucket']} vs {masked_b + gather_b} / {per_bucket}")
+        ids = [r.ids for r in results]
+        same = same_share(ids, direct)
+        rec = recall_at_k(np.stack([ids[i][:10] for i in k10]), gt[k10], 10)
+        check(same >= 0.999, f"engine sync {max_batch}: ids same as direct {same} < 0.999")
+        check(abs(rec - direct_rec) <= 0.005,
+              f"engine sync {max_batch}: recall@10 {rec} vs direct {direct_rec}")
+        row = dict(engine_row(t, secs, n), masked_batches=masked_b, gather_batches=gather_b,
+                   ids_same_as_direct=same, recall_at_10=rec, direct_recall_at_10=direct_rec,
+                   launches=launches)
+        print(f"engine: sync max_batch {max_batch} {json.dumps(row)}", flush=True)
+        summary["sync"][max_batch] = row
+        if max_batch == 64:
+            sync64 = ids
+
+    # the result cache: the same stream again, every request a hit
+    engine = view.engine(max_batch=64, result_cache_size=2 * n)
+    engine.search(reqs)
+    engine.reset_telemetry()
+    cuda.reset_launch_counts()
+    secs, cached = _median_s(torch, lambda: engine.search(reqs), 1)
+    launches = dict(cuda.launch_counts)
+    t = engine.telemetry()
+    check(set(launches.values()) == {0}, f"engine cached pass launched kernels: {launches}")
+    check(t["result_cache_hits"] == n and all(r.cached for r in cached),
+          f"engine cached pass: {t['result_cache_hits']} hits of {n}")
+    check(same_share([r.ids for r in cached], sync64) >= 0.999, "engine cached pass: ids")
+    summary["cached"] = dict(engine_row(t, secs, n), launches=launches)
+    print(f"engine: cached {json.dumps(summary['cached'])}", flush=True)
+
+    # async: four producers, a 50 ms deadline
+    engine = view.engine(max_batch=64, async_mode=True, default_deadline_s=0.05)
+    engine.search(reqs, timeout=120.0)  # warm-up
+    engine.reset_telemetry()
+    (secs, results, shed, rids), launches = run_path(torch, "engine",
+                                                     lambda: produce(engine, reqs))
+    t = engine.telemetry()
+    engine.close()
+    summary["launches"].append(launches)
+    check(shed == 0 and all(r is not None for r in results) and len(set(rids)) == n
+          and t["requests_served"] == n, "engine async: a request was lost or duplicated")
+    check(launches["l2dist"] == t["batches"]
+          and launches["schist"] == launches["masked_rerank"]
+          and launches["schist"] + launches["scscore"] == t["batches"],
+          f"engine async: launches {launches} vs {t['batches']} batches")
+    same = same_share([r.ids for r in results], sync64)
+    check(same >= 0.999, f"engine async: ids same as sync {same} < 0.999")
+    summary["async"] = dict(engine_row(t, secs, n), ids_same_as_sync=same, launches=launches)
+    print(f"engine: async {json.dumps(summary['async'])}", flush=True)
+
+    # admission control: reject past a queue of 128
+    engine = view.engine(max_batch=64, async_mode=True, default_deadline_s=0.05,
+                         max_queue_depth=128, admission_policy="reject")
+    secs, results, shed, _rids = produce(engine, reqs)
+    t = engine.telemetry()
+    engine.close()
+    served = sum(r is not None for r in results)
+    check(shed == t["shed"] and served + shed == n and t["requests_served"] == served,
+          f"engine admission: producers saw {shed} AdmissionErrors, telemetry {t['shed']}")
+    summary["admission"] = dict(engine_row(t, secs, served), shed_seen=shed)
+    print(f"engine: admission reject {json.dumps(summary['admission'])}", flush=True)
+
+    summary["mutable"] = engine_mutable(torch, view, reqs, queries_np)
+    summary["launches"].append(summary["mutable"]["launches"])
+
+    # one engine batch of 64 of each pipeline: host clock beside the
+    # searcher's own batch of 64, then under the profiler
+    engine = view.engine(max_batch=64)
+    summary["batch64"] = {}
+    q64 = queries_np[:64]
+    for rerank in ("masked_full", "gather"):
+        batch = [AnnRequest(query=q, rerank=rerank) for q in q64]
+        engine.search(batch)
+        engine_s, _ = _median_s(torch, lambda: engine.search(batch), 5)
+        searcher_s, _ = _median_s(torch, lambda: view.search_with_stats(q64, rerank=rerank), 5)
+        row = dict(engine_ms=engine_s * 1e3, searcher_ms=searcher_s * 1e3)
+        print(f"engine: batch of 64 {rerank} {json.dumps(row)}", flush=True)
+        row["profile"] = profile_call(torch, lambda: engine.search(batch), f"engine {rerank} 64")
+        summary["batch64"][rerank] = row
+    torch.cuda.empty_cache()
+    return summary
+
+
+#: ``python -m repro_torch.launch.serve_ann`` as run by the serve phase, with
+#: the kernels' launch counts printed by the same process when it ends
+SERVE_WRAPPER = (
+    "import json, runpy\n"
+    "from repro_torch.kernels import cuda\n"
+    "cuda.reset_launch_counts()\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.serve_ann', run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps(cuda.launch_counts), flush=True)\n"
+)
+
+
+def serve_run(root, args, label: str) -> dict:
+    """One run of the launcher in a child process (its own CUDA context):
+    exit code 0, its printed telemetry, and the launches of the serve
+    path's kernels in that process."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_WRAPPER, *map(str, args)], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=500)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(f"serve {label}: {ln}", flush=True)
+    check(proc.returncode == 0, f"serve {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches "))[9:])
+    for kernel in PATHS["serve"]:
+        check(launches[kernel] > 0, f"kernel {kernel} was not launched on the serve path ({label})")
+    text = "\n".join(lines)
+    served = re.search(r"served (\d+) requests in (\d+) batches", text)
+    lat = re.search(r"p50 latency ([\d.]+) ms\s+p99 ([\d.]+) ms\s+(\d+) queries/s", text)
+    check(served is not None and lat is not None, f"serve {label}: no telemetry printed")
+    return dict(seconds=secs, served=int(served.group(1)), batches=int(served.group(2)),
+                p50_ms=float(lat.group(1)), p99_ms=float(lat.group(2)), qps=float(lat.group(3)),
+                launches=launches, stdout=lines)
+
+
+def phase_serve(root) -> dict:
+    """Phase 10: the launcher at full width: an async churned server with a
+    durable WAL and recall probes that saves its snapshot, then a restart
+    from it that replays the WAL and verifies recovery bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wal, snap = Path(tmp) / "wal", Path(tmp) / "snap"
+        first = serve_run(root, ["--n", 1_000_000, "--d", 128, "--requests", 1000,
+                                 "--pressure", 64, "--async", "--producers", 4,
+                                 "--deadline-ms", 50, "--churn", 256, "--wal-dir", wal,
+                                 "--durability", "async", "--recall-probe-every", 50,
+                                 "--rerank", "masked_full", "--save-index", snap], "first")
+        check(first["served"] == 1000 and "engine swaps" in "\n".join(first["stdout"]),
+              f"serve first: served {first['served']}")
+        second = serve_run(root, ["--load-index", snap, "--wal-dir", wal, "--verify-recovery",
+                                  "--requests", 256], "recovery")
+        check(second["served"] == 256
+              and any("post-compaction bitwise MATCH" in ln for ln in second["stdout"]),
+              "serve recovery: no bitwise MATCH")
+    return {"first": first, "recovery": second}
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -1369,12 +1795,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 8. the mutable index over the same base
     mutable = phase_mutable(torch, index, corpus_np, queries, gt)
+    # 9. the serving engine over the same index, 10. the launcher
+    engine = phase_engine(torch, index, queries_np, gt)
+    del index
+    torch.cuda.empty_cache()
+    serve = phase_serve(root)
 
-    # 8. summary: each kernel's launches over every path run above
+    # 11. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
-                   persist["launches"], *mutable["launches"]):
+                   persist["launches"], *mutable["launches"], *engine["launches"],
+                   serve["first"]["launches"], serve["recovery"]["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -1390,7 +1822,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
                                "kernels": kernels, "flash": flash, "masked": masked,
                                "gather": gather, "persist": persist,
-                               "mutable": mutable}, indent=1))
+                               "mutable": mutable, "engine": engine, "serve": serve},
+                              indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

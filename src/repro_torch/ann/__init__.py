@@ -4,13 +4,15 @@
     index = AnnIndex.build(data, cfg)      # on the card by default
     index.save(path); AnnIndex.load(path)  # the reference's directory format
     index.searcher()                       # owns the (bucket, k, cfg) cache
+    index.engine(...)                      # AnnServingEngine over a Searcher
 
 Mutation rides the same facade (:mod:`repro_torch.ann.mutable` /
 :mod:`repro_torch.ann.compaction`)::
 
     mutable = index.mutable()              # delta segment + tombstones
     ids = mutable.insert(vectors); mutable.delete(ids[:2])
-    mutable.maybe_compact()                # policy-driven rebuild
+    mutable.maybe_compact(engine=engine)   # policy-driven rebuild + atomic
+                                           #   swap on a live engine
     mutable.save(path)                     # ONE-commit base+delta+tombstones
 
 Durability (:mod:`repro_torch.ann.wal`)::

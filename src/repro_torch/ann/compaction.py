@@ -10,8 +10,9 @@ rows never visit the host), run the ordinary
 atomically install the result — replaying whatever mutations landed while
 the build ran (a small in-memory log). Searches never block on a
 compaction; they keep serving the pre-compaction snapshot until the install
-instant. Swapping the result into a live serving engine waits for the
-serving slice of the port: passing ``engine=`` raises.
+instant, and with ``engine=`` the install is then swapped atomically into a
+live :class:`~repro_torch.serving.ann_engine.AnnServingEngine`
+(``swap_index``).
 
 Because the install IS ``AnnIndex.build(live_corpus)`` plus an external-id
 remap, post-compaction search results are bitwise-identical to a
@@ -101,23 +102,15 @@ def compact(mutable, *, engine=None, reason: str = "manual") -> CompactionReport
 
     The build runs on the caller's thread but outside the mutable index's
     lock: concurrent searches serve the old snapshot, concurrent mutations
-    are logged and replayed onto the fresh state at install time. Raises
-    RuntimeError if another compaction is already in progress, and
-    NotImplementedError for an ``engine`` (the reference swaps the result
-    into it; the serving engine is not ported yet).
+    are logged and replayed onto the fresh state at install time. With
+    ``engine`` the installed index is atomically swapped into that live
+    :class:`~repro_torch.serving.ann_engine.AnnServingEngine`. Raises
+    RuntimeError if another compaction is already in progress.
     """
-    _no_engine(engine)
     t0 = obsm.now()
     snap, vecs, ids = mutable._begin_compaction()
     return _run_to_install(mutable, snap, vecs, ids, engine=engine,
                            reason=reason, t0=t0)
-
-
-def _no_engine(engine) -> None:
-    if engine is not None:
-        raise NotImplementedError(
-            "compaction into a serving engine needs the serving engine "
-            "(AnnServingEngine), which repro_torch does not port yet")
 
 
 def _run_to_install(mutable, snap, vecs, ids, *, engine, reason, t0) -> CompactionReport:
@@ -203,7 +196,6 @@ def compact_async(mutable, *, engine=None, reason: str = "background",
     (before this returns), so every mutation from now until the install is
     replayed onto the fresh base — callers keep inserting, deleting and
     searching while the rebuild runs."""
-    _no_engine(engine)
     handle = CompactionHandle()
     t0 = obsm.now()
     snap, vecs, ids = mutable._begin_compaction()  # sync: log starts NOW

@@ -63,19 +63,23 @@ kill -9 mid-churn replays the log past the last snapshot's watermark back
 to the pre-crash state (see
 :func:`repro_torch.ann.persistence.load_mutable_index`).
 
-Serving (``engine()``) is not ported yet: it raises until the serving
-engine lands.
+Serving: :meth:`MutableAnnIndex.engine` wraps a :class:`MutableSearcher`
+in an :class:`~repro_torch.serving.ann_engine.AnnServingEngine` wired for
+churn — every mutation bumps the engine's ``index_generation`` and drops
+its result cache, and the engine's recall probes sample the live corpus.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.ann.compaction import CompactionPolicy, CompactionReport  # noqa: F401
 from repro_torch.ann.index import AnnIndex
-from repro_torch.ann.searcher import AnnBatchResult, Searcher
+from repro_torch.ann.searcher import AnnBatchResult, Searcher, first_by_distance, sq_dists_to
+from repro_torch.batching import ANN_BATCH_BUCKETS
 from repro_torch.core.config import SCConfig, resolve_rerank
 from repro_torch.kernels.masked_rerank import pack_exclusion
 from repro_torch.obs import metrics as obsm
@@ -388,17 +392,20 @@ class MutableSearcher(Searcher):
     """Fan-out searcher over (base − tombstones) ∪ delta.
 
     Reads the owning :class:`MutableAnnIndex`'s current state snapshot per
-    padded batch, so one searcher stays valid across mutations AND
-    compactions — the base query functions live on each base index's own
-    single-device searcher and survive for as long as that base does.
-    Single-device placement only.
+    padded batch, so one searcher (and the engine built on it) stays valid
+    across mutations AND compactions — the base query functions live on
+    each base index's own single-device searcher and survive for as long as
+    that base does. Single-device placement only.
     """
 
-    def __init__(self, mutable: "MutableAnnIndex"):
+    shards = 1
+
+    def __init__(self, mutable: "MutableAnnIndex", *, buckets=ANN_BATCH_BUCKETS):
         # deliberately NOT calling Searcher.__init__: there is no single
         # immutable index to bind; everything routes through `mutable`
         self.mutable = mutable
         self.cfg = mutable.cfg
+        self.buckets = tuple(buckets)
 
     # ------------------------------------------------------------- shims --
     @property
@@ -409,6 +416,11 @@ class MutableSearcher(Searcher):
 
     def _base_searcher(self, st: _State):
         return None if st.base is None else st.base._default_searcher()
+
+    @property
+    def _fns(self):
+        s = self._base_searcher(self.mutable._state)
+        return s._fns if s is not None else {}
 
     @property
     def compile_counts(self):
@@ -427,8 +439,35 @@ class MutableSearcher(Searcher):
     def max_k(self) -> int:
         return max(1, self.mutable._state.n_live)
 
+    def extra_telemetry(self) -> dict:
+        return {"mutable": self.mutable.stats()}
+
     def probe_corpus(self):
         return self.mutable.live_corpus()
+
+    def probe_topk(self, query, k: int) -> np.ndarray | None:
+        """:meth:`Searcher.probe_topk` over the live corpus of one snapshot,
+        on the index's device: the base rows with the tombstones masked
+        (the base is never gathered or copied) and the live delta rows.
+        Base rows then delta rows run in ascending external id (see
+        :class:`_State`), so a stable sort by distance orders by (distance,
+        id)."""
+        st = self.mutable._state
+        if st.n_live == 0:
+            return None
+        q = torch.from_numpy(np.asarray(query, np.float32)).to(st.device)
+        dists, ids = [], []
+        if st.base is not None and st.n_base:
+            d = sq_dists_to(st.base.sc_index.data, q)
+            if st.n_tombstones:
+                d = torch.where(st.tombstones_on_device(), torch.inf, d)
+            dists.append(d)
+            ids.append(st.base_ids_on_device())
+        if st.n_delta_rows:
+            rows, _norms, live, delta_ids = st.delta_padded()
+            dists.append(torch.where(live, sq_dists_to(rows, q), torch.inf))
+            ids.append(delta_ids)
+        return first_by_distance(torch.cat(dists), torch.cat(ids), min(k, st.n_live))
 
     # -------------------------------------------------------------- run --
     def run_padded(self, bucket, k, cfg: SCConfig, queries) -> AnnBatchResult:
@@ -571,6 +610,7 @@ class MutableAnnIndex:
         self._last_compaction_s: float | None = None
         self._log: list | None = None  # mutation log while compacting
         self._searcher: MutableSearcher | None = None
+        self._engines: list = []  # weakrefs to attached serving engines
 
     # -------------------------------------------------------- construction --
     @classmethod
@@ -611,10 +651,11 @@ class MutableAnnIndex:
                     )
             if self._log is not None:
                 self._log.append(("insert", v, ids))
-            self._install(_state_insert(self._state, v, ids))
+            engines = self._install(_state_insert(self._state, v, ids))
         _M_ROWS_INSERTED.inc(v.shape[0])
         with span.child("wal-commit", durability=self.durability):
             self._wal_commit(lsn)
+        self._notify_engines(engines)
         span.finish()
         return ids
 
@@ -636,10 +677,11 @@ class MutableAnnIndex:
                     )
             if self._log is not None:
                 self._log.append(("delete", arr.copy()))
-            self._install(new)
+            engines = self._install(new)
         _M_ROWS_DELETED.inc(arr.size)
         with span.child("wal-commit", durability=self.durability):
             self._wal_commit(lsn)
+        self._notify_engines(engines)
         span.finish()
         return int(arr.size)
 
@@ -655,13 +697,40 @@ class MutableAnnIndex:
         else:
             self._wal.kick()
 
-    def _install(self, st: _State) -> None:
-        """Atomically publish a new state snapshot (callers hold the
-        lock)."""
+    def _install(self, st: _State) -> list:
+        """Atomically publish a new state snapshot (callers hold the lock)
+        and return the attached live engines; the CALLER must pass them to
+        :meth:`_notify_engines` after releasing the lock.
+
+        Notifying outside the lock keeps the lock order one-way (mutable
+        lock -> engine lock would otherwise nest here, while the engine's
+        drain worker holds its own lock for batch formation). The cost is
+        a tiny window where a request can observe the new state before the
+        engine's result cache is invalidated — such a hit serves a
+        pre-install answer stamped with its (old) ``index_generation``, so
+        the consumer can tell; the engine's own generation guard still
+        prevents a result computed against the old state from entering the
+        cache after the notify lands."""
         self._state = st
         self.generation += 1
         self._mutations += 1
         _M_LIVE_ROWS.set(st.n_live)
+        alive, engines = [], []
+        for ref in self._engines:
+            eng = ref()
+            if eng is None:
+                continue
+            alive.append(ref)
+            engines.append(eng)
+        self._engines = alive
+        return engines
+
+    @staticmethod
+    def _notify_engines(engines: list) -> None:
+        """Invalidate attached engines (generation bump + cache drop);
+        called WITHOUT the mutable index's lock held."""
+        for eng in engines:
+            eng.notify_index_mutated()
 
     # -------------------------------------------------------------- query --
     def searcher(self, placement: str = "single") -> MutableSearcher:
@@ -685,12 +754,22 @@ class MutableAnnIndex:
         )
 
     def engine(self, **engine_kwargs):
-        """Not ported yet: the serving engine (``AnnServingEngine``) is the
-        next slice of the port (``ROADMAP.md``, queue 1, serving)."""
-        raise NotImplementedError(
-            "MutableAnnIndex.engine needs the serving engine (AnnServingEngine), "
-            "which repro_torch does not port yet: see ROADMAP.md, queue 1, serving"
+        """An :class:`~repro_torch.serving.ann_engine.AnnServingEngine`
+        serving this mutable index. Mutations and compactions bump the
+        engine's ``index_generation`` and drop its result cache; recall
+        probes (``recall_probe_every=N``) run against the live corpus."""
+        from repro_torch.serving.ann_engine import AnnServingEngine
+
+        st = self._state
+        eng = AnnServingEngine(
+            None if st.base is None else st.base.sc_index,
+            self.cfg,
+            backend=self.searcher(),
+            **engine_kwargs,
         )
+        with self._lock:
+            self._engines.append(weakref.ref(eng))
+        return eng
 
     # ----------------------------------------------------------- lifecycle --
     def live_corpus(self) -> tuple[np.ndarray, np.ndarray]:
@@ -784,7 +863,7 @@ class MutableAnnIndex:
                     st = _state_delete(st, op[1])
             self._log = None
             self._compactions += 1
-            self._install(st)
+            engines = self._install(st)
             lsn = None
             if self._wal is not None:
                 # the marker records that the live corpus up to this LSN is
@@ -794,7 +873,13 @@ class MutableAnnIndex:
                     generation=self.generation, n_live=st.n_live,
                     next_id=self._next_id,
                 )
+        # outside the lock: engine invalidation takes each engine's own
+        # lock (see _install); swap_index below additionally records the
+        # swap and re-binds an engine that was serving a DIFFERENT backend.
         self._wal_commit(lsn)
+        self._notify_engines(engines)
+        if engine is not None:
+            engine.swap_index(self.searcher(), cfg=self.cfg)
         return reclaimed, replayed
 
     # -------------------------------------------------------- persistence --

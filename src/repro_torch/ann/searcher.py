@@ -8,21 +8,27 @@ functions. It owns
     ``max_cached_fns`` entries; per-call ``k``/``beta``/``rerank`` overrides
     become new keys, and ``compile_counts`` counts how often each key was
     made;
-  * **bucketing**: ``search()`` pads a batch up the
-    :data:`~repro_torch.batching.ANN_BATCH_BUCKETS` ladder by repeating its
+  * **bucketing**: ``search()`` pads a batch up the searcher's ``buckets``
+    (default :data:`~repro_torch.batching.ANN_BATCH_BUCKETS`) by repeating its
     last row (every row of the query path is independent, so padding cannot
     change a real row's result);
   * **the return contract**: numpy ``ids`` (Q, k) int32 and ``dists``
     (Q, k) float32, and only the O(Q) stats ``truncated`` and
     ``candidate_count``; the (Q, n) SC matrix stays on the device.
 
+The serving engine's backends (:mod:`repro_torch.serving.ann_engine`) and
+direct :meth:`Searcher.search` calls both run a padded batch through
+:meth:`Searcher.run_padded`.
+
 Only the single-device placement is ported: a cached entry is a plain
 closure over :func:`repro_torch.core.taco.query_with_stats` (the gather
 pipeline syncs the host, so there is no CUDA graph to capture yet). The
 function cache counts into the reference's metric families
 (``taco_searcher_compiles_total``, ``taco_searcher_fn_cache_hits_total``)
-on the port's own registry. The corpus-sharded placement and the kernel
-autotune cache are not ported yet.
+on the port's own registry. The corpus-sharded placement is not ported
+yet. ``autotune_cache=`` is kept for the reference's signature and refuses
+a value: the reference's autotune cache holds Pallas ``(bq, bn)`` blocks,
+and no kernel of the port takes its tiles from such a cache.
 """
 from __future__ import annotations
 
@@ -58,6 +64,8 @@ class AnnBatchResult:
     dists: np.ndarray  # (B, k) float32
     truncated: np.ndarray  # (B,) bool
     candidate_count: np.ndarray  # (B,) int32 re-ranked per query
+    shard_candidates: np.ndarray | None = None  # (B, S) int32 (sharded placement)
+    shard_truncated: np.ndarray | None = None  # (B, S) bool (sharded placement)
 
 
 def effective_query_params(cfg: SCConfig, k=None, beta=None, rerank=None
@@ -81,14 +89,44 @@ def _padded_on(q, bucket: int, device) -> torch.Tensor:
     return torch.cat([q, q[-1:].expand(bucket - q.shape[0], -1)])
 
 
+def no_autotune_cache(autotune_cache) -> None:
+    """Refuse an ``autotune_cache`` (kept for the reference's signature)."""
+    if autotune_cache is not None:
+        raise NotImplementedError(
+            "autotune_cache is not ported to repro_torch: the reference's cache "
+            "holds Pallas (bq, bn) blocks, and no kernel of the port takes its "
+            "tiles from a cache")
+
+
+def sq_dists_to(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(m,) squared distances of ``rows`` (m, d) to one query ``q`` (d,) in
+    the difference form of the reference's recall probe
+    (``einsum("md,md->m", diff, diff)``)."""
+    diff = rows - q[None, :]
+    return torch.sum(diff * diff, dim=1)
+
+
+def first_by_distance(dist: torch.Tensor, ids: torch.Tensor, k: int) -> np.ndarray:
+    """The ``k`` ids of the smallest ``dist`` on the host, ties to the lower
+    position: ``np.lexsort((ids, dist))``'s order where ``ids`` ascend."""
+    return ids[torch.sort(dist, stable=True).indices[:k]].cpu().numpy()
+
+
 class Searcher:
     """Cached-query front end over one placement of an :class:`SCIndex`."""
 
+    #: data shards the corpus is split over (1 = no sharding)
+    shards: int = 1
+
     def __init__(self, index: SCIndex, cfg: SCConfig | None = None, *,
-                 max_cached_fns: int = 64):
+                 max_cached_fns: int = 64, buckets=ANN_BATCH_BUCKETS,
+                 autotune_cache: str | None = None):
+        no_autotune_cache(autotune_cache)
         self.index = index
         self.cfg = cfg
         self.max_cached_fns = int(max_cached_fns)
+        self.autotune_entries_loaded = 0
+        self.buckets = tuple(buckets)
         self._fns: OrderedDict = OrderedDict()  # (bucket, k, cfg) -> callable
         self.compile_counts: dict = {}  # same key -> times made
 
@@ -130,10 +168,26 @@ class Searcher:
         """Largest servable per-request ``k``."""
         return self.index.n
 
+    def extra_telemetry(self) -> dict:
+        """Searcher-specific keys merged into the engine's telemetry()."""
+        return {}
+
     def probe_corpus(self):
         """(vectors, ids) of the corpus this searcher serves, on the host."""
         data = self.index.data.cpu().numpy()
         return data, np.arange(data.shape[0], dtype=np.int64)
+
+    def probe_topk(self, query, k: int) -> np.ndarray | None:
+        """What a recall probe scores against: the ids of the exact top-k of
+        one ``query`` (d,) over the corpus this searcher serves, ordered by
+        (squared distance, id), or None for an empty corpus. Computed on the
+        index's device; only the ids come to the host, never the corpus."""
+        data = self.index.data
+        if data.shape[0] == 0:
+            return None
+        q = torch.from_numpy(np.asarray(query, np.float32)).to(data.device)
+        ids = torch.arange(data.shape[0], device=data.device)
+        return first_by_distance(sq_dists_to(data, q), ids, min(k, data.shape[0]))
 
     def _effective(self, k, beta, rerank) -> tuple[int, SCConfig]:
         if self.cfg is None:
@@ -154,7 +208,7 @@ class Searcher:
         if single:
             q = q[None]
         n_rows = q.shape[0]
-        bucket = bucket_size(n_rows, ANN_BATCH_BUCKETS)
+        bucket = bucket_size(n_rows, self.buckets)
         res = self.run_padded(bucket, k, cfg, _padded_on(q, bucket, self.device))
         stats = {"truncated": res.truncated[:n_rows],
                  "candidate_count": res.candidate_count[:n_rows]}
@@ -202,12 +256,13 @@ class SingleDeviceSearcher(Searcher):
 
 
 def make_searcher(index: SCIndex, cfg: SCConfig | None = None, placement: str = "auto", *,
-                  max_cached_fns: int = 64) -> Searcher:
+                  max_cached_fns: int = 64, autotune_cache: str | None = None) -> Searcher:
     """Placement-resolving :class:`Searcher` factory. ``"single"`` runs on
     the index's device; ``"auto"`` resolves to it, since it is the only
     placement ported; ``"sharded"`` is not ported yet and raises."""
     if placement in ("auto", "single"):
-        return SingleDeviceSearcher(index, cfg, max_cached_fns=max_cached_fns)
+        return SingleDeviceSearcher(index, cfg, max_cached_fns=max_cached_fns,
+                                    autotune_cache=autotune_cache)
     if placement == "sharded":
         raise NotImplementedError(
             "placement='sharded' (the corpus-sharded searcher) is not ported to "

@@ -1,3 +1,3 @@
-from repro_torch.data.vectors import gmm_dataset, make_queries
+from repro_torch.data.vectors import even_shard_total, gmm_dataset, make_queries
 
-__all__ = ["gmm_dataset", "make_queries"]
+__all__ = ["even_shard_total", "gmm_dataset", "make_queries"]

@@ -37,6 +37,15 @@ def gmm_dataset(
     return x.astype(np.float32)
 
 
+def even_shard_total(n: int, held_out: int, shards: int) -> int:
+    """Largest total dataset size <= n such that after holding out
+    ``held_out`` queries (:func:`make_queries`) the corpus splits evenly
+    over ``shards`` data shards. No-op for ``shards <= 1``."""
+    if shards <= 1:
+        return n
+    return (n - held_out) // shards * shards + held_out
+
+
 def make_queries(
     data: np.ndarray, n_queries: int, noise: float = 0.01, seed: int = 1
 ) -> tuple[np.ndarray, np.ndarray]:

@@ -12,6 +12,12 @@ Every C entry point takes device pointers, sizes and a ``cudaStream_t``,
 launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`launch` raises on a nonzero code and adds one
 to the kernel's launch count.
+
+The serving engine's drain worker, a background compaction and the caller
+can launch kernels from several threads at once, so the build, the load
+and the launch counts sit under one module lock: a library that several
+threads first use is built by one ``nvcc`` and loaded once, and no launch is
+lost from the counts.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -36,11 +43,14 @@ NVCC_FLAGS = (
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: guards the build, the load and the launch counts (module docstring)
+_lock = threading.RLock()
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        launch_counts[name] = 0
+    with _lock:
+        for name in KERNELS:
+            launch_counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -69,26 +79,27 @@ def build_all(names=KERNELS) -> dict[str, str]:
     """Compile every library that is not built yet, in parallel. Returns
     each kernel's ``-Xptxas -v`` report (registers, shared memory, spills)
     from this build, or '' where the library was already built."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    reports = {name: "" for name in names}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ), tmp, out)
+        reports = {name: "" for name in names}
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            reports[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
@@ -96,15 +107,19 @@ def build_all(names=KERNELS) -> dict[str, str]:
 
 def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all((name,))
-        lib = ctypes.CDLL(str(path))
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:  # the first use: one thread builds and loads, the rest wait
+        lib = _libs.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
 
 
@@ -126,7 +141,8 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
-    launch_counts[name] += 1
+    with _lock:
+        launch_counts[name] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtypes) -> None:

@@ -33,7 +33,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.flash_attention", "repro_torch.ann.mutable",
             "repro_torch.ann.wal", "repro_torch.ann.compaction", "repro_torch.obs",
             "repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.export",
-            "repro_torch.serving", "repro_torch.serving.scheduler"} <= set(mods)
+            "repro_torch.serving", "repro_torch.serving.scheduler",
+            "repro_torch.serving.ann_engine", "repro_torch.serving.batching",
+            "repro_torch.launch", "repro_torch.launch.serve_ann"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

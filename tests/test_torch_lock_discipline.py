@@ -5,7 +5,8 @@ the card (a host copy synchronises the stream), as does
 ``torch.cuda.synchronize`` and any search; every writer queued behind that
 lock would wait with it. The static lint's B001 sees only JAX dispatch, so
 this scan is the port's own check: every ``with <lock>:`` body (a lock,
-mutex or condition by name), and every function of these files it calls
+mutex or condition by name, the serving engine's ``_work`` and ``_baton``
+conditions included), and every function of these files it calls
 (resolved by name, transitively), must make none of those calls.
 """
 import ast
@@ -38,7 +39,7 @@ def _is_lock(expr) -> bool:
     if not chain:
         return False
     last = chain[-1].lower()
-    return "lock" in last or last in ("_mu", "_cv", "_cond")
+    return "lock" in last or last in ("_mu", "_cv", "_cond", "_work", "_baton")
 
 
 def _functions(trees) -> dict[str, list[ast.AST]]:
@@ -91,10 +92,9 @@ def lock_violations(paths, root: Path = ROOT) -> tuple[list[str], int]:
 
 
 def test_no_torch_sync_or_search_under_a_lock():
-    assert any(p.name == "mutable.py" for p in FILES) and any(
-        p.name == "scheduler.py" for p in FILES)
+    assert {"mutable.py", "scheduler.py", "ann_engine.py"} <= {p.name for p in FILES}
     findings, bodies = lock_violations(FILES)
-    assert bodies >= 20, "the scan no longer finds the port's lock bodies"
+    assert bodies >= 45, "the scan no longer finds the port's lock bodies"
     assert findings == [], "\n".join(findings)
 
 

@@ -319,12 +319,22 @@ def test_background_compaction_replays_concurrent_mutations(corpus):
     assert_parity(m, queries, rerank="masked_full")
 
 
-def test_engine_is_not_ported_yet(churned):
+def test_engine_is_not_ported_yet(churned, corpus):
+    """Once a gap, now a gate: ``engine()`` serves the mutable index and
+    ``compact(engine=...)`` swaps the install into it (the engine cases are
+    in tests/test_torch_engine.py); sharded placement still raises."""
+    from repro_torch.serving import AnnRequest, AnnServingEngine
+
     m, _ = churned
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.engine()
-    with pytest.raises(NotImplementedError, match="serving engine"):
-        m.compact(engine=object())
+    engine = m.engine(max_batch=8)
+    assert isinstance(engine, AnnServingEngine)
+    queries = corpus[2]
+    res = engine.search([AnnRequest(query=q) for q in queries])
+    want_i, want_d = oracle_search(m, queries)
+    np.testing.assert_array_equal(np.stack([r.ids for r in res]), want_i)
+    np.testing.assert_array_equal(np.stack([r.dists for r in res]), want_d)
+    m.compact(engine=engine)
+    assert engine.telemetry()["index_swaps"] == 1
     with pytest.raises(ValueError, match="placement='single'"):
         m.searcher("sharded")
 
@@ -580,17 +590,23 @@ lockcheck_on = pytest.mark.skipif(
 @lockcheck_on
 def test_port_locks_join_the_lock_order_checker(corpus, tmp_path, monkeypatch):
     """The port's locks are instrumented by pointing the ``threading`` of
-    its mutable index, WAL and scheduler at the checker's proxy (the
-    session fixture's registry then records their edges); async group
-    commit and a background compaction under concurrent mutation record
-    the index-lock -> WAL-mutex edge and no violation."""
+    its mutable index, WAL, scheduler and serving engine at the checker's
+    proxy (the session fixture's registry then records their edges); async
+    group commit, an async engine with recall probes and a background
+    compaction swapped into it under concurrent mutation record the
+    index-lock -> WAL-mutex and engine-lock -> WAL-mutex edges (telemetry
+    reads the WAL's stats), never the index lock held while an engine's is
+    taken (engines are notified after the index lock is released), and no
+    violation."""
     from repro.analysis import lockcheck
     from repro_torch.ann import mutable as mmod
     from repro_torch.ann import wal as wmod
+    from repro_torch.serving import AnnRequest
+    from repro_torch.serving import ann_engine as emod
     from repro_torch.serving import scheduler as smod
 
     proxy = lockcheck._ThreadingProxy()
-    for mod in (mmod, wmod, smod):
+    for mod in (mmod, wmod, smod, emod):
         monkeypatch.setattr(mod, "threading", proxy)
     monkeypatch.setattr(smod, "_shared", None)  # a fresh, instrumented pool
     reg = lockcheck.registry()
@@ -598,12 +614,23 @@ def test_port_locks_join_the_lock_order_checker(corpus, tmp_path, monkeypatch):
     m = AnnIndex.build(data, exhaustive_cfg(), device=CPU).mutable(
         durability="async", wal_dir=str(tmp_path / "wal"))
     assert isinstance(m._lock, lockcheck._InstrumentedLock)
-    handle = m.compact_async()
+    engine = m.engine(max_batch=4, async_mode=True, recall_probe_every=2,
+                      result_cache_size=8)
+    assert isinstance(engine._lock, lockcheck._InstrumentedLock)
+    futures = [engine.submit(AnnRequest(query=q)) for q in queries]
+    handle = m.compact_async(engine=engine)
     new = m.insert(extra[:6])
     m.delete([int(new[0]), 5])
     handle.result(timeout=120)
+    futures += [engine.submit(AnnRequest(query=q)) for q in queries]
+    assert all(f.result(timeout=120).ids.shape == (K,) for f in futures)
+    t = engine.telemetry()
+    engine.close()
     m.close()
+    assert t["index_swaps"] == 1 and "wal" in t
     assert (m._lock.site, m._wal._mu.site) in reg.edges
+    assert (engine._lock.site, m._wal._mu.site) in reg.edges
+    assert (m._lock.site, engine._lock.site) not in reg.edges
     assert reg.violations == []
     assert_parity(m, queries)
     smod.get_shared_pool().shutdown()
