@@ -25,7 +25,10 @@ Phases, in order; any failure exits nonzero:
                tombstone bitmap (10 % excluded, integer inputs, bitwise; 1 %
                at the main path's shapes, timed beside the kernel without
                one) must equal its plain version and return no excluded
-               point;
+               point; l2dist, schist, scscore and masked_rerank (k = 10 and
+               100) are also held against their plain versions at every
+               bucket the serving engine pads a batch to (1 to 256 queries)
+               over the 10^6 points, and timed at the bucket of 64;
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -88,15 +91,17 @@ Phases, in order; any failure exits nonzero:
                batch after the swap equals mutable.search bit for bit, no
                deleted id, probe recall within 0.01 of brute force over the
                live corpus); one engine batch of 64 of each pipeline under
-               torch.profiler; the three query kernels and l2dist are also
-               timed at the bucket of 64 in the kernels phase;
+               torch.profiler; host seconds of each step are printed;
  10. serve   — python -m repro_torch.launch.serve_ann in a child process at
                10^6 x 128: async, four producers, a 50 ms deadline, churn
                with a durable WAL and compactions swapped into the engine,
                recall probes, masked-full, a mutable save; then a restart
                from the save that replays the WAL and verifies recovery
-               (post-compaction bitwise MATCH); each must exit 0, print its
-               telemetry and launch the path's kernels in its process;
+               (post-compaction bitwise MATCH); then the engine phase's index
+               saved with use_kernels off (the default config), which the
+               launcher must serve through the gather path's kernels; each
+               must exit 0, print its telemetry and launch the path's
+               kernels in its process;
  11. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
@@ -108,9 +113,11 @@ masked_rerank, scscore; mutable: l2dist, schist and masked_rerank exactly
 once a masked-full batch, l2dist and scscore once a gather batch; compact:
 kmeans_assign; engine: l2dist, schist, masked_rerank, scscore, exactly as
 the sync runs' batches predict; serve: l2dist, schist, masked_rerank,
-kmeans_assign, counted in the launcher's own process), l2dist exactly once
-a query batch and kmeans_assign exactly kmeans_iters + 1 times a build. The full result is
-also written to chiprun_out/chip_smoke.json.
+kmeans_assign, and for the default-config save l2dist and scscore, counted
+in the launcher's own process), l2dist exactly once a query batch and
+kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
+seconds are printed (``phase ...:`` lines). The full result is also
+written to chiprun_out/chip_smoke.json.
 
 It imports nothing of the JAX package; the corpus comes from the port's own
 seeded gmm_dataset.
@@ -156,6 +163,7 @@ PATHS = {
     "compact": ("kmeans_assign",),
     "engine": ("l2dist", "schist", "masked_rerank", "scscore"),
     "serve": ("l2dist", "schist", "masked_rerank", "kmeans_assign"),
+    "serve_load": ("l2dist", "scscore"),
 }
 
 
@@ -271,6 +279,85 @@ def kmeans_pairs_case(torch, label: str, n: int, k: int, dims, ints, floats,
     return row
 
 
+def engine_buckets(torch, res, timings, floats, collision_case, rerank_case, compare_rerank,
+                   corpus, queries, scale_atol) -> None:
+    """The serving engine pads each batch up the bucket ladder, so each
+    kernel of its path runs at every bucket over the 10^6 points: each is
+    held there against its plain version on the same inputs, as at the main
+    path's Q above. ``schist`` and ``scscore`` bit for bit (and every
+    histogram row sums to n); the batched ``l2dist`` bit for bit against one
+    launch a pair and within the float tolerance of the plain version;
+    ``masked_rerank`` at k 10 and 100: the filled slots and the dists at
+    every bucket, its ids >= 99.9 % equal at each bucket from 64 up and
+    over the buckets below 64 together (one near-tie swap there is already
+    more than 0.1 % of a bucket). Each kernel is then timed at 64,
+    ``max_batch``'s default. Recorded under each kernel's ``buckets``
+    (max_abs_err by bucket) and ``bucket64_ms``."""
+    from repro_torch.batching import ANN_BATCH_BUCKETS
+    from repro_torch.core.taco import _half_slices
+    from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_pairs_cuda, l2dist_pairs_plain
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda
+    from repro_torch.kernels.schist import schist_cuda, schist_geometry, schist_plain
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
+
+    n_sub, sqrt_k, sd, n = 6, 32, 4, corpus.shape[0]
+    slices = _half_slices((2 * sd,) * n_sub)
+    y = floats((2 * n_sub, sqrt_k, sd))
+    for name in ("l2dist", "schist", "scscore"):
+        res[name]["buckets"] = {}
+    for k in (10, 100):
+        timings[k]["buckets"] = {}
+    small = {10: [0, 0], 100: [0, 0]}  # ids equal, ids compared in buckets below 64
+    for b in ANN_BATCH_BUCKETS:
+        x = floats((b, 2 * sd * n_sub))
+        got = l2dist_pairs_cuda(x, slices, y)
+        singles = torch.stack([l2dist_cuda(x[:, c:c + w].contiguous(), y[p])
+                               for p, (c, w) in enumerate(slices)])
+        check(torch.equal(got, singles), f"l2dist pairs vs single launches, bucket {b}")
+        want = l2dist_pairs_plain(x, slices, y)
+        check(torch.allclose(got, want, rtol=1e-5, atol=scale_atol(x, y.flatten(0, 1))),
+              f"l2dist pairs float, bucket {b}")
+        res["l2dist"]["buckets"][b] = float((got - want).abs().max())
+        bits, cells = collision_case(n_sub, b, sqrt_k, n)
+        hist = schist_cuda(bits, cells, n_sub + 1, q=b)
+        check(torch.equal(hist, schist_plain(bits, cells, n_sub + 1, q=b)), f"schist, bucket {b}")
+        check(bool((hist.sum(1) == n).all()), f"schist counts, bucket {b}")
+        res["schist"]["buckets"][b] = 0.0
+        sc = scscore_cuda(bits, cells, q=b)
+        check(torch.equal(sc, scscore_plain(bits, cells, q=b)), f"scscore, bucket {b}")
+        res["scscore"]["buckets"][b] = 0.0
+        del sc
+        if b == 64:
+            res["l2dist"]["bucket64_ms"] = timed(torch, lambda: l2dist_pairs_cuda(x, slices, y),
+                                                 200)
+            res["schist"]["bucket64_ms"] = timed(
+                torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=b), 10)
+            res["schist"]["bucket64_geometry"] = dict(zip(
+                ("tiles", "warps", "smem_bytes", "tile_groups"),
+                schist_geometry(b, n_sub, sqrt_k ** 2)))
+            res["scscore"]["bucket64_ms"] = timed(torch, lambda: scscore_cuda(bits, cells, q=b),
+                                                  10)
+        for k in (10, 100):
+            args_, _ = rerank_case((n_sub, b, sqrt_k, n), corpus, queries[:b], k)
+            gd, gi, wd, wi = compare_rerank(args_, k, False, f"bucket {b} k={k}",
+                                            min_agree=0.999 if b >= 64 else 0.0)
+            fin = torch.isfinite(wd)
+            same = int((gi == wi).sum())
+            timings[k]["buckets"][b] = dict(
+                max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+                ids_agree=same / gi.numel())
+            if b < 64:
+                small[k][0] += same
+                small[k][1] += gi.numel()
+            if b == 64:
+                timings[k]["bucket64_ms"] = timed(torch, lambda: masked_rerank_cuda(*args_, k), 5)
+            del gd, gi, wd, wi
+    for k, (same, total) in small.items():
+        check(same >= 0.999 * total,
+              f"masked_rerank ids agree {same / total:.5f} < 0.999 over buckets below 64, k={k}")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, corpus, queries, rng) -> dict:
     """Phase 3: every ANN kernel against its plain version on the card."""
     import numpy as np
@@ -357,8 +444,6 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         bound_ms=b, bound_by=by,
         library_ms=timed(torch, lambda: torch.cdist(xb, y) ** 2, 200),
         shape=f"{pairs} pairs, x ({q}, {2 * sd * n_sub}), half-dim {sd}, sqrt_k {sqrt_k}")
-    x64 = floats((64, 2 * sd * n_sub))  # the serving engine's bucket of 64
-    res["l2dist"]["bucket64_ms"] = timed(torch, lambda: l2dist_pairs_cuda(x64, slices, y), 200)
 
     # --------------------------------------------------- kmeans_assign --
     # the single-pair entry: the main path's half and a ragged shape
@@ -434,10 +519,6 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}",
         geometry=dict(zip(("tiles", "warps", "smem_bytes", "tile_groups"),
                           schist_geometry(q, n_sub, sqrt_k ** 2))))
-    # the serving engine's batch: the bucket of 64 queries
-    bits, cells = collision_case(n_sub, 64, sqrt_k, n)
-    res["schist"]["bucket64_ms"] = timed(torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=64),
-                                         10)
 
     # --------------------------------------------------------- scscore --
     # the ragged shapes: Q not a multiple of 32, n not a multiple of the chunk
@@ -456,8 +537,6 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         bound_ms=b, bound_by=by, library_ms=None,
         shape=f"Q {q}, N_s {n_sub}, K {sqrt_k ** 2}, n {n}")
     del sc
-    bits, cells = collision_case(n_sub, 64, sqrt_k, n)
-    res["scscore"]["bucket64_ms"] = timed(torch, lambda: scscore_cuda(bits, cells, q=64), 10)
     torch.cuda.empty_cache()
 
     def rerank_case(shape, data, qs, k):
@@ -468,7 +547,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         norms = (data * data).sum(1)
         return (bits, cells, thresh, qs, data, norms), demand
 
-    def compare_rerank(args_, k, exact: bool, what: str, exclude=None):
+    def compare_rerank(args_, k, exact: bool, what: str, exclude=None, min_agree=0.999):
         gd, gi = masked_rerank_cuda(*args_, k, exclude)
         wd, wi = masked_rerank_plain(*args_, k, exclude)
         if exact:
@@ -479,7 +558,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         check(torch.equal(fin, torch.isfinite(gd)), f"masked_rerank filled slots {what}")
         atol = scale_atol(args_[3], args_[4])
         check(torch.allclose(gd[fin], wd[fin], rtol=1e-5, atol=atol), f"masked_rerank dists {what}")
-        check(agree >= 0.999, f"masked_rerank ids agree {agree:.5f} < 0.999 {what}")
+        check(agree >= min_agree, f"masked_rerank ids agree {agree:.5f} < {min_agree} {what}")
         return gd, gi, wd, wi
 
     for shape, d, k in (((n_sub, q, sqrt_k, 65536), 128, 10),
@@ -547,10 +626,11 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                               + 4 * n + 8 * q * k + words.numel() * 4,
                               q * n * n_sub + total * (2 * d + 3))[0])
         del xd, xi, xwd, xwi
-        args64, _ = rerank_case((n_sub, 64, sqrt_k, n), corpus, queries[:64], k)
-        timings[k]["bucket64_ms"] = timed(torch, lambda: masked_rerank_cuda(*args64, k), 5)
-        print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     res["masked_rerank"] = timings[10]
+    engine_buckets(torch, res, timings, floats, collision_case, rerank_case, compare_rerank,
+                   corpus, queries, scale_atol)
+    for k in (10, 100):
+        print(f"kernel masked_rerank k={k}: {json.dumps(timings[k])}", flush=True)
     for name in ("l2dist", "kmeans_assign", "schist", "scscore"):
         print(f"kernel {name}: {json.dumps(res[name])}", flush=True)
     torch.cuda.empty_cache()
@@ -1404,13 +1484,15 @@ def same_share(got, want) -> float:
 def produce(engine, reqs, producers: int = 4):
     """``producers`` threads submit slices of ``reqs`` to an async engine and
     wait on their futures. Returns (seconds, results by request index (None
-    where shed), AdmissionErrors seen, request ids handed out)."""
+    where shed), AdmissionErrors seen, request ids handed out, seconds until
+    the last producer's last ``submit()`` had returned)."""
     import threading
 
     from repro_torch.serving import AdmissionError
 
     results = [None] * len(reqs)
     shed = [0] * producers
+    submitted = [0.0] * producers
     rids: list = []
     errors: list = []
 
@@ -1422,6 +1504,7 @@ def produce(engine, reqs, producers: int = 4):
                     futures.append((j, engine.submit(reqs[j])))
                 except AdmissionError:
                     shed[p] += 1
+            submitted[p] = time.perf_counter() - t0
             for j, f in futures:
                 results[j] = f.result(timeout=120.0)
                 rids.append(f.request_id)
@@ -1436,7 +1519,7 @@ def produce(engine, reqs, producers: int = 4):
         th.join(300.0)
     secs = time.perf_counter() - t0
     check(not errors and all(not th.is_alive() for th in threads), f"engine producers: {errors}")
-    return secs, results, sum(shed), rids
+    return secs, results, sum(shed), rids, max(submitted)
 
 
 def engine_row(t: dict, secs: float, n: int) -> dict:
@@ -1488,7 +1571,7 @@ def engine_mutable(torch, view, reqs, queries_np) -> dict:
         check(not th.is_alive(), "mutable engine: the churn did not finish")
         return out
 
-    (secs, results, _shed, _rids), launches = run_path(torch, "engine", run)
+    (secs, results, _shed, _rids, submit_s), launches = run_path(torch, "engine", run)
     t = engine.telemetry()
     check(all(r is not None for r in results), "mutable engine: a request was lost")
     check(len(handles) == 2 and all(h.error is None for h in handles),
@@ -1498,7 +1581,7 @@ def engine_mutable(torch, view, reqs, queries_np) -> dict:
     check(launches["kmeans_assign"] == len(handles) * (view.cfg.kmeans_iters + 1)
           and launches["l2dist"] == t["batches"],
           f"mutable engine: launches {launches} vs {t['batches']} batches")
-    row = dict(engine_row(t, secs, len(reqs)), compactions=len(handles),
+    row = dict(engine_row(t, secs, len(reqs)), submit_s=submit_s, compactions=len(handles),
                compaction_s=[h.report.duration_s for h in handles],
                generation=t["index_generation"], swaps=t["index_swaps"],
                probes=t["recall_probe_count"], probes_skipped=t["recall_probe_skipped"],
@@ -1548,6 +1631,7 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
     from repro_torch.serving import AnnRequest
     from repro_torch.utils import recall_at_k
 
+    t0 = time.perf_counter()
     view = index.replace_cfg(rerank="gather")
     stream = engine_stream(view.cfg, queries_np)
     reqs = [AnnRequest(**r) for r in stream]
@@ -1555,7 +1639,15 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
     direct = direct_ids(view, stream)
     k10 = [i for i, r in enumerate(stream) if r["k"] is None]
     direct_rec = recall_at_k(np.stack([direct[i][:10] for i in k10]), gt[k10], 10)
-    summary = {"requests": n, "launches": [], "sync": {}}
+    summary = {"requests": n, "launches": [], "sync": {}, "step_seconds": {}}
+    steps = summary["step_seconds"]
+
+    def step(name):  # host seconds of each step, its warm-up and checks included
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    step("direct")
     sync64 = None
     for max_batch in (64, 256):
         engine = view.engine(max_batch=max_batch)
@@ -1586,6 +1678,7 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
         summary["sync"][max_batch] = row
         if max_batch == 64:
             sync64 = ids
+        step(f"sync{max_batch}")
 
     # the result cache: the same stream again, every request a hit
     engine = view.engine(max_batch=64, result_cache_size=2 * n)
@@ -1601,13 +1694,14 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
     check(same_share([r.ids for r in cached], sync64) >= 0.999, "engine cached pass: ids")
     summary["cached"] = dict(engine_row(t, secs, n), launches=launches)
     print(f"engine: cached {json.dumps(summary['cached'])}", flush=True)
+    step("cached")
 
     # async: four producers, a 50 ms deadline
     engine = view.engine(max_batch=64, async_mode=True, default_deadline_s=0.05)
     engine.search(reqs, timeout=120.0)  # warm-up
     engine.reset_telemetry()
-    (secs, results, shed, rids), launches = run_path(torch, "engine",
-                                                     lambda: produce(engine, reqs))
+    (secs, results, shed, rids, submit_s), launches = run_path(torch, "engine",
+                                                               lambda: produce(engine, reqs))
     t = engine.telemetry()
     engine.close()
     summary["launches"].append(launches)
@@ -1619,23 +1713,27 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
           f"engine async: launches {launches} vs {t['batches']} batches")
     same = same_share([r.ids for r in results], sync64)
     check(same >= 0.999, f"engine async: ids same as sync {same} < 0.999")
-    summary["async"] = dict(engine_row(t, secs, n), ids_same_as_sync=same, launches=launches)
+    summary["async"] = dict(engine_row(t, secs, n), submit_s=submit_s, ids_same_as_sync=same,
+                            launches=launches)
     print(f"engine: async {json.dumps(summary['async'])}", flush=True)
+    step("async")
 
     # admission control: reject past a queue of 128
     engine = view.engine(max_batch=64, async_mode=True, default_deadline_s=0.05,
                          max_queue_depth=128, admission_policy="reject")
-    secs, results, shed, _rids = produce(engine, reqs)
+    secs, results, shed, _rids, submit_s = produce(engine, reqs)
     t = engine.telemetry()
     engine.close()
     served = sum(r is not None for r in results)
     check(shed == t["shed"] and served + shed == n and t["requests_served"] == served,
           f"engine admission: producers saw {shed} AdmissionErrors, telemetry {t['shed']}")
-    summary["admission"] = dict(engine_row(t, secs, served), shed_seen=shed)
+    summary["admission"] = dict(engine_row(t, secs, served), submit_s=submit_s, shed_seen=shed)
     print(f"engine: admission reject {json.dumps(summary['admission'])}", flush=True)
+    step("admission")
 
     summary["mutable"] = engine_mutable(torch, view, reqs, queries_np)
     summary["launches"].append(summary["mutable"]["launches"])
+    step("mutable")
 
     # one engine batch of 64 of each pipeline: host clock beside the
     # searcher's own batch of 64, then under the profiler
@@ -1651,20 +1749,27 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
         print(f"engine: batch of 64 {rerank} {json.dumps(row)}", flush=True)
         row["profile"] = profile_call(torch, lambda: engine.search(batch), f"engine {rerank} 64")
         summary["batch64"][rerank] = row
+    step("batch64")
+    print(f"engine: step seconds {json.dumps(steps)}", flush=True)
     torch.cuda.empty_cache()
     return summary
 
 
 #: ``python -m repro_torch.launch.serve_ann`` as run by the serve phase, with
-#: the kernels' launch counts printed by the same process when it ends
+#: the kernels' launch counts printed by the same process when it ends, and
+#: its seconds from the parent's spawn to the end of the imports and from
+#: there to the end of the run
 SERVE_WRAPPER = (
-    "import json, runpy\n"
+    "import json, os, runpy, time\n"
     "from repro_torch.kernels import cuda\n"
+    "t1 = time.time()\n"
     "cuda.reset_launch_counts()\n"
     "try:\n"
     "    runpy.run_module('repro_torch.launch.serve_ann', run_name='__main__', alter_sys=True)\n"
     "finally:\n"
     "    print('launches ' + json.dumps(cuda.launch_counts), flush=True)\n"
+    "    print('timing ' + json.dumps({'start_s': t1 - float(os.environ['SERVE_T0']),\n"
+    "                                  'run_s': time.time() - t1}), flush=True)\n"
 )
 
 
@@ -1673,9 +1778,8 @@ def serve_run(root, args, label: str) -> dict:
     exit code 0, its printed telemetry, and the launches of the serve
     path's kernels in that process."""
     import os
-    import re
 
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), SERVE_T0=repr(time.time()))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", SERVE_WRAPPER, *map(str, args)], cwd=root,
                           env=env, capture_output=True, text=True, timeout=500)
@@ -1685,21 +1789,32 @@ def serve_run(root, args, label: str) -> dict:
         print(f"serve {label}: {ln}", flush=True)
     check(proc.returncode == 0, f"serve {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
     launches = json.loads(next(ln for ln in lines if ln.startswith("launches "))[9:])
+    timing = json.loads(next(ln for ln in lines if ln.startswith("timing "))[7:])
     for kernel in PATHS["serve"]:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched on the serve path ({label})")
+    return dict(seconds=secs, **served_telemetry(lines, label), launches=launches, **timing,
+                stdout=lines)
+
+
+def served_telemetry(lines, label: str) -> dict:
+    """The launcher's printed served count, batches, p50/p99 and QPS."""
+    import re
+
     text = "\n".join(lines)
     served = re.search(r"served (\d+) requests in (\d+) batches", text)
     lat = re.search(r"p50 latency ([\d.]+) ms\s+p99 ([\d.]+) ms\s+(\d+) queries/s", text)
     check(served is not None and lat is not None, f"serve {label}: no telemetry printed")
-    return dict(seconds=secs, served=int(served.group(1)), batches=int(served.group(2)),
-                p50_ms=float(lat.group(1)), p99_ms=float(lat.group(2)), qps=float(lat.group(3)),
-                launches=launches, stdout=lines)
+    return dict(served=int(served.group(1)), batches=int(served.group(2)),
+                p50_ms=float(lat.group(1)), p99_ms=float(lat.group(2)), qps=float(lat.group(3)))
 
 
-def phase_serve(root) -> dict:
+def phase_serve(torch, root, index) -> dict:
     """Phase 10: the launcher at full width: an async churned server with a
     durable WAL and recall probes that saves its snapshot, then a restart
-    from it that replays the WAL and verifies recovery bit for bit."""
+    from it that replays the WAL and verifies recovery bit for bit; then
+    the engine phase's index saved with ``use_kernels`` off (as the default
+    config saves it), which the launcher must serve through the gather
+    path's kernels on the card."""
     with tempfile.TemporaryDirectory() as tmp:
         wal, snap = Path(tmp) / "wal", Path(tmp) / "snap"
         first = serve_run(root, ["--n", 1_000_000, "--d", 128, "--requests", 1000,
@@ -1714,7 +1829,36 @@ def phase_serve(root) -> dict:
         check(second["served"] == 256
               and any("post-compaction bitwise MATCH" in ln for ln in second["stdout"]),
               "serve recovery: no bitwise MATCH")
-    return {"first": first, "recovery": second}
+        plain = Path(tmp) / "plain"
+        index.replace_cfg(use_kernels=False, rerank="gather").save(str(plain))
+        third = serve_in_process(torch, ["--load-index", str(plain), "--requests", "256",
+                                         "--pressure", "64", "--mixed"])
+    return {"first": first, "recovery": second, "default_config": third}
+
+
+def serve_in_process(torch, args) -> dict:
+    """The launcher's ``main`` in this process (a child would add its own
+    start) on a save whose config has ``use_kernels`` off: it must say it
+    serves through the kernels, and launch the gather path's."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_ann
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results, launches = run_path(torch, "serve_load", lambda: serve_ann.main(args))
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print(f"serve default config: {ln}", flush=True)
+    row = served_telemetry(lines, "default config")
+    check(len(results) == row["served"] == 256 and launches["schist"] == 0
+          and launches["masked_rerank"] == 0
+          and any("through the CUDA kernels" in ln for ln in lines),
+          "serve default config: not served through the gather path's kernels")
+    return dict(seconds=secs, **row, launches=launches, stdout=lines)
 
 
 def brute_force_top10(torch, corpus, queries):
@@ -1775,11 +1919,20 @@ def main(argv=None) -> int:
     queries = torch.as_tensor(queries_np).cuda()
     gt = brute_force_top10(torch, corpus, queries)
 
+    phase_seconds = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_seconds[name]:.2f} s", flush=True)
+        return out
+
     # 3. ANN kernels against plain versions, 4. flash attention
-    kernels = phase_kernels(torch, corpus, queries, rng)
+    kernels = phase("kernels", phase_kernels, torch, corpus, queries, rng)
     del corpus
     torch.cuda.empty_cache()
-    flash = phase_flash(torch)
+    flash = phase("flash", phase_flash, torch)
     flash["ptxas"] = ptxas["flash_attention"]
     kernels["masked_rerank"]["ptxas"] = ptxas["masked_rerank"]
     for name in ("flash_attention", "masked_rerank"):
@@ -1787,26 +1940,27 @@ def main(argv=None) -> int:
                   for ln in ptxas[name] if "spill" in ln), f"{name}: ptxas reports spills")
     kernels["flash_attention"] = flash["cases"][0]
     # 5. masked-full path, 6. gather path, 7. save / load
-    index, masked, masked_runs = phase_masked(torch, corpus_np, queries, gt)
-    gather, suco = phase_gather(torch, index, corpus_np, queries, gt, masked_runs)
+    index, masked, masked_runs = phase("masked", phase_masked, torch, corpus_np, queries, gt)
+    gather, suco = phase("gather", phase_gather, torch, index, corpus_np, queries, gt,
+                         masked_runs)
     del masked_runs
-    persist = phase_persist(torch, index, suco, queries)
+    persist = phase("persist", phase_persist, torch, index, suco, queries)
     del suco
     torch.cuda.empty_cache()
     # 8. the mutable index over the same base
-    mutable = phase_mutable(torch, index, corpus_np, queries, gt)
+    mutable = phase("mutable", phase_mutable, torch, index, corpus_np, queries, gt)
     # 9. the serving engine over the same index, 10. the launcher
-    engine = phase_engine(torch, index, queries_np, gt)
-    del index
+    engine = phase("engine", phase_engine, torch, index, queries_np, gt)
     torch.cuda.empty_cache()
-    serve = phase_serve(root)
+    serve = phase("serve", phase_serve, torch, root, index)
+    del index
 
     # 11. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
                    persist["launches"], *mutable["launches"], *engine["launches"],
-                   serve["first"]["launches"], serve["recovery"]["launches"]):
+                   *(run["launches"] for run in serve.values())):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -1822,7 +1976,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
                                "kernels": kernels, "flash": flash, "masked": masked,
                                "gather": gather, "persist": persist,
-                               "mutable": mutable, "engine": engine, "serve": serve},
+                               "mutable": mutable, "engine": engine, "serve": serve,
+                               "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,8 +7,11 @@ is no fallback), then serves a stream of requests in waves of
 ``--pressure`` concurrent requests through an
 :class:`~repro_torch.serving.ann_engine.AnnServingEngine`. A fresh build's
 config asks for the kernels (``use_kernels=True``), so on the card the
-build and the queries run through the port's CUDA kernels; a loaded index
-keeps its saved config.
+build and the queries run through the port's CUDA kernels. A loaded index
+keeps the rest of its saved config, but on the card it too is served
+through the kernels, whatever ``use_kernels`` it was saved with (the
+reference's default saves it off, and the plain PyTorch path on the card is
+tens of times slower); on the CPU the saved config stays as it is.
 
 Index lifecycle: ``--save-index DIR`` persists the built index (atomic
 npz + manifest, the reference's format); ``--load-index DIR`` starts the
@@ -58,6 +61,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import threading
 
 import numpy as np
@@ -215,7 +219,7 @@ def main(argv=None):
             )
             replayed = (0 if mutable._wal is None
                         else mutable._wal.records_replayed)
-            cfg = mutable.cfg
+            cfg = mutable.cfg = kernels_on_card(mutable.cfg, device)
             print(f"loaded mutable index from {args.load_index}: "
                   f"n_live={mutable.n_live} d={mutable.d} "
                   f"(replayed {replayed} WAL records, "
@@ -231,6 +235,7 @@ def main(argv=None):
                          "--wal-dir replay needs a mutable save "
                          "(serve_ann --churn --wal-dir --save-index)")
             index = AnnIndex.load(args.load_index, device=device)
+            index = AnnIndex(sc_index=index.sc_index, cfg=kernels_on_card(index.cfg, device))
             # only an EXPLICIT --rerank overrides the saved config
             if args.rerank is not None and args.rerank != index.cfg.rerank:
                 index = index.replace_cfg(rerank=args.rerank)
@@ -335,6 +340,18 @@ def main(argv=None):
             n = obst.default_tracer().dump_chrome(args.trace_out)
             print(f"wrote {n} trace spans to {args.trace_out} "
                   "(load in Perfetto or chrome://tracing)", flush=True)
+
+
+def kernels_on_card(cfg, device):
+    """The config a loaded index is served with: on the card ``use_kernels``
+    is switched on (a save made with the default config has it off, and
+    would run the plain PyTorch path there); on the CPU, where the kernels'
+    wrappers run their plain versions anyway, the saved config stays."""
+    if device.type == "cpu" or cfg.use_kernels:
+        return cfg
+    print(f"serving on {device} through the CUDA kernels "
+          "(the saved config has use_kernels off)", flush=True)
+    return dataclasses.replace(cfg, use_kernels=True)
 
 
 def _verify_recovery(mutable, seed):

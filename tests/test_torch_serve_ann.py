@@ -6,6 +6,8 @@ request stream bit for bit (sync, ``--async``, ``--mixed
 ``repro`` its ids equal the reference launcher's under the same arguments
 for at least 95 % of the requests (the queries are float, so sums in
 another order may flip a near-tie); what is not ported is refused."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from repro.core import taco as jtaco
 from repro.core.config import taco_config as j_taco_config
 from repro.launch import serve_ann as j_serve_ann
 from repro_torch.ann import AnnIndex
+from repro_torch.core.config import taco_config
 from repro_torch.data import gmm_dataset, make_queries
 from repro_torch.launch import serve_ann
 from repro_torch.serving import AnnRequest
@@ -129,6 +132,48 @@ def test_load_of_a_reference_save_equals_the_reference_launcher(tmp_path, capsys
         same = np.mean([np.array_equal(g.ids, np.asarray(w.ids)) for g, w in zip(got, want)])
         assert same >= CROSS_SHARE, (rerank, same)
     capsys.readouterr()
+
+
+def test_kernels_on_card_switches_use_kernels_on_for_the_card_only(capsys):
+    cfg = taco_config(n_subspaces=3, subspace_dim=8, n_clusters=64)
+    assert not cfg.use_kernels  # the default config, as the reference saves it
+    assert serve_ann.kernels_on_card(cfg, torch.device("cpu")) is cfg
+    on = serve_ann.kernels_on_card(cfg, torch.device("cuda"))
+    assert on == dataclasses.replace(cfg, use_kernels=True)
+    assert "through the CUDA kernels" in capsys.readouterr().out
+    kernels = serve_ann.kernels_on_card(on, torch.device("cuda"))
+    assert kernels is on and capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("mutable", [False, True], ids=["immutable", "mutable"])
+def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsys,
+                                                                   monkeypatch, mutable):
+    """Both ``--load-index`` branches hand the saved config to
+    ``kernels_on_card`` and serve with what it returns. Here it is told the
+    device is the card, so the CPU index is served with ``use_kernels`` on
+    (the kernels' wrappers run their plain versions on CPU tensors)."""
+    data, _ = make_queries(gmm_dataset(2000, 32, seed=4), 8)
+    cfg = taco_config(n_subspaces=3, subspace_dim=8, n_clusters=64, alpha=0.05,
+                      beta=0.02, k=10)
+    index = AnnIndex.build(data, cfg, device="cpu")
+    path = str(tmp_path / "idx")
+    index.mutable().save(path) if mutable else index.save(path)
+    seen = []
+
+    def on_card(c, device):
+        assert device.type == "cpu"
+        seen.append(serve_ann.kernels_on_card.__wrapped__(c, torch.device("cuda")))
+        return seen[-1]
+
+    on_card.__wrapped__ = serve_ann.kernels_on_card
+    monkeypatch.setattr(serve_ann, "kernels_on_card", on_card)
+    results = _run("--load-index", path, "--requests", 12, "--pressure", 4)
+    assert len(seen) == 1 and seen[0].use_kernels and not cfg.use_kernels
+    assert "served 12 requests" in capsys.readouterr().out
+    if not mutable:  # the launcher's stream for a loaded index, in its waves
+        want = AnnIndex(sc_index=index.sc_index, cfg=seen[0])
+        reqs = [AnnRequest(query=q, k=10) for q in gmm_dataset(12, 32, seed=1)]
+        _assert_bitwise(results, _in_waves(want.engine(max_batch=64), reqs, 4))
 
 
 @pytest.mark.parametrize("args, match", [
