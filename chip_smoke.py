@@ -92,7 +92,33 @@ Phases, in order; any failure exits nonzero:
                deleted id, probe recall within 0.01 of brute force over the
                live corpus); one engine batch of 64 of each pipeline under
                torch.profiler; host seconds of each step are printed;
- 10. serve   — python -m repro_torch.launch.serve_ann in a child process at
+ 10. sharded — the same index placed as 4 shard views on the card
+               (index.searcher("sharded", shards=4)): each shard's data and
+               norms share the index's storage, the placement's memory
+               growth is printed; schist, scscore and masked_rerank (k = 10
+               and 100) held against their plain versions on one shard
+               (250,000 points) at the main path's inputs; 1000 queries at k
+               = 10 and 100, both selections, both pipelines, beside the
+               single-device searcher in the same call (median of 3 each):
+               no shard truncated on masked-full, query-aware gather bit
+               for bit where neither placement truncates (the one-device
+               cap truncates ~4 % too), masked-full ids >= 99.9 %
+               and dists within masked_rerank's tolerance (its shards pick
+               by the norm-form distance, the combine orders by the exact
+               one), recall@10 within 0.005 where not bitwise, the
+               query-aware shards' candidates summing to the single-device
+               demand, exact launches a batch (l2dist once; schist and
+               masked_rerank, or scscore, once a shard), one profiled batch
+               of each pipeline on each placement; the engine phase's stream
+               through index.engine("sharded", shards=4) at max_batch 64
+               beside a single-device engine (untruncated requests: ids
+               >= 99.9 %, dists within masked_rerank's tolerance, the share
+               bit for bit recorded; shards and combine pairs in the
+               telemetry); serve_ann --shards 4 in process on a save (256
+               mixed gather requests);
+               the distributed covariance, one Lloyd step and the cell sizes
+               over 4 row shards against single-device;
+ 11. serve   — python -m repro_torch.launch.serve_ann in a child process at
                10^6 x 128: async, four producers, a 50 ms deadline, churn
                with a durable WAL and compactions swapped into the engine,
                recall probes, masked-full, a mutable save; then a restart
@@ -102,7 +128,7 @@ Phases, in order; any failure exits nonzero:
                launcher must serve through the gather path's kernels; each
                must exit 0, print its telemetry and launch the path's
                kernels in its process;
- 11. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 12. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -112,7 +138,10 @@ masked_rerank; gather: l2dist, scscore; persist: l2dist, schist,
 masked_rerank, scscore; mutable: l2dist, schist and masked_rerank exactly
 once a masked-full batch, l2dist and scscore once a gather batch; compact:
 kmeans_assign; engine: l2dist, schist, masked_rerank, scscore, exactly as
-the sync runs' batches predict; serve: l2dist, schist, masked_rerank,
+the sync runs' batches predict; sharded: l2dist once a batch, schist and
+masked_rerank 4 times a masked-full batch, scscore 4 times a gather batch,
+in the searcher, the engine and serve_ann --shards 4, and kmeans_assign 4
+times a sharded Lloyd step; serve: l2dist, schist, masked_rerank,
 kmeans_assign, and for the default-config save l2dist and scscore, counted
 in the launcher's own process), l2dist exactly once a query batch and
 kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
@@ -164,6 +193,10 @@ PATHS = {
     "engine": ("l2dist", "schist", "masked_rerank", "scscore"),
     "serve": ("l2dist", "schist", "masked_rerank", "kmeans_assign"),
     "serve_load": ("l2dist", "scscore"),
+    "sharded": ("l2dist", "schist", "masked_rerank", "scscore"),
+    "sharded_engine": ("l2dist", "schist", "masked_rerank", "scscore"),
+    "sharded_serve": ("l2dist", "scscore"),
+    "sharded_build": ("kmeans_assign",),
 }
 
 
@@ -1755,6 +1788,362 @@ def phase_engine(torch, index, queries_np, gt) -> dict:
     return summary
 
 
+#: data shards of the sharded phase, every one on the card
+SHARDS = 4
+
+
+def sharded_kernels(torch, index, views, queries) -> dict:
+    """``schist``, ``scscore`` and ``masked_rerank`` (k 10 and 100) on one
+    shard (n_local = n / SHARDS points) at the main path's inputs: the
+    collision bits of the 1000 queries (tau from the GLOBAL alpha n), the
+    shard's cell ids and the threshold read off the summed histogram. Each
+    is held against its plain version with the kernels phase's gates
+    (``schist`` and ``scscore`` bit for bit; ``masked_rerank``'s filled
+    slots equal, dists within rtol 1e-5 and the cancellation floor, ids >=
+    99.9 % equal) and timed beside it."""
+    from repro_torch.core.activation import activation_taus
+    from repro_torch.core.selection import query_aware_threshold
+    from repro_torch.core.taco import _centroid_distances
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda, masked_rerank_plain
+    from repro_torch.kernels.schist import (
+        collision_bits,
+        collision_table,
+        schist_cuda,
+        schist_plain,
+    )
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
+
+    cfg, idx = index.cfg, index.sc_index
+    q = queries.shape[0]
+    d1s, d2s = _centroid_distances(idx, queries, True)
+    taus, _ = activation_taus(d1s, d2s, idx.cell_sizes, cfg.alpha * idx.n, method=cfg.activation)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    levels = cfg.n_subspaces + 1
+    hists = [schist_cuda(bits, v.cells, levels, q=q) for v in views]
+    thresh, _demand = query_aware_threshold(sum(hists), cfg.beta * idx.n, cfg.n_subspaces)
+    v = views[0]
+    out = {"n_local": v.n}
+    want = schist_plain(bits, v.cells, levels, q=q)
+    check(torch.equal(hists[0], want) and bool((want.sum(1) == v.n).all()),
+          f"sharded: schist at the shard shape (n_local {v.n})")
+    out["schist"] = dict(max_abs_err=0.0,
+                         ms=timed(torch, lambda: schist_cuda(bits, v.cells, levels, q=q), 10),
+                         plain_ms=timed(torch, lambda: schist_plain(bits, v.cells, levels, q=q), 1))
+    sc = scscore_cuda(bits, v.cells, q=q)
+    check(torch.equal(sc, scscore_plain(bits, v.cells, q=q)),
+          f"sharded: scscore at the shard shape (n_local {v.n})")
+    del sc
+    out["scscore"] = dict(max_abs_err=0.0,
+                          ms=timed(torch, lambda: scscore_cuda(bits, v.cells, q=q), 10),
+                          plain_ms=timed(torch, lambda: scscore_plain(bits, v.cells, q=q), 1))
+    args_ = (bits, v.cells, thresh, queries, v.data, v.data_norms)
+    atol = 1e-5 * float((queries * queries).sum(1).max() + v.data_norms.max())
+    for k in (10, 100):
+        gd, gi = masked_rerank_cuda(*args_, k)
+        wd, wi = masked_rerank_plain(*args_, k)
+        fin = torch.isfinite(wd)
+        agree = float((gi == wi).float().mean())
+        check(torch.equal(fin, torch.isfinite(gd)), f"sharded: masked_rerank filled slots k={k}")
+        check(torch.allclose(gd[fin], wd[fin], rtol=1e-5, atol=atol),
+              f"sharded: masked_rerank dists k={k}")
+        check(agree >= 0.999, f"sharded: masked_rerank ids agree {agree:.5f} < 0.999 k={k}")
+        out[f"masked_rerank_k{k}"] = dict(
+            max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+            ids_agree=agree, ms=timed(torch, lambda: masked_rerank_cuda(*args_, k), 5),
+            plain_ms=timed(torch, lambda: masked_rerank_plain(*args_, k), 1))
+        del gd, gi, wd, wi
+    print(f"sharded: kernels at the shard shape {json.dumps(out)}", flush=True)
+    return out
+
+
+def sharded_searches(torch, index, queries_np, queries, gt) -> dict:
+    """The 1000 queries through ``index.searcher("sharded", shards=SHARDS)``
+    at k 10 and 100, both selections, both pipelines, beside the
+    single-device searcher in the same call. No shard may truncate on
+    masked-full; query-aware gather must equal single-device bit for bit
+    on the queries neither placement truncated (at least 90 %: the
+    one-device cap truncates a few of this corpus); masked-full, whose
+    shards pick their top-k
+    by the norm-form distance while the combine orders by the exact one,
+    ids >= 99.9 % and dists within masked_rerank's tolerance; masked-full
+    and fixed gather (an even split of the budget) hold recall@10 within
+    0.005 of single-device's; the query-aware shards' candidates sum to the
+    single-device demand. Seconds a batch are medians of 3 of
+    ``search_with_stats`` (synchronized host clock). The sharded calls run
+    under ``run_path`` with their exact launches a batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.batching import pad_rows
+    from repro_torch.core.distributed import shard_views
+    from repro_torch.core.taco import query_with_stats
+    from repro_torch.utils import recall_at_k
+
+    idx = index.sc_index
+    # placement: shard views of the index; only the cell ids are new
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    views, _n = shard_views(idx, SHARDS)
+    torch.cuda.synchronize()
+    placement = dict(
+        allocated_growth_bytes=torch.cuda.memory_allocated() - before,
+        peak_growth_bytes=torch.cuda.max_memory_allocated() - before,
+        cells_bytes=sum(v.cells.numel() * 4 for v in views),
+        data_bytes=idx.data.numel() * 4)
+    for v in views:
+        check(v.data.untyped_storage().data_ptr() == idx.data.untyped_storage().data_ptr()
+              and v.data_norms.untyped_storage().data_ptr()
+              == idx.data_norms.untyped_storage().data_ptr(),
+              "sharded: a shard's data or norms is a copy, not a view of the index's")
+    print(f"sharded: placement {json.dumps(placement)}", flush=True)
+    del views
+
+    settings = [(k, sel, rerank) for sel in ("query_aware", "fixed")
+                for rerank in ("masked_full", "gather") for k in (10, 100)]
+    searchers = {sel: index.replace_cfg(selection=sel).searcher("sharded", shards=SHARDS)
+                 for sel in ("query_aware", "fixed")}
+    single = {}
+    for k, sel, rerank in settings:
+        view = index.replace_cfg(selection=sel, rerank=rerank)
+        secs, (ids, dists, stats) = _median_s(
+            torch, lambda: view.search_with_stats(queries_np, k=k), 3)
+        _i, _d, st = query_with_stats(idx, queries, view.cfg, k=k)
+        single[(k, sel, rerank)] = dict(seconds=secs, ids=ids, dists=dists,
+                                       truncated=stats["truncated"],
+                                       demand=st["candidate_demand"].cpu().numpy())
+        del _i, _d, st
+
+    padded = torch.as_tensor(pad_rows(queries_np, 1024)).cuda()
+
+    def run_sharded():
+        out = {}
+        for k, sel, rerank in settings:
+            searcher = searchers[sel]
+            secs, (ids, dists, _st) = _median_s(
+                torch, lambda: searcher.search_with_stats(queries_np, k=k, rerank=rerank), 3)
+            cfg = dataclasses.replace(searcher.cfg, rerank=rerank)
+            res = searcher.run_padded(1024, k, cfg, padded)
+            out[(k, sel, rerank)] = dict(seconds=secs, ids=ids, dists=dists, res=res)
+        return out
+
+    masked_runs = sum(r == "masked_full" for _k, _s, r in settings) * 4
+    gather_runs = sum(r == "gather" for _k, _s, r in settings) * 4
+    sharded, launches = run_path(
+        torch, "sharded", run_sharded,
+        expect={"l2dist": masked_runs + gather_runs, "schist": SHARDS * masked_runs,
+                "masked_rerank": SHARDS * masked_runs, "scscore": SHARDS * gather_runs,
+                "kmeans_assign": 0})
+    rows = []
+    for key in settings:
+        k, sel, rerank = key
+        one, sh = single[key], sharded[key]
+        res = sh["res"]
+        check(np.array_equal(res.ids[:QUERIES], sh["ids"]), f"sharded: run_padded vs search {key}")
+        truncated = res.shard_truncated[:QUERIES].any(axis=1)
+        trunc, trunc1 = float(truncated.mean()), float(one["truncated"].mean())
+        whole = ~(truncated | one["truncated"])  # rows no placement truncated
+        rec, rec1 = recall_at_k(sh["ids"], gt, 10), recall_at_k(one["ids"], gt, 10)
+        same = float(np.mean(sh["ids"] == one["ids"]))
+        bitwise = (np.array_equal(sh["ids"][whole], one["ids"][whole])
+                   and np.array_equal(sh["dists"][whole].view(np.uint32),
+                                      one["dists"][whole].view(np.uint32)))
+        if rerank == "masked_full":
+            check(trunc == 0.0, f"sharded: {trunc} of the queries truncated on a shard {key}")
+        if rerank == "gather" and sel == "query_aware":
+            # the one-device cap (4 beta n) truncates a few queries of this
+            # corpus too; the rest must be bit for bit
+            check(bitwise and whole.mean() >= 0.9,
+                  f"sharded: ids/dists differ from single-device where neither truncates "
+                  f"{key} (compared {whole.mean()}, same {same})")
+        elif rerank == "masked_full":
+            # each shard keeps its top-k by the kernel's norm-form distance
+            # and the combine orders by the exact ones (the reference's
+            # design), so a near-tie the two forms order differently may
+            # differ from the one-device top-k: held as masked_rerank is
+            # held to its plain version
+            fin = np.isfinite(one["dists"])
+            atol = 1e-5 * float(2 * (queries_np ** 2).sum(1).max()
+                                 + index.sc_index.data_norms.max())
+            check(same >= 0.999 and np.array_equal(fin, np.isfinite(sh["dists"]))
+                  and np.allclose(sh["dists"][fin], one["dists"][fin], rtol=1e-5, atol=atol),
+                  f"sharded: ids same {same} < 0.999 or dists differ from single-device {key}")
+        if rerank == "masked_full" or sel == "fixed":
+            check(abs(rec - rec1) <= 0.005, f"sharded: recall@10 {rec} vs single {rec1} {key}")
+        if sel == "query_aware":
+            check(np.array_equal(res.shard_candidates[:QUERIES].sum(axis=1), one["demand"]),
+                  f"sharded: shard candidates do not sum to the single demand {key}")
+        row = dict(k=k, selection=sel, rerank=rerank, seconds=sh["seconds"],
+                   single_seconds=one["seconds"], qps=QUERIES / sh["seconds"],
+                   single_qps=QUERIES / one["seconds"], recall_at_10=rec,
+                   single_recall_at_10=rec1, ids_same=same, bitwise=bitwise,
+                   truncated_share=trunc, single_truncated_share=trunc1,
+                   compared_share=float(whole.mean()),
+                   shard_candidates_mean=res.shard_candidates[:QUERIES].mean(axis=0).tolist())
+        print(f"sharded: search {json.dumps(row)}", flush=True)
+        rows.append(row)
+    profiles = {rerank: {"sharded": profile_call(
+                            torch, lambda: searchers["query_aware"].search_with_stats(
+                                queries_np, k=10, rerank=rerank), f"sharded {rerank}"),
+                         "single": profile_call(
+                            torch, lambda: index.replace_cfg(rerank=rerank).search_with_stats(
+                                queries_np, k=10), f"single {rerank}")}
+                for rerank in ("masked_full", "gather")}
+    return {"placement": placement, "searches": rows, "launches": launches,
+            "profiles": profiles}
+
+
+def sharded_engine(torch, index, queries_np) -> dict:
+    """The engine phase's 1000-request stream through ``index.engine("sharded",
+    shards=SHARDS)`` at max_batch 64 beside a single-device engine: of the
+    requests neither placement truncated (at least 90 %), >= 99.9 % of the
+    ids equal and the dists within masked_rerank's tolerance (the share bit
+    for bit is recorded); ``shards`` and the combine's pairs a query in the
+    telemetry, launches exact a batch."""
+    import numpy as np
+
+    from repro_torch.serving import AnnRequest
+
+    view = index.replace_cfg(rerank="gather")
+    stream = engine_stream(view.cfg, queries_np)
+    reqs = [AnnRequest(**r) for r in stream]
+    n = len(reqs)
+    out, results = {}, {}
+    masked_b, gather_b, _per_bucket = sync_batches(view.cfg, stream, 64)
+    for placement in ("single", "sharded"):
+        engine = view.engine(placement, shards=SHARDS if placement == "sharded" else None,
+                             max_batch=64)
+        engine.search(reqs)  # warm-up
+        engine.reset_telemetry()
+        per = SHARDS if placement == "sharded" else 1
+        (secs, res), launches = run_path(
+            torch, "sharded_engine", lambda: _median_s(torch, lambda: engine.search(reqs), 1),
+            expect={"l2dist": masked_b + gather_b, "schist": per * masked_b,
+                    "masked_rerank": per * masked_b, "scscore": per * gather_b,
+                    "kmeans_assign": 0})
+        t = engine.telemetry()
+        check(len(res) == n and t["requests_served"] == n, f"sharded engine: {placement} served")
+        results[placement] = res
+        out[placement] = dict(engine_row(t, secs, n), launches=launches)
+        if placement == "sharded":
+            pairs = float(np.mean([SHARDS * (10 if r["k"] is None else r["k"]) for r in stream]))
+            check(t["shards"] == SHARDS and t["backend"] == "ShardedAnnBackend",
+                  f"sharded engine: telemetry shards {t['shards']} backend {t['backend']}")
+            check(abs(t["combine_pairs_per_query"] - pairs) < 1e-9,
+                  f"sharded engine: combine pairs {t['combine_pairs_per_query']} vs {pairs}")
+            out[placement].update(combine_pairs_per_query=t["combine_pairs_per_query"],
+                                  shard_candidates_mean=t["shard_candidates_mean"],
+                                  shard_truncation_rate=t["shard_truncation_rate"])
+    # the requests no placement truncated. At the engine's batch of 64 the
+    # gather re-rank's batched product may round a candidate's distance in
+    # another last bit on a shard's (64, cap / 4) shape than on the one
+    # device's, so all are held as the masked-full searches above
+    pairs = [(a, b) for a, b in zip(results["single"], results["sharded"])
+             if not (a.truncated or b.truncated)]
+    same = same_share([b.ids for _a, b in pairs], [a.ids for a, _b in pairs])
+    want_d, got_d = (np.concatenate([p[i].dists for p in pairs]) for i in (0, 1))
+    fin = np.isfinite(want_d)
+    atol = 1e-5 * float(2 * (queries_np ** 2).sum(1).max() + index.sc_index.data_norms.max())
+    close = (np.array_equal(fin, np.isfinite(got_d))
+             and np.allclose(got_d[fin], want_d[fin], rtol=1e-5, atol=atol))
+    check(len(pairs) >= 0.9 * n and same >= 0.999 and close,
+          f"sharded engine: {len(pairs)} of {n} untruncated, ids same {same}, dists close {close}")
+    out.update(compared=len(pairs), ids_same=same, bitwise_share=float(np.mean(
+        [np.array_equal(a.ids, b.ids) and np.array_equal(a.dists.view(np.uint32),
+                                                         b.dists.view(np.uint32))
+         for a, b in pairs])))
+    print(f"sharded: engine {json.dumps(out)}", flush=True)
+    return out
+
+
+def sharded_serve(torch, index) -> dict:
+    """``serve_ann --shards SHARDS`` in this process on a save of the index
+    (gather, 256 mixed requests): it must serve every request through the
+    sharded backend and the gather path's kernels."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_ann
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "index")
+        index.replace_cfg(rerank="gather").save(path)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results, launches = run_path(
+                torch, "sharded_serve", lambda: serve_ann.main(
+                    ["--load-index", path, "--requests", "256", "--pressure", "64", "--mixed",
+                     "--shards", str(SHARDS)]),
+                expect={"schist": 0, "masked_rerank": 0, "kmeans_assign": 0})
+        secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print(f"sharded serve: {ln}", flush=True)
+    row = served_telemetry(lines, "sharded")
+    check(len(results) == row["served"] == 256
+          and any(f"[ShardedAnnBackend, {SHARDS} shard(s)]" in ln for ln in lines),
+          "sharded serve: not every request served through the sharded backend")
+    return dict(seconds=secs, **row, launches=launches, stdout=lines)
+
+
+def sharded_build_stats(torch, index) -> dict:
+    """The distributed covariance, one Lloyd step on one projected half and
+    the cell sizes over SHARDS row shards of the corpus on the card,
+    against single-device: the moments within tests/test_distributed.py's
+    tolerances of a float64 computation, the Lloyd assignments and the cell
+    sizes bit for bit, the centroids within its rtol 1e-3 / atol 1e-4 of
+    the one-device step, and two sharded steps bit for bit."""
+    from repro_torch.clustering.kmeans import lloyd_step
+    from repro_torch.core import distributed
+    from repro_torch.core.transform import apply_transform
+
+    idx = index.sc_index
+    mesh = [idx.device] * SHARDS
+    x = idx.data
+    xs = distributed.shard_rows(x, mesh)
+    mean, cov = distributed.make_distributed_cov(mesh, idx.n)(xs)
+    x64 = x.double()
+    mean64 = x64.mean(0)
+    cov64 = (x64 - mean64).T @ (x64 - mean64) / (idx.n - 1)
+    del x64
+    check(torch.allclose(mean.double(), mean64, rtol=2e-4, atol=2e-4), "sharded build: mean")
+    check(torch.allclose(cov.double(), cov64, rtol=2e-2, atol=2e-4), "sharded build: covariance")
+    sub = idx.subspaces[0]
+    half = apply_transform(idx.transform, x)[:, :sub.centroids1.shape[1]].contiguous()
+    lloyd = distributed.make_distributed_lloyd(mesh)
+    halves = distributed.shard_rows(half, mesh)
+    (c1, a1), launches = run_path(torch, "sharded_build", lambda: lloyd(halves, sub.centroids1),
+                                  expect={"kmeans_assign": SHARDS})
+    c2, a2 = lloyd(halves, sub.centroids1)
+    c_one, a_one = lloyd_step(half, sub.centroids1)
+    check(torch.equal(a1, a_one), "sharded build: Lloyd assignments differ from one device's")
+    check(torch.allclose(c1, c_one, rtol=1e-3, atol=1e-4), "sharded build: Lloyd centroids")
+    check(torch.equal(c1, c2) and torch.equal(a1, a2), "sharded build: two steps differ")
+    sizes = distributed.make_distributed_cell_sizes(mesh, sub.sqrt_k)(
+        distributed.shard_rows(sub.assign1, mesh), distributed.shard_rows(sub.assign2, mesh))
+    check(torch.equal(sizes, sub.cell_sizes), "sharded build: cell sizes")
+    row = dict(mean_max_abs_err=float((mean.double() - mean64).abs().max()),
+               cov_max_abs_err=float((cov.double() - cov64).abs().max()),
+               centroids_max_abs_err=float((c1 - c_one).abs().max()), launches=launches)
+    print(f"sharded: build statistics {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_sharded(torch, index, queries_np, queries, gt) -> dict:
+    """Phase 10: the TaCo index placed as SHARDS shard views on the card,
+    searched, served and its build statistics computed corpus-sharded."""
+    out = {"kernels": sharded_kernels(torch, index, index.searcher(
+        "sharded", shards=SHARDS).views, queries)}
+    out.update(sharded_searches(torch, index, queries_np, queries, gt))
+    out["engine"] = sharded_engine(torch, index, queries_np)
+    out["serve"] = sharded_serve(torch, index)
+    out["build"] = sharded_build_stats(torch, index)
+    torch.cuda.empty_cache()
+    return out
+
+
 #: ``python -m repro_torch.launch.serve_ann`` as run by the serve phase, with
 #: the kernels' launch counts printed by the same process when it ends, and
 #: its seconds from the parent's spawn to the end of the imports and from
@@ -1949,17 +2338,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 8. the mutable index over the same base
     mutable = phase("mutable", phase_mutable, torch, index, corpus_np, queries, gt)
-    # 9. the serving engine over the same index, 10. the launcher
+    # 9. the serving engine over the same index
     engine = phase("engine", phase_engine, torch, index, queries_np, gt)
     torch.cuda.empty_cache()
+    # 10. the same index corpus-sharded over SHARDS views on the card, 11. the launcher
+    sharded = phase("sharded", phase_sharded, torch, index, queries_np, queries, gt)
     serve = phase("serve", phase_serve, torch, root, index)
     del index
 
-    # 11. summary: each kernel's launches over every path run above
+    # 12. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
                    persist["launches"], *mutable["launches"], *engine["launches"],
+                   sharded["launches"], sharded["engine"]["single"]["launches"],
+                   sharded["engine"]["sharded"]["launches"],
+                   sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values())):
         for name, count in counts.items():
             launches[name] += count
@@ -1976,7 +2370,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
                                "kernels": kernels, "flash": flash, "masked": masked,
                                "gather": gather, "persist": persist,
-                               "mutable": mutable, "engine": engine, "serve": serve,
+                               "mutable": mutable, "engine": engine, "sharded": sharded,
+                               "serve": serve,
                                "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)

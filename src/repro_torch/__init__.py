@@ -10,7 +10,8 @@ default, and ``masked_full``), all three activations and both selections,
 so every configuration of ``repro_torch.core.config`` runs, and the mutable
 index (``AnnIndex.mutable``: delta-segment inserts, tombstone deletes, a
 write-ahead log and compaction), with its own ``obs`` metrics and tracing
-and the shared background ``WorkerPool``. Six hand-written CUDA kernels
+and the shared background ``WorkerPool``, served single-device or
+corpus-sharded (``repro_torch.core.distributed``). Six hand-written CUDA kernels
 (``csrc/``) carry it on the card; each has a plain PyTorch version beside
 it that the CPU path and the tests use.
 

@@ -4,6 +4,7 @@
     index = AnnIndex.build(data, cfg)      # on the card by default
     index.save(path); AnnIndex.load(path)  # the reference's directory format
     index.searcher()                       # owns the (bucket, k, cfg) cache
+    index.searcher("sharded", shards=4)    # single | sharded | auto
     index.engine(...)                      # AnnServingEngine over a Searcher
 
 Mutation rides the same facade (:mod:`repro_torch.ann.mutable` /
@@ -30,6 +31,7 @@ from repro_torch.ann.persistence import (
 from repro_torch.ann.searcher import (
     AnnBatchResult,
     Searcher,
+    ShardedSearcher,
     SingleDeviceSearcher,
     make_searcher,
 )
@@ -46,6 +48,7 @@ __all__ = [
     "MutableAnnIndex",
     "MutableSearcher",
     "Searcher",
+    "ShardedSearcher",
     "SingleDeviceSearcher",
     "WalRecord",
     "WriteAheadLog",

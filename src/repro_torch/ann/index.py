@@ -9,6 +9,7 @@
     ids, dists = index.search(queries)               # gather re-rank
     ids, dists, stats = index.search_with_stats(queries, k=100, rerank="masked_full")
     s = index.searcher()                             # owns the function cache
+    s = index.searcher("sharded", shards=4)          # corpus-sharded placement
     engine = index.engine(async_mode=True)           # AnnServingEngine over a searcher
     mutable = index.mutable()                        # inserts, deletes, compaction
 
@@ -20,8 +21,8 @@ every internal stat. The directory format is the reference's, so an index
 saved by either package loads in the other. Mutation (delta segment,
 tombstones, write-ahead log, compaction) lives in
 :mod:`repro_torch.ann.mutable`, serving in
-:mod:`repro_torch.serving.ann_engine`. The sharded searcher is not ported
-yet.
+:mod:`repro_torch.serving.ann_engine`, corpus-sharded placement in
+:mod:`repro_torch.core.distributed`.
 """
 from __future__ import annotations
 
@@ -64,27 +65,32 @@ class AnnIndex:
         sc_index, cfg = load_index(path, device=device)
         return cls(sc_index=sc_index, cfg=cfg)
 
-    def searcher(self, placement: str = "auto", *, max_cached_fns: int = 64,
+    def searcher(self, placement: str = "auto", *, mesh=None, shards: int | None = None,
+                 data_axes=None, query_axes=(), max_cached_fns: int = 64,
                  cfg: SCConfig | None = None, autotune_cache: str | None = None) -> Searcher:
-        """A :class:`Searcher` over this index that owns the ``(bucket, k,
-        cfg)`` function cache; ``cfg`` replaces the index's default config
-        as the searcher's. See :func:`repro_torch.ann.searcher.make_searcher`."""
+        """A :class:`Searcher` over this index that owns device placement
+        and the ``(bucket, k, cfg)`` function cache; ``cfg`` replaces the
+        index's default config as the searcher's. See
+        :func:`repro_torch.ann.searcher.make_searcher` for ``placement``,
+        ``mesh`` (a sequence of devices) and ``shards``."""
         return make_searcher(self.sc_index, self.cfg if cfg is None else cfg, placement,
-                             max_cached_fns=max_cached_fns, autotune_cache=autotune_cache)
+                             mesh=mesh, shards=shards, data_axes=data_axes,
+                             query_axes=query_axes, max_cached_fns=max_cached_fns,
+                             autotune_cache=autotune_cache)
 
-    def engine(self, placement: str = "auto", *, max_cached_fns: int = 64,
-               cfg: SCConfig | None = None, **engine_kwargs):
+    def engine(self, placement: str = "auto", *, mesh=None, shards: int | None = None,
+               max_cached_fns: int = 64, cfg: SCConfig | None = None, **engine_kwargs):
         """An :class:`~repro_torch.serving.ann_engine.AnnServingEngine`
         serving this index: micro-batching, per-request overrides, result
         cache, telemetry. Its backend is a thin adapter over a
-        :meth:`searcher` built here for ``placement`` (``"auto"`` and
-        ``"single"`` serve on the index's device; ``"sharded"`` raises as
-        :meth:`searcher` does); ``cfg`` replaces the index's default config
-        for the engine and its searcher."""
+        :meth:`searcher` built here for ``placement`` (same ``"auto"``
+        default and resolution as :meth:`searcher`); ``cfg`` replaces the
+        index's default config for the engine and its searcher."""
         from repro_torch.serving.ann_engine import AnnServingEngine
 
         eff_cfg = self.cfg if cfg is None else cfg
-        searcher = self.searcher(placement, max_cached_fns=max_cached_fns, cfg=eff_cfg)
+        searcher = self.searcher(placement, mesh=mesh, shards=shards,
+                                 max_cached_fns=max_cached_fns, cfg=eff_cfg)
         return AnnServingEngine(self.sc_index, eff_cfg, backend=searcher, **engine_kwargs)
 
     def search_with_stats(self, queries, *, k=None, beta=None, rerank=None):

@@ -20,14 +20,17 @@ The serving engine's backends (:mod:`repro_torch.serving.ann_engine`) and
 direct :meth:`Searcher.search` calls both run a padded batch through
 :meth:`Searcher.run_padded`.
 
-Only the single-device placement is ported: a cached entry is a plain
-closure over :func:`repro_torch.core.taco.query_with_stats` (the gather
-pipeline syncs the host, so there is no CUDA graph to capture yet). The
-function cache counts into the reference's metric families
-(``taco_searcher_compiles_total``, ``taco_searcher_fn_cache_hits_total``)
-on the port's own registry. The corpus-sharded placement is not ported
-yet. ``autotune_cache=`` is kept for the reference's signature and refuses
-a value: the reference's autotune cache holds Pallas ``(bq, bn)`` blocks,
+Two placements, as in the reference: :class:`SingleDeviceSearcher`, whose
+cached entry is a plain closure over
+:func:`repro_torch.core.taco.query_with_stats` (the gather pipeline syncs
+the host, so there is no CUDA graph to capture yet), and
+:class:`ShardedSearcher`, whose entry is a closure over
+:func:`repro_torch.core.distributed.make_distributed_query_with_stats` on
+shard views placed once. The function cache counts into the reference's
+metric families (``taco_searcher_compiles_total``,
+``taco_searcher_fn_cache_hits_total``) on the port's own registry.
+``autotune_cache=`` is kept for the reference's signature and refuses a
+value: the reference's autotune cache holds Pallas ``(bq, bn)`` blocks,
 and no kernel of the port takes its tiles from such a cache.
 """
 from __future__ import annotations
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.batching import ANN_BATCH_BUCKETS, bucket_size, pad_rows
-from repro_torch.core.config import SCConfig
+from repro_torch.core import distributed
+from repro_torch.core.config import SCConfig, resolve_rerank
 from repro_torch.core.taco import SCIndex, query_with_stats
 from repro_torch.obs import metrics as obsm
 
@@ -255,16 +259,119 @@ class SingleDeviceSearcher(Searcher):
         )
 
 
+def _no_axes(data_axes, query_axes) -> None:
+    """Refuse mesh axes the port has no counterpart for: the data axis is
+    the list of shard devices, and queries are replicated (the reference's
+    default). Query sharding changes where rows run, never a result."""
+    if data_axes not in (None, ("data",), ["data"]) or tuple(query_axes) != ():
+        raise NotImplementedError(
+            f"data_axes={data_axes!r} query_axes={query_axes!r}: repro_torch shards "
+            "the corpus over one list of devices (data_axes None or ('data',)) and "
+            "replicates the queries (query_axes=())")
+
+
+def _device_count(index: SCIndex) -> int:
+    """Devices the ``"auto"`` placement may spread the corpus over: the
+    visible cards for an index on the card, 1 for an index on the CPU."""
+    return torch.cuda.device_count() if index.device.type == "cuda" else 1
+
+
+class ShardedSearcher(Searcher):
+    """Corpus-sharded execution through :mod:`repro_torch.core.distributed`.
+
+    The built index is placed ONCE as S shard views
+    (:func:`~repro_torch.core.distributed.shard_views`); each ``(bucket, k,
+    cfg)`` key makes a
+    :func:`~repro_torch.core.distributed.make_distributed_query_with_stats`
+    closure over them. ``mesh`` is a sequence of torch devices, one per data
+    shard (the counterpart of a 1-D data mesh); without it the ``shards``
+    views (default: the visible devices, see :func:`make_searcher`) all
+    live on the index's device, so on one card they are row views of the
+    corpus, not copies. A mesh of several cards takes the same path but is
+    unverified (the port has been run on one H100 only). Queries are replicated,
+    and the combine moves only (Q, shards*k) id/dist pairs per batch.
+    """
+
+    def __init__(self, index: SCIndex, cfg: SCConfig | None = None, *, mesh=None,
+                 shards: int | None = None, data_axes=None, query_axes=(),
+                 max_cached_fns: int = 64, buckets=ANN_BATCH_BUCKETS,
+                 autotune_cache: str | None = None):
+        super().__init__(index, cfg, max_cached_fns=max_cached_fns, buckets=buckets,
+                         autotune_cache=autotune_cache)
+        _no_axes(data_axes, query_axes)
+        if mesh is None:
+            shards = _device_count(index) if shards is None else int(shards)
+            if shards < 1:
+                raise ValueError(f"shards={shards} must be >= 1")
+            mesh = (index.device,) * shards
+        elif shards is not None:
+            raise ValueError(
+                "pass either mesh or shards, not both: with an explicit mesh "
+                "the shard count is its number of devices")
+        self.mesh = tuple(torch.device(d) for d in mesh)
+        self.data_axes = ("data",)
+        self.query_axes = ()
+        self.shards = len(self.mesh)
+        self.views, _n = distributed.shard_views(index, self.shards, self.mesh)
+
+    def _compile(self, bucket: int, k: int, cfg: SCConfig):
+        return distributed.make_distributed_query_with_stats(
+            self.views, cfg, self.index, self.index.n, k=k)
+
+    def run_padded(self, bucket, k, cfg, queries) -> AnnBatchResult:
+        ids, dists, stats = self.fn_for(bucket, k, cfg)(queries)
+        shard_candidates = stats["shard_candidates"].cpu().numpy()
+        shard_truncated = stats["shard_truncated"].cpu().numpy()
+        # shard_candidates is the pre-clamp per-shard DEMAND; clamp each
+        # shard at its static gather cap so candidate_count keeps the
+        # single-device meaning ('actually re-ranked') on either placement.
+        # The masked-full pipeline has no cap (count == demand).
+        if resolve_rerank(cfg, distributed=True) == "gather":
+            cap = distributed.per_shard_cap(cfg, self.index.n // self.shards, k)
+            count = np.minimum(shard_candidates, cap).sum(axis=1)
+        else:
+            count = shard_candidates.sum(axis=1)
+        return AnnBatchResult(
+            ids=ids.to(torch.int32).cpu().numpy(),
+            dists=dists.to(torch.float32).cpu().numpy(),
+            truncated=shard_truncated.any(axis=1),
+            candidate_count=count.astype(np.int32),
+            shard_candidates=shard_candidates,
+            shard_truncated=shard_truncated,
+        )
+
+
 def make_searcher(index: SCIndex, cfg: SCConfig | None = None, placement: str = "auto", *,
+                  mesh=None, shards: int | None = None, data_axes=None, query_axes=(),
                   max_cached_fns: int = 64, autotune_cache: str | None = None) -> Searcher:
-    """Placement-resolving :class:`Searcher` factory. ``"single"`` runs on
-    the index's device; ``"auto"`` resolves to it, since it is the only
-    placement ported; ``"sharded"`` is not ported yet and raises."""
-    if placement in ("auto", "single"):
+    """Placement-resolving :class:`Searcher` factory.
+
+    ``placement``:
+      * ``"single"``: the index's device; ``mesh``/``shards`` rejected.
+      * ``"sharded"``: corpus-sharded over ``mesh`` (a sequence of devices)
+        or into ``shards`` views on the index's device (default: as many as
+        there are visible devices).
+      * ``"auto"``: ``"sharded"`` when a mesh or a shard count above 1 is
+        asked for, or when several devices are visible (the cards, for an
+        index on the card; one, for an index on the CPU) and the corpus
+        splits evenly over them; ``"single"`` otherwise.
+    """
+    if placement == "auto":
+        if mesh is not None or (shards is not None and shards > 1):
+            placement = "sharded"
+        else:
+            n_dev = _device_count(index)
+            placement = ("sharded" if n_dev > 1 and index.n % n_dev == 0 and shards is None
+                         else "single")
+    if placement == "single":
+        if mesh is not None or (shards is not None and shards > 1):
+            raise ValueError(
+                f"mesh/shards are only consumed by placement='sharded', got "
+                f"placement='single' with mesh={mesh!r} shards={shards!r}")
         return SingleDeviceSearcher(index, cfg, max_cached_fns=max_cached_fns,
                                     autotune_cache=autotune_cache)
     if placement == "sharded":
-        raise NotImplementedError(
-            "placement='sharded' (the corpus-sharded searcher) is not ported to "
-            "repro_torch yet; use 'single'")
+        return ShardedSearcher(index, cfg, mesh=mesh, shards=shards, data_axes=data_axes,
+                               query_axes=query_axes, max_cached_fns=max_cached_fns,
+                               autotune_cache=autotune_cache)
     raise ValueError(f"unknown placement {placement!r} (want 'single', 'sharded' or 'auto')")

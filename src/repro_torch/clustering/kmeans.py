@@ -39,21 +39,33 @@ def lloyd_step_pairs(xs: torch.Tensor, centroids: torch.Tensor, dims=None,
     n_pairs, _n, w = xs.shape
     k = centroids.shape[1]
     assign, _ = ops.kmeans_assign_pairs(xs, centroids, dims, impl=impl)
+    sums, counts = cluster_sums(xs, assign, k)
+    return new_means(sums, counts, centroids), assign
+
+
+def cluster_sums(xs: torch.Tensor, assign: torch.Tensor, k: int):
+    """(sums (P, k, w) float32, counts (P, k) float32) of the rows of xs
+    (P, n, w) per cluster of assign (P, n). The same inputs give the same
+    bits on either device (see the module docstring)."""
+    n_pairs, _n, w = xs.shape
     offsets = torch.arange(n_pairs, device=xs.device)[:, None] * k
     idx = (assign.long() + offsets).reshape(-1)
     if xs.device.type == "cuda":
-        sums = _onehot_sums(xs, assign, k).reshape(-1, w)
+        sums = _onehot_sums(xs, assign, k)
     else:
         sums = torch.zeros((n_pairs * k, w), dtype=torch.float32, device=xs.device)
         sums.index_add_(0, idx, xs.reshape(-1, w))
     # counts of 1.0 are exact below 2^24 in any order of addition
     counts = torch.zeros((n_pairs * k,), dtype=torch.float32, device=xs.device)
     counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
-    new_centroids = torch.where(
-        counts[:, None] > 0, sums / torch.clamp_min(counts, 1.0)[:, None],
-        centroids.reshape(-1, w),
-    )
-    return new_centroids.reshape(n_pairs, k, w), assign
+    return sums.reshape(n_pairs, k, w), counts.reshape(n_pairs, k)
+
+
+def new_means(sums: torch.Tensor, counts: torch.Tensor, centroids: torch.Tensor):
+    """The Lloyd update from :func:`cluster_sums`: each cluster's mean, or
+    its previous centroid where it is empty."""
+    return torch.where(counts[..., None] > 0,
+                       sums / torch.clamp_min(counts, 1.0)[..., None], centroids)
 
 
 #: one-hot floats a block of rows takes: P x rows x k stay near 512 MB

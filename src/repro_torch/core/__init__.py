@@ -2,6 +2,8 @@
 
   build / query / query_with_stats / index_from_arrays — end-to-end TaCo
   SCConfig + taco_config/suco_config/...               — method configuration
+  distributed (make_distributed_*, shard_views)        — corpus-sharded build
+                                                         statistics and query
 """
 from repro_torch.core.config import (
     ABLATIONS,

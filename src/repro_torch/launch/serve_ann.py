@@ -24,7 +24,10 @@ serves through a :class:`repro_torch.ann.MutableAnnIndex`: every wave
 inserts M fresh vectors and deletes M//2 live ones between query batches,
 compacting (and atomically swapping the engine's index) when the delta
 grows past the policy threshold; ``--recall-probe-every N`` samples served
-requests against exact kNN over the live corpus.
+requests against exact kNN over the live corpus. ``--shards N`` serves
+through the corpus-sharded backend: N shard views of the index, every one
+on ``--device`` (one process, no device forcing: the reference's host
+devices have no counterpart here).
 
 Durability: ``--wal-dir DIR`` makes churn serving crash-safe — every
 insert/delete batch is appended to a write-ahead log there *before* it is
@@ -48,15 +51,16 @@ beta). Combined with ``--churn`` the mutation waves — and their
 policy-triggered compactions, tasks on the shared WorkerPool — run
 concurrently with the producers across live engine swaps.
 
-Not ported yet, and refused: ``--shards N > 1`` (corpus-sharded serving)
-and ``--autotune-cache`` (no kernel of the port takes its tiles from a
-cache).
+Not ported, and refused: ``--autotune-cache`` (no kernel of the port
+takes its tiles from a cache).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve_ann --n 1000000 --d 128 \\
       --requests 1000 --pressure 64 --async --producers 4 --deadline-ms 50
   PYTHONPATH=src python -m repro_torch.launch.serve_ann --device cpu \\
       --n 4000 --requests 32 --pressure 8 --mixed --result-cache 64
+  PYTHONPATH=src python -m repro_torch.launch.serve_ann --n 1000000 \\
+      --d 128 --requests 256 --pressure 64 --shards 4
 """
 from __future__ import annotations
 
@@ -99,8 +103,8 @@ def main(argv=None):
                          "Default: gather for a fresh build; the saved "
                          "config for --load-index")
     ap.add_argument("--shards", type=int, default=0,
-                    help="serve corpus-sharded over this many devices "
-                         "(0 = single-device backend; > 1 is not ported yet)")
+                    help="serve corpus-sharded in this many shards, all on "
+                         "--device (0 = single-device backend)")
     ap.add_argument("--save-index", default=None, metavar="DIR",
                     help="persist the built index+config under DIR")
     ap.add_argument("--load-index", default=None, metavar="DIR",
@@ -175,9 +179,9 @@ def main(argv=None):
         ap.error("--producers must be >= 1")
     if args.shards < 0:
         ap.error("--shards must be >= 0")
-    if args.shards > 1:
-        ap.error("--shards > 1 (corpus-sharded serving) is not ported to "
-                 "repro_torch yet; serve single-device (--shards 0)")
+    if args.churn and args.shards > 1:
+        ap.error("--churn serves single-device (sharded delta segments are "
+                 "a ROADMAP follow-on)")
     if args.autotune_cache is not None:
         ap.error("--autotune-cache is not ported to repro_torch: no kernel of "
                  "the port takes its tiles from an autotune cache")
@@ -310,7 +314,10 @@ def main(argv=None):
     if mutable is not None:
         engine = mutable.engine(**serving_kwargs)
     else:
-        engine = index.engine("single", **serving_kwargs)
+        placement = "sharded" if args.shards > 1 else "single"
+        engine = index.engine(placement,
+                              shards=args.shards if args.shards > 1 else None,
+                              **serving_kwargs)
     # warm the steady-state query functions, then serve in waves; the
     # warm-up queries overlap the measured stream, so drop their cached
     # results to keep the printed latency/QPS about the backend, not cache
@@ -511,6 +518,11 @@ def _serve(args, engine, mutable, reqs, results, inserted, churn_rng):
               f"{w['bytes_appended']} bytes   "
               f"segment {w['segment']} ({w['segments_retired']} retired)   "
               f"replayed {w['records_replayed']}")
+    if t["shards"] > 1:
+        mean_c = ", ".join(f"{c:.0f}" for c in t["shard_candidates_mean"])
+        print(f"  per-shard candidates/query [{mean_c}]   "
+              f"combine {t['combine_pairs_per_query']:.0f} id/dist pairs/query   "
+              f"shard trunc max {max(t['shard_truncation_rate']):.3f}")
     for i, r in enumerate(results[:4]):
         print(f"  req{i}: ids[:5]={r.ids[:5].tolist()} "
               f"d[:3]={np.round(r.dists[:3], 4).tolist()}")

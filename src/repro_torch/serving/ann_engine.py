@@ -44,7 +44,9 @@ way, serving one batch means:
   5. demux per-request ids/dists (+ the ``truncated`` stat) into each
      request's future and record telemetry: p50/p99 latency, queries/sec,
      candidate-truncation rate, per-bucket compile counts, cache
-     hits/misses, queue depth, deadline misses, shed/degraded counts.
+     hits/misses, queue depth, deadline misses, shed/degraded counts, and,
+     for a sharded backend, the per-shard candidate/truncation stats and
+     the combine's id/dist pairs per query.
 
 Admission control
 -----------------
@@ -109,8 +111,8 @@ collects every undelivered result as ``{request_id: AnnResult}``.
 ``jax_dispatch_under_lock`` and ``jax_seconds_under_lock``: those come
 from the reference's runtime shim of JAX dispatch, and the port runs no
 JAX. Its lock discipline is checked statically
-(``tests/test_torch_lock_discipline.py``). The sharded backend and the
-autotune cache are not ported; both raise ``NotImplementedError``.
+(``tests/test_torch_lock_discipline.py``). The autotune cache is not
+ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -124,6 +126,7 @@ import numpy as np
 from repro_torch.ann.searcher import (
     AnnBatchResult,
     Searcher,
+    ShardedSearcher,
     SingleDeviceSearcher,
     _padded_on,
     effective_query_params,
@@ -409,14 +412,30 @@ class SingleDeviceAnnBackend(AnnBackend):
 
 
 class ShardedAnnBackend(AnnBackend):
-    """Corpus-sharded execution. Not ported yet: the sharded searcher is the
-    next slice of the port (``ROADMAP.md``, queue 1, sharded placement)."""
+    """Corpus-sharded execution (:class:`ShardedSearcher` adapter): the
+    index is placed ONCE as shard views over ``mesh`` (a sequence of
+    devices) or ``shards`` views on the index's device; every ``(bucket, k,
+    cfg)`` key makes a sharded query function. Same queue, same
+    function-cache policy, per-shard telemetry."""
 
     def __init__(self, index: SCIndex, *, mesh=None, shards: int | None = None,
-                 max_cached_fns: int = 64, searcher=None):
-        raise NotImplementedError(
-            "backend='sharded' (the corpus-sharded searcher) is not ported to "
-            "repro_torch yet; use 'single'")
+                 data_axes=None, query_axes=(), max_cached_fns: int = 64, searcher=None):
+        if searcher is None:
+            searcher = ShardedSearcher(index, mesh=mesh, shards=shards, data_axes=data_axes,
+                                       query_axes=query_axes, max_cached_fns=max_cached_fns)
+        super().__init__(index, searcher=searcher)
+
+    @property
+    def mesh(self):
+        return self.searcher.mesh
+
+    @property
+    def data_axes(self):
+        return self.searcher.data_axes
+
+    @property
+    def query_axes(self):
+        return self.searcher.query_axes
 
 
 def _make_backend(backend, index, *, mesh, shards, max_cached_fns) -> AnnBackend:
@@ -427,7 +446,8 @@ def _make_backend(backend, index, *, mesh, shards, max_cached_fns) -> AnnBackend
                 "query-function cache; don't also pass mesh/shards/"
                 "max_cached_fns (set them when building the searcher)"
             )
-        return SingleDeviceAnnBackend(backend.index, searcher=backend)
+        cls = ShardedAnnBackend if isinstance(backend, ShardedSearcher) else SingleDeviceAnnBackend
+        return cls(backend.index, searcher=backend)
     max_cached_fns = 64 if max_cached_fns is None else int(max_cached_fns)
     if backend == "sharded":
         return ShardedAnnBackend(

@@ -297,9 +297,14 @@ def test_mutable_engine_bitwise_equals_reference_under_churn():
     results = []
     for mm, e, Req in ((jm, jeng, JRequest), (m, eng, AnnRequest)):
         r = e.search(reqs(Req, stream))
+        # telemetry() joins the recall probes in flight, so each lands on the
+        # generation it was taken at (and is counted, not skipped) whatever
+        # the worker pool's timing; the mutations below move the generation
+        e.telemetry()
         new = mm.insert(fresh)
         mm.delete([3, 5, 8, int(new[0]), int(new[7])])
         r += e.search(reqs(Req, stream))
+        e.telemetry()
         results.append(r)
     assert_same(*results)
     # the compile keys differ by design: a masked-full batch asks the port's
@@ -310,6 +315,7 @@ def test_mutable_engine_bitwise_equals_reference_under_churn():
     for mm, e, Req in ((jm, jeng, JRequest), (m, eng, AnnRequest)):
         mm.compact(engine=e)
         e.search(reqs(Req, stream))
+        e.telemetry()
     keys = tuple(k for k in keys if k != "truncation_rate") + ("recall_probe_count",)
     want, got = assert_counters(jeng, eng, keys)
     assert got["index_swaps"] == 1 and got["result_cache_invalidations"] >= 3
@@ -331,8 +337,12 @@ def test_engine_matches_direct_query_and_padding(pair):
     np.testing.assert_array_equal(np.stack([r.dists for r in got]), want_d)
     # the engine's searcher and the facade's share nothing but the index
     assert eng.searcher is not port._default_searcher()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.engine("sharded")
+    # the sharded placement serves the same requests (masked-full never
+    # truncates, so bit for bit)
+    batch = [AnnRequest(query=q, rerank="masked_full") for q in pair.queries[:5]]
+    sharded = port.engine("sharded", shards=4, max_batch=16)
+    assert sharded.telemetry()["shards"] == 4
+    assert_same(eng.search(batch), sharded.search(batch))
 
 
 def test_function_cache_reuse_bound_and_validation(pair):
@@ -366,8 +376,11 @@ def test_engine_rejects_what_is_not_ported_and_stray_arguments(pair):
     with pytest.raises(ValueError, match="prebuilt Searcher"):
         AnnServingEngine(pair.port, pair.cfg, backend=SingleDeviceSearcher(pair.port),
                          max_cached_fns=4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        AnnServingEngine(pair.port, pair.cfg, backend="sharded")
+    sharded = AnnServingEngine(pair.port, pair.cfg, backend="sharded", shards=2)
+    batch = [AnnRequest(query=q, rerank="masked_full") for q in pair.queries[:4]]
+    assert_same(AnnServingEngine(pair.port, pair.cfg).search(batch), sharded.search(batch))
+    with pytest.raises(ValueError, match="divisible"):
+        AnnServingEngine(pair.port, pair.cfg, backend="sharded", shards=3)
     with pytest.raises(NotImplementedError, match="autotune"):
         AnnServingEngine(pair.port, pair.cfg, autotune_cache="winners.json")
     with pytest.raises(NotImplementedError, match="autotune"):

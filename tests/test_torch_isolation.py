@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.export",
             "repro_torch.serving", "repro_torch.serving.scheduler",
             "repro_torch.serving.ann_engine", "repro_torch.serving.batching",
-            "repro_torch.launch", "repro_torch.launch.serve_ann"} <= set(mods)
+            "repro_torch.launch", "repro_torch.launch.serve_ann",
+            "repro_torch.core.distributed"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

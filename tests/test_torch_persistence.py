@@ -250,11 +250,17 @@ def test_searcher_owns_the_function_cache(pair):
 
 
 def test_searcher_rejects_misplaced_arguments(pair):
-    _name, _ref, port, _queries = pair
+    _name, _ref, port, queries = pair
     with pytest.raises(ValueError):
         port.searcher("bogus")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.searcher("sharded")
+    # the sharded placement answers, as the single one does (masked-full
+    # never truncates, so the two are equal bit for bit)
+    ids, dists = port.searcher("sharded", shards=4).search(queries, rerank="masked_full")
+    want_i, want_d = port.searcher("single").search(queries, rerank="masked_full")
+    np.testing.assert_array_equal(ids, want_i)
+    np.testing.assert_array_equal(dists, want_d)
+    with pytest.raises(ValueError, match="divisible"):
+        port.searcher("sharded", shards=3)
     with pytest.raises(ValueError, match="SCConfig"):
         SingleDeviceSearcher(port.sc_index).search(np.zeros((1, 24), np.float32))
 

@@ -5,7 +5,9 @@ request stream bit for bit (sync, ``--async``, ``--mixed
 ``--verify-recovery`` printing MATCH; on an integer-valued index saved by
 ``repro`` its ids equal the reference launcher's under the same arguments
 for at least 95 % of the requests (the queries are float, so sums in
-another order may flip a near-tie); what is not ported is refused."""
+another order may flip a near-tie); ``--shards 2`` serves the
+single-device results through the sharded backend; what is not ported is
+refused."""
 import dataclasses
 
 import numpy as np
@@ -177,7 +179,7 @@ def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsy
 
 
 @pytest.mark.parametrize("args, match", [
-    (["--shards", "2"], "not ported"),
+    (["--churn", "8", "--shards", "2"], "single-device"),
     (["--autotune-cache", "winners.json"], "not ported"),
     (["--durability", "sync"], "requires --wal-dir"),
     (["--load-index", "a", "--save-index", "b"], "pick one"),
@@ -187,6 +189,18 @@ def test_refused_arguments(capsys, args, match):
         _run(*args)
     assert exc.value.code == 2
     assert match in capsys.readouterr().err
+
+
+def test_shards_serve_through_the_sharded_engine(tmp_path, capsys):
+    """``--shards 2`` answers through the corpus-sharded backend, with the
+    single-device launcher's results (masked-full never truncates, so bit
+    for bit)."""
+    args = ["--n", N, "--d", D, "--requests", 16, "--pressure", 8, "--rerank", "masked_full"]
+    got = _run(*args, "--shards", 2)
+    out = capsys.readouterr().out
+    assert "served 16 requests" in out and "[ShardedAnnBackend, 2 shard(s)]" in out
+    assert "per-shard candidates/query" in out
+    _assert_bitwise(got, _run(*args))
 
 
 def test_no_card_and_no_cpu_request_fails():
