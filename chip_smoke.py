@@ -128,7 +128,26 @@ Phases, in order; any failure exits nonzero:
                launcher must serve through the gather path's kernels; each
                must exit 0, print its telemetry and launch the path's
                kernels in its process;
- 12. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 12. lm      — the LM side at granite-3-2b's full width (40 layers, d_model
+               2048, 32 heads of 64, 8 KV heads, vocab 49155; ~2.6 B float32
+               parameters from a seeded generator on the card), once the ANN
+               index is freed: python -m repro_torch.launch.serve's main in
+               process (8 requests, 16 new tokens, 4 slots, max_seq 256,
+               bf16; served tokens, tok/s, one flash launch a layer a
+               prefill, prefill and decode-step ms from CUDA events);
+               forward over 4096 tokens through the flash kernel in float32
+               and bf16 against the plain path (impl="torch") on the same
+               weights (float32 within 1e-3, top-1 on >= 99 % of positions;
+               bf16 top-1 >= 95 %), the first layer's kernel call against
+               the plain flash version (bf16 also within 2^-7|x| + 4e-5 of
+               it in f32), timed beside the plain path and beside
+               scaled_dot_product_attention put in the kernel's place; TaCo
+               retrieval decode with the default RetrievalConfig, 16
+               teacher-forced steps after a 4096-token prefill beside full
+               attention (mean TVD, argmax agreement, step ms), the
+               retrieval build's ms for one layer, and float32 decode
+               retrieving every slot within 1e-3 of full decode;
+ 13. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -143,8 +162,9 @@ masked_rerank 4 times a masked-full batch, scscore 4 times a gather batch,
 in the searcher, the engine and serve_ann --shards 4, and kmeans_assign 4
 times a sharded Lloyd step; serve: l2dist, schist, masked_rerank,
 kmeans_assign, and for the default-config save l2dist and scscore, counted
-in the launcher's own process), l2dist exactly once a query batch and
-kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
+in the launcher's own process; lm: flash_attention exactly once a layer a
+prefill, in the engine, in forward and in prefill), l2dist exactly once a
+query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
 
@@ -197,6 +217,9 @@ PATHS = {
     "sharded_engine": ("l2dist", "schist", "masked_rerank", "scscore"),
     "sharded_serve": ("l2dist", "scscore"),
     "sharded_build": ("kmeans_assign",),
+    "lm_serve": ("flash_attention",),
+    "lm_prefill": ("flash_attention",),
+    "lm_taco": ("flash_attention",),
 }
 
 
@@ -2250,6 +2273,376 @@ def serve_in_process(torch, args) -> dict:
     return dict(seconds=secs, **row, launches=launches, stdout=lines)
 
 
+#: the lm phase: granite-3-2b at full width (40 layers, d_model 2048, 32
+#: heads of 64, 8 KV heads, vocab 49155; ~2.6 B parameters, float32), its
+#: weights from a seeded generator on the card
+LM_ARCH = "granite-3-2b"
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "8", "--max-new", "16", "--slots", "4",
+                 "--max-seq", "256"]
+LM_PREFILL = 4096
+LM_DECODE_STEPS = 16
+#: the kernel path's logits against the plain path's (impl="torch", the
+#: reference's rounding points) on the same weights. float32: rtol = atol
+#: and the share of the 4096 positions whose top-1 token agrees. bf16: the
+#: plain path rounds scores and probabilities to bf16 where the kernel keeps
+#: float32, so the top-1 share is gated, and the kernel path's mean
+#: |logits - f32 plain logits| may be at most LM_BF16_MEAN_SLACK times the
+#: plain bf16 path's (slack for the two paths' own output roundings)
+LM_F32_TOL, LM_F32_TOP1 = 1e-3, 0.99
+LM_BF16_TOP1 = 0.95
+LM_BF16_MEAN_SLACK = 1.1
+#: TaCo decode retrieving every slot against full decode, float32
+LM_TACO_EXACT_TOL = 1e-3
+LM_TACO_EXACT_STEPS = 4
+
+
+def cuda_timed_calls(torch, module, names, timings: dict):
+    """Wrap ``module.<name>`` for each name so that every call records a
+    pair of CUDA events around it in ``timings[name]``; returns a function
+    that puts the originals back."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            timings.setdefault(name, []).append((start, end))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, wrap(name, fn))
+    return lambda: [setattr(module, n, f) for n, f in originals.items()]
+
+
+def event_ms(torch, timings: dict) -> dict:
+    torch.cuda.synchronize()
+    return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in timings.items()}
+
+
+def lm_serve(torch, cfg) -> dict:
+    """python -m repro_torch.launch.serve's main in process at full width:
+    8 requests, 16 new tokens each, 4 slots, max_seq 256, bf16 compute. One
+    flash launch a layer a prefill, each prefill's first-layer call held
+    against the plain flash version (bf16, and f32 on the upcast inputs);
+    prefill and decode-step ms from CUDA events around the engine's calls."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as lm_engine
+
+    timings: dict = {}
+    firsts: list = []  # each prefill's first-layer kernel call
+    calls = [0]
+    launch = ops.flash_attention_cuda
+
+    def capture(q, k, v, causal):
+        out = launch(q, k, v, causal)
+        if calls[0] % cfg.n_layers == 0:
+            firsts.append((q, k, v, causal, out))
+        calls[0] += 1
+        return out
+
+    restore = cuda_timed_calls(torch, lm_engine, ("prefill", "decode_step"), timings)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ops.flash_attention_cuda = capture
+    try:
+        with contextlib.redirect_stdout(out):
+            outs, launches = run_path(torch, "lm_serve", lambda: serve.main(LM_SERVE_ARGS))
+    finally:
+        ops.flash_attention_cuda = launch
+        restore()
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print(f"lm serve: {ln}", flush=True)
+    ms = event_ms(torch, timings)
+    served = re.search(r"served (\d+) requests, (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s\)",
+                       out.getvalue())
+    check(served is not None, "lm serve: no served line printed")
+    requests, tokens = int(served.group(1)), int(served.group(2))
+    prefills = len(ms["prefill"])
+    check(requests == 8 and tokens == 8 * 16 == sum(map(len, outs)) and prefills == 8,
+          f"lm serve: {requests} requests, {tokens} tokens, {prefills} prefills")
+    check(launches["flash_attention"] == cfg.n_layers * prefills,
+          f"lm serve: {launches['flash_attention']} flash launches for {prefills} prefills "
+          f"of {cfg.n_layers} layers")
+    # the kernel at the served shapes (prompts shorter than one tile)
+    check(len(firsts) == prefills, f"lm serve: {len(firsts)} first-layer calls captured")
+    tol, (rtol, atol) = FLASH_TOL["bfloat16"], FLASH_BF16_VS_F32
+    kernel_err, used, lengths = 0.0, 0.0, []
+    for q, k, v, causal, got in firsts:
+        check(q.dtype == torch.bfloat16 and tuple(q.shape[::2]) == (cfg.n_heads, cfg.hd),
+              f"lm serve: kernel input {tuple(q.shape)} {q.dtype}")
+        lengths.append(q.shape[1])
+        want = flash_attention_plain(q, k, v, causal).float()
+        err = float((got.float() - want).abs().max())
+        check(torch.allclose(got.float(), want, rtol=tol, atol=tol),
+              f"lm serve: S {q.shape[1]} layer 0 flash max abs err {err} above {tol}")
+        want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        share = float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+        check(share <= 1.0, f"lm serve: S {q.shape[1]} layer 0 flash uses {share} of the "
+                            "allowed error against the f32 plain version")
+        kernel_err, used = max(kernel_err, err), max(used, share)
+    del firsts
+    decode = sorted(ms["decode_step"])
+    row = dict(requests=requests, tokens=tokens, seconds_printed=float(served.group(3)),
+               tok_per_s=float(served.group(4)), seconds=secs, prefills=prefills,
+               flash_launches=launches["flash_attention"], prompt_lengths=lengths,
+               layer0_flash_max_abs_err=kernel_err, layer0_share_of_allowed_vs_f32=used,
+               prefill_ms=ms["prefill"], decode_steps=len(decode),
+               decode_step_ms_median=decode[len(decode) // 2])
+    print(f"lm serve: {json.dumps(row)}", flush=True)
+    row["launches"] = launches
+    return row
+
+
+def lm_prefill(torch, params, cfg, tokens) -> dict:
+    """forward over 4096 tokens through the flash kernel, in float32 and in
+    the config's bf16, against the plain path (impl="torch") on the same
+    weights; the first layer's kernel call held against the plain flash
+    version; the kernel path timed beside the plain path and beside
+    scaled_dot_product_attention routed the same way."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention as lm_attention
+    from repro_torch.models import model as M
+
+    rows = {}
+    top1_f32 = None  # the float32 kernel path's top-1 tokens
+    exact = None  # the float32 plain path's logits
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        batch = {"tokens": tokens}
+        first = {}
+        launch = ops.flash_attention_cuda
+
+        def capture(q, k, v, causal):
+            out = launch(q, k, v, causal)
+            if not first:
+                first.update(q=q, k=k, v=v, causal=causal, out=out)
+            return out
+
+        copies, expansions = fa.aligned_copies, lm_attention.kv_expansions
+        ops.flash_attention_cuda = capture
+        try:
+            got, launches = run_path(torch, "lm_prefill", lambda: M.forward(params, c, batch)[0],
+                                     expect={"flash_attention": cfg.n_layers})
+        finally:
+            ops.flash_attention_cuda = launch
+        copies = fa.aligned_copies - copies
+        expansions = lm_attention.kv_expansions - expansions
+        check(copies == 0 and expansions == cfg.n_layers,
+              f"lm prefill {dtype}: {copies} aligned copies, {expansions} K/V expansions")
+        # the kernel at the path's first call, against its plain version
+        q, k, v, causal = (first[n] for n in ("q", "k", "v", "causal"))
+        check(tuple(q.shape) == (cfg.n_heads, LM_PREFILL, cfg.hd) and q.dtype == c.cdtype,
+              f"lm prefill {dtype}: kernel input {tuple(q.shape)} {q.dtype}")
+        want = flash_attention_plain(q, k, v, causal)
+        kernel_err = float((first["out"].float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        check(torch.allclose(first["out"].float(), want.float(), rtol=tol, atol=tol),
+              f"lm prefill {dtype}: layer 0 flash max abs err {kernel_err} above {tol}")
+        used = None
+        if dtype == "bfloat16":
+            want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+            rtol, atol = FLASH_BF16_VS_F32
+            used = float(((first["out"].float() - want).abs() / (atol + rtol * want.abs())).max())
+            check(used <= 1.0, f"lm prefill bf16: layer 0 flash uses {used} of the allowed "
+                               "error against the f32 plain version")
+        del want, first, q, k, v
+        plain = M.forward(params, c, batch, impl="torch")[0]
+        err = float((got - plain).abs().max())
+        top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+        if top1_f32 is None:
+            top1_f32 = got.argmax(-1)
+        # which bf16 path keeps the float32 result's top-1 token more often
+        vs_f32 = {path: float((x.argmax(-1) == top1_f32).float().mean())
+                  for path, x in (("kernel", got), ("plain", plain))}
+        finite = bool(torch.isfinite(got).all())
+        check(finite and tuple(got.shape) == (1, LM_PREFILL, cfg.vocab_size),
+              f"lm prefill {dtype}: logits {tuple(got.shape)}, finite {finite}")
+        mean_vs_f32 = None
+        if dtype == "float32":
+            check(torch.allclose(got, plain, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+                  and top1 >= LM_F32_TOP1,
+                  f"lm prefill f32: max abs err {err}, top-1 agreement {top1}")
+            exact = plain
+        else:
+            check(top1 >= LM_BF16_TOP1, f"lm prefill bf16: top-1 agreement {top1}")
+            # the kernel keeps scores and probabilities in f32 where the plain
+            # bf16 path rounds them: it must be no further from the f32 logits
+            mean_vs_f32 = {path: float((x - exact).abs().mean())
+                           for path, x in (("kernel", got), ("plain", plain))}
+            check(mean_vs_f32["kernel"] <= LM_BF16_MEAN_SLACK * mean_vs_f32["plain"],
+                  f"lm prefill bf16: mean |logits - f32 logits| {mean_vs_f32}")
+            del exact
+        del got, plain
+        torch.cuda.empty_cache()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def sdpa_launch(q, k, v, causal):  # the library call in the kernel's place
+            return sdpa(q[None], k[None], v[None], is_causal=causal)[0]
+
+        ms = timed(torch, lambda: M.forward(params, c, batch), 2)
+        plain_ms = timed(torch, lambda: M.forward(params, c, batch, impl="torch"), 2)
+        ops.flash_attention_cuda = sdpa_launch
+        try:
+            sdpa_ms = timed(torch, lambda: M.forward(params, c, batch), 2)
+        finally:
+            ops.flash_attention_cuda = launch
+        profiled = profile_call(torch, lambda: M.forward(params, c, batch), f"lm prefill {dtype}")
+        rows[dtype] = dict(max_abs_err=err, top1_agreement=top1, top1_vs_f32_kernel=vs_f32,
+                           mean_abs_vs_f32_plain=mean_vs_f32, ms=ms, plain_ms=plain_ms,
+                           sdpa_routed_ms=sdpa_ms, layer0_flash_max_abs_err=kernel_err,
+                           layer0_share_of_allowed_vs_f32=used)
+        print(f"lm prefill {dtype}: {json.dumps(rows[dtype])}", flush=True)
+        rows[dtype]["launches"], rows[dtype]["profile"] = launches, profiled
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_decode_profile(torch, params, cfg) -> dict:
+    """One decode step at the served shape (4 slots at positions 5-20 of a
+    256-slot cache, bf16) under the profiler, after one unprofiled step."""
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, 4, 256)
+    step = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    pos = torch.tensor([5, 10, 15, 20], device="cuda")
+    M.decode_step(params, cfg, cache, step, pos)
+    return profile_call(torch, lambda: M.decode_step(params, cfg, cache, step, pos + 1),
+                        "lm serve decode step")
+
+
+def lm_teacher_forced(torch, params, cfg, tokens, steps: int, label: str,
+                      profile: bool = False) -> tuple:
+    """Prefill all but the last ``steps`` tokens (counted as a path run),
+    then teacher-force them; (per-step logits, decode-step ms, prefill
+    launches, the cache, the profile). With ``profile`` the last step runs
+    under the profiler and is left out of the step times."""
+    from repro_torch.models import model as M
+
+    n = tokens.shape[1] - steps
+    (_, cache), launches = run_path(
+        torch, "lm_taco", lambda: M.prefill(params, cfg, {"tokens": tokens[:, :n]},
+                                            tokens.shape[1]),
+        expect={"flash_attention": cfg.n_layers})
+    logits, step_ms, profiled = [], [], None
+    for t in range(n, tokens.shape[1]):
+        if profile and t == tokens.shape[1] - 1:
+            box = []
+            profiled = profile_call(torch, lambda: box.append(M.decode_step(
+                params, cfg, cache, tokens[:, t:t + 1], t)), f"lm {label} decode step")
+            logits.append(box[0][0][:, 0])
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, cache = M.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+        end.record()
+        logits.append(out[:, 0])
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    check(all(bool(torch.isfinite(x).all()) for x in logits), f"lm taco {label}: non-finite logits")
+    return logits, step_ms, launches, cache, profiled
+
+
+def lm_taco(torch, params, cfg, tokens) -> dict:
+    """TaCo retrieval decode at full width, as
+    examples/retrieval_attention_serve.py reports it: prefill 4096 tokens
+    with the default RetrievalConfig, 16 teacher-forced steps beside full
+    attention (mean TVD, argmax agreement; random weights are its worst
+    case); the exactness gate at float32 with n_retrieve >= the cache
+    length; the retrieval build's ms for one layer; decode-step ms."""
+    import dataclasses
+
+    from repro_torch.models import taco_attention as TA
+
+    steps = LM_DECODE_STEPS
+    full, full_ms, l_full, _, full_prof = lm_teacher_forced(
+        torch, params, dataclasses.replace(cfg, attention_kind="full"), tokens, steps, "full",
+        profile=True)
+    taco, taco_ms, l_taco, cache, taco_prof = lm_teacher_forced(
+        torch, params, dataclasses.replace(cfg, attention_kind="taco"), tokens, steps, "taco",
+        profile=True)
+    tvd = [float(0.5 * (torch.softmax(f, -1) - torch.softmax(t, -1)).abs().sum())
+           for f, t in zip(full, taco)]
+    agree = sum(int(torch.argmax(f) == torch.argmax(t)) for f, t in zip(full, taco))
+    del full, taco
+    # the build alone, on the first layer's 4096 prefilled keys
+    keys = cache["l0"]["k"][0][:, :LM_PREFILL].float()
+    build_ms = timed(torch, lambda: TA.build_retrieval_state(keys, cfg.retrieval), 3)
+    del cache, keys
+    # exactness: retrieve every slot, float32
+    exact_tokens = tokens[:, :LM_PREFILL + LM_TACO_EXACT_STEPS]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    every = dataclasses.replace(cfg.retrieval, n_retrieve=exact_tokens.shape[1])
+    want, _, l_f32, _, _ = lm_teacher_forced(
+        torch, params, dataclasses.replace(f32, attention_kind="full"), exact_tokens,
+        LM_TACO_EXACT_STEPS, "exact full")
+    got, _, l_exact, _, _ = lm_teacher_forced(
+        torch, params, dataclasses.replace(f32, attention_kind="taco", retrieval=every),
+        exact_tokens, LM_TACO_EXACT_STEPS, "exact taco")
+    exact_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.allclose(g, w, rtol=LM_TACO_EXACT_TOL, atol=LM_TACO_EXACT_TOL)
+              for g, w in zip(got, want)),
+          f"lm taco: retrieving every slot, max abs err {exact_err} against full decode")
+    torch.cuda.empty_cache()
+    row = dict(retrieval=dataclasses.asdict(cfg.retrieval), prefill_tokens=LM_PREFILL,
+               steps=steps, mean_tvd=sum(tvd) / len(tvd), tvd=tvd, argmax_agree=agree,
+               build_ms_per_layer=build_ms,
+               taco_step_ms_median=sorted(taco_ms)[len(taco_ms) // 2],
+               full_step_ms_median=sorted(full_ms)[len(full_ms) // 2],
+               taco_step_ms=taco_ms, full_step_ms=full_ms,
+               exact_max_abs_err=exact_err, exact_steps=LM_TACO_EXACT_STEPS)
+    print(f"lm taco: {json.dumps(row)}", flush=True)
+    row["launches"] = [l_full, l_taco, l_f32, l_exact]
+    row["full_profile"], row["taco_profile"] = full_prof, taco_prof
+    return row
+
+
+def phase_lm(torch) -> dict:
+    """Phase 12: the LM side at granite-3-2b's full width: the slot engine
+    through the launcher, prefill at 4096 tokens through the flash kernel
+    against the plain path, TaCo retrieval decode beside full attention."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, param_count
+
+    cfg = get_arch(LM_ARCH)
+    check(not torch.backends.cuda.matmul.allow_tf32, "lm: TF32 matmuls are on")
+    serve = lm_serve(torch, cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL + LM_DECODE_STEPS),
+                           generator=gen, device="cuda")
+    print(f"lm: {cfg.name} {param_count(params)} parameters drawn in {init_s:.2f} s", flush=True)
+    prefill = lm_prefill(torch, params, cfg, tokens[:, :LM_PREFILL])
+    serve["decode_profile"] = lm_decode_profile(torch, params, cfg)
+    taco = lm_taco(torch, params, cfg, tokens)
+    del params
+    torch.cuda.empty_cache()
+    launches = [serve["launches"], prefill["float32"]["launches"],
+                prefill["bfloat16"]["launches"], *taco["launches"]]
+    return {"arch": cfg.name, "init_s": init_s, "serve": serve, "prefill": prefill,
+            "taco": taco, "launches": launches}
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -2345,8 +2738,12 @@ def main(argv=None) -> int:
     sharded = phase("sharded", phase_sharded, torch, index, queries_np, queries, gt)
     serve = phase("serve", phase_serve, torch, root, index)
     del index
+    torch.cuda.empty_cache()
+    # 12. the LM side at granite-3-2b's full width, once the ANN index is freed
+    lm = phase("lm", phase_lm, torch)
 
-    # 12. summary: each kernel's launches over every path run above
+
+    # 13. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -2354,7 +2751,7 @@ def main(argv=None) -> int:
                    sharded["launches"], sharded["engine"]["single"]["launches"],
                    sharded["engine"]["sharded"]["launches"],
                    sharded["serve"]["launches"], sharded["build"]["launches"],
-                   *(run["launches"] for run in serve.values())):
+                   *(run["launches"] for run in serve.values()), *lm["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -2371,7 +2768,7 @@ def main(argv=None) -> int:
                                "kernels": kernels, "flash": flash, "masked": masked,
                                "gather": gather, "persist": persist,
                                "mutable": mutable, "engine": engine, "sharded": sharded,
-                               "serve": serve,
+                               "serve": serve, "lm": lm,
                                "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)

@@ -1,5 +1,10 @@
-"""Serving of the port (mirrors ``repro.serving``; the LM engine,
-``ServingEngine``/``Request``, comes with the LM side).
+"""Serving of the port (mirrors ``repro.serving``): the request paths over
+this repo's two workloads.
+
+:class:`ServingEngine` (:mod:`repro_torch.serving.engine`) serves LM
+decode: slot-based continuous batching over a fixed pool of decode slots;
+each prompt is prefilled on its own (causal self-attention through the
+flash kernel on the card) and finished slots refill from the queue.
 
 :class:`AnnServingEngine` (:mod:`repro_torch.serving.ann_engine`) serves
 TaCo k-ANNS (paper Alg. 6): it micro-batches a stream of
@@ -30,6 +35,7 @@ from repro_torch.serving.ann_engine import (
     ShardedAnnBackend,
     SingleDeviceAnnBackend,
 )
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.scheduler import WorkerPool, WorkTask, get_shared_pool
 
 __all__ = [
@@ -40,6 +46,8 @@ __all__ = [
     "AnnRequest",
     "AnnResult",
     "AnnServingEngine",
+    "Request",
+    "ServingEngine",
     "ShardedAnnBackend",
     "SingleDeviceAnnBackend",
     "WorkTask",

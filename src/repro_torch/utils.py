@@ -20,13 +20,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Squared Euclidean distance matrix between rows of x (M,d) and y (N,d)
-    in the ``||x||^2 + ||y||^2 - 2 x.y^T`` form, clamped at 0."""
+    """Squared Euclidean distance matrix between rows of x (..., M, d) and
+    y (..., N, d) in the ``||x||^2 + ||y||^2 - 2 x.y^T`` form, clamped at 0;
+    leading dimensions are a batch."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
-    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # (M, 1)
-    y2 = torch.sum(y * y, dim=-1, keepdim=True).T  # (1, N)
-    d = x2 + y2 - 2.0 * (x @ y.T)
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # (..., M, 1)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True).mT  # (..., 1, N)
+    d = x2 + y2 - 2.0 * (x @ y.mT)
     return torch.clamp_min(d, 0.0)
 
 

@@ -402,6 +402,8 @@ def test_query_on_the_card_matches_the_cpu(dev, rerank, selection):
     (1, 520, 520, 96, True), (1, 300, 600, 128, False),
     # one query row; more queries than keys under the causal mask
     (3, 1, 300, 64, True), (2, 1, 50, 128, False), (2, 300, 70, 64, True),
+    # served prompts shorter than one tile: 32 heads of 64, S = T in 2-63
+    (32, 4, 4, 64, True), (32, 23, 23, 64, True), (1, 2, 2, 64, True), (1, 63, 63, 64, True),
 ])
 def test_flash_attention_kernel(dev, bh, s, t, hd, causal, dtype):
     """Ragged S and T, S != T both ways, every head-dim template; against
@@ -471,3 +473,40 @@ def test_flash_attention_kernel_rejects(dev):
         flash_attention_cuda(x, x[:, :0], x[:, :0])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_cuda(x.half(), x.half(), x.half())
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_lm_forward_through_the_kernel(dev, compute_dtype):
+    """An LM forward (granite-3-2b smoke, 2 layers, 4 heads of 16, 2 KV
+    heads) through the flash kernel: one launch a layer, no aligned copy,
+    logits against the plain path (impl="torch") on the same weights:
+    float32 within 1e-4. In bf16 the plain path rounds the scores and the
+    probabilities to bf16 where the kernel keeps them in float32, so the
+    kernel path must be no further from the float32 result, on average,
+    than the plain bf16 path is (10 % slack for the two paths' own output
+    roundings)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), compute_dtype=compute_dtype)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(7)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 100)), device=dev)
+    copies = fa.aligned_copies
+    cuda.reset_launch_counts()
+    got = M.forward(params, cfg, {"tokens": tokens})[0]
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["flash_attention"] == cfg.n_layers
+    assert fa.aligned_copies == copies
+    want = M.forward(params, cfg, {"tokens": tokens}, impl="torch")[0]
+    if compute_dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        exact = M.forward(params, f32, {"tokens": tokens}, impl="torch")[0]
+        assert torch.isfinite(got).all()
+        assert (got - exact).abs().mean() <= 1.1 * (want - exact).abs().mean()

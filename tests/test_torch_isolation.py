@@ -36,7 +36,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.serving", "repro_torch.serving.scheduler",
             "repro_torch.serving.ann_engine", "repro_torch.serving.batching",
             "repro_torch.launch", "repro_torch.launch.serve_ann",
-            "repro_torch.core.distributed"} <= set(mods)
+            "repro_torch.core.distributed", "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.taco_attention",
+            "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.configs",
+            "repro_torch.configs.registry", "repro_torch.configs.granite_3_2b",
+            "repro_torch.serving.engine", "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -104,6 +108,23 @@ def test_entry_points_default_to_the_card(tmp_path):
         taco.build(data, taco_config(n_subspaces=2, subspace_dim=2, n_clusters=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         taco.index_from_arrays({}, (2, 2))
+
+    # the LM side: parameters, the engine and its launcher
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, params_from_arrays
+    from repro_torch.serving import ServingEngine
+
+    lm = get_smoke("granite-3-2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(torch.Generator().manual_seed(0), lm)
+    params = init_params(torch.Generator().manual_seed(0), lm, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_arrays(params, lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(params, lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--requests", "1", "--max-new", "1"])
 
 
 def test_kernel_wrappers_never_fall_back():
