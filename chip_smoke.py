@@ -52,6 +52,16 @@ Phases, in order; any failure exits nonzero:
                held against the plain path, the query-aware runs also against
                masked-full; heap and linear activation against sort on the
                first 100 queries;
+  6b. baselines — the paper's baselines on the same corpus, queries and
+               ground truth: IVF-Flat built on the card (1024 lists, 10 Lloyd
+               iterations: 11 kmeans_assign launches through its tiled path;
+               build seconds, Lmax, index_bytes), queried at nprobe 16 and 64
+               (QPS median of 3, recall@10 rising with nprobe), SC-Linear at
+               the SuCo config (QPS, recall@10 beside TaCo's and SuCo's), and
+               an integer-valued IVF build (10^5 x 128, 1024 lists, means
+               rounded each update) bit for bit against the plain path; the
+               kernels phase also holds kmeans_assign at IVF's shape (10^6 x
+               128 against 1024 centroids) against its plain version;
   7. persist — AnnIndex.save of the TaCo and the SuCo index to a temporary
                directory, AnnIndex.load on the card: every array bitwise equal,
                and masked-full and gather ids and dists of one batch bitwise
@@ -147,7 +157,18 @@ Phases, in order; any failure exits nonzero:
                attention (mean TVD, argmax agreement, step ms), the
                retrieval build's ms for one layer, and float32 decode
                retrieving every slot within 1e-3 of full decode;
- 13. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 13. train   — LM training once the lm phase's parameters are freed:
+               granite-3-2b at full width (f32 parameters, bf16 compute, remat,
+               AdamW, warmup_cosine, batch 8 x 128) for 4 steps (finite loss
+               and grad norm, step ms from CUDA events, tok/s, peak memory,
+               flash launched exactly twice a layer a step: forward and the
+               remat recompute; one profiled step by kind of kernel); one
+               step's gradients at 2 layers in f32 through the kernel
+               against the plain path, every attention weight with a
+               gradient; the smoke config through launch.train.main: 60
+               steps with 2 microbatches (the loss falls), 6 straight against
+               3 + checkpoint + --resume 3 (1e-4), one Adafactor step;
+ 14. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -163,7 +184,10 @@ in the searcher, the engine and serve_ann --shards 4, and kmeans_assign 4
 times a sharded Lloyd step; serve: l2dist, schist, masked_rerank,
 kmeans_assign, and for the default-config save l2dist and scscore, counted
 in the launcher's own process; lm: flash_attention exactly once a layer a
-prefill, in the engine, in forward and in prefill), l2dist exactly once a
+prefill, in the engine, in forward and in prefill; ivf_build: kmeans_assign
+exactly 11 times; train: flash_attention exactly twice a layer a step, at
+full width and in the 2-layer gradient check, and in the smoke runs),
+l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
@@ -175,6 +199,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -220,6 +245,10 @@ PATHS = {
     "lm_serve": ("flash_attention",),
     "lm_prefill": ("flash_attention",),
     "lm_taco": ("flash_attention",),
+    "ivf_build": ("kmeans_assign",),
+    "train": ("flash_attention",),
+    "train_grads": ("flash_attention",),
+    "train_smoke": ("flash_attention",),
 }
 
 
@@ -332,6 +361,59 @@ def kmeans_pairs_case(torch, label: str, n: int, k: int, dims, ints, floats,
         argmin_agree=agree,
         shape=f"{n_pairs} pairs, x ({n}, {w}) (widths {dims}), c ({k}, {w})")
     print(f"kernel kmeans_assign {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+#: IVF's lists: ~sqrt(n) at 10^6 points (SIFT1M is usually served as IVF1024/IVF4096)
+IVF_LISTS = 1024
+#: a kmeans_assign answer that differs from the plain version's must be a
+#: near-tie: its distance (plain arithmetic) within this of the plain minimum,
+#: relative to the point's |x|^2 + |c|^2 (the cancellation of the norm form)
+IVF_NEAR_TIE = 1e-5
+IVF_AGREE = 0.9999
+
+
+def ivf_assign_case(torch, corpus, ints, rng) -> dict:
+    """kmeans_assign at IVF's shape, the corpus (10^6, 128) against 1024
+    centroids (1024 corpus rows): k (w + 1) floats past shared memory, so
+    the tiled path. Integer inputs at the same shape bit for bit against
+    the plain version; on the corpus the assignments equal the plain
+    version's on >= 99.99 % of the points and every other one is a
+    near-tie, the distances allclose. Timed beside the plain version,
+    ``torch.cdist(x, c).min(-1)`` (TF32 off) and the bound."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain, tiled
+
+    n, w = corpus.shape
+    k = IVF_LISTS
+    check(tiled(k, w), f"kmeans_assign ivf: {k} x {w} fits in shared memory")
+    x, c = ints((n, w)), ints((k, w))
+    ga, gd = kmeans_assign_cuda(x, c)
+    wa, wd = kmeans_assign_plain(x, c)
+    check(torch.equal(ga, wa) and torch.equal(gd, wd), "kmeans_assign ivf int")
+    del x, ga, gd, wa, wd
+    c = corpus[torch.as_tensor(rng.choice(n, k, replace=False), device=corpus.device)]
+    ga, gd = kmeans_assign_cuda(corpus, c)
+    wa, wd = kmeans_assign_plain(corpus, c)
+    differ = torch.nonzero(ga != wa)[:, 0]
+    agree = 1.0 - differ.numel() / n
+    check(agree >= IVF_AGREE, f"kmeans_assign ivf: assignments agree on {agree} < {IVF_AGREE}")
+    if differ.numel():
+        xd = corpus[differ]
+        scale = (xd * xd).sum(1) + (c * c).sum(1).max()
+        picked = ((xd - c[ga[differ].long()]) ** 2).sum(1)
+        check(bool((picked - wd[differ] <= IVF_NEAR_TIE * scale).all()),
+              "kmeans_assign ivf: a differing assignment is not a near-tie")
+    atol = 1e-5 * float((corpus * corpus).sum(1).max() + (c * c).sum(1).max())
+    check(torch.allclose(gd, wd, rtol=1e-5, atol=atol), "kmeans_assign ivf: distances")
+    b, by = bound_ms(4 * (n * w + k * w + 2 * n), n * k * (2 * w + 3) + 2 * w * (n + k))
+    row = dict(max_abs_err=float((gd - wd).abs().max()), assign_agree=agree,
+               differing=int(differ.numel()),
+               ms=timed(torch, lambda: kmeans_assign_cuda(corpus, c), 10),
+               plain_ms=timed(torch, lambda: kmeans_assign_plain(corpus, c), 3),
+               bound_ms=b, bound_by=by,
+               library_ms=timed(torch, lambda: torch.cdist(corpus, c).min(dim=-1), 3),
+               shape=f"x ({n}, {w}), c ({k}, {w}), tiled")
+    print(f"kernel kmeans_assign ivf: {json.dumps(row)}", flush=True)
     return row
 
 
@@ -528,7 +610,8 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                                         ("ragged", 1003, 13, [3, 5, 7]))}
     res["kmeans_assign"] = dict(rows["taco"], one_pair_ms=one_pair_ms,
                                 one_pair_shape=f"x ({n}, {sd}), c ({sqrt_k}, {sd})",
-                                suco=rows["suco"], ragged=rows["ragged"])
+                                suco=rows["suco"], ragged=rows["ragged"],
+                                ivf=ivf_assign_case(torch, corpus, ints, rng))
     del x, c
     torch.cuda.empty_cache()
 
@@ -801,7 +884,10 @@ def profile_call(torch, fn, label: str) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler,
     and the device's busy share of the window. Only device-side events
     count: a host-side op (``aten::...``) also reports the device time of
-    the kernels it launched, and summing both would count that time twice."""
+    the kernels it launched, and summing both would count that time twice.
+    Also kept: every kernel's time and count (``device_ops``, for sums by
+    kind), the number of kernels, and the top host operations by their own
+    (self) CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -811,9 +897,11 @@ def profile_call(torch, fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, host = [], []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
+            if evt.self_cpu_time_total > 0:
+                host.append((evt.self_cpu_time_total, evt.count, evt.key))
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -821,17 +909,23 @@ def profile_call(torch, fn, label: str) -> dict:
         if dev_us > 0:
             rows.append((dev_us, evt.count, evt.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     total = sum(r[0] for r in rows)
     if total == 0:
         print(f"profile {label}: no device time in the trace (not measured)", flush=True)
         return {"wall_us": wall_us, "device_busy_us": None}
+    kernels = sum(r[1] for r in rows)
     print(f"profile {label}: window {wall_us:.0f} us (profiled), device busy {total:.0f} us "
-          f"({100 * total / wall_us:.1f}%)", flush=True)
+          f"({100 * total / wall_us:.1f}%), {kernels} kernels", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"profile {label}: {dev_us:10.0f} us {100 * dev_us / total:5.1f}% x{count:<5d} "
               f"{key[:90]}", flush=True)
-    return {"wall_us": wall_us, "device_busy_us": total,
-            "top_device": [dict(us=us, count=c, op=key) for us, c, key in rows[:12]]}
+    for us, count, key in host[:5]:
+        print(f"profile {label}: host {us:10.0f} us x{count:<6d} {key[:80]}", flush=True)
+    return {"wall_us": wall_us, "device_busy_us": total, "kernels": kernels,
+            "top_device": [dict(us=us, count=c, op=key) for us, c, key in rows[:12]],
+            "device_ops": [[us, c, key[:120]] for us, c, key in rows],
+            "top_host": [dict(us=us, count=c, op=key) for us, c, key in host[:10]]}
 
 
 def profile_build(torch, corpus_np, cfg, label: str):
@@ -1117,6 +1211,113 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
         check(row["taus_equal"], f"activation {method}: tau differs from sort")
         summary["activations"][method] = row
     return summary, suco
+
+
+IVF_NPROBES = (16, 64)
+
+
+def integer_ivf_check(torch) -> dict:
+    """IVF's k-means over an integer-valued 10^5 x 128 corpus (values in
+    [-20, 20]) at 1024 lists, through the kernel (the tiled path) and
+    through the plain version on the card, from the same draw, each Lloyd
+    update's means rounded to integers so that every distance is exact:
+    centroids, assignments, lists and the ids and distances of
+    ivf_query bit for bit."""
+    import numpy as np
+
+    from repro_torch.clustering import kmeans_assign, lloyd_step
+    from repro_torch.core.ivf import IVFIndex, ivf_lists, ivf_query
+
+    data = torch.as_tensor(np.random.default_rng(8).integers(-20, 21, (100_000, 128))
+                           .astype(np.float32), device="cuda")
+    queries = data[:100] + 1.0
+    init = data[torch.randperm(data.shape[0], generator=torch.Generator().manual_seed(0))
+                [:IVF_LISTS].to(data.device)]
+    out = {}
+    for impl in ("kernel", "torch"):
+        c = init
+        for _ in range(10):
+            c, _a = lloyd_step(data, c, impl=impl)
+            c = torch.round(c)
+        assign, dmin = kmeans_assign(data, c, impl=impl)
+        index = IVFIndex(centroids=c, lists=ivf_lists(assign, IVF_LISTS), data=data)
+        out[impl] = (c, assign, dmin, index.lists, *ivf_query(index, queries, 16, 10))
+    same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["torch"]))
+    check(same, "integer IVF build: the kernel path differs from the plain path")
+    row = dict(n=data.shape[0], lists=IVF_LISTS, lmax=int(out["kernel"][3].shape[1]),
+               bitwise=True)
+    print(f"baselines: integer IVF build equals the plain path: {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_baselines(torch, corpus_np, queries, gt, gather) -> dict:
+    """The paper's baselines on the masked phase's corpus, queries and
+    ground truth: IVF-Flat (1024 lists, 10 Lloyd iterations, nprobe 16 and
+    64) and SC-Linear at the SuCo config, each at k = 10 with QPS (median of
+    3) and recall@10, SC-Linear's beside TaCo's and SuCo's from the gather
+    phase; then the integer IVF build against the plain path."""
+    from repro_torch.core import SCLinear, build_ivf, ivf_query
+    from repro_torch.core.config import suco_config
+    from repro_torch.utils import recall_at_k
+
+    q = queries.shape[0]
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build_ivf(corpus_np, IVF_LISTS, kmeans_iters=10, seed=0)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    (index, build_s), build_launches = run_path(torch, "ivf_build", build,
+                                                expect={"kmeans_assign": 11})
+    lists = index.lists
+    counts = (lists >= 0).sum(1)
+    ivf = dict(build_s=build_s, lists=IVF_LISTS, lmax=int(lists.shape[1]),
+               mean_list=float(counts.float().mean()), empty_lists=int((counts == 0).sum()),
+               index_bytes=index.index_bytes, searches=[])
+    check(int(counts.sum()) == corpus_np.shape[0], "ivf: the lists do not hold every point")
+    print(f"baselines: ivf build {json.dumps(ivf)}", flush=True)
+    for nprobe in IVF_NPROBES:
+        ivf_query(index, queries[:8], nprobe, 10)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        secs, (ids, dists) = _median_s(torch, lambda: ivf_query(index, queries, nprobe, 10))
+        check(tuple(ids.shape) == (q, 10) and bool(torch.isfinite(dists).all()),
+              f"ivf nprobe {nprobe}: shape or non-finite distances")
+        row = dict(nprobe=nprobe, k=10, seconds=secs, qps=q / secs,
+                   recall_at_10=recall_at_k(ids, gt, 10),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"baselines: ivf search {json.dumps(row)}", flush=True)
+        ivf["searches"].append(row)
+    check(ivf["searches"][1]["recall_at_10"] > ivf["searches"][0]["recall_at_10"],
+          "ivf: recall does not rise from nprobe 16 to 64")
+    del index, lists
+    torch.cuda.empty_cache()
+
+    cfg = suco_config(n_subspaces=6, n_clusters=1024, alpha=0.05, beta=0.005, k=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lin = SCLinear(corpus_np, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lin.query(queries[:8])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    secs, (ids, dists) = _median_s(torch, lambda: lin.query(queries))
+    check(tuple(ids.shape) == (q, 10) and bool(torch.isfinite(dists).all()),
+          "sclinear: shape or non-finite distances")
+    taco_row = next(r for r in gather["searches"]
+                    if r["config"] == "taco" and r["k"] == 10 and r["selection"] == "query_aware")
+    suco_row = next(r for r in gather["searches"] if r["config"] == "suco" and r["k"] == 10)
+    sclinear = dict(setup_s=setup_s, seconds=secs, qps=q / secs,
+                    recall_at_10=recall_at_k(ids, gt, 10),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    taco_recall_at_10=taco_row["recall_at_10"], taco_qps=taco_row["qps"],
+                    suco_recall_at_10=suco_row["recall_at_10"], suco_qps=suco_row["qps"])
+    print(f"baselines: sclinear {json.dumps(sclinear)}", flush=True)
+    del lin, ids, dists
+    torch.cuda.empty_cache()
+    return {"ivf": ivf, "sclinear": sclinear, "integer_ivf": integer_ivf_check(torch),
+            "launches": build_launches}
 
 
 def save_and_load(torch, index, label: str) -> tuple:
@@ -2318,6 +2519,50 @@ def cuda_timed_calls(torch, module, names, timings: dict):
     return lambda: [setattr(module, n, f) for n, f in originals.items()]
 
 
+def hold_flash_call(torch, label: str, q, k, v, causal, got):
+    """One flash kernel call of a path against flash_attention_plain on the
+    same inputs at FLASH_TOL[dtype]; a bf16 call also against the f32 plain
+    version on the upcast inputs at FLASH_BF16_VS_F32. Returns the largest
+    error and the share of the f32 allowance used (None for an f32 call)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    dtype = str(q.dtype).removeprefix("torch.")
+    tol = FLASH_TOL[dtype]
+    want = flash_attention_plain(q, k, v, causal).float()
+    err = float((got.float() - want).abs().max())
+    check(tuple(got.shape) == tuple(q.shape) and got.dtype == q.dtype,
+          f"{label}: flash output {tuple(got.shape)} {got.dtype}")
+    check(torch.allclose(got.float(), want, rtol=tol, atol=tol),
+          f"{label}: flash max abs err {err} above {tol}")
+    share = None
+    if dtype == "bfloat16":
+        rtol, atol = FLASH_BF16_VS_F32
+        want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        share = float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+        check(share <= 1.0, f"{label}: flash uses {share} of the allowed error against the "
+                            "f32 plain version")
+    return err, share
+
+
+def capture_first_flash(ops, seen: list):
+    """Wrap ops.flash_attention_cuda so that its first call's inputs and
+    output (cloned) land in ``seen``; returns a function that puts the
+    original back. Launches still go through the wrapper, so they count."""
+    launch = ops.flash_attention_cuda
+
+    def capture(q, k, v, causal):
+        out = launch(q, k, v, causal)
+        if not seen:
+            seen.append(tuple(x.detach().clone() for x in (q, k, v)) + (causal, out.clone()))
+        return out
+
+    ops.flash_attention_cuda = capture
+
+    def restore():
+        ops.flash_attention_cuda = launch
+    return restore
+
+
 def event_ms(torch, timings: dict) -> dict:
     torch.cuda.synchronize()
     return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in timings.items()}
@@ -2334,7 +2579,6 @@ def lm_serve(torch, cfg) -> dict:
     import re
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.launch import serve
     from repro_torch.serving import engine as lm_engine
 
@@ -2377,20 +2621,13 @@ def lm_serve(torch, cfg) -> dict:
           f"of {cfg.n_layers} layers")
     # the kernel at the served shapes (prompts shorter than one tile)
     check(len(firsts) == prefills, f"lm serve: {len(firsts)} first-layer calls captured")
-    tol, (rtol, atol) = FLASH_TOL["bfloat16"], FLASH_BF16_VS_F32
     kernel_err, used, lengths = 0.0, 0.0, []
     for q, k, v, causal, got in firsts:
         check(q.dtype == torch.bfloat16 and tuple(q.shape[::2]) == (cfg.n_heads, cfg.hd),
               f"lm serve: kernel input {tuple(q.shape)} {q.dtype}")
         lengths.append(q.shape[1])
-        want = flash_attention_plain(q, k, v, causal).float()
-        err = float((got.float() - want).abs().max())
-        check(torch.allclose(got.float(), want, rtol=tol, atol=tol),
-              f"lm serve: S {q.shape[1]} layer 0 flash max abs err {err} above {tol}")
-        want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
-        share = float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
-        check(share <= 1.0, f"lm serve: S {q.shape[1]} layer 0 flash uses {share} of the "
-                            "allowed error against the f32 plain version")
+        err, share = hold_flash_call(torch, f"lm serve: S {q.shape[1]} layer 0", q, k, v,
+                                     causal, got)
         kernel_err, used = max(kernel_err, err), max(used, share)
     del firsts
     decode = sorted(ms["decode_step"])
@@ -2415,7 +2652,6 @@ def lm_prefill(torch, params, cfg, tokens) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import attention as lm_attention
     from repro_torch.models import model as M
 
@@ -2425,43 +2661,25 @@ def lm_prefill(torch, params, cfg, tokens) -> dict:
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         batch = {"tokens": tokens}
-        first = {}
-        launch = ops.flash_attention_cuda
-
-        def capture(q, k, v, causal):
-            out = launch(q, k, v, causal)
-            if not first:
-                first.update(q=q, k=k, v=v, causal=causal, out=out)
-            return out
-
+        seen: list = []
         copies, expansions = fa.aligned_copies, lm_attention.kv_expansions
-        ops.flash_attention_cuda = capture
+        restore = capture_first_flash(ops, seen)
         try:
             got, launches = run_path(torch, "lm_prefill", lambda: M.forward(params, c, batch)[0],
                                      expect={"flash_attention": cfg.n_layers})
         finally:
-            ops.flash_attention_cuda = launch
+            restore()
         copies = fa.aligned_copies - copies
         expansions = lm_attention.kv_expansions - expansions
         check(copies == 0 and expansions == cfg.n_layers,
               f"lm prefill {dtype}: {copies} aligned copies, {expansions} K/V expansions")
         # the kernel at the path's first call, against its plain version
-        q, k, v, causal = (first[n] for n in ("q", "k", "v", "causal"))
+        q, k, v, causal, out = seen[0]
         check(tuple(q.shape) == (cfg.n_heads, LM_PREFILL, cfg.hd) and q.dtype == c.cdtype,
               f"lm prefill {dtype}: kernel input {tuple(q.shape)} {q.dtype}")
-        want = flash_attention_plain(q, k, v, causal)
-        kernel_err = float((first["out"].float() - want.float()).abs().max())
-        tol = FLASH_TOL[dtype]
-        check(torch.allclose(first["out"].float(), want.float(), rtol=tol, atol=tol),
-              f"lm prefill {dtype}: layer 0 flash max abs err {kernel_err} above {tol}")
-        used = None
-        if dtype == "bfloat16":
-            want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
-            rtol, atol = FLASH_BF16_VS_F32
-            used = float(((first["out"].float() - want).abs() / (atol + rtol * want.abs())).max())
-            check(used <= 1.0, f"lm prefill bf16: layer 0 flash uses {used} of the allowed "
-                               "error against the f32 plain version")
-        del want, first, q, k, v
+        kernel_err, used = hold_flash_call(torch, f"lm prefill {dtype}: layer 0", q, k, v,
+                                           causal, out)
+        del seen, q, k, v, out
         plain = M.forward(params, c, batch, impl="torch")[0]
         err = float((got - plain).abs().max())
         top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
@@ -2497,6 +2715,7 @@ def lm_prefill(torch, params, cfg, tokens) -> dict:
 
         ms = timed(torch, lambda: M.forward(params, c, batch), 2)
         plain_ms = timed(torch, lambda: M.forward(params, c, batch, impl="torch"), 2)
+        launch = ops.flash_attention_cuda
         ops.flash_attention_cuda = sdpa_launch
         try:
             sdpa_ms = timed(torch, lambda: M.forward(params, c, batch), 2)
@@ -2643,6 +2862,216 @@ def phase_lm(torch) -> dict:
             "taco": taco, "launches": launches}
 
 
+TRAIN_STEPS = 4
+#: the kernel path's gradients against the plain path's (impl="torch"),
+#: float32 at granite's width and 2 layers: the kernel's forward sums in
+#: another order than the einsum softmax, its gradient is the plain one's,
+#: so each leaf may differ by that order's rounding: ||g - g_plain|| at most
+#: this share of ||g_plain||
+TRAIN_GRAD_RTOL = 1e-4
+#: device kernels of a profiled train step, grouped by name
+TRAIN_KINDS = (("flash", ("flash",)), ("products", ("gemm", "nvjet", "xmma", "cutlass")),
+               ("copies and casts", ("copy",)), ("reductions", ("reduce",)))
+
+
+def profile_kinds(prof_row: dict) -> dict:
+    """Device microseconds of a :func:`profile_call` row's kernels by kind
+    (:data:`TRAIN_KINDS`, the rest "other elementwise")."""
+    kinds: dict = {}
+    for us, _count, op in prof_row.get("device_ops", []):
+        name = op.lower()
+        kind = next((k for k, keys in TRAIN_KINDS if any(x in name for x in keys)),
+                    "other elementwise")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    return kinds
+
+
+def train_full_width(torch, cfg) -> dict:
+    """make_train_step at granite-3-2b's full width: seeded float32
+    parameters, AdamW, warmup_cosine, launch.train's batch 8 x 128, bf16
+    compute, remat on; TRAIN_STEPS steps with CUDA events around each, the
+    flash launches counted exactly (one a layer forward, one in the remat
+    recompute), the first layer's first kernel call held against the plain
+    flash version, one more step under torch.profiler, the peak memory."""
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.utils import tree_flatten
+
+    check(cfg.remat, "train: remat is off")
+    opt = adamw()
+    step_fn = make_train_step(cfg, opt, warmup_cosine(3e-4, 20, TRAIN_STEPS + 1))
+    stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+
+    def run():
+        nonlocal state
+        for s in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step_fn(state, stream.batch(s))
+            end.record()
+            torch.cuda.synchronize()
+            steps.append(dict(host_s=time.perf_counter() - t0, ms=start.elapsed_time(end),
+                              loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                              lr=float(m["lr"])))
+
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    before = {k: torch.cuda.memory_stats().get(k, 0) for k in alloc_keys}
+    seen: list = []
+    restore = capture_first_flash(ops, seen)
+    try:
+        _, launches = run_path(torch, "train", run,
+                               expect={"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS})
+    finally:
+        restore()
+    allocator = {k: torch.cuda.memory_stats().get(k, 0) - before[k] for k in alloc_keys}
+    # the kernel at the training shape: (B*H, S, hd) = (8*32, 128, 64), bf16, causal
+    q, k, v, causal, got = seen[0]
+    check(tuple(q.shape) == (8 * cfg.n_heads, 128, cfg.hd) and q.dtype == cfg.cdtype
+          and causal, f"train: kernel input {tuple(q.shape)} {q.dtype} causal {causal}")
+    flash_err, flash_share = hold_flash_call(torch, "train: step 0 layer 0", q, k, v, causal,
+                                             got)
+    del seen, q, k, v, got
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps),
+          f"train: a non-finite loss or grad norm {steps}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(torch, lambda: step_fn(state, stream.batch(TRAIN_STEPS)), "train step")
+    steady = sorted(r["ms"] for r in steps[1:])
+    tokens = 8 * 128
+    row = dict(arch=cfg.name, params=sum(p.numel() for p in tree_flatten(state.params)[0]),
+               init_s=init_s, steps=steps, step_ms_median=steady[len(steady) // 2],
+               tok_per_s=tokens / (steady[len(steady) // 2] / 1e3),
+               flash_launches=launches["flash_attention"], layer0_flash_max_abs_err=flash_err,
+               layer0_share_of_allowed_vs_f32=flash_share, peak_gib=peak / 2**30,
+               allocator_during_steps=allocator, profile_kinds_us=profile_kinds(prof))
+    print(f"train: {json.dumps(row)}", flush=True)
+    row["profile"], row["launches"] = prof, launches
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_grads_vs_plain(torch, cfg) -> dict:
+    """One step's gradients at granite's full width, 2 layers, float32
+    compute, on the kernel path (flash through its autograd Function)
+    against the plain-attention path (impl="torch"): every leaf within
+    TRAIN_GRAD_RTOL, every attention weight's gradient non-zero."""
+    import dataclasses
+
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_fn
+    from repro_torch.utils import tree_flatten, tree_flatten_with_paths
+
+    small = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=1).batch(0).items()}
+    params = init_params(torch.Generator(device="cuda").manual_seed(2), small)
+    leaves, rebuild = tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    grads = {}
+
+    def grad(impl):
+        loss, _aux = loss_fn(rebuild(leaves), small, batch, impl=impl)
+        return rebuild(list(torch.autograd.grad(loss, leaves)))
+
+    grads["kernel"], launches = run_path(torch, "train_grads", lambda: grad("kernel"),
+                                         expect={"flash_attention": 2 * small.n_layers})
+    grads["torch"] = grad("torch")
+    worst = 0.0
+    for path, g, w in zip(*tree_flatten_with_paths(grads["kernel"])[:2],
+                          tree_flatten(grads["torch"])[0]):
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        check(rel <= TRAIN_GRAD_RTOL, f"train grads: {path} kernel vs plain {rel}")
+    attn = grads["kernel"]["blocks"]["l0"]["attn"]
+    norms = {name: float(attn[name]["w"].norm()) for name in ("wq", "wk", "wv", "wo")}
+    check(all(v > 0 for v in norms.values()), f"train grads: an attention weight has none {norms}")
+    row = dict(layers=small.n_layers, worst_rel_err=worst, attention_grad_norms=norms)
+    print(f"train grads: {json.dumps(row)}", flush=True)
+    del params, leaves, grads
+    torch.cuda.empty_cache()
+    row["launches"] = launches
+    return row
+
+
+def train_smoke(torch) -> dict:
+    """launch.train.main on the card at the smoke config: 60 steps with two
+    microbatches (the loss must fall, as examples/train_lm.py asserts); 6
+    straight steps against 3 + a checkpoint + --resume 3 (final loss within
+    1e-4 relative, as tests/test_checkpoint.py holds it); one Adafactor
+    step. The first kernel call (smoke width, float32) is held against the
+    plain flash version."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    base = ["--arch", LM_ARCH, "--smoke"]
+    out = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
+            falls = train.main(base + ["--steps", "60", "--microbatches", "2", "--lr", "1e-3",
+                                       "--log-every", "59"])
+            straight = train.main(base + ["--steps", "6", "--log-every", "1"])
+            train.main(base + ["--steps", "3", "--ckpt-dir", tmp, "--ckpt-every", "1"])
+            resumed = train.main(base + ["--steps", "6", "--ckpt-dir", tmp, "--ckpt-every", "1",
+                                         "--resume", "--log-every", "1"])
+            adafactor = train.main(base + ["--steps", "1", "--optimizer", "adafactor"])
+        return falls, straight, resumed, adafactor
+
+    t0 = time.perf_counter()
+    seen: list = []
+    restore = capture_first_flash(ops, seen)
+    try:
+        (falls, straight, resumed, adafactor), launches = run_path(torch, "train_smoke", run)
+    finally:
+        restore()
+    secs = time.perf_counter() - t0
+    q, k, v, causal, got = seen[0]
+    flash_err, _ = hold_flash_call(torch, f"train smoke: first call {tuple(q.shape)} {q.dtype}",
+                                   q, k, v, causal, got)
+    check(falls[-1] < falls[0], f"train smoke: the loss did not fall {falls}")
+    check("resumed from step 3" in out.getvalue(), "train smoke: no resume")
+    rel = abs(resumed[-1] - straight[-1]) / abs(straight[-1])
+    check(rel <= 1e-4, f"train smoke: resumed {resumed[-1]} vs straight {straight[-1]}")
+    check(all(v == v for v in adafactor), f"train smoke: adafactor loss {adafactor}")
+    row = dict(seconds=secs, loss_first=falls[0], loss_last=falls[-1],
+               straight_final=straight[-1], resumed_final=resumed[-1], resume_rel_err=rel,
+               adafactor_loss=adafactor[-1], first_flash_shape=list(q.shape),
+               first_flash_max_abs_err=flash_err)
+    print(f"train smoke: {json.dumps(row)}", flush=True)
+    row["launches"] = launches
+    return row
+
+
+def phase_train(torch) -> dict:
+    """LM training: granite-3-2b at full width for TRAIN_STEPS AdamW steps,
+    the kernel path's gradients against the plain path's, and the smoke
+    config through the launcher."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH)
+    check(not torch.backends.cuda.matmul.allow_tf32, "train: TF32 matmuls are on")
+    full = train_full_width(torch, cfg)
+    grads = train_grads_vs_plain(torch, cfg)
+    smoke = train_smoke(torch)
+    return {"full": full, "grads": grads, "smoke": smoke,
+            "launches": [full["launches"], grads["launches"], smoke["launches"]]}
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -2726,6 +3155,7 @@ def main(argv=None) -> int:
     gather, suco = phase("gather", phase_gather, torch, index, corpus_np, queries, gt,
                          masked_runs)
     del masked_runs
+    baselines = phase("baselines", phase_baselines, torch, corpus_np, queries, gt, gather)
     persist = phase("persist", phase_persist, torch, index, suco, queries)
     del suco
     torch.cuda.empty_cache()
@@ -2741,9 +3171,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 12. the LM side at granite-3-2b's full width, once the ANN index is freed
     lm = phase("lm", phase_lm, torch)
+    torch.cuda.empty_cache()
+    # 13. LM training, once the lm phase's parameters are freed
+    train = phase("train", phase_train, torch)
 
-
-    # 13. summary: each kernel's launches over every path run above
+    # 14. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -2751,7 +3183,8 @@ def main(argv=None) -> int:
                    sharded["launches"], sharded["engine"]["single"]["launches"],
                    sharded["engine"]["sharded"]["launches"],
                    sharded["serve"]["launches"], sharded["build"]["launches"],
-                   *(run["launches"] for run in serve.values()), *lm["launches"]):
+                   *(run["launches"] for run in serve.values()), *lm["launches"],
+                   baselines["launches"], *train["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -2768,7 +3201,8 @@ def main(argv=None) -> int:
                                "kernels": kernels, "flash": flash, "masked": masked,
                                "gather": gather, "persist": persist,
                                "mutable": mutable, "engine": engine, "sharded": sharded,
-                               "serve": serve, "lm": lm,
+                               "serve": serve, "lm": lm, "baselines": baselines,
+                               "train": train,
                                "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)

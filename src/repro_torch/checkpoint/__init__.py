@@ -1,4 +1,12 @@
 """Atomic step-directory checkpoints (mirrors ``repro.checkpoint``)."""
-from repro_torch.checkpoint.checkpoint import read_manifest, restore_leaves, save_leaves
+from repro_torch.checkpoint.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    read_manifest,
+    restore_leaves,
+    restore_tree,
+    save_leaves,
+)
 
-__all__ = ["read_manifest", "restore_leaves", "save_leaves"]
+__all__ = ["CheckpointManager", "latest_step", "read_manifest", "restore_leaves",
+           "restore_tree", "save_leaves"]

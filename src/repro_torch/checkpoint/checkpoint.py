@@ -10,19 +10,30 @@ with the reference's path strings.
 
 Atomicity: a save writes into ``tmp.<step>.<pid>``, fsyncs the manifest,
 moves any old ``step_<n>`` aside and renames the new one into place, so a
-crash never leaves a half-written checkpoint under the final name. Only
-what an index save needs is here; the training side's manager is not
-ported.
+crash never leaves a half-written checkpoint under the final name.
+
+Training state (a tree of nested dicts and dataclasses of tensors) is
+flattened by :func:`repro_torch.utils.tree_flatten_with_paths`, as JAX
+flattens the reference's pytree of the same shape: dict keys sorted,
+``['key']`` path segments, a dataclass's fields in order as
+``[<flat index i>]``. So :class:`CheckpointManager` reads a checkpoint the
+reference's ``CheckpointManager`` wrote, and the reference reads the
+port's.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
+import re
 import shutil
+import threading
 from typing import Any
 
 import numpy as np
+import torch
+
+from repro_torch.utils import tree_flatten_with_paths
 
 #: the dtypes a leaf may have: numpy's own, so no extension-dtype package is
 #: needed to read them back (an index has no other; a mutable index adds its
@@ -42,7 +53,7 @@ def save_leaves(leaves: list[tuple[str, np.ndarray]], directory: str, step: int,
     ``"extra"``, so it commits in the same rename as the arrays."""
     arrays, paths = {}, []
     for i, (path, x) in enumerate(leaves):
-        a = np.ascontiguousarray(x)
+        a = np.asarray(x)  # not ascontiguousarray: it makes a 0-d leaf (1,)
         if str(a.dtype) not in DTYPES:
             raise ValueError(f"leaf {path}: dtype {a.dtype} not in {DTYPES}")
         arrays[f"leaf_{i}"] = a
@@ -110,3 +121,93 @@ def read_manifest(directory: str, step: int) -> dict:
     """The manifest of a completed checkpoint (including any ``extra``)."""
     with open(os.path.join(_step_dir(directory, step), "manifest.json")) as f:
         return json.load(f)
+
+
+def _host(x) -> np.ndarray:
+    """A host copy of a leaf that later in-place updates do not reach."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
+
+
+def restore_tree(template, directory: str, step: int):
+    """``template``'s structure with the leaves of ``<directory>/step_<step>``,
+    each checked against the template leaf's path, dtype and shape and put
+    on that leaf's device."""
+    paths, leaves, rebuild = tree_flatten_with_paths(template)
+    spec = [(path, str(leaf.dtype).removeprefix("torch."), tuple(leaf.shape))
+            for path, leaf in zip(paths, leaves)]
+    arrays = restore_leaves(directory, step, spec)
+    return rebuild([torch.from_numpy(a).to(leaf.device) for a, leaf in zip(arrays, leaves)])
+
+
+def _steps(directory: str) -> list[int]:
+    return sorted(int(m.group(1)) for name in os.listdir(directory)
+                  if (m := re.fullmatch(r"step_(\d+)", name)))
+
+
+def latest_step(directory: str) -> int | None:
+    """The newest completed checkpoint's step, or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+class CheckpointManager:
+    """Periodic checkpoints of a training state with retention GC (mirrors
+    ``repro.checkpoint.CheckpointManager``). The snapshot to the host is
+    synchronous (the parameters are updated in place by the next step);
+    with ``async_saves`` the write and the GC run on a thread of their own,
+    one at a time. A failed write is raised by the next :meth:`wait`."""
+
+    def __init__(self, directory: str, *, every: int = 100, keep_last: int = 3,
+                 async_saves: bool = True):
+        self.directory = directory
+        self.every = every
+        self.keep_last = keep_last
+        self.async_saves = async_saves
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+
+    def maybe_save(self, tree: Any, step: int, force: bool = False) -> bool:
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return False
+        leaves = [(path, _host(x)) for path, x in zip(*tree_flatten_with_paths(tree)[:2])]
+        if self.async_saves:
+            self.wait()
+            self._thread = threading.Thread(target=self._save_in_thread, args=(leaves, step),
+                                            name="checkpoint-writer", daemon=True)
+            self._thread.start()
+        else:
+            self._save_and_gc(leaves, step)
+        return True
+
+    def _save_and_gc(self, leaves, step: int) -> None:
+        save_leaves(leaves, self.directory, step)
+        for old in _steps(self.directory)[: -self.keep_last]:
+            shutil.rmtree(_step_dir(self.directory, old), ignore_errors=True)
+
+    def _save_in_thread(self, leaves, step: int) -> None:
+        try:
+            self._save_and_gc(leaves, step)
+        except Exception as e:  # the writer thread's boundary: wait() raises it
+            self._error = e
+
+    def wait(self) -> None:
+        """Join the write in flight; raise its error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"checkpoint write to {self.directory} failed") from err
+
+    def restore_latest(self, template: Any):
+        """(state restored into ``template``'s structure and devices, step),
+        or (None, None) when the directory holds no checkpoint."""
+        self.wait()
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None
+        return restore_tree(template, self.directory, step), step

@@ -277,16 +277,21 @@ def data_norms_of(index: SCIndex) -> torch.Tensor:
 
 
 def rerank(data: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tensor,
-           valid: torch.Tensor, k: int, data_norms: torch.Tensor):
+           valid: torch.Tensor, k: int, data_norms: torch.Tensor | None = None):
     """Exact distances over the candidates and a masked top-k: (ids (Q, k)
     int32, sq_dists (Q, k) f32), id -1 / +inf where fewer than k candidates
-    are valid; ties go to the lowest slot. The distances are
-    ``max(||q||^2 - 2 q.x + ||x||^2, 0)`` with the precomputed norms, as in
-    the reference."""
+    are valid; ties go to the lowest slot. With the precomputed norms the
+    distances are ``max(||q||^2 - 2 q.x + ||x||^2, 0)``, without them
+    ``(x - q) . (x - q)``, as in the reference."""
     cand = cand_ids.long()
-    cross = torch.bmm(data[cand], queries[:, :, None])[:, :, 0]  # (Q, cap)
-    q_norms = torch.sum(queries * queries, dim=1)
-    dists = torch.clamp_min(q_norms[:, None] - 2.0 * cross + data_norms[cand], 0.0)
+    if data_norms is None:
+        diff = data[cand] - queries[:, None, :]
+        dists = torch.sum(diff * diff, dim=-1)
+        del diff
+    else:
+        cross = torch.bmm(data[cand], queries[:, :, None])[:, :, 0]  # (Q, cap)
+        q_norms = torch.sum(queries * queries, dim=1)
+        dists = torch.clamp_min(q_norms[:, None] - 2.0 * cross + data_norms[cand], 0.0)
     dists = torch.where(valid, dists, torch.inf)
     top_d, pos = topk_smallest(dists, k)
     top_ids = torch.gather(cand_ids, 1, pos)

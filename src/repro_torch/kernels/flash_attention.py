@@ -7,6 +7,12 @@ and return softmax(q k^T * hd^-1/2) v (BH, S, hd) in q's dtype, accumulated
 in float32. ``causal`` keeps key position <= query position, top-left
 aligned (also when S != T).
 
+Under autograd the launch goes through :class:`FlashAttentionFunction`:
+its forward is the one kernel launch, its backward the gradient of the
+plain version recomputed from the saved q, k and v (the reference's flash
+kernel has no VJP either: its training differentiates the einsum softmax).
+No backward kernel is written.
+
 The kernel reads rows of ``hd`` rounded up to 16 bytes (a multiple of 8
 bfloat16 or 4 float32 elements) from 16-byte aligned bases: the bf16 path
 loads its tiles by TMA, the f32 path by 16-byte ``cp.async``. Where an
@@ -31,7 +37,7 @@ _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attenti
 #: inputs the wrapper copied to aligned, zero-padded rows since import
 aligned_copies = 0
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["FlashAttentionFunction", "flash_attention_cuda", "flash_attention_plain"]
 
 
 def _row_width(hd: int, dtype: torch.dtype) -> int:
@@ -77,3 +83,25 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
                 cuda.ptr(v), cuda.ptr(out), bh, s_len, t_len, hd, int(bool(causal)),
                 hd ** -0.5, cuda.stream(q.device))
     return out
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``apply(q, k, v, causal, launch)``: forward ``launch(q, k, v,
+    causal)`` (the kernel, :func:`flash_attention_cuda`, whose output a
+    ctypes launch writes outside the graph); backward the gradient of
+    :func:`flash_attention_plain` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, launch):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attention_plain(*inputs, ctx.causal)
+        grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*grads, None, None)

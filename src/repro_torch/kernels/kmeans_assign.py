@@ -1,6 +1,12 @@
 """Fused k-means assignment: the CUDA kernel (``csrc/kmeans_assign.cu``) and
 its plain version, for one (points, centroids) pair or for P independent
-pairs zero-padded to one width in one launch."""
+pairs zero-padded to one width in one launch.
+
+Centroids that fit in one block's shared memory with their norms
+(k (w + 1) floats within :data:`MAX_SMEM`) are staged once a block; past
+that (IVF's 1024 lists of 128 dims) the kernel stages them in tiles and
+carries each point's running minimum across the tiles, bit for bit the same
+answer. :func:`tiled` says which way a shape goes."""
 from __future__ import annotations
 
 import ctypes
@@ -28,20 +34,22 @@ def kmeans_assign_plain(x: torch.Tensor, c: torch.Tensor, chunk: int = 65536):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
+def tiled(k: int, w: int) -> bool:
+    """Whether k centroids of width w go through the tiled kernel: their
+    k (w + 1) floats do not fit in one block's shared memory."""
+    return k * (w + 1) * 4 > MAX_SMEM
+
+
 def _check(x: torch.Tensor, c: torch.Tensor, name: str = "kmeans_assign") -> None:
-    """The limits both entries share: 0 < width <= 128, k > 0, and the k
-    centroids with their norms in one block's shared memory."""
+    """The limits both entries share: 0 < width <= 128 and k > 0."""
     w, k = x.shape[-1], c.shape[-2]
     if not 0 < w <= MAX_DIM or k == 0:
         raise ValueError(f"{name}: need 0 < d <= {MAX_DIM} and k > 0, got d={w}, k={k}")
-    if k * (w + 1) * 4 > MAX_SMEM:
-        raise ValueError(f"{name}: {k} centroids of dim {w} exceed shared memory")
 
 
 def kmeans_assign_cuda(x: torch.Tensor, c: torch.Tensor):
     """Kernel launch: x (n, d) and c (k, d) float32, contiguous, on the
-    card, d <= 128; all k centroids must fit in shared memory. The batched
-    kernel with one pair."""
+    card, d <= 128, any k. The batched kernel with one pair."""
     cuda.check_cuda("kmeans_assign", x, c, dtypes=(torch.float32, torch.float32))
     if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
         raise ValueError(f"kmeans_assign: bad shapes {tuple(x.shape)}, {tuple(c.shape)}")

@@ -14,7 +14,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.kmeans_assign import (
     kmeans_assign_cuda,
     kmeans_assign_pairs_cuda,
@@ -128,7 +132,12 @@ def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
 def flash_attention(q, k, v, causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """Fused softmax attention (BH, S, hd) in q's dtype; the (S, T) scores
     never reach device memory. The kernel masks ragged S and T itself, so
-    they are never padded."""
+    they are never padded. Where an input requires a gradient the launch
+    goes through :class:`FlashAttentionFunction` (the gradient of the plain
+    version); else it is the bare launch."""
     if not _use_kernel(impl, q):
         return flash_attention_plain(q, k, v, causal)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, flash_attention_cuda)
+    return flash_attention_cuda(q, k, v, causal)

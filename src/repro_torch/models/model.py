@@ -26,11 +26,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import taco_attention as TA
 from repro_torch.models.layers import apply_norm, apply_rope, dense, embed, mlp, rope_angles
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, tree_flatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +79,8 @@ class ArchConfig:
     retrieval: TA.RetrievalConfig = dataclasses.field(default_factory=TA.RetrievalConfig)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    #: recompute each layer group in the backward pass (torch.utils.checkpoint)
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -259,6 +262,16 @@ def _at(tree, g: int):
     return map_tree(lambda t: t[g], tree)
 
 
+def _groups(tree, n: int) -> list:
+    """The ``n`` groups of a stacked tree of parameters, as views from one
+    ``torch.unbind`` a leaf: in a backward pass autograd then stacks the
+    groups' gradients once, where one ``t[g]`` a group would add a
+    zero-filled tensor of the whole stack for each."""
+    leaves, rebuild = tree_flatten(tree)
+    parts = [torch.unbind(t, 0) for t in leaves]
+    return [rebuild([p[g] for p in parts]) for g in range(n)]
+
+
 # ============================================================ forward =====
 def _apply_sublayer_seq(cfg: ArchConfig, p, x, impl: str):
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
@@ -272,15 +285,27 @@ def _apply_sublayer_seq(cfg: ArchConfig, p, x, impl: str):
     return x + mlp(p["ffn"], h)
 
 
+def _apply_group_seq(cfg: ArchConfig, group_p, x, impl: str):
+    for i, _spec in enumerate(cfg.layer_specs()):
+        x = _apply_sublayer_seq(cfg, group_p[f"l{i}"], x, impl)
+    return x
+
+
 def forward(params, cfg: ArchConfig, batch: dict, *, impl: str = "auto"):
     """Training/prefill forward. batch: {'tokens': (B, S)}. Returns (logits
-    (B, S, V) float32, aux 0.0)."""
+    (B, S, V) float32, aux 0.0). With ``cfg.remat``, where a parameter
+    requires a gradient, each layer group is recomputed in the backward
+    pass (non-reentrant ``torch.utils.checkpoint``, as ``jax.checkpoint``
+    wraps the reference's scan body)."""
     check_ported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_flatten(params)[0])
     x = embed(params["embed"], batch["tokens"]).to(cfg.cdtype)
-    for g in range(cfg.n_groups):
-        group_p = _at(params["blocks"], g)
-        for i, _spec in enumerate(cfg.layer_specs()):
-            x = _apply_sublayer_seq(cfg, group_p[f"l{i}"], x, impl)
+    for group_p in _groups(params["blocks"], cfg.n_groups):
+        if remat:
+            x = checkpoint(_apply_group_seq, cfg, group_p, x, impl, use_reentrant=False)
+        else:
+            x = _apply_group_seq(cfg, group_p, x, impl)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = dense(params["lm_head"], x)[..., : cfg.vocab_size]
     return logits.to(torch.float32), torch.zeros((), dtype=torch.float32, device=x.device)

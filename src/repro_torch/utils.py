@@ -1,6 +1,8 @@
 """Shared small utilities of the port: device choice, distances, top-k,
-recall."""
+recall, and trees of tensors."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -51,3 +53,51 @@ def recall_at_k(result_ids, gt_ids, k: int) -> float:
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """Round through bfloat16 and back to float32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tree_flatten_with_paths(tree, prefix: str = ""):
+    """(paths, leaves, rebuild) of a tree of nested dicts and dataclasses:
+    the leaves in the order JAX flattens the same pytree (dict keys sorted
+    at every level, a dataclass's fields in order), each leaf's JAX key-path
+    string (``['key']`` for a dict key, ``[<flat index i>]`` for a
+    dataclass's i-th field), and a function that builds a tree of the same
+    structure from a list of leaves in that order."""
+    if isinstance(tree, dict):
+        names = sorted(tree)
+        parts = [tree_flatten_with_paths(tree[k], f"{prefix}[{k!r}]") for k in names]
+
+        def make(subtrees):
+            return dict(zip(names, subtrees))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)]
+        parts = [tree_flatten_with_paths(getattr(tree, n), f"{prefix}[<flat index {i}>]")
+                 for i, n in enumerate(names)]
+
+        def make(subtrees):
+            return dataclasses.replace(tree, **dict(zip(names, subtrees)))
+    else:
+        return [prefix], [tree], lambda leaves: leaves[0]
+    sizes = [len(leaves) for _, leaves, _ in parts]
+
+    def rebuild(leaves):
+        out, at = [], 0
+        for (_, _, sub), size in zip(parts, sizes):
+            out.append(sub(leaves[at:at + size]))
+            at += size
+        return make(out)
+
+    return ([x for paths, _, _ in parts for x in paths],
+            [x for _, leaves, _ in parts for x in leaves], rebuild)
+
+
+def tree_flatten(tree):
+    """(leaves, rebuild) of :func:`tree_flatten_with_paths`."""
+    _, leaves, rebuild = tree_flatten_with_paths(tree)
+    return leaves, rebuild
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more trees of the same structure."""
+    leaves, rebuild = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return rebuild([fn(*xs) for xs in zip(leaves, *others)])

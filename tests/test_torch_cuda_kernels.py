@@ -124,20 +124,57 @@ def test_kmeans_assign_pairs_equal_single_launches_on_floats(dev, n_pairs, n, k,
                                                       sd.view(torch.int32))
 
 
-def test_kmeans_assign_pairs_kernel_rejects(dev):
+@pytest.mark.parametrize("w", [4, 13, 64, 128])
+@pytest.mark.parametrize("side", ["fits", "tiled", "ivf"])
+def test_kmeans_assign_tiled_kernel(dev, w, side):
+    """Both ways through the kernel, at the largest k whose centroids fit in
+    shared memory and one past it (the tiled path), and at IVF's 1024 lists:
+    integer inputs (many exact ties) bit for bit against the plain version,
+    one launch each, for one pair and for three. Float inputs: the tiled
+    answer over k centroids equals, bit for bit, the one-tile answer over
+    the first k - 1 merged with the last centroid by the same strict '<'."""
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.kmeans_assign import (
         MAX_SMEM,
         kmeans_assign_cuda,
         kmeans_assign_pairs_cuda,
+        kmeans_assign_pairs_plain,
+        kmeans_assign_plain,
+        tiled,
     )
 
-    for w in (4, 128):
-        k = MAX_SMEM // (4 * (w + 1)) + 1
-        with pytest.raises(ValueError):
-            kmeans_assign_pairs_cuda(torch.zeros((2, 10, w), device=dev),
-                                     torch.zeros((2, k, w), device=dev))
-        with pytest.raises(ValueError):
-            kmeans_assign_cuda(torch.zeros((10, w), device=dev), torch.zeros((k, w), device=dev))
+    limit = MAX_SMEM // (4 * (w + 1))
+    k = {"fits": limit, "tiled": limit + 1, "ivf": 1024}[side]
+    assert tiled(k, w) == (side != "fits" and k > limit)
+    rng = np.random.default_rng(w * 7 + len(side))
+    x, c = _ints(rng, (2051, w), dev, -3, 4), _ints(rng, (k, w), dev, -3, 4)
+    cuda.reset_launch_counts()
+    ga, gd = kmeans_assign_cuda(x, c)
+    assert cuda.launch_counts["kmeans_assign"] == 1
+    wa, wd = kmeans_assign_plain(x, c)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+    dims = [w, max(1, w - 1), max(1, w - 2)]
+    xs, cs = _padded_pairs(rng, 3, 1003, k, dims, w, dev, ints=True)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    wa, wd = kmeans_assign_pairs_plain(xs, cs, dims)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+    if side != "tiled":
+        return
+    x = torch.as_tensor(rng.standard_normal((2051, w)).astype(np.float32), device=dev)
+    c = torch.as_tensor(rng.standard_normal((k, w)).astype(np.float32), device=dev)
+    ta, td = kmeans_assign_cuda(x, c)
+    ha, hd = kmeans_assign_cuda(x, c[:-1].contiguous())  # fits: one tile
+    la, ld = kmeans_assign_cuda(x, c[-1:].contiguous())
+    last = ld < hd
+    assert torch.equal(ta, torch.where(last, la + (k - 1), ha))
+    assert torch.equal(td.view(torch.int32), torch.where(last, ld, hd).view(torch.int32))
+
+
+def test_kmeans_assign_pairs_kernel_rejects(dev):
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_pairs_cuda
+
+    with pytest.raises(ValueError):
+        kmeans_assign_cuda(torch.zeros((10, 4), device=dev), torch.zeros((0, 4), device=dev))
     with pytest.raises(ValueError):
         kmeans_assign_pairs_cuda(torch.zeros((2, 10, 132), device=dev),
                                  torch.zeros((2, 4, 132), device=dev))
@@ -510,3 +547,36 @@ def test_lm_forward_through_the_kernel(dev, compute_dtype):
         exact = M.forward(params, f32, {"tokens": tokens}, impl="torch")[0]
         assert torch.isfinite(got).all()
         assert (got - exact).abs().mean() <= 1.1 * (want - exact).abs().mean()
+
+
+def test_lm_training_gradients_through_the_kernel(dev):
+    """A training step's gradients (granite-3-2b smoke, float32, remat on)
+    through the flash kernel's autograd Function: flash launched twice a
+    layer (forward and the recompute), every leaf within 1e-4 relative of
+    the plain path's, the attention weights' gradients non-zero (a kernel
+    output cut from the graph would leave wq, wk and wv none)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.train import loss_fn
+    from repro_torch.utils import tree_flatten
+
+    cfg = get_smoke("granite-3-2b")
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    leaves, rebuild = tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device=dev).long()
+             for k, v in SyntheticTokenStream(cfg.vocab_size, 64, 4).batch(0).items()}
+    grads = {}
+    for impl in ("auto", "torch"):
+        cuda.reset_launch_counts()
+        loss, _ = loss_fn(rebuild(leaves), cfg, batch, impl=impl)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts["flash_attention"] == (2 * cfg.n_layers if impl == "auto" else 0)
+    for got, want in zip(grads["auto"], grads["torch"]):
+        assert float((got - want).norm()) <= 1e-4 * float(want.norm())
+    attn = rebuild(list(grads["auto"]))["blocks"]["l0"]["attn"]
+    assert all(float(attn[name]["w"].norm()) > 0 for name in ("wq", "wk", "wv", "wo"))

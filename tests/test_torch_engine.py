@@ -58,7 +58,10 @@ EXACT = ("requests_served", "batches", "compiles_total", "compiles_per_bucket",
          "result_cache_invalidations", "queue_depth", "queue_depth_peak", "shed",
          "degraded", "cache_only_served", "deadline_misses", "batches_closed_early",
          "shards", "async")
-PROBE = ("recall_probe_count", "recall_probe_skipped", "live_recall_at_k")
+#: "probe_recall_sum" is :func:`probe_recall_sum`, not a telemetry key
+PROBE = ("recall_probe_count", "recall_probe_skipped", "probe_recall_sum")
+#: the streams' k are 5 and 10, so each probe's recall is a multiple of 1/10
+PROBE_LCM_K = 10
 NO_COMPILES = tuple(k for k in EXACT if not k.startswith("compiles"))
 
 
@@ -125,10 +128,25 @@ def assert_same(want, got):
             w.truncated, w.cached, w.index_generation)
 
 
+def probe_recall_sum(t: dict) -> int:
+    """The probes' summed recall in units of 1/PROBE_LCM_K: an integer that
+    does not depend on the order the worker pool finished the probes in
+    (the float mean does, in its last bit)."""
+    mean = t["live_recall_at_k"]
+    total = 0.0 if mean is None else mean * t["recall_probe_count"] * PROBE_LCM_K
+    assert abs(total - round(total)) < 1e-6, total
+    return round(total)
+
+
 def assert_counters(jeng, eng, keys=EXACT):
+    """Each key equal, "probe_recall_sum" in :func:`probe_recall_sum`'s
+    integer form."""
     want, got = jeng.telemetry(), eng.telemetry()
     for key in keys:
-        assert got[key] == want[key], key
+        if key == "probe_recall_sum":
+            assert probe_recall_sum(got) == probe_recall_sum(want), key
+        else:
+            assert got[key] == want[key], key
     return want, got
 
 

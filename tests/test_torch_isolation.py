@@ -40,7 +40,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.models.attention", "repro_torch.models.taco_attention",
             "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.configs",
             "repro_torch.configs.registry", "repro_torch.configs.granite_3_2b",
-            "repro_torch.serving.engine", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.serving.engine", "repro_torch.launch.serve",
+            "repro_torch.data.io", "repro_torch.data.tokens", "repro_torch.core.ivf",
+            "repro_torch.core.sclinear", "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.adafactor", "repro_torch.optim.clip",
+            "repro_torch.optim.schedule", "repro_torch.train", "repro_torch.train.loop",
+            "repro_torch.train.losses", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -125,6 +130,25 @@ def test_entry_points_default_to_the_card(tmp_path):
         ServingEngine(params, lm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--requests", "1", "--max-new", "1"])
+
+    # the baselines and training
+    from repro_torch.core import SCLinear, build_ivf
+    from repro_torch.core.config import suco_config
+    from repro_torch.core.ivf import ivf_index_from_arrays
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_state_init
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_ivf(data, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ivf_index_from_arrays(torch.zeros((4, 8)), torch.zeros((4, 2)), data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SCLinear(data, suco_config(n_subspaces=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_state_init(torch.Generator().manual_seed(0), lm, adamw()[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_kernel_wrappers_never_fall_back():

@@ -1,4 +1,5 @@
-"""No torch work under a lock in the port's ``ann/`` and ``serving/``.
+"""No torch work under a lock in the port's ``ann/``, ``serving/`` and
+``checkpoint/``.
 
 A ``.cpu()``, ``.item()``, ``.numpy()`` or ``.to(`` under a lock waits for
 the card (a host copy synchronises the stream), as does
@@ -15,7 +16,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted((PORT / "ann").glob("*.py")) + sorted((PORT / "serving").glob("*.py"))
+FILES = sorted((PORT / "ann").glob("*.py")) + sorted((PORT / "serving").glob("*.py")) \
+    + sorted((PORT / "checkpoint").glob("*.py"))
 
 #: method names that move a tensor to the host or wait for the device
 TORCH_SYNC = {"cpu", "item", "numpy", "to"}
@@ -92,7 +94,8 @@ def lock_violations(paths, root: Path = ROOT) -> tuple[list[str], int]:
 
 
 def test_no_torch_sync_or_search_under_a_lock():
-    assert {"mutable.py", "scheduler.py", "ann_engine.py"} <= {p.name for p in FILES}
+    assert {"mutable.py", "scheduler.py", "ann_engine.py", "checkpoint.py"} \
+        <= {p.name for p in FILES}
     findings, bodies = lock_violations(FILES)
     assert bodies >= 45, "the scan no longer finds the port's lock bodies"
     assert findings == [], "\n".join(findings)
