@@ -168,7 +168,33 @@ Phases, in order; any failure exits nonzero:
                gradient; the smoke config through launch.train.main: 60
                steps with 2 microbatches (the loss falls), 6 straight against
                3 + checkpoint + --resume 3 (1e-4), one Adafactor step;
- 14. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 14. families — the moe, ssm, hybrid, audio and vlm configs at full width,
+               one at a time, weights from a seeded generator on the card:
+               granite-moe-3b-a800m (launch.serve.main in process, 8 x 16
+               tokens on 4 slots; a 2048-token forward in f32 and bf16
+               through the kernel against the plain path under the lm
+               gates, the f32 one allowing for tokens a router near-tie
+               sends elsewhere; the share of assignments capacity drops at
+               that prefill and at a 4-slot decode step, cap 1 there; one
+               layer's dispatch and expert products timed apart);
+               rwkv6-7b (served the same way, no flash; a 2048-token
+               prefill on the chunked WKV path against the sequential one
+               in f32, logits within 1e-3 and each layer's state within
+               1e-3 of its largest entry; one layer's time mix on each path
+               timed); whisper-medium (B 2 over 1500 stub frames, a 16-token
+               prompt, 16 teacher-forced steps; exactly 72 flash launches a
+               prefill; f32 forward against the plain path and decode
+               against forward within 1e-3; in bf16 the encoder's,
+               decoder's and cross-attention's first calls held against the
+               plain flash version and timed beside it and SDPA);
+               llava-next-mistral-7b (576 patch embeddings before a 64-token
+               prompt, 8 steps, held as whisper); arctic-480b cut to 1
+               layer and jamba-1.5-large-398b cut to one group of 8 layers
+               and 4 of its 16 experts (each cut printed on a ``families:
+               cut:`` line; bf16 forward over 512 tokens against the plain
+               path, top-1 >= 95 %; prefill + 4 steps; drop shares; jamba's
+               Mamba layer and its sequential scan timed);
+ 15. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -186,7 +212,10 @@ kmeans_assign, and for the default-config save l2dist and scscore, counted
 in the launcher's own process; lm: flash_attention exactly once a layer a
 prefill, in the engine, in forward and in prefill; ivf_build: kmeans_assign
 exactly 11 times; train: flash_attention exactly twice a layer a step, at
-full width and in the 2-layer gradient check, and in the smoke runs),
+full width and in the 2-layer gradient check, and in the smoke runs;
+families: flash_attention exactly once an attention layer a prefill, twice
+with cross-attention, once more an encoder layer: 72 for whisper-medium;
+none for rwkv6-7b),
 l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
@@ -249,6 +278,14 @@ PATHS = {
     "train": ("flash_attention",),
     "train_grads": ("flash_attention",),
     "train_smoke": ("flash_attention",),
+    "families_moe_serve": ("flash_attention",),
+    "families_moe_prefill": ("flash_attention",),
+    "families_rwkv_serve": (),
+    "families_rwkv": (),
+    "families_whisper": ("flash_attention",),
+    "families_llava": ("flash_attention",),
+    "families_arctic": ("flash_attention",),
+    "families_jamba": ("flash_attention",),
 }
 
 
@@ -2544,23 +2581,22 @@ def hold_flash_call(torch, label: str, q, k, v, causal, got):
     return err, share
 
 
-def capture_first_flash(ops, seen: list):
-    """Wrap ops.flash_attention_cuda so that its first call's inputs and
-    output (cloned) land in ``seen``; returns a function that puts the
-    original back. Launches still go through the wrapper, so they count."""
+def capture_shapes(ops, seen: dict):
+    """Wrap ops.flash_attention_cuda so that the first call of each (q
+    shape, k shape, causal) lands in ``seen`` (inputs and output cloned);
+    returns a function that puts the original back. Launches still go
+    through the wrapper, so they count."""
     launch = ops.flash_attention_cuda
 
     def capture(q, k, v, causal):
         out = launch(q, k, v, causal)
-        if not seen:
-            seen.append(tuple(x.detach().clone() for x in (q, k, v)) + (causal, out.clone()))
+        key = (tuple(q.shape), tuple(k.shape), bool(causal))
+        if key not in seen:
+            seen[key] = tuple(x.detach().clone() for x in (q, k, v)) + (causal, out.clone())
         return out
 
     ops.flash_attention_cuda = capture
-
-    def restore():
-        ops.flash_attention_cuda = launch
-    return restore
+    return lambda: setattr(ops, "flash_attention_cuda", launch)
 
 
 def event_ms(torch, timings: dict) -> dict:
@@ -2568,12 +2604,20 @@ def event_ms(torch, timings: dict) -> dict:
     return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in timings.items()}
 
 
-def lm_serve(torch, cfg) -> dict:
+def attention_layers(cfg) -> int:
+    """Flash launches a prefill: one a decoder attention layer (two with
+    cross-attention) and one an encoder layer."""
+    n_attn = cfg.n_groups * sum(spec["mixer"] == "attn" for spec in cfg.layer_specs())
+    return n_attn * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+
+
+def lm_serve(torch, cfg, args=None, path: str = "lm_serve", label: str = "lm serve") -> dict:
     """python -m repro_torch.launch.serve's main in process at full width:
     8 requests, 16 new tokens each, 4 slots, max_seq 256, bf16 compute. One
-    flash launch a layer a prefill, each prefill's first-layer call held
-    against the plain flash version (bf16, and f32 on the upcast inputs);
-    prefill and decode-step ms from CUDA events around the engine's calls."""
+    flash launch an attention layer a prefill (none for RWKV), each
+    prefill's first-layer call held against the plain flash version (bf16,
+    and f32 on the upcast inputs); prefill and decode-step ms from CUDA
+    events around the engine's calls."""
     import contextlib
     import io
     import re
@@ -2586,10 +2630,11 @@ def lm_serve(torch, cfg) -> dict:
     firsts: list = []  # each prefill's first-layer kernel call
     calls = [0]
     launch = ops.flash_attention_cuda
+    n_attn = attention_layers(cfg)
 
     def capture(q, k, v, causal):
         out = launch(q, k, v, causal)
-        if calls[0] % cfg.n_layers == 0:
+        if calls[0] % n_attn == 0:
             firsts.append((q, k, v, causal, out))
         calls[0] += 1
         return out
@@ -2600,35 +2645,38 @@ def lm_serve(torch, cfg) -> dict:
     ops.flash_attention_cuda = capture
     try:
         with contextlib.redirect_stdout(out):
-            outs, launches = run_path(torch, "lm_serve", lambda: serve.main(LM_SERVE_ARGS))
+            outs, launches = run_path(torch, path, lambda: serve.main(args or LM_SERVE_ARGS))
     finally:
         ops.flash_attention_cuda = launch
         restore()
     secs = time.perf_counter() - t0
     lines = out.getvalue().splitlines()
     for ln in lines:
-        print(f"lm serve: {ln}", flush=True)
+        print(f"{label}: {ln}", flush=True)
     ms = event_ms(torch, timings)
     served = re.search(r"served (\d+) requests, (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s\)",
                        out.getvalue())
-    check(served is not None, "lm serve: no served line printed")
+    check(served is not None, f"{label}: no served line printed")
     requests, tokens = int(served.group(1)), int(served.group(2))
     prefills = len(ms["prefill"])
     check(requests == 8 and tokens == 8 * 16 == sum(map(len, outs)) and prefills == 8,
-          f"lm serve: {requests} requests, {tokens} tokens, {prefills} prefills")
-    check(launches["flash_attention"] == cfg.n_layers * prefills,
-          f"lm serve: {launches['flash_attention']} flash launches for {prefills} prefills "
-          f"of {cfg.n_layers} layers")
+          f"{label}: {requests} requests, {tokens} tokens, {prefills} prefills")
+    check(launches["flash_attention"] == n_attn * prefills,
+          f"{label}: {launches['flash_attention']} flash launches for {prefills} prefills "
+          f"of {n_attn} attention layers")
     # the kernel at the served shapes (prompts shorter than one tile)
-    check(len(firsts) == prefills, f"lm serve: {len(firsts)} first-layer calls captured")
+    check(len(firsts) == (prefills if n_attn else 0),
+          f"{label}: {len(firsts)} first-layer calls captured")
     kernel_err, used, lengths = 0.0, 0.0, []
     for q, k, v, causal, got in firsts:
         check(q.dtype == torch.bfloat16 and tuple(q.shape[::2]) == (cfg.n_heads, cfg.hd),
-              f"lm serve: kernel input {tuple(q.shape)} {q.dtype}")
+              f"{label}: kernel input {tuple(q.shape)} {q.dtype}")
         lengths.append(q.shape[1])
-        err, share = hold_flash_call(torch, f"lm serve: S {q.shape[1]} layer 0", q, k, v,
+        err, share = hold_flash_call(torch, f"{label}: S {q.shape[1]} layer 0", q, k, v,
                                      causal, got)
         kernel_err, used = max(kernel_err, err), max(used, share)
+    if not firsts:  # an attention-free model launches no kernel
+        kernel_err = used = None
     del firsts
     decode = sorted(ms["decode_step"])
     row = dict(requests=requests, tokens=tokens, seconds_printed=float(served.group(3)),
@@ -2637,50 +2685,94 @@ def lm_serve(torch, cfg) -> dict:
                layer0_flash_max_abs_err=kernel_err, layer0_share_of_allowed_vs_f32=used,
                prefill_ms=ms["prefill"], decode_steps=len(decode),
                decode_step_ms_median=decode[len(decode) // 2])
-    print(f"lm serve: {json.dumps(row)}", flush=True)
+    print(f"{label}: {json.dumps(row)}", flush=True)
     row["launches"] = launches
     return row
 
 
-def lm_prefill(torch, params, cfg, tokens) -> dict:
-    """forward over 4096 tokens through the flash kernel, in float32 and in
-    the config's bf16, against the plain path (impl="torch") on the same
-    weights; the first layer's kernel call held against the plain flash
-    version; the kernel path timed beside the plain path and beside
-    scaled_dot_product_attention routed the same way."""
+def routing_spy(moe_module, seen: list, replay=None):
+    """Wrap the MoE's ``route`` (no host sync); returns a function that puts
+    the original back. Without ``replay`` each call's output lands in
+    ``seen``. With ``replay`` (the outputs of an earlier run, in call
+    order) each call takes that run's decisions (expert ids, dispatch
+    order, positions, kept set), its gates renormalised from its own
+    probabilities, and ``seen`` gets, token by token, whether its own
+    top-k and kept set were the same: the routing is pinned, so that two
+    paths that differ before the router by rounding are compared on the
+    same experts."""
+    route = moe_module.route
+    calls = iter(replay or ())
+
+    def spy(probs, k, cap):
+        out = route(probs, k, cap)
+        if replay is None:
+            seen.append(out)
+            return out
+        exp_idx, _, fe, pos, keep = next(calls)
+        t = probs.shape[0]
+        seen.append((out[0] == exp_idx).all(-1) & (out[4].view(k, t) == keep.view(k, t)).all(0))
+        gates = probs.gather(1, exp_idx)
+        return exp_idx, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), fe, pos, keep
+
+    moe_module.route = spy
+    return lambda: setattr(moe_module, "route", route)
+
+
+def lm_prefill(torch, params, cfg, tokens, path: str = "lm_prefill") -> dict:
+    """forward over the tokens (4096 at granite-3-2b) through the flash
+    kernel, in float32 and in the config's bf16, against the plain path
+    (impl="torch") on the same weights; the first layer's kernel call held
+    against the plain flash version; the kernel path timed beside the plain
+    path and beside scaled_dot_product_attention routed the same way. With
+    experts the plain path's routing is pinned to the kernel path's
+    (routing_spy's replay): a router near-tie would otherwise send a token
+    to other experts on rounding alone (the paths differ by ~1e-6 before
+    the router in f32), which moves it by design; the share of tokens whose
+    own routing was the same in every layer is recorded."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import attention as lm_attention
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
 
+    n = tokens.shape[1]
     rows = {}
     top1_f32 = None  # the float32 kernel path's top-1 tokens
     exact = None  # the float32 plain path's logits
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         batch = {"tokens": tokens}
-        seen: list = []
+        seen: dict = {}
         copies, expansions = fa.aligned_copies, lm_attention.kv_expansions
-        restore = capture_first_flash(ops, seen)
+        routes, alike = [], []
+        restore = capture_shapes(ops, seen)
+        unspy = routing_spy(MOE, routes)
         try:
-            got, launches = run_path(torch, "lm_prefill", lambda: M.forward(params, c, batch)[0],
+            got, launches = run_path(torch, path, lambda: M.forward(params, c, batch)[0],
                                      expect={"flash_attention": cfg.n_layers})
         finally:
             restore()
+            unspy()
         copies = fa.aligned_copies - copies
         expansions = lm_attention.kv_expansions - expansions
         check(copies == 0 and expansions == cfg.n_layers,
               f"lm prefill {dtype}: {copies} aligned copies, {expansions} K/V expansions")
         # the kernel at the path's first call, against its plain version
-        q, k, v, causal, out = seen[0]
-        check(tuple(q.shape) == (cfg.n_heads, LM_PREFILL, cfg.hd) and q.dtype == c.cdtype,
+        q, k, v, causal, out = next(iter(seen.values()))
+        check(tuple(q.shape) == (cfg.n_heads, n, cfg.hd) and q.dtype == c.cdtype,
               f"lm prefill {dtype}: kernel input {tuple(q.shape)} {q.dtype}")
         kernel_err, used = hold_flash_call(torch, f"lm prefill {dtype}: layer 0", q, k, v,
                                            causal, out)
         del seen, q, k, v, out
-        plain = M.forward(params, c, batch, impl="torch")[0]
+        unspy = routing_spy(MOE, alike, replay=routes)
+        try:
+            plain = M.forward(params, c, batch, impl="torch")[0]
+        finally:
+            unspy()
+        routed_alike = (float(torch.stack(alike).all(0).float().mean()) if alike else None)
+        del routes, alike
         err = float((got - plain).abs().max())
         top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
         if top1_f32 is None:
@@ -2689,7 +2781,7 @@ def lm_prefill(torch, params, cfg, tokens) -> dict:
         vs_f32 = {path: float((x.argmax(-1) == top1_f32).float().mean())
                   for path, x in (("kernel", got), ("plain", plain))}
         finite = bool(torch.isfinite(got).all())
-        check(finite and tuple(got.shape) == (1, LM_PREFILL, cfg.vocab_size),
+        check(finite and tuple(got.shape) == (1, n, cfg.vocab_size),
               f"lm prefill {dtype}: logits {tuple(got.shape)}, finite {finite}")
         mean_vs_f32 = None
         if dtype == "float32":
@@ -2722,7 +2814,8 @@ def lm_prefill(torch, params, cfg, tokens) -> dict:
         finally:
             ops.flash_attention_cuda = launch
         profiled = profile_call(torch, lambda: M.forward(params, c, batch), f"lm prefill {dtype}")
-        rows[dtype] = dict(max_abs_err=err, top1_agreement=top1, top1_vs_f32_kernel=vs_f32,
+        rows[dtype] = dict(max_abs_err=err, tokens_routed_alike=routed_alike,
+                           top1_agreement=top1, top1_vs_f32_kernel=vs_f32,
                            mean_abs_vs_f32_plain=mean_vs_f32, ms=ms, plain_ms=plain_ms,
                            sdpa_routed_ms=sdpa_ms, layer0_flash_max_abs_err=kernel_err,
                            layer0_share_of_allowed_vs_f32=used)
@@ -2926,8 +3019,8 @@ def train_full_width(torch, cfg) -> dict:
 
     alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
     before = {k: torch.cuda.memory_stats().get(k, 0) for k in alloc_keys}
-    seen: list = []
-    restore = capture_first_flash(ops, seen)
+    seen: dict = {}
+    restore = capture_shapes(ops, seen)
     try:
         _, launches = run_path(torch, "train", run,
                                expect={"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS})
@@ -2935,7 +3028,7 @@ def train_full_width(torch, cfg) -> dict:
         restore()
     allocator = {k: torch.cuda.memory_stats().get(k, 0) - before[k] for k in alloc_keys}
     # the kernel at the training shape: (B*H, S, hd) = (8*32, 128, 64), bf16, causal
-    q, k, v, causal, got = seen[0]
+    q, k, v, causal, got = next(iter(seen.values()))
     check(tuple(q.shape) == (8 * cfg.n_heads, 128, cfg.hd) and q.dtype == cfg.cdtype
           and causal, f"train: kernel input {tuple(q.shape)} {q.dtype} causal {causal}")
     flash_err, flash_share = hold_flash_call(torch, "train: step 0 layer 0", q, k, v, causal,
@@ -3033,14 +3126,14 @@ def train_smoke(torch) -> dict:
         return falls, straight, resumed, adafactor
 
     t0 = time.perf_counter()
-    seen: list = []
-    restore = capture_first_flash(ops, seen)
+    seen: dict = {}
+    restore = capture_shapes(ops, seen)
     try:
         (falls, straight, resumed, adafactor), launches = run_path(torch, "train_smoke", run)
     finally:
         restore()
     secs = time.perf_counter() - t0
-    q, k, v, causal, got = seen[0]
+    q, k, v, causal, got = next(iter(seen.values()))
     flash_err, _ = hold_flash_call(torch, f"train smoke: first call {tuple(q.shape)} {q.dtype}",
                                    q, k, v, causal, got)
     check(falls[-1] < falls[0], f"train smoke: the loss did not fall {falls}")
@@ -3070,6 +3163,487 @@ def phase_train(torch) -> dict:
     smoke = train_smoke(torch)
     return {"full": full, "grads": grads, "smoke": smoke,
             "launches": [full["launches"], grads["launches"], smoke["launches"]]}
+
+
+#: the families phase: the moe, ssm, hybrid, audio and vlm configs at full
+#: width (arctic cut to 1 layer, jamba to one group of 8 layers and 4 of its
+#: 16 experts, so that each fits one card), weights from a seeded generator
+#: on the card, each model freed before the next
+FAM_SERVE_ARGS = ["--requests", "8", "--max-new", "16", "--slots", "4", "--max-seq", "256"]
+FAM_MOE_PREFILL = 2048  # granite-moe's forward in f32 and bf16 under the lm phase's gates
+FAM_RWKV_PREFILL = 2048  # rwkv6's chunked prefill against the sequential one
+FAM_WHISPER = (2, 16, 16)  # batch, decoder prompt, teacher-forced steps (over 1500 frames)
+FAM_LLAVA = (64, 8)  # prompt behind the 576 patches, teacher-forced steps
+FAM_CUT_PREFILL = 512  # arctic's and jamba's prompt
+FAM_CUT_STEPS = 4
+#: the chunked WKV against the sequential one over rwkv6's 32 layers in
+#: float32: the last logits within LM_F32_TOL, every layer's WKV state
+#: within this share of its largest entry (the reference holds one layer
+#: at 2e-4, tests/test_models.py:206)
+FAM_WKV_TOL = 1e-3
+
+
+def fam_flash_shapes(torch, seen: dict, label: str) -> list:
+    """Each new flash shape's first call on a path held against the plain
+    version (hold_flash_call: FLASH_TOL, and bf16 also against the f32
+    plain version), then the kernel timed beside the plain version and
+    scaled_dot_product_attention on the same inputs, and its bound counted
+    as phase_flash counts it (unmasked pairs, each input read once and the
+    output written once, at the input type's peak rate)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for (qs, ks, causal), (q, k, v, _, got) in seen.items():
+        err, share = hold_flash_call(torch, f"{label}: flash q {qs} k {ks} causal {causal}",
+                                     q, k, v, causal, got)
+        ms = timed(torch, lambda: ops.flash_attention_cuda(q, k, v, causal), 10)
+        plain_ms = timed(torch, lambda: flash_attention_plain(q, k, v, causal), 3)
+        sdpa_ms = timed(torch, lambda: sdpa(q[None], k[None], v[None], is_causal=causal), 10)
+        (bh, n_q, hd), n_k = qs, ks[1]
+        pairs = bh * (sum(min(i + 1, n_k) for i in range(n_q)) if causal else n_q * n_k)
+        bound, by = bound_ms(q.element_size() * bh * hd * (2 * n_q + 2 * n_k), 4 * hd * pairs,
+                             BF16_TENSOR_OPS if q.dtype == torch.bfloat16 else F32_OPS)
+        rows.append(dict(q=list(qs), k=list(ks), causal=causal,
+                         dtype=str(q.dtype).removeprefix("torch."), max_abs_err=err,
+                         share_of_allowed_vs_f32=share, ms=ms, plain_ms=plain_ms,
+                         sdpa_ms=sdpa_ms, bound_ms=bound, bound_by=by))
+        print(f"{label}: flash {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def drop_share(routes) -> float:
+    """The share of (token, choice) assignments that capacity dropped over
+    the MoE calls ``routing_spy`` saw."""
+    kept = sum(int(route[4].sum()) for route in routes)
+    return 1 - kept / sum(route[4].numel() for route in routes)
+
+
+def top_expert_share(routes) -> float:
+    """The busiest expert's share of first choices, averaged over the MoE
+    calls ``routing_spy`` saw (1 / n_experts when the router spreads tokens
+    evenly)."""
+    shares = [int(route[0][:, 0].bincount().max()) / route[0].shape[0] for route in routes]
+    return sum(shares) / len(shares)
+
+
+def fam_cut(cfg, **cuts):
+    """The config with ``cuts`` applied, each printed on a line of its own."""
+    import dataclasses
+
+    for name, value in cuts.items():
+        print(f"families: cut: {cfg.name}: {name} {getattr(cfg, name)} -> {value}", flush=True)
+    return dataclasses.replace(cfg, **cuts)
+
+
+def fam_params(torch, cfg, label: str):
+    from repro_torch.models import init_params, param_count
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    count = param_count(params)
+    print(f"{label}: {cfg.name} {count} parameters ({cfg.param_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params, count
+
+
+def fam_teacher_forced(torch, params, cfg, batch, prompt: int, steps: int, path: str,
+                       offset: int = 0) -> tuple:
+    """Prefill the first ``prompt`` tokens (behind a vlm's ``offset``
+    patches, after an audio config's encoder), counted as a path run with
+    exactly attention_layers(cfg) flash launches, then ``steps``
+    teacher-forced decode steps; (per-position logits (B, V): the
+    prefill's, then one a step; prefill seconds on the host clock, decode
+    ms from CUDA events, launches)."""
+    from repro_torch.models import model as M
+
+    tokens = batch["tokens"]
+    pre = dict(batch, tokens=tokens[:, :prompt])
+    t0 = time.perf_counter()
+    (logits, cache), launches = run_path(
+        torch, path, lambda: M.prefill(params, cfg, pre, offset + prompt + steps),
+        expect={"flash_attention": attention_layers(cfg)})
+    prefill_s = time.perf_counter() - t0
+    out, step_ms = [logits[:, 0]], []
+    for t in range(prompt, prompt + steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = M.decode_step(params, cfg, cache, tokens[:, t:t + 1], offset + t)
+        end.record()
+        out.append(logits[:, 0])
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    check(all(bool(torch.isfinite(x).all()) for x in out), f"{path}: non-finite logits")
+    return out, prefill_s, step_ms, launches
+
+
+def fam_f32_hold(torch, params, cfg, batch, prompt: int, steps: int, path: str, label: str,
+                 offset: int = 0) -> dict:
+    """In float32: forward through the kernel against the plain path
+    (within LM_F32_TOL, top-1 on LM_F32_TOP1 of the positions), and prefill
+    + teacher-forced decode against that forward at the same positions
+    (within LM_F32_TOL: the caches, cross K/V and positions carried right)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    got, l_fwd = run_path(torch, path, lambda: M.forward(params, c32, batch)[0],
+                          expect={"flash_attention": attention_layers(cfg)})
+    plain = M.forward(params, c32, batch, impl="torch")[0]
+    err = float((got - plain).abs().max())
+    top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(got).all()) and torch.allclose(got, plain, rtol=LM_F32_TOL,
+                                                            atol=LM_F32_TOL)
+          and top1 >= LM_F32_TOP1, f"{label} f32: kernel against plain max abs err {err}, "
+                                   f"top-1 {top1}")
+    del plain
+    chain, _, _, l_chain = fam_teacher_forced(torch, params, c32, batch, prompt, steps, path,
+                                              offset)
+    want = [got[:, prompt - 1 + i] for i in range(len(chain))]
+    chain_err = max(float((x - w).abs().max()) for x, w in zip(chain, want))
+    check(all(torch.allclose(x, w, rtol=LM_F32_TOL, atol=LM_F32_TOL) for x, w in zip(chain, want)),
+          f"{label} f32: teacher-forced decode {chain_err} from forward")
+    row = dict(forward_max_abs_err=err, top1_agreement=top1, decode_vs_forward=chain_err,
+               positions=got.shape[1])
+    print(f"{label} f32: {json.dumps(row)}", flush=True)
+    row["launches"] = [l_fwd, l_chain]
+    return row
+
+
+def fam_bf16_run(torch, params, cfg, batch, prompt: int, steps: int, path: str, label: str,
+                 offset: int = 0, shapes: int = 1) -> dict:
+    """In the config's bf16: prefill + teacher-forced decode through the
+    kernel (prefill seconds, decode-step ms), each new flash shape's first
+    call held against the plain version and timed (``shapes`` of them)."""
+    from repro_torch.kernels import ops
+
+    seen: dict = {}
+    restore = capture_shapes(ops, seen)
+    try:
+        _, prefill_s, step_ms, launches = fam_teacher_forced(torch, params, cfg, batch, prompt,
+                                                             steps, path, offset)
+    finally:
+        restore()
+    check(len(seen) == shapes, f"{label}: flash shapes {sorted(seen)}")
+    flash = fam_flash_shapes(torch, seen, label)
+    del seen
+    steady = sorted(step_ms[1:] or step_ms)
+    row = dict(prefill_s=prefill_s, decode_step_ms=step_ms,
+               decode_step_ms_median=steady[len(steady) // 2], flash=flash)
+    print(f"{label} bf16: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}",
+          flush=True)
+    row["launches"] = [launches]
+    return row
+
+
+def fam_moe(torch) -> dict:
+    """granite-moe-3b-a800m at full width (32 layers, d_model 1536, 40
+    experts top-8 of 512 wide, ~3.37 B float32 parameters): the launcher in
+    process (8 requests x 16 tokens, 4 slots), forward over FAM_MOE_PREFILL
+    tokens in f32 and bf16 through the kernel against the plain path (the
+    lm phase's gates), the share of (token, choice) assignments capacity
+    dropped at that prefill and at one 4-slot decode step (cap 1 there:
+    drops by design), and one layer's MoE timed apart from its expert
+    products."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import silu
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    serve = lm_serve(torch, cfg, ["--arch", cfg.name, *FAM_SERVE_ARGS], "families_moe_serve",
+                     "families moe serve")
+    torch.cuda.empty_cache()
+    params, count = fam_params(torch, cfg, "families moe")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAM_MOE_PREFILL), generator=gen,
+                           device="cuda")
+    prefill = lm_prefill(torch, params, cfg, tokens, "families_moe_prefill")
+    routes: list = []
+    unspy = routing_spy(MOE, routes)
+    try:
+        _, l_pre = run_path(torch, "families_moe_prefill",
+                            lambda: M.prefill(params, cfg, {"tokens": tokens}, FAM_MOE_PREFILL),
+                            expect={"flash_attention": cfg.n_layers})
+        prefill_drop = drop_share(routes)
+        drop_by_layer = [drop_share([route]) for route in routes]
+        top_share = top_expert_share(routes)
+        routes.clear()
+        cache = M.init_cache(cfg, 4, 256)
+        M.decode_step(params, cfg, cache, tokens[0, :4, None],
+                      torch.tensor([5, 10, 15, 20], device="cuda"))
+        decode_drop = drop_share(routes)
+    finally:
+        unspy()
+    del routes, cache
+    k, e, cf = cfg.experts_per_token, cfg.n_experts, cfg.capacity_factor
+    caps = {n: max(1, int(n * k * cf / e)) for n in (FAM_MOE_PREFILL, 4)}
+    check(0 <= prefill_drop < 1 and (caps[4] > 1 or decode_drop > 0),
+          f"families moe: dropped {prefill_drop} at prefill (cap {caps[FAM_MOE_PREFILL]}), "
+          f"{decode_drop} at a 4-slot decode step (cap {caps[4]})")
+    # one layer's MoE at the prefill's shape, bf16: the whole, and the expert
+    # products alone (with their weight casts) on a buffer of the same shape
+    layer = M._at(params["blocks"], 0)["l0"]["moe"]
+    x = torch.randn((1, FAM_MOE_PREFILL, cfg.d_model), generator=gen, device="cuda").to(
+        cfg.cdtype)
+    moe_ms = timed(torch, lambda: MOE.moe_apply(layer, x, n_experts=e, experts_per_token=k,
+                                                capacity_factor=cf), 5)
+    buf = torch.randn((e, caps[FAM_MOE_PREFILL], cfg.d_model), generator=gen,
+                      device="cuda").to(cfg.cdtype)
+
+    def products():
+        h = silu(torch.bmm(buf, layer["gate"].to(buf.dtype))) * torch.bmm(
+            buf, layer["up"].to(buf.dtype))
+        return torch.bmm(h, layer["down"].to(buf.dtype))
+
+    products_ms = timed(torch, products, 5)
+    row = dict(arch=cfg.name, params=count, prefill_tokens=FAM_MOE_PREFILL,
+               capacity=caps[FAM_MOE_PREFILL], decode_capacity=caps[4],
+               prefill_drop_share=prefill_drop, prefill_drop_by_layer=drop_by_layer,
+               prefill_top_expert_share=top_share,
+               decode_drop_share=decode_drop, moe_layer_ms=moe_ms, expert_products_ms=products_ms,
+               dispatch_ms=moe_ms - products_ms)
+    print(f"families moe: {json.dumps(row)}", flush=True)
+    row.update(serve=serve, prefill=prefill,
+               launches=[serve["launches"], prefill["float32"]["launches"],
+                         prefill["bfloat16"]["launches"], l_pre])
+    return row
+
+
+def fam_rwkv(torch) -> dict:
+    """rwkv6-7b at full width (32 layers, d_model 4096, 64 heads of 64,
+    ~7.5 B float32 parameters): the launcher in process (no flash: no
+    attention), a FAM_RWKV_PREFILL-token prefill on the chunked WKV path
+    against the sequential path on the card in float32, the bf16 prefill's
+    ms, and one layer's time mix on each path timed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+
+    cfg = get_arch("rwkv6-7b")
+    serve = lm_serve(torch, cfg, ["--arch", cfg.name, *FAM_SERVE_ARGS], "families_rwkv_serve",
+                     "families rwkv serve")
+    torch.cuda.empty_cache()
+    params, count = fam_params(torch, cfg, "families rwkv")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAM_RWKV_PREFILL), generator=gen,
+                           device="cuda")
+    batch, n = {"tokens": tokens}, FAM_RWKV_PREFILL
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    check(n % cfg.rwkv_chunk == 0, "families rwkv: the prefill takes the sequential path")
+    t0 = time.perf_counter()
+    (chunked, cache_c), l_pre = run_path(torch, "families_rwkv",
+                                         lambda: M.prefill(params, c32, batch, n),
+                                         expect={"flash_attention": 0})
+    chunked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq, cache_s = M.prefill(params, dataclasses.replace(c32, rwkv_chunk=0), batch, n)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    err = float((chunked - seq).abs().max())
+    wkv_c, wkv_s = cache_c["l0"]["wkv"], cache_s["l0"]["wkv"]
+    wkv_err = max(float((wkv_c[g] - wkv_s[g]).abs().max() / wkv_s[g].abs().max())
+                  for g in range(cfg.n_groups))
+    check(bool(torch.isfinite(chunked).all())
+          and torch.allclose(chunked, seq, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+          and wkv_err <= FAM_WKV_TOL,
+          f"families rwkv: chunked against sequential: logits {err}, WKV state {wkv_err}")
+    del cache_c, cache_s, chunked, seq
+    bf16_ms = timed(torch, lambda: M.prefill(params, cfg, batch, n), 2)
+    p0 = M._at(params["blocks"], 0)["l0"]["rwkv"]
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device="cuda").to(cfg.cdtype)
+    hd = cfg.rwkv_head_dim
+    seq_ms = timed(torch, lambda: S.rwkv6_time_mix_seq(p0, x, hd), 1)
+    chunk_ms = timed(torch, lambda: S.rwkv6_time_mix_seq_chunked(p0, x, hd, cfg.rwkv_chunk), 3)
+    row = dict(arch=cfg.name, params=count, prefill_tokens=n, f32_logits_max_abs_err=err,
+               f32_wkv_state_rel_err=wkv_err, f32_chunked_prefill_s=chunked_s,
+               f32_sequential_prefill_s=seq_s, bf16_prefill_ms=bf16_ms,
+               time_mix_sequential_ms=seq_ms, time_mix_chunked_ms=chunk_ms)
+    print(f"families rwkv: {json.dumps(row)}", flush=True)
+    row.update(serve=serve, launches=[serve["launches"], l_pre])
+    return row
+
+
+def fam_whisper(torch) -> dict:
+    """whisper-medium at full width (24 encoder + 24 decoder layers, d_model
+    1024, 16 heads of 64; ~0.85 B parameters): B 2 over 1500 seeded stub
+    frames, a 16-token prompt, 16 teacher-forced steps. Exactly 72 flash
+    launches a prefill (24 encoder self-attention, 24 decoder
+    self-attention, 24 cross-attention); f32 held against the plain path
+    and decode against forward; bf16 the config's, each of the three new
+    shapes' first call held against the plain version and timed."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("whisper-medium")
+    b, prompt, steps = FAM_WHISPER
+    check(attention_layers(cfg) == cfg.encoder_layers + 2 * cfg.n_layers,
+          f"families whisper: {attention_layers(cfg)} flash launches a prefill")
+    params, count = fam_params(torch, cfg, "families whisper")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt + steps), generator=gen,
+                                     device="cuda"),
+             "frames": torch.randn((b, cfg.frontend_len, cfg.d_model), generator=gen,
+                                   device="cuda") * 0.1}
+    f32 = fam_f32_hold(torch, params, cfg, batch, prompt, steps, "families_whisper",
+                       "families whisper")
+    bf16 = fam_bf16_run(torch, params, cfg, batch, prompt, steps, "families_whisper",
+                        "families whisper", shapes=3)
+    return dict(arch=cfg.name, params=count, batch=b, frames=cfg.frontend_len, prompt=prompt,
+                steps=steps, flash_a_prefill=attention_layers(cfg), f32=f32, bf16=bf16,
+                launches=f32["launches"] + bf16["launches"])
+
+
+def fam_llava(torch) -> dict:
+    """llava-next-mistral-7b at full width with its 576 patch embeddings
+    (32 layers, d_model 4096, 32 heads of 128, 8 KV heads; ~7.2 B float32
+    parameters): a 64-token prompt behind the patches (one causal flash
+    launch a layer over 640 positions), 8 teacher-forced steps, f32 held
+    against the plain path and decode against forward, bf16 timed."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llava-next-mistral-7b")
+    prompt, steps = FAM_LLAVA
+    params, count = fam_params(torch, cfg, "families llava")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, prompt + steps), generator=gen,
+                                     device="cuda"),
+             "patch_embeds": torch.randn((1, cfg.frontend_len, cfg.d_model), generator=gen,
+                                         device="cuda") * 0.1}
+    f32 = fam_f32_hold(torch, params, cfg, batch, prompt, steps, "families_llava",
+                       "families llava", offset=cfg.frontend_len)
+    bf16 = fam_bf16_run(torch, params, cfg, batch, prompt, steps, "families_llava",
+                        "families llava", offset=cfg.frontend_len)
+    return dict(arch=cfg.name, params=count, patches=cfg.frontend_len, prompt=prompt,
+                steps=steps, f32=f32, bf16=bf16, launches=f32["launches"] + bf16["launches"])
+
+
+def fam_cut_model(torch, cfg, path: str, label: str) -> tuple:
+    """A cut config in its bf16: forward over FAM_CUT_PREFILL tokens through
+    the kernel against the plain path with the kernel path's routing pinned
+    (routing_spy's replay; top-1 on LM_BF16_TOP1 of the positions, the share
+    of tokens the plain path would have routed alike recorded), prefill +
+    FAM_CUT_STEPS teacher-forced steps, the MoE drop shares at that prefill
+    and at a decode step of one sequence; (row, params)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    params, count = fam_params(torch, cfg, label)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAM_CUT_PREFILL + FAM_CUT_STEPS),
+                           generator=gen, device="cuda")
+    fwd = {"tokens": tokens[:, :FAM_CUT_PREFILL]}
+    routes, alike = [], []
+    unspy = routing_spy(MOE, routes)
+    try:
+        got, l_fwd = run_path(torch, path, lambda: M.forward(params, cfg, fwd)[0],
+                              expect={"flash_attention": attention_layers(cfg)})
+    finally:
+        unspy()
+    unspy = routing_spy(MOE, alike, replay=routes)
+    try:
+        plain = M.forward(params, cfg, fwd, impl="torch")[0]
+    finally:
+        unspy()
+    routed_alike = float(torch.stack(alike).all(0).float().mean())
+    del routes, alike
+    top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    err = float((got - plain).abs().max())
+    check(bool(torch.isfinite(got).all()) and top1 >= LM_BF16_TOP1,
+          f"{label}: kernel against plain top-1 {top1}, max abs err {err}")
+    del got, plain
+    routes: list = []
+    unspy = routing_spy(MOE, routes)
+    try:
+        bf16 = fam_bf16_run(torch, params, cfg, {"tokens": tokens}, FAM_CUT_PREFILL,
+                            FAM_CUT_STEPS, path, label)
+    finally:
+        unspy()
+    per_call = len(routes) // (FAM_CUT_STEPS + 1)  # MoE layers: a prefill, then a step each
+    row = dict(arch=cfg.name, params=count, n_layers=cfg.n_layers, n_experts=cfg.n_experts,
+               prompt=FAM_CUT_PREFILL, steps=FAM_CUT_STEPS, top1_agreement=top1,
+               tokens_routed_alike=routed_alike,
+               max_abs_err=err, prefill_drop_share=drop_share(routes[:per_call]),
+               prefill_top_expert_share=top_expert_share(routes[:per_call]),
+               decode_drop_share=drop_share(routes[per_call:]), bf16=bf16)
+    del routes
+    print(f"{label}: {json.dumps({k: v for k, v in row.items() if k != 'bf16'})}", flush=True)
+    row["launches"] = [l_fwd] + bf16["launches"]
+    return row, params
+
+
+def fam_arctic(torch) -> dict:
+    """arctic-480b at full width (d_model 7168, 56 heads of 128, 128 experts
+    top-2 of 4864 wide beside a 14336-wide dense MLP, bf16 parameters), its
+    depth cut from 35 layers to 1 (~14.3 B parameters, ~28.6 GB)."""
+    from repro_torch.configs import get_arch
+
+    cfg = fam_cut(get_arch("arctic-480b"), n_layers=1)
+    row, params = fam_cut_model(torch, cfg, "families_arctic", "families arctic")
+    del params
+    return row
+
+
+def fam_jamba(torch) -> dict:
+    """jamba-1.5-large-398b at full width (d_model 8192, 64 heads of 128, 8 KV
+    heads, Mamba d_state 16 over 16384 inner channels, bf16 parameters), cut
+    to one group of 8 layers (attention at 4, Mamba elsewhere, MoE on the
+    odd ones) and 4 of its 16 experts (~16 B parameters, ~33 GB: one group
+    with all 16 is ~90 GB); one Mamba layer and its sequential selective
+    scan alone timed at FAM_CUT_PREFILL tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+
+    cfg = fam_cut(get_arch("jamba-1.5-large-398b"), n_layers=8, n_experts=4)
+    row, params = fam_cut_model(torch, cfg, "families_jamba", "families jamba")
+    p0 = M._at(params["blocks"], 0)["l0"]["mamba"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, din, ns = FAM_CUT_PREFILL, cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device="cuda").to(cfg.cdtype)
+    layer_ms = timed(torch, lambda: S.mamba_seq(p0, x, d_state=ns, d_conv=cfg.mamba_d_conv,
+                                                expand=cfg.mamba_expand), 2)
+    xi = torch.randn((1, n, din), generator=gen, device="cuda").to(cfg.cdtype)
+    dt = S.softplus(torch.randn((1, n, din), generator=gen, device="cuda"))
+    bm, cm = (torch.randn((1, n, ns), generator=gen, device="cuda") for _ in range(2))
+
+    def scan():
+        h = torch.zeros((1, din, ns), device="cuda")
+        for t in range(n):
+            _, h = S._mamba_step_core(p0, xi[:, t], dt[:, t], bm[:, t], cm[:, t], h)
+        return h
+
+    scan_ms = timed(torch, scan, 2)
+    del params
+    row.update(mamba_layer_ms=layer_ms, mamba_scan_ms=scan_ms)
+    print(f"families jamba: mamba layer {layer_ms:.3f} ms, sequential scan {scan_ms:.3f} ms "
+          f"over {n} tokens", flush=True)
+    return row
+
+
+def phase_families(torch) -> dict:
+    """Phase 14: the moe, ssm, hybrid, audio and vlm families at full width
+    (arctic and jamba cut to fit), each freed before the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "families: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("moe", fam_moe), ("rwkv", fam_rwkv), ("whisper", fam_whisper),
+                     ("llava", fam_llava), ("arctic", fam_arctic), ("jamba", fam_jamba)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"families {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib']:.2f} GiB", flush=True)
+    rows["launches"] = [counts for row in rows.values() for counts in row["launches"]]
+    return rows
 
 
 def brute_force_top10(torch, corpus, queries):
@@ -3174,8 +3748,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 13. LM training, once the lm phase's parameters are freed
     train = phase("train", phase_train, torch)
+    torch.cuda.empty_cache()
+    # 14. the other model families, one at a time
+    families = phase("families", phase_families, torch)
 
-    # 14. summary: each kernel's launches over every path run above
+    # 15. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -3184,7 +3761,7 @@ def main(argv=None) -> int:
                    sharded["engine"]["sharded"]["launches"],
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
-                   baselines["launches"], *train["launches"]):
+                   baselines["launches"], *train["launches"], *families["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -3202,7 +3779,7 @@ def main(argv=None) -> int:
                                "gather": gather, "persist": persist,
                                "mutable": mutable, "engine": engine, "sharded": sharded,
                                "serve": serve, "lm": lm, "baselines": baselines,
-                               "train": train,
+                               "train": train, "families": families,
                                "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)

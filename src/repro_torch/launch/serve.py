@@ -1,7 +1,10 @@
 """LM serving launcher: batched requests through the slot-based engine
 (mirrors ``repro.launch.serve``), on the card unless ``--device cpu``.
 
-Weights are drawn from a seeded generator (no checkpoint is read).
+Weights are drawn from a seeded generator (no checkpoint is read). Every
+``--arch`` without a frontend serves (dense, moe, ssm, hybrid); whisper and
+llava need frame or patch embeddings that a request does not carry, and
+raise ValueError.
 Example (CPU smoke config):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
       --arch granite-3-2b --requests 8 --max-new 16

@@ -6,10 +6,10 @@ on the card unless ``--device cpu``.
     batch sequence;
   * --smoke: the reduced config of the chosen arch.
 
-The dense family only: another ``--arch`` raises through
-``models.model.check_ported`` (a frontend is dropped first, as the
-reference's token-only launcher drops it). Parameters are drawn from a
-seeded generator on the device. Example (CPU, the smoke config):
+Every ``--arch`` trains; a frontend is dropped first, as the reference's
+token-only launcher drops it (whisper keeps its encoder's parameters, which
+the loss then does not read). Parameters are drawn from a seeded generator
+on the device. Example (CPU, the smoke config):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch granite-3-2b --smoke --steps 20
 """
@@ -25,7 +25,6 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.configs.registry import ARCHS
 from repro_torch.data.tokens import SyntheticTokenStream
-from repro_torch.models.model import check_ported
 from repro_torch.optim import adafactor, adamw, warmup_cosine
 from repro_torch.train.loop import make_train_step, train_state_init
 from repro_torch.utils import resolve_device
@@ -55,7 +54,6 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     if cfg.frontend is not None:
         cfg = dataclasses.replace(cfg, frontend=None)  # token-only launcher
-    check_ported(cfg)
     opt = adamw() if args.optimizer == "adamw" else adafactor()
     lr = warmup_cosine(args.lr, args.warmup, args.steps)
     step_fn = make_train_step(cfg, opt, lr, microbatches=args.microbatches)

@@ -1,5 +1,6 @@
-"""Language models of the port (mirrors ``repro.models``): the dense family,
-with TaCo retrieval attention for long-context decode."""
+"""Language models of the port (mirrors ``repro.models``): the dense, moe,
+ssm, hybrid, audio and vlm families, with TaCo retrieval attention for
+long-context decode."""
 from repro_torch.models.convert import params_from_arrays
 from repro_torch.models.model import (
     ArchConfig,

@@ -5,13 +5,14 @@ All shapes follow (B, S, H, head_dim). GQA shares each of the n_kv KV heads
 among G = n_heads / n_kv query heads through a (B, S, Kv, G, hd) reshape;
 query head h reads KV head h // G. Softmax accumulates in float32.
 
-Causal self-attention over a whole sequence (``full_attention`` with
-``xkv=None``, the prefill body) goes through
-:func:`self_attention`. On the card it is one launch of the flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`) over (B·H, S, hd), with
-K and V expanded to the H query heads by one copy (counted in
-:data:`kv_expansions`); the kernel keeps the scores and the probabilities in
-float32 and never writes them out. The plain path, on the CPU or with
+Attention over a whole sequence goes through :func:`self_attention`
+(causal in the decoder, non-causal in whisper's encoder) or
+:func:`cross_attention` (the decoder's queries over the encoder's T
+frames, S != T). On the card each is one launch of the flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`) over (B·H, S, hd)
+queries and (B·H, T, hd) keys, with K and V expanded to the H query heads
+by one copy (counted in :data:`kv_expansions`); the kernel keeps the scores
+and the probabilities in float32 and never writes them out. The plain path, on the CPU or with
 ``impl="torch"``, computes what the reference computes at its rounding
 points: the scores are a product in the compute dtype, cast to float32, and
 the probabilities are cast back to the compute dtype before P·V.
@@ -72,7 +73,7 @@ def _masked_softmax_out(q, k, v, causal: bool, q_offset: int = 0):
 
 
 def _flash(q, k, v, causal: bool):
-    """One flash kernel launch for (B,S,H,hd) q and (B,S,Kv,hd) k, v."""
+    """One flash kernel launch for (B,S,H,hd) q and (B,T,Kv,hd) k, v."""
     global kv_expansions
     b, s, h, hd = q.shape
     kv = k.shape[2]
@@ -105,6 +106,15 @@ def self_attention(q, k, v, *, causal: bool = True, q_chunk: int = 0,
     return _masked_softmax_out(q, k, v, causal)
 
 
+def cross_attention(q, k, v, *, impl: str = "auto"):
+    """Queries over another sequence, no mask: q (B,S,H,hd), k, v
+    (B,T,Kv,hd) -> (B,S,H,hd). The flash kernel (non-causal) on the card,
+    else the reference's plain body."""
+    if ops._use_kernel(impl, q):
+        return _flash(q, k, v, causal=False)
+    return _masked_softmax_out(q, k, v, causal=False)
+
+
 def full_attention(
     p,
     x,
@@ -122,11 +132,13 @@ def full_attention(
 ):
     """Bidirectional/causal/cross attention over full sequences.
 
-    q_chunk > 0 evaluates the plain path in query chunks: only (q_chunk, T)
-    score tiles exist at a time (exact, not an approximation). Self-
-    attention on the card goes through the flash kernel instead, which
-    tiles both axes itself."""
+    q_chunk > 0 evaluates the plain self-attention path in query chunks:
+    only (q_chunk, T) score tiles exist at a time (exact, not an
+    approximation). On the card both self- and cross-attention go through
+    the flash kernel instead, which tiles both axes itself."""
     self_attn = xkv is None
+    if not self_attn and causal:
+        raise ValueError("full_attention: cross-attention (xkv given) is never causal")
     xkv = x if xkv is None else xkv
     q, k, v = qkv(p, x, xkv, n_heads, n_kv, head_dim)
     if use_rope:
@@ -139,7 +151,7 @@ def full_attention(
         qc = q_chunk if s > q_chunk else 0
         out = self_attention(q, k, v, causal=causal, q_chunk=qc, impl=impl)
     else:
-        out = _masked_softmax_out(q, k, v, causal)
+        out = cross_attention(q, k, v, impl=impl)
     return dense(p["wo"], out.reshape(b, s, -1))
 
 

@@ -14,8 +14,8 @@ from repro_torch.utils import resolve_device
 def params_from_arrays(tree: dict, cfg: ArchConfig,
                        device: str | torch.device = "cuda") -> dict:
     """The port's parameter tree for ``cfg`` from a nested dict of arrays
-    with the reference's keys and shapes, in ``cfg.param_dtype`` on
-    ``device``. Raises ValueError on a missing or extra key or a wrong
+    with the reference's keys and shapes, in ``cfg.param_dtype`` (a leaf's
+    own dtype where :func:`param_layout` gives one) on ``device``. Raises ValueError on a missing or extra key or a wrong
     shape."""
     dev = resolve_device(device)
 
@@ -25,7 +25,8 @@ def params_from_arrays(tree: dict, cfg: ArchConfig,
             if arr.shape != tuple(layout.shape):
                 raise ValueError(f"params_from_arrays: {path} has shape {arr.shape}, "
                                  f"{cfg.name} needs {tuple(layout.shape)}")
-            return torch.from_numpy(arr).to(device=dev, dtype=cfg.pdtype)
+            dtype = getattr(torch, layout.dtype) if layout.dtype else cfg.pdtype
+            return torch.from_numpy(arr).to(device=dev, dtype=dtype)
         if not isinstance(node, dict):
             raise ValueError(f"params_from_arrays: {path} is a leaf, {cfg.name} needs "
                              f"the keys {sorted(layout)}")

@@ -12,6 +12,11 @@ The reference compiles one prefill per prompt length; here each prefill
 simply runs, its causal self-attention one flash kernel launch a layer on
 the card. The engine runs on ``device`` (the card unless ``device="cpu"``),
 where its parameters must lie.
+
+A :class:`Request` carries a prompt of tokens only, as the reference's
+does: a config with a frontend (whisper's frames, llava's patches) cannot
+be served, and its first prefill raises ValueError saying so (the
+reference's fails with a KeyError).
 """
 from __future__ import annotations
 

@@ -65,7 +65,9 @@ def make_train_step(cfg: ArchConfig, optimizer, lr_schedule: Callable, *,
 
     def value_and_grad(leaves, rebuild, batch):
         loss, aux = loss_fn(rebuild(leaves), cfg, batch, impl=impl)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (whisper's encoder under a token-only
+        # batch) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return loss.detach(), torch.as_tensor(aux).detach(), grads
 
     def grads_of(params, batch):

@@ -38,7 +38,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.launch", "repro_torch.launch.serve_ann",
             "repro_torch.core.distributed", "repro_torch.models", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.taco_attention",
-            "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.configs",
+            "repro_torch.models.model", "repro_torch.models.convert",
+            "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.configs",
             "repro_torch.configs.registry", "repro_torch.configs.granite_3_2b",
             "repro_torch.serving.engine", "repro_torch.launch.serve",
             "repro_torch.data.io", "repro_torch.data.tokens", "repro_torch.core.ivf",

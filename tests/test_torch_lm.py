@@ -6,8 +6,9 @@ reference's chain; GQA against the same model written as MHA; the plain
 path query-chunked; bf16 logits bit for bit against the reference run op
 by op; the
 kernel route's head layout (the flash op swapped for its plain version on
-the CPU); ``params_from_arrays`` refusing a wrong tree; unported families
-raising. The kernel route on the card is held in
+the CPU); ``params_from_arrays`` refusing a wrong tree. The other families
+(moe, ssm, hybrid, audio, and llava with its patch frontend) are held in
+tests/test_torch_families.py. The kernel route on the card is held in
 tests/test_torch_cuda_kernels.py (``test_lm_forward_through_the_kernel``)."""
 import dataclasses
 
@@ -28,7 +29,8 @@ from repro_torch.models import params_from_arrays
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 #: the dense family (llava-next-mistral-7b without its vision frontend, as
-#: examples/retrieval_attention_serve.py runs it)
+#: examples/retrieval_attention_serve.py runs it; with the frontend it is
+#: held in tests/test_torch_families.py)
 DENSE = ["granite-3-2b", "qwen1.5-4b", "codeqwen1.5-7b", "starcoder2-3b",
          "llava-next-mistral-7b"]
 
@@ -239,14 +241,3 @@ def test_param_count_and_layout(models):
     assert TM.map_tree(lambda t: tuple(t.shape), fresh) == TM.map_tree(lambda t: tuple(t.shape), tp)
     assert fresh["blocks"]["l0"]["attn"]["wq"]["b"].abs().sum() == 0
     assert fresh["blocks"]["l0"]["ln1"]["scale"].eq(1).all()
-
-
-@pytest.mark.parametrize("arch", ["arctic-480b", "granite-moe-3b-a800m", "rwkv6-7b",
-                                  "jamba-1.5-large-398b", "whisper-medium",
-                                  "llava-next-mistral-7b"])
-def test_unported_families_raise(arch):
-    cfg = get_smoke(arch)  # llava keeps its vision frontend here
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
