@@ -194,7 +194,32 @@ Phases, in order; any failure exits nonzero:
                cut:`` line; bf16 forward over 512 tokens against the plain
                path, top-1 >= 95 %; prefill + 4 steps; drop shares; jamba's
                Mamba layer and its sequential scan timed);
- 15. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 15. parallel — data and expert parallelism over named grids of views of
+               the card (repro_torch.mesh), once the families are freed:
+               make_shardmap_train_step at granite-3-2b's full width and
+               depth over 2 data shards (batch 8 x 128, AdamW, remat), 3
+               steps uncompressed held against make_train_step with 2
+               microbatches from the same seeded state (bitwise where the
+               card's gradients repeat, else loss, grad norm and each
+               leaf's update within 1e-4), 3 steps int8-compressed with
+               every gradient element within half a quantum of the
+               uncompressed mean and the parameters' drift printed, one
+               single-device step, step ms of each, the payload bytes of
+               a step's sum; granite-moe-3b-a800m at full width over a
+               (data 2, model 4) grid with moe_impl="manual" and 2
+               dispatch chunks against moe_impl="gspmd" at 2 chunks, the
+               manual run's routing pinned to the gspmd run's: forward over
+               2 x 1024 tokens and prefill + 4 decode steps at 2 slots in
+               f32 (logits within 1e-4, >= 99.9 % of the token-layers
+               routed alike on their own) and bf16 (the lm phase's top-1
+               and distance gates), a 1-row prefill + decode that falls
+               back to moe_apply in every call, one MoE layer on one input
+               (the kept sets bit for bit in f32 and bf16) timed under each
+               implementation, drop share, both aux losses, the combine's
+               bytes; the production mesh's
+               (16, 16) and (2, 16, 16) grids over repeats of the card
+               (shape and dp axes only);
+ 16. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -215,7 +240,9 @@ exactly 11 times; train: flash_attention exactly twice a layer a step, at
 full width and in the 2-layer gradient check, and in the smoke runs;
 families: flash_attention exactly once an attention layer a prefill, twice
 with cross-attention, once more an encoder layer: 72 for whisper-medium;
-none for rwkv6-7b),
+none for rwkv6-7b; parallel: flash_attention exactly twice a layer a shard a
+step in the sharded and microbatched steps, once a layer a prefill or
+forward under either MoE implementation),
 l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
@@ -286,6 +313,9 @@ PATHS = {
     "families_llava": ("flash_attention",),
     "families_arctic": ("flash_attention",),
     "families_jamba": ("flash_attention",),
+    "parallel_dp": ("flash_attention",),
+    "parallel_dp_compressed": ("flash_attention",),
+    "parallel_ep": ("flash_attention",),
 }
 
 
@@ -2690,10 +2720,11 @@ def lm_serve(torch, cfg, args=None, path: str = "lm_serve", label: str = "lm ser
     return row
 
 
-def routing_spy(moe_module, seen: list, replay=None):
+def routing_spy(moe_module, seen: list, replay=None, probs_seen: list | None = None):
     """Wrap the MoE's ``route`` (no host sync); returns a function that puts
     the original back. Without ``replay`` each call's output lands in
-    ``seen``. With ``replay`` (the outputs of an earlier run, in call
+    ``seen``; with ``probs_seen`` each call's router probabilities land
+    there too. With ``replay`` (the outputs of an earlier run, in call
     order) each call takes that run's decisions (expert ids, dispatch
     order, positions, kept set), its gates renormalised from its own
     probabilities, and ``seen`` gets, token by token, whether its own
@@ -2705,6 +2736,8 @@ def routing_spy(moe_module, seen: list, replay=None):
 
     def spy(probs, k, cap):
         out = route(probs, k, cap)
+        if probs_seen is not None:
+            probs_seen.append(probs)
         if replay is None:
             seen.append(out)
             return out
@@ -3646,6 +3679,530 @@ def phase_families(torch) -> dict:
     return rows
 
 
+#: the parallel phase: data and expert parallelism over named grids of
+#: views of the card (repro_torch.mesh), each model freed before the next
+PAR_DP_SHARDS = 2
+PAR_DP_STEPS = 3
+PAR_EP_ARCH = "granite-moe-3b-a800m"
+PAR_EP_GRID = (2, 4)  # (data, model)
+PAR_EP_TOKENS = (2, 1024)  # rows x prompt of the prefills, one row a data block
+PAR_EP_DECODE = 4  # teacher-forced decode steps after each prefill (2 slots: manual)
+PAR_EP_FALLBACK = (128, 2)  # a 1-row prompt and decode steps: every MoE call falls back
+#: a compressed gradient element against the uncompressed mean: within half
+#: a quantum, plus the f32 rounding of g / scale and of the rescale (2^-14 of
+#: a quantum; g / scale is at most 127)
+PAR_QUANTUM_SLACK = 2.0 ** -14
+#: expert parallelism against chunked dispatch on the same routing, float32:
+#: every logit within this (rtol = atol), as tests/test_torch_families.py
+PAR_EP_F32_TOL = 1e-4
+#: through the 32 layers manual and chunked dispatch differ by rounding (the
+#: expert products' shapes, the partial outputs summed over the expert
+#: blocks; f32 logits ~1e-5 apart at the end), so a router near-tie may
+#: route a token apart (one or two token-layers in 65,536 on an H100). Each
+#: token-layer whose own float32 top-k under manual is not the gspmd one
+#: must be such a tie: two of gspmd's k + 1 largest probabilities within
+#: this of each other. A token whose top-k is the same but whose kept set
+#: differs must be one of the <= 2k entries a flipped token moves in its
+#: chunk (each of its k entries frees a place in one expert and takes one in
+#: another). On one layer's same input the kept sets are bit for bit.
+PAR_EP_TIE = 1e-5
+
+
+def par_bound_spy(torch, loop, rows: list):
+    """Wrap the train step's compressed_psum: for each compressed leaf,
+    append (the largest |compressed - exact sum| / S, in quanta of its
+    shared scale) as a 0-d tensor on the card, the exact sum taken in
+    float64 from the shards' own gradients. Returns a function that puts
+    the original back."""
+    from repro_torch.optim.compression import shared_scale
+
+    real = loop.compressed_psum
+
+    def spy(gs, *, enabled=True):
+        out = real(gs, enabled=enabled)
+        if enabled:
+            exact = gs[0].double()
+            for g in gs[1:]:
+                exact = exact + g.double()
+            err = (out.double() - exact).abs().max() / len(gs)
+            rows.append(err / shared_scale(gs).double())
+        return out
+
+    loop.compressed_psum = spy
+    return lambda: setattr(loop, "compressed_psum", real)
+
+
+def par_train_run(torch, cfg, step_fn, stream, path: str, flash: int, steps: int,
+                  seen: dict | None = None) -> tuple:
+    """A fresh seeded AdamW state (the train phase's), ``steps`` steps of
+    ``step_fn`` as one path run with exactly ``flash`` flash launches: (state,
+    per-step rows: ms from CUDA events, loss, grad norm). With ``seen`` the
+    first flash call of each shape lands there (capture_shapes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_state_init
+
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, adamw()[0])
+    rows = []
+
+    def run():
+        nonlocal state
+        for s in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, stream.batch(s))
+            end.record()
+            torch.cuda.synchronize()
+            rows.append(dict(ms=start.elapsed_time(end), loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"]), aux_loss=float(m["aux_loss"])))
+
+    restore = capture_shapes(ops, seen) if seen is not None else lambda: None
+    try:
+        _, launches = run_path(torch, path, run, expect={"flash_attention": flash})
+    finally:
+        restore()
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          f"{path}: a non-finite loss or grad norm {rows}")
+    return state, rows, launches
+
+
+def par_steady_ms(rows) -> float:
+    steady = sorted(r["ms"] for r in rows[1:] or rows)
+    return steady[len(steady) // 2]
+
+
+def par_dp(torch) -> dict:
+    """make_shardmap_train_step at granite-3-2b's full width and depth over a
+    1-D data mesh of PAR_DP_SHARDS views of the card, batch 8 x 128 (the
+    train phase's), AdamW, warmup_cosine, bf16 compute, remat:
+    PAR_DP_STEPS steps uncompressed, held against make_train_step with as
+    many microbatches from the same seeded state and batches (bitwise where
+    the card's gradients repeat; else loss and grad norm within
+    TRAIN_GRAD_RTOL relative and each leaf's parameter difference within
+    TRAIN_GRAD_RTOL of the microbatched update's norm), the first flash call
+    at the shard's shape held against the plain version (fam_flash_shapes);
+    PAR_DP_STEPS steps compressed, timed, and the parameters' drift from the
+    uncompressed run; the same PAR_DP_STEPS compressed steps again from the
+    same state with every gradient element checked within half a quantum of
+    the exact mean (PAR_QUANTUM_SLACK; par_bound_spy, whose float64 sums run
+    inside the step and so stay out of the timed run); one single-device
+    step (make_train_step, no microbatches); step ms of each, the payload
+    bytes a step's sum would move, peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, payload_bytes, warmup_cosine
+    from repro_torch.train import loop, make_shardmap_train_step, make_train_step
+    from repro_torch.utils import tree_flatten
+
+    cfg = get_arch(LM_ARCH)
+    check(cfg.remat, "parallel dp: remat is off")
+    S, steps = PAR_DP_SHARDS, PAR_DP_STEPS
+    mesh = make_mesh((S,), ("data",))
+    opt, lr = adamw(), warmup_cosine(3e-4, 20, TRAIN_STEPS + 1)
+    stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=0)
+    flash = 2 * cfg.n_layers * S * steps  # forward and remat recompute, a layer a shard
+    torch.cuda.reset_peak_memory_stats()
+    seen: dict = {}
+    state, plain_rows, l_plain = par_train_run(
+        torch, cfg, make_shardmap_train_step(cfg, opt, lr, mesh, compress_grads=False), stream,
+        "parallel_dp", flash, steps, seen)
+    peak_dp = torch.cuda.max_memory_allocated()
+    leaves = [p.detach() for p in tree_flatten(state.params)[0]]
+    n_params = sum(p.numel() for p in leaves)
+    payload = {"compressed": payload_bytes(state.params),
+               "uncompressed": payload_bytes(state.params, enabled=False)}
+    host_plain = [p.detach().cpu() for p in leaves]
+    del state, leaves
+    torch.cuda.empty_cache()
+    # the shard's training attention: (B/S · H, 128, hd), bf16, causal
+    check(len(seen) == 1, f"parallel dp: flash shapes {sorted(seen)}")
+    flash_rows = fam_flash_shapes(torch, seen, "parallel dp")
+    del seen
+
+    state, mb_rows, l_mb = par_train_run(
+        torch, cfg, make_train_step(cfg, opt, lr, microbatches=S), stream, "parallel_dp",
+        flash, steps)
+    leaves = [p.detach() for p in tree_flatten(state.params)[0]]
+    bitwise = all(torch.equal(p, h.to(p.device)) for p, h in zip(leaves, host_plain)) and all(
+        a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        for a, b in zip(plain_rows, mb_rows))
+    worst_update = 0.0
+    if not bitwise:
+        for a, b in zip(plain_rows, mb_rows):
+            for key in ("loss", "grad_norm"):
+                check(abs(a[key] - b[key]) <= TRAIN_GRAD_RTOL * abs(b[key]),
+                      f"parallel dp: {key} {a[key]} sharded against {b[key]} microbatched")
+        start = tree_flatten(init_params(torch.Generator(device="cuda").manual_seed(0), cfg))[0]
+        for p, h, p0 in zip(leaves, host_plain, start):
+            update = (p - p0).norm()
+            rel = float((h.to(p.device) - p).norm() / update.clamp_min(1e-30))
+            worst_update = max(worst_update, rel)
+            check(rel <= TRAIN_GRAD_RTOL, f"parallel dp: a leaf {rel} of its update apart")
+        del start
+    print(f"parallel dp: sharded S={S} uncompressed against {S} microbatches: bitwise "
+          f"{bitwise}, worst leaf {worst_update} of its update apart", flush=True)
+    # the single-device step: one more step on the microbatched run's state
+    single = make_train_step(cfg, opt, lr)
+    single_rows = []
+
+    def one():
+        nonlocal state
+        for s in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = single(state, stream.batch(steps + s))
+            end.record()
+            torch.cuda.synchronize()
+            single_rows.append(dict(ms=start.elapsed_time(end)))
+
+    _, l_single = run_path(torch, "parallel_dp", one,
+                           expect={"flash_attention": 2 * cfg.n_layers * 2})
+    del state, leaves
+    torch.cuda.empty_cache()
+
+    state, comp_rows, l_comp = par_train_run(
+        torch, cfg, make_shardmap_train_step(cfg, opt, lr, mesh), stream,
+        "parallel_dp_compressed", flash, steps)
+    drift_abs = drift_sq = norm_sq = 0.0
+    for p, h in zip(tree_flatten(state.params)[0], host_plain):
+        d = p.detach() - h.to(p.device)
+        drift_abs = max(drift_abs, float(d.abs().max()))
+        drift_sq += float((d.double() ** 2).sum())
+        norm_sq += float((h.double() ** 2).sum())
+    n_leaves = len(host_plain)
+    del state, host_plain
+    torch.cuda.empty_cache()
+
+    ratios: list = []
+    restore = par_bound_spy(torch, loop, ratios)
+    try:
+        state, checked_rows, l_checked = par_train_run(
+            torch, cfg, make_shardmap_train_step(cfg, opt, lr, mesh), stream,
+            "parallel_dp_compressed", flash, steps)
+    finally:
+        restore()
+    del state
+    torch.cuda.empty_cache()
+    check(len(ratios) == n_leaves * steps, f"parallel dp: {len(ratios)} compressed sums")
+    worst_quanta = float(torch.stack(ratios).max())
+    check(worst_quanta <= 0.5 + PAR_QUANTUM_SLACK,
+          f"parallel dp: a compressed gradient {worst_quanta} quanta from the exact mean")
+    repeats = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                  for a, b in zip(comp_rows, checked_rows))
+    row = dict(arch=cfg.name, params=n_params, shards=S, steps=steps, batch=[8, 128],
+               uncompressed=plain_rows, microbatched=mb_rows, compressed=comp_rows,
+               bitwise_vs_microbatched=bitwise, worst_leaf_vs_update=worst_update,
+               step_ms_uncompressed=par_steady_ms(plain_rows),
+               step_ms_compressed=par_steady_ms(comp_rows),
+               step_ms_compressed_checked=par_steady_ms(checked_rows),
+               checked_run_repeats_the_timed_one=repeats,
+               step_ms_microbatched=par_steady_ms(mb_rows),
+               step_ms_single_device=par_steady_ms(single_rows),
+               worst_share_of_half_quantum=worst_quanta / 0.5,
+               drift_max_abs=drift_abs, drift_rel_norm=math.sqrt(drift_sq / norm_sq),
+               payload_bytes=payload, peak_gib_uncompressed=peak_dp / 2**30,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, flash=flash_rows)
+    print(f"parallel dp: {json.dumps({k: v for k, v in row.items() if k not in ('uncompressed', 'microbatched', 'compressed')})}",
+          flush=True)
+    row["launches"] = [l_plain, l_mb, l_single, l_comp, l_checked]
+    return row
+
+
+def par_counting(moe_module, calls: dict):
+    """Count the MoE calls of each implementation (moe_apply_manual,
+    moe_apply); returns a function that puts the originals back."""
+    originals = {name: getattr(moe_module, name) for name in ("moe_apply_manual", "moe_apply")}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in originals.items():
+        setattr(moe_module, name, wrap(name, fn))
+    return lambda: [setattr(moe_module, n, f) for n, f in originals.items()]
+
+
+def par_ep_pair(torch, params, cfgs, mesh, fn, path: str, label: str, seen: dict) -> dict:
+    """``fn(cfg)`` under moe_impl="gspmd" (dispatch_chunks = dp) with its
+    routing recorded, then under "manual" over ``mesh`` with that routing
+    pinned (routing_spy's replay); each one path run with exactly one flash
+    launch a layer a prefill, the first flash call of each shape landing in
+    ``seen``. Returns both outputs, the share of tokens whose own routing
+    under manual was the gspmd one in every call, the ties behind those
+    that were not (par_ties), the routes, and the calls of each MoE
+    implementation."""
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import set_mesh
+    from repro_torch.models import moe as MOE
+
+    routes, alike, calls = [], [], {"gspmd": {}, "manual": {}}
+    probs: dict = {"gspmd": [], "manual": []}
+    flash = {"flash_attention": attention_layers(cfgs["gspmd"])}
+    restore = capture_shapes(ops, seen)
+    try:
+        unspy = routing_spy(MOE, routes, probs_seen=probs["gspmd"])
+        uncount = par_counting(MOE, calls["gspmd"])
+        try:
+            want, l_g = run_path(torch, path, lambda: fn(cfgs["gspmd"]), expect=flash)
+        finally:
+            unspy()
+            uncount()
+        unspy = routing_spy(MOE, alike, replay=routes, probs_seen=probs["manual"])
+        uncount = par_counting(MOE, calls["manual"])
+        try:
+            with set_mesh(mesh):
+                got, l_m = run_path(torch, path, lambda: fn(cfgs["manual"]), expect=flash)
+        finally:
+            unspy()
+            uncount()
+    finally:
+        restore()
+    check(len(alike) == len(routes), f"{label}: {len(alike)} manual routings against "
+                                     f"{len(routes)}")
+    same = float(torch.cat([a.reshape(-1) for a in alike]).float().mean())
+    ties = par_ties(torch, probs, alike, cfgs["gspmd"].experts_per_token)
+    return dict(want=want, got=got, routed_alike=same, ties=ties, routes=routes, calls=calls,
+                launches=[l_g, l_m])
+
+
+def par_ties(torch, probs: dict, alike: list, k: int) -> dict:
+    """Why tokens routed apart under manual: for each routing call, the
+    tokens whose own top-k (stable descending order, as route) differs from
+    gspmd's ("flips"), the smallest gap between consecutive ones of gspmd's
+    k + 1 largest probabilities at each flip, and the tokens whose top-k is
+    the same but whose kept set is not ("kept only"; unexplained where a
+    call has more than 2k of them a flip). Counts, the largest tie gap at a
+    flip and the largest |manual - gspmd| probability."""
+    flips = kept_only = unexplained = 0
+    worst_gap = prob_diff = 0.0
+    for p_g, p_m, same in zip(probs["gspmd"], probs["manual"], alike):
+        top_g = torch.sort(p_g, dim=-1, descending=True, stable=True)
+        top_m = torch.sort(p_m, dim=-1, descending=True, stable=True).indices[:, :k]
+        flip = (top_m != top_g.indices[:, :k]).any(-1)
+        vals = top_g.values[:, :k + 1]
+        gap = (vals[:, :-1] - vals[:, 1:]).min(-1).values
+        n_flip, n_kept = int(flip.sum()), int((~same & ~flip).sum())
+        flips, kept_only = flips + n_flip, kept_only + n_kept
+        unexplained += max(0, n_kept - 2 * k * n_flip)
+        if n_flip:
+            worst_gap = max(worst_gap, float(gap[flip].max()))
+        prob_diff = max(prob_diff, float((p_m - p_g).abs().max()))
+    return dict(flips=flips, kept_only=kept_only, kept_only_unexplained=unexplained,
+                worst_tie_gap=worst_gap, max_prob_diff=prob_diff)
+
+
+def par_ep(torch) -> dict:
+    """granite-moe-3b-a800m at full width over a (data 2, model 4) grid of 8
+    views of the card, moe_impl="manual", moe_dispatch_chunks=2, against
+    moe_impl="gspmd" at dispatch_chunks=2 (the same chunk-local capacity),
+    the manual run's routing pinned to the gspmd run's: forward over 2 x
+    1024 tokens and prefill + PAR_EP_DECODE teacher-forced steps at 2
+    slots, float32 (logits within PAR_EP_F32_TOL, each token-layer whose own
+    routing was not gspmd's a near-tie, PAR_EP_TIE) and bf16 (top-1 on
+    LM_BF16_TOP1 of the positions, mean distance from the f32 logits within
+    LM_BF16_MEAN_SLACK of gspmd's); a 1-row prefill + decode where every MoE
+    call falls back to moe_apply; the first flash call of each new shape
+    (f32 and bf16 at 2 x 1024, the 1-row prompt) held against the plain
+    version (fam_flash_shapes); one MoE layer on one input under each
+    implementation, the kept sets bit for bit in f32 and bf16, then timed;
+    the drop share, both aux losses, the combine's bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    base = get_arch(PAR_EP_ARCH)
+    dp, ep = PAR_EP_GRID
+    mesh = make_mesh(PAR_EP_GRID, ("data", "model"))
+    params, count = fam_params(torch, base, "parallel ep")
+    rows, prompt = PAR_EP_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, base.vocab_size, (rows, prompt + PAR_EP_DECODE), generator=gen,
+                           device="cuda")
+    out, launches, flash_rows = {}, [], []
+    f32_logits = None
+    for dtype in ("float32", "bfloat16"):
+        cfgs = {impl: dataclasses.replace(base, compute_dtype=dtype, moe_impl=impl,
+                                          moe_dispatch_chunks=dp)
+                for impl in ("gspmd", "manual")}
+        seen: dict = {}
+        fwd = par_ep_pair(torch, params, cfgs, mesh,
+                          lambda c: M.forward(params, c, {"tokens": tokens[:, :prompt]}),
+                          "parallel_ep", f"parallel ep {dtype} forward", seen)
+        (want, want_aux), (got, got_aux) = fwd["want"], fwd["got"]
+        check(fwd["calls"]["manual"] == {"moe_apply_manual": base.n_layers}
+              and fwd["calls"]["gspmd"] == {"moe_apply": base.n_layers},
+              f"parallel ep {dtype}: MoE calls {fwd['calls']}")
+        drop = drop_share(fwd["routes"])
+        err = float((got - want).abs().max())
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        finite = bool(torch.isfinite(got).all())
+        check(finite and tuple(got.shape) == (rows, prompt, base.vocab_size),
+              f"parallel ep {dtype}: logits {tuple(got.shape)}, finite {finite}")
+
+        def chain(c):
+            logits, cache = M.prefill(params, c, {"tokens": tokens[:, :prompt]},
+                                      prompt + PAR_EP_DECODE)
+            steps = [logits[:, 0]]
+            for t in range(prompt, prompt + PAR_EP_DECODE - 1):
+                logits, cache = M.decode_step(params, c, cache, tokens[:, t:t + 1], t)
+                steps.append(logits[:, 0])
+            return torch.stack(steps, 1)
+
+        dec = par_ep_pair(torch, params, cfgs, mesh, chain, "parallel_ep",
+                          f"parallel ep {dtype} prefill", seen)
+        check(len(seen) == 1, f"parallel ep {dtype}: flash shapes {sorted(seen)}")
+        flash_rows += fam_flash_shapes(torch, seen, f"parallel ep {dtype}")
+        del seen
+        check(dec["calls"]["manual"] == {"moe_apply_manual": base.n_layers * PAR_EP_DECODE},
+              f"parallel ep {dtype}: decode MoE calls {dec['calls']['manual']}")
+        dec_err = float((dec["got"] - dec["want"]).abs().max())
+        row = dict(forward_max_abs_err=err, top1_agreement=top1,
+                   tokens_routed_alike=fwd["routed_alike"],
+                   decode_tokens_routed_alike=dec["routed_alike"], ties=fwd["ties"],
+                   decode_ties=dec["ties"], prefill_drop_share=drop,
+                   aux_gspmd=float(want_aux), aux_manual=float(got_aux),
+                   decode_max_abs_err=dec_err)
+        if dtype == "float32":
+            for ties in (fwd["ties"], dec["ties"]):
+                check(ties["worst_tie_gap"] <= PAR_EP_TIE
+                      and ties["kept_only_unexplained"] == 0,
+                      f"parallel ep f32: token-layers routed apart beyond a near-tie {ties}")
+            check(torch.allclose(got, want, rtol=PAR_EP_F32_TOL, atol=PAR_EP_F32_TOL)
+                  and torch.allclose(dec["got"], dec["want"], rtol=PAR_EP_F32_TOL,
+                                     atol=PAR_EP_F32_TOL),
+                  f"parallel ep f32: manual against gspmd {err}, decode {dec_err}")
+            f32_logits = want
+        else:
+            check(top1 >= LM_BF16_TOP1, f"parallel ep bf16: top-1 agreement {top1}")
+            mean_vs_f32 = {impl: float((x.float() - f32_logits).abs().mean())
+                           for impl, x in (("manual", got), ("gspmd", want))}
+            check(mean_vs_f32["manual"] <= LM_BF16_MEAN_SLACK * mean_vs_f32["gspmd"],
+                  f"parallel ep bf16: mean |logits - f32 logits| {mean_vs_f32}")
+            row["mean_abs_vs_f32"] = mean_vs_f32
+            del f32_logits
+        print(f"parallel ep {dtype}: {json.dumps(row)}", flush=True)
+        out[dtype] = row
+        launches += fwd["launches"] + dec["launches"]
+        del fwd, dec, want, got
+        torch.cuda.empty_cache()
+
+    # one row: every MoE call falls back to moe_apply (1 % 2 != 0)
+    from repro_torch.mesh import set_mesh
+
+    fb_prompt, fb_steps = PAR_EP_FALLBACK
+    cfg = dataclasses.replace(base, moe_impl="manual", moe_dispatch_chunks=dp)
+    from repro_torch.kernels import ops
+
+    calls, seen = {}, {}
+    uncount, restore = par_counting(MOE, calls), capture_shapes(ops, seen)
+    try:
+        with set_mesh(mesh):
+            _, _, _, l_fb = fam_teacher_forced(torch, params, cfg, {"tokens": tokens[:1]},
+                                               fb_prompt, fb_steps, "parallel_ep")
+    finally:
+        uncount()
+        restore()
+    check(calls == {"moe_apply": base.n_layers * (1 + fb_steps)},
+          f"parallel ep: one row's MoE calls {calls}")
+    check(len(seen) == 1, f"parallel ep: one row's flash shapes {sorted(seen)}")
+    flash_rows += fam_flash_shapes(torch, seen, "parallel ep one row")
+    del seen
+    launches.append(l_fb)
+
+    # one MoE layer at the prefill's shape on the same input: the kept sets
+    # of the two implementations bit for bit in f32 and bf16, then each timed
+    layer = M._at(params["blocks"], 0)["l0"]["moe"]
+    x32 = torch.randn((rows, prompt, base.d_model), generator=gen, device="cuda")
+    kw = dict(n_experts=base.n_experts, experts_per_token=base.experts_per_token,
+              capacity_factor=base.capacity_factor)
+    layer_rows = {}
+    for x in (x32, x32.to(torch.bfloat16)):
+        kept: dict = {"manual": [], "gspmd": []}
+        unspy = routing_spy(MOE, kept["manual"])
+        try:
+            y_m, aux_m = MOE.moe_apply_manual(layer, x, mesh=mesh, **kw)
+        finally:
+            unspy()
+        unspy = routing_spy(MOE, kept["gspmd"])
+        try:
+            y_g, aux_g = MOE.moe_apply(layer, x, dispatch_chunks=dp, **kw)
+        finally:
+            unspy()
+        same = len(kept["manual"]) == len(kept["gspmd"]) == dp and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[4], b[4])
+            for a, b in zip(kept["manual"], kept["gspmd"]))
+        dtype = str(x.dtype).removeprefix("torch.")
+        check(same, f"parallel ep: one {dtype} layer's kept sets differ between manual and "
+                    "chunked dispatch")
+        layer_rows[dtype] = dict(kept_bitwise=same, aux_manual=float(aux_m),
+                                 aux_gspmd=float(aux_g),
+                                 max_abs_diff=float((y_m.float() - y_g.float()).abs().max()),
+                                 drop_share=drop_share(kept["gspmd"]))
+    del kept, y_m, y_g
+    manual_ms = timed(torch, lambda: MOE.moe_apply_manual(layer, x, mesh=mesh, **kw), 5)
+    gspmd_ms = timed(torch, lambda: MOE.moe_apply(layer, x, dispatch_chunks=dp, **kw), 5)
+    one_chunk_ms = timed(torch, lambda: MOE.moe_apply(layer, x, **kw), 5)
+    t_loc = rows * prompt // dp
+    combine = t_loc * base.d_model * x.element_size()
+    row = dict(arch=base.name, params=count, grid=list(PAR_EP_GRID), tokens=[rows, prompt],
+               decode_steps=PAR_EP_DECODE, fallback_calls=calls,
+               layer_ms_manual=manual_ms, layer_ms_gspmd_chunked=gspmd_ms,
+               layer_ms_gspmd_one_chunk=one_chunk_ms, layer=layer_rows, flash=flash_rows,
+               combine_bytes_a_position=combine, combine_bytes_a_layer=dp * ep * combine,
+               capacity=max(1, int(t_loc * base.experts_per_token * base.capacity_factor
+                                   / base.n_experts)))
+    print(f"parallel ep: {json.dumps(row)}", flush=True)
+    row.update(out, launches=launches)
+    del params, layer, x, x32
+    torch.cuda.empty_cache()
+    return row
+
+
+def par_production_mesh() -> dict:
+    """make_production_mesh over 256 (and, multi-pod, 512) repeats of the
+    card: shape and dp axes; nothing runs on it."""
+    from repro_torch.launch.mesh import dp_axes, make_production_mesh
+
+    rows = {}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        rows["multi_pod" if multi_pod else "pod"] = dict(
+            shape=mesh.shape, positions=mesh.size, dp_axes=list(dp_axes(multi_pod)),
+            devices=sorted({str(d) for d in mesh.devices.flat}))
+    print(f"parallel mesh: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def phase_parallel(torch) -> dict:
+    """Phase 15: data parallelism (granite-3-2b's shard_map train step) and
+    expert parallelism (granite-moe's manual MoE) over named grids of views
+    of the card, then the production mesh's grid; each model freed before
+    the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "parallel: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("dp", par_dp), ("ep", par_ep)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib_phase"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"parallel {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib_phase']:.2f} GiB", flush=True)
+    rows["mesh"] = par_production_mesh()
+    rows["launches"] = rows["dp"]["launches"] + rows["ep"]["launches"]
+    return rows
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -3751,8 +4308,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 14. the other model families, one at a time
     families = phase("families", phase_families, torch)
+    torch.cuda.empty_cache()
+    # 15. data and expert parallelism over grids of views of the card
+    parallel = phase("parallel", phase_parallel, torch)
 
-    # 15. summary: each kernel's launches over every path run above
+    # 16. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -3761,7 +4321,8 @@ def main(argv=None) -> int:
                    sharded["engine"]["sharded"]["launches"],
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
-                   baselines["launches"], *train["launches"], *families["launches"]):
+                   baselines["launches"], *train["launches"], *families["launches"],
+                   *parallel["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -3780,7 +4341,7 @@ def main(argv=None) -> int:
                                "mutable": mutable, "engine": engine, "sharded": sharded,
                                "serve": serve, "lm": lm, "baselines": baselines,
                                "train": train, "families": families,
-                               "phase_seconds": phase_seconds},
+                               "parallel": parallel, "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

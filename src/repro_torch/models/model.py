@@ -33,6 +33,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.mesh import current_mesh
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
@@ -88,6 +89,8 @@ class ArchConfig:
     param_dtype: str = "float32"
     #: recompute each layer group in the backward pass (torch.utils.checkpoint)
     remat: bool = True
+    moe_dispatch_chunks: int = 1  # == DP shard count for shard-local dispatch
+    moe_impl: str = "gspmd"  # gspmd | manual (expert-parallel over the ambient mesh)
 
     @property
     def hd(self) -> int:
@@ -378,9 +381,24 @@ def _frontend(cfg: ArchConfig, batch: dict, what: str):
 
 # ============================================================ forward =====
 def _moe(cfg: ArchConfig, p, h):
+    """The reference's switch: ``moe_impl="manual"`` runs
+    :func:`~repro_torch.models.moe.moe_apply_manual` over the ambient mesh
+    (:func:`repro_torch.mesh.set_mesh`) when the batch axis divides by
+    ``moe_dispatch_chunks`` (the DP shard count); tiny decode batches, and
+    ``"gspmd"``, take ``moe_apply`` with that many dispatch chunks."""
+    if cfg.moe_impl == "manual" and h.shape[0] % max(cfg.moe_dispatch_chunks, 1) == 0:
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(f"{cfg.name}: moe_impl='manual' runs over the ambient mesh; "
+                             "enter repro_torch.mesh.set_mesh(mesh) first")
+        return MOE.moe_apply_manual(p, h, n_experts=cfg.n_experts,
+                                    experts_per_token=cfg.experts_per_token,
+                                    capacity_factor=cfg.capacity_factor, mesh=mesh,
+                                    dp_axes=("data",), ep_axis="model")
     return MOE.moe_apply(p, h, n_experts=cfg.n_experts,
                          experts_per_token=cfg.experts_per_token,
-                         capacity_factor=cfg.capacity_factor)
+                         capacity_factor=cfg.capacity_factor,
+                         dispatch_chunks=cfg.moe_dispatch_chunks)
 
 
 def _ffn_seq(cfg: ArchConfig, spec, p, h):

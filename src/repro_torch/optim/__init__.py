@@ -1,10 +1,15 @@
-"""Optimizers, gradient clipping and learning-rate schedules (mirrors
-``repro.optim``). ``compression.py`` (the int8-compressed psum over a mesh)
-is not ported: it serves the shard_map training step, which waits with the
-mesh tools."""
+"""Optimizers, gradient clipping, learning-rate schedules and the
+int8-compressed gradient sum of the data-parallel step (mirrors
+``repro.optim``)."""
 from repro_torch.optim.adafactor import AdafactorState, adafactor
 from repro_torch.optim.adamw import AdamWState, adamw
 from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.compression import (
+    compressed_psum,
+    dequantize_int8,
+    payload_bytes,
+    quantize_int8,
+)
 from repro_torch.optim.schedule import constant_lr, warmup_cosine
 
 __all__ = [
@@ -13,7 +18,11 @@ __all__ = [
     "adafactor",
     "adamw",
     "clip_by_global_norm",
+    "compressed_psum",
     "constant_lr",
+    "dequantize_int8",
     "global_norm",
+    "payload_bytes",
+    "quantize_int8",
     "warmup_cosine",
 ]

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.core.sclinear", "repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.optim.adafactor", "repro_torch.optim.clip",
             "repro_torch.optim.schedule", "repro_torch.train", "repro_torch.train.loop",
-            "repro_torch.train.losses", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.train.losses", "repro_torch.launch.train", "repro_torch.mesh",
+            "repro_torch.optim.compression", "repro_torch.launch.mesh",
+            "repro_torch.launch.elastic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
