@@ -219,7 +219,23 @@ Phases, in order; any failure exits nonzero:
                bytes; the production mesh's
                (16, 16) and (2, 16, 16) grids over repeats of the card
                (shape and dp axes only);
- 16. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 16. dryrun  — the dry runs (repro_torch.launch.dryrun_ann, dryrun) held to
+               the card: launch.op_analysis counts the distributed build
+               covariance and both query pipelines at 2^22 x 128 f32 over a
+               (4, 4) grid of the card, and granite-3-2b's decode_32k step
+               at one position's block (8 sequences, a 32,768 cache, bf16
+               weights), on the card and on meta tensors of the same shapes
+               by the same code, the plain path on both sides: flops, bytes,
+               payloads and argument bytes equal exactly; then the dry runs
+               in child processes at once (dryrun_ann at n = 10^9 on both
+               meshes, gather and masked_full; dryrun at granite-3-2b's
+               train_4k, prefill_32k and decode_32k on the single-pod mesh
+               and arctic-480b's decode_32k on the multi-pod mesh, whose
+               manual MoE splits the batch over ("pod", "data")), each
+               exiting 0 with its artifact (chiprun_out/dryrun/), per job
+               flops, bytes, payload, argument bytes, fits_one_card and
+               seconds printed; no kernel is launched;
+ 17. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -242,7 +258,7 @@ families: flash_attention exactly once an attention layer a prefill, twice
 with cross-attention, once more an encoder layer: 72 for whisper-medium;
 none for rwkv6-7b; parallel: flash_attention exactly twice a layer a shard a
 step in the sharded and microbatched steps, once a layer a prefill or
-forward under either MoE implementation),
+forward under either MoE implementation; dryrun: none),
 l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
@@ -316,6 +332,7 @@ PATHS = {
     "parallel_dp": ("flash_attention",),
     "parallel_dp_compressed": ("flash_attention",),
     "parallel_ep": ("flash_attention",),
+    "dryrun": (),
 }
 
 
@@ -2513,7 +2530,18 @@ def phase_serve(torch, root, index) -> dict:
         index.replace_cfg(use_kernels=False, rerank="gather").save(str(plain))
         third = serve_in_process(torch, ["--load-index", str(plain), "--requests", "256",
                                          "--pressure", "64", "--mixed"])
+    # a load whose config a kernel's limits refuse is served through the
+    # plain path (serve_ann.kernels_on_card): say whether either load was
+    for label, run in (("recovery", second), ("default config", third)):
+        run["plain_path"] = plain_route(run["stdout"])
+        print(f"serve {label}: load through the plain path: {run['plain_path']}", flush=True)
     return {"first": first, "recovery": second, "default_config": third}
+
+
+def plain_route(lines) -> str | None:
+    """The launcher's line saying that it serves a loaded config through
+    the plain PyTorch path, and why; None where it printed none."""
+    return next((ln for ln in lines if "through the plain PyTorch path" in ln), None)
 
 
 def serve_in_process(torch, args) -> dict:
@@ -4203,6 +4231,150 @@ def phase_parallel(torch) -> dict:
     return rows
 
 
+#: the dry-run phase: the card-identity shapes (2^22 x 128 f32 over a
+#: (4, 4) grid of the card, the billion-scale query config; granite-3-2b's
+#: decode_32k step at one position's block of 8 sequences), then the dry
+#: runs themselves in child processes, on meta tensors
+DRY_N = 1 << 22
+DRY_GRID = (4, 4)
+DRY_ANN_JOBS = (("build_cov", "gather"), ("query", "gather"), ("query", "masked_full"))
+DRY_CELL = ("granite-3-2b", "decode_32k")
+DRY_CHILDREN = tuple(
+    [("repro_torch.launch.dryrun_ann", (*mp, "--rerank", r))
+     for mp in ((), ("--multi-pod",)) for r in ("gather", "masked_full")]
+    + [("repro_torch.launch.dryrun", ("--arch", "granite-3-2b", "--shape", s))
+       for s in ("train_4k", "prefill_32k", "decode_32k")]
+    + [("repro_torch.launch.dryrun", ("--arch", "arctic-480b", "--shape", "decode_32k",
+                                      "--multi-pod"))])
+
+
+def dry_numbers(h: dict, arg_bytes: int) -> dict:
+    return {"flops": h["flops"], "bytes": h["bytes"], "payload": h["collective_bytes"],
+            "argument_bytes": arg_bytes}
+
+
+def dry_ann_identity(torch) -> dict:
+    """The distributed build covariance and both query pipelines counted
+    (launch.op_analysis) on the card and on meta tensors by the same code
+    (launch.dryrun_ann's make_index, ann_jobs, count_job) at DRY_N x 128
+    over a DRY_GRID grid of the card; every count equal."""
+    from repro_torch.launch import dryrun_ann
+    from repro_torch.mesh import make_mesh
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    shards = math.prod(DRY_GRID)
+    got = {}
+    for device in (card, torch.device("meta")):
+        gen = torch.Generator(device=card).manual_seed(0) if device == card else None
+        index = dryrun_ann.make_index(DRY_N, 128, dryrun_ann.ann_config(), device=device,
+                                      generator=gen)
+        queries = (torch.randn((32, 128), generator=gen, device=device) if gen is not None
+                   else torch.empty((32, 128), device=device))
+        mesh = make_mesh((shards,), ("shard",), [device] * shards)
+        for job, rerank in DRY_ANN_JOBS:
+            cfg = dryrun_ann.ann_config(rerank)
+            fn, arg_bytes = dryrun_ann.ann_jobs(
+                mesh, index, cfg, queries, index.data, index.data[:, :4].contiguous(),
+                index.subspaces[0].centroids1[:, :4].contiguous())[job]
+            h, secs = dryrun_ann.count_job(mesh, fn)
+            torch.cuda.synchronize()
+            side = "card" if device == card else "meta"
+            got[side, job, rerank] = dict(dry_numbers(h, arg_bytes), seconds=secs)
+        del index
+        torch.cuda.empty_cache()
+    rows = {}
+    for job, rerank in DRY_ANN_JOBS:
+        a, b = got["card", job, rerank], got["meta", job, rerank]
+        same = all(a[key] == b[key] for key in ("flops", "bytes", "payload", "argument_bytes"))
+        print(f"dryrun identity {job} ({rerank}): card {json.dumps(a)} meta {json.dumps(b)} "
+              f"equal {same}", flush=True)
+        check(same, f"dryrun: {job} ({rerank}) counted on the card differs from meta")
+        check(a["flops"] > 0 and a["bytes"] > 0, f"dryrun: {job} counted no work")
+        rows[f"{job}/{rerank}"] = {"card": a, "meta": b}
+    return rows
+
+
+def dry_decode_identity(torch) -> dict:
+    """granite-3-2b's decode_32k step at one position's block (8 sequences,
+    a 32,768 cache, bf16 weights) through launch.dryrun.count_cell on the
+    card (seeded weights, zero inputs) and on meta: every count equal."""
+    from repro_torch.launch import dryrun
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    got = {}
+    torch.cuda.reset_peak_memory_stats()
+    for device in (card, torch.device("meta")):
+        t0 = time.perf_counter()
+        h, meta = dryrun.count_cell(*DRY_CELL, False, device=device)
+        torch.cuda.synchronize()
+        side = "card" if device == card else "meta"
+        got[side] = dict(dry_numbers(h, meta["argument_size_in_bytes"]),
+                         rows=meta["rows_per_position"], seconds=time.perf_counter() - t0)
+        if device == card:
+            got["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    a, b = got["card"], got["meta"]
+    same = all(a[key] == b[key] for key in ("flops", "bytes", "payload", "argument_bytes"))
+    print(f"dryrun identity {DRY_CELL[0]} x {DRY_CELL[1]}: card {json.dumps(a)} meta "
+          f"{json.dumps(b)} equal {same}; the card's peak {got['peak_gib']:.2f} GiB", flush=True)
+    check(same, f"dryrun: {DRY_CELL} counted on the card differs from meta")
+    check(a["rows"] == 8 and a["flops"] > 0, f"dryrun: {DRY_CELL} ran {a['rows']} rows")
+    return got
+
+
+def dry_children(root) -> dict:
+    """The dry runs themselves (meta tensors, no card) in child processes,
+    all at once: each must exit 0 and write its artifact, whose per-job
+    numbers are printed."""
+    import os
+
+    out = root / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for module, args in DRY_CHILDREN:
+        procs.append((module, args, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", module, *args, "--out", str(out)], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    rows = []
+    for module, args, t0, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        secs = time.perf_counter() - t0
+        label = f"{module.rsplit('.', 1)[1]} {' '.join(args)}"
+        check(proc.returncode == 0, f"dryrun: {label}: exit {proc.returncode}: {stderr[-3000:]}")
+        rows.append({"run": label, "seconds": secs, "stdout": stdout.splitlines()})
+        print(f"dryrun child {label}: exit 0 in {secs:.2f} s", flush=True)
+    for path in sorted(out.glob("*.json")):
+        art = json.loads(path.read_text())
+        jobs = ({j: art[j] for j in ("query", "build_cov", "build_lloyd")} if "query" in art
+                else {art["step_kind"]: art})
+        for job, r in jobs.items():
+            h = r.get("op_analysis", r)
+            print(f"dryrun {path.stem} {job}: flops {h['flops']:.6e} bytes {h['bytes']:.6e} "
+                  f"payload {h['collective_total']:.6e} argument bytes "
+                  f"{r['memory_analysis']['argument_size_in_bytes']} fits_one_card "
+                  f"{r['fits_one_card']} seconds {r['compile_s']}", flush=True)
+    return {"children": rows, "artifacts": sorted(p.name for p in out.glob("*.json"))}
+
+
+def phase_dryrun(torch, root) -> dict:
+    """Phase 16: the dry runs' counts held to the card (launch.op_analysis on
+    the card's tensors equals it on meta tensors of the same shapes, the
+    plain path on both sides), then the dry runs in child processes. The
+    plain path launches no kernel."""
+    rows, launches = run_path(torch, "dryrun", lambda: {
+        "ann": dry_ann_identity(torch), "decode": dry_decode_identity(torch)})
+    check(not any(launches.values()), f"dryrun: the plain path launched {launches}")
+    rows["children"] = dry_children(root)
+    rows["launches"] = launches
+    return rows
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -4311,8 +4483,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 15. data and expert parallelism over grids of views of the card
     parallel = phase("parallel", phase_parallel, torch)
+    torch.cuda.empty_cache()
+    # 16. the dry runs: their counts held to the card, then the runs themselves
+    dry = phase("dryrun", phase_dryrun, torch, root)
 
-    # 16. summary: each kernel's launches over every path run above
+    # 17. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -4322,7 +4497,7 @@ def main(argv=None) -> int:
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
                    baselines["launches"], *train["launches"], *families["launches"],
-                   *parallel["launches"]):
+                   *parallel["launches"], dry["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -4341,7 +4516,8 @@ def main(argv=None) -> int:
                                "mutable": mutable, "engine": engine, "sharded": sharded,
                                "serve": serve, "lm": lm, "baselines": baselines,
                                "train": train, "families": families,
-                               "parallel": parallel, "phase_seconds": phase_seconds},
+                               "parallel": parallel, "dryrun": dry,
+                               "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -16,7 +16,9 @@ order, and two builds of one corpus would differ; there the sums are
 products of one-hot assignment segments with the rows (``bmm``, IEEE
 float32, segments of a fixed size) reduced in a fixed order, so a build on
 the card repeats bit for bit. A compaction is such a build, and
-so equals a rebuild over the same live corpus, as in the reference.
+so equals a rebuild over the same live corpus, as in the reference. On
+``meta`` tensors (the dry runs) the card's path runs, so that its work is
+what they count.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ def cluster_sums(xs: torch.Tensor, assign: torch.Tensor, k: int):
     n_pairs, _n, w = xs.shape
     offsets = torch.arange(n_pairs, device=xs.device)[:, None] * k
     idx = (assign.long() + offsets).reshape(-1)
-    if xs.device.type == "cuda":
+    if xs.device.type in ("cuda", "meta"):  # meta: count the card's path
         sums = _onehot_sums(xs, assign, k)
     else:
         sums = torch.zeros((n_pairs * k, w), dtype=torch.float32, device=xs.device)

@@ -39,6 +39,13 @@ No ``torch.distributed`` process group is used. Shards on several cards
 take the same path (a list of distinct devices); that placement is
 unverified: the port has been run on one H100 only.
 
+Each shard's work runs at its position (:func:`repro_torch.mesh.walk`:
+shard s at ``{axis: s}``, the axis of a 1-D mesh or ``"shard"``), and each
+cross-shard sum and the combine's gather report their payloads
+(:func:`repro_torch.mesh.tally`), so that
+:class:`repro_torch.launch.op_analysis.OpCounter` counts per shard; neither
+changes a result.
+
 The sharded query computes the reference's sharded function, which is
 float32 whatever ``cfg.precision`` says (the reference never reads it
 there). ``cfg.use_kernels`` routes each shard's work through the CUDA
@@ -67,6 +74,7 @@ from repro_torch.core.selection import (
 from repro_torch.core.taco import SCIndex, _centroid_distances, data_norms_of, rerank
 from repro_torch.kernels import ops
 from repro_torch.kernels.schist import collision_bits, collision_table
+from repro_torch.mesh import one_pass, tally, tensor_bytes, walk
 from repro_torch.utils import topk_smallest
 
 
@@ -145,11 +153,27 @@ def shard_views(index: SCIndex, shards: int, devices=None) -> tuple[tuple[ShardV
 
 def _summed(parts, home):
     """The reference's psum over the data axes: the parts added in shard
-    order on ``home`` (the first shard's device)."""
-    total = parts[0].to(home)
-    for p in parts[1:]:
-        total = total + p.to(home)
+    order on ``home`` (the first shard's device). Counted as the collective
+    it stands for: an all-reduce of one part's bytes, each position reading
+    its part and writing the sum once."""
+    tally("all-reduce", tensor_bytes(parts[0]))
+    with one_pass() as moves:
+        total = parts[0].to(home)
+        for p in parts[1:]:
+            total = total + p.to(home)
+        moves(parts[0], total)
     return total
+
+
+def shard_coords(shards):
+    """Shard s's coordinates for :func:`repro_torch.mesh.walk`, as a
+    function of s: ``{axis: s}`` over the axis of a 1-D
+    :class:`~repro_torch.mesh.DeviceMesh`, ``{"shard": s}`` over a plain
+    list or tuple."""
+    names = getattr(shards, "axis_names", ("shard",))
+    if len(names) != 1:
+        raise ValueError(f"shards over a {len(names)}-axis mesh; pass a 1-D mesh or a list")
+    return lambda s: {names[0]: s}
 
 
 def make_distributed_query_with_stats(views, cfg: SCConfig, index: SCIndex, n_global: int,
@@ -190,6 +214,10 @@ def make_distributed_query_with_stats(views, cfg: SCConfig, index: SCIndex, n_gl
     n_levels = cfg.n_subspaces + 1
     cap = per_shard_cap(cfg, views[0].n, k)
     home = views[0].device
+    coords = shard_coords(views)
+
+    def shard_inputs(bits):
+        return lambda s: (bits[s], views[s].cells, views[s].data, views[s].data_norms)
 
     def threshold(hist):
         if cfg.selection == "query_aware":
@@ -198,44 +226,55 @@ def make_distributed_query_with_stats(views, cfg: SCConfig, index: SCIndex, n_gl
 
     def masked_full(bits, queries):
         q = queries[0].shape[0]
-        hists = [ops.schist(bits[s], v.cells, n_levels, q=q, impl=impl)
-                 for s, v in enumerate(views)]
+        hists = walk(n_shards, coords,
+                     lambda s: ops.schist(bits[s], views[s].cells, n_levels, q=q, impl=impl),
+                     shard_inputs(bits))
         thresh = threshold(_summed(hists, home))
         levels = torch.arange(n_levels, device=home)[None, :]
-        out = []
-        for s, v in enumerate(views):
+
+        def shard(s):
+            v = views[s]
             t = thresh.to(v.device)
             ids, dists = ops.masked_rerank(bits[s], v.cells, t, v.data, v.data_norms,
                                            queries[s], k, impl=impl)
             count = torch.sum(torch.where(levels >= thresh[:, None], hists[s].to(home), 0),
                               dim=1).to(torch.int32)
-            out.append((ids, dists, count, torch.zeros_like(count, dtype=torch.bool)))
-        return out
+            return ids, dists, count, torch.zeros_like(count, dtype=torch.bool)
+
+        return walk(n_shards, coords, shard, shard_inputs(bits))
 
     def gather(bits, queries):
         q = queries[0].shape[0]
-        out = []
         if cfg.selection == "fixed":
             # each shard alone, so one (Q, n_local) SC matrix lives at a time
-            for s, v in enumerate(views):
+            def fixed_shard(s):
+                v = views[s]
                 sc = ops.scscore(bits[s], v.cells, q=q, impl=impl)
                 cand, valid, _t, count = select_candidates(
                     sc, beta_n / n_shards, cfg.n_subspaces, cap, mode="fixed")
                 del sc
                 ids, dists = rerank(v.data, queries[s], cand, valid, k, v.data_norms)
-                out.append((ids, dists, count, count > cap))
-            return out
+                return ids, dists, count, count > cap
+
+            return walk(n_shards, coords, fixed_shard, shard_inputs(bits))
         # query-aware: the summed histogram first, then each shard compacts
         # at the common threshold and re-ranks; each SC matrix is freed
         # after its shard's compaction
-        scs = [ops.scscore(bits[s], v.cells, q=q, impl=impl) for s, v in enumerate(views)]
-        thresh = threshold(_summed([sc_histogram(sc, cfg.n_subspaces) for sc in scs], home))
-        for s, v in enumerate(views):
+        scs = walk(n_shards, coords,
+                   lambda s: ops.scscore(bits[s], views[s].cells, q=q, impl=impl),
+                   shard_inputs(bits))
+        hists = walk(n_shards, coords, lambda s: sc_histogram(scs[s], cfg.n_subspaces),
+                     shard_inputs(bits))
+        thresh = threshold(_summed(hists, home))
+
+        def compact_shard(s):
+            v = views[s]
             cand, valid, count = compact_above_threshold(scs[s], thresh.to(v.device), cap)
             scs[s] = None
             ids, dists = rerank(v.data, queries[s], cand, valid, k, v.data_norms)
-            out.append((ids, dists, count, count > cap))
-        return out
+            return ids, dists, count, count > cap
+
+        return walk(n_shards, coords, compact_shard, shard_inputs(bits))
 
     def fn(queries):
         queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
@@ -247,10 +286,15 @@ def make_distributed_query_with_stats(views, cfg: SCConfig, index: SCIndex, n_gl
         qs = [queries.to(v.device) for v in views]
         run = masked_full if rerank_mode == "masked_full" else gather
         per_shard = run(bits, qs)
-        # globalize the ids and combine: shard-major, then one stable top-k
-        all_ids = torch.cat([torch.where(ids >= 0, ids + v.offset, -1).to(home)
-                             for v, (ids, _d, _c, _t) in zip(views, per_shard)], dim=1)
+        # globalize the ids and combine: shard-major (the reference's
+        # all-gather of the (Q, k) pairs), then one stable top-k
+        glob = walk(n_shards, coords,
+                    lambda s: torch.where(per_shard[s][0] >= 0,
+                                          per_shard[s][0] + views[s].offset, -1),
+                    lambda s: per_shard[s][:2])
+        all_ids = torch.cat([ids.to(home) for ids in glob], dim=1)
         all_d = torch.cat([d.to(home) for _i, d, _c, _t in per_shard], dim=1)
+        tally("all-gather", tensor_bytes(all_ids, all_d))
         top_d, pos = topk_smallest(all_d, k)
         stats = {
             "shard_candidates": torch.stack([c.to(home) for _i, _d, c, _t in per_shard], 1),
@@ -294,8 +338,11 @@ def make_distributed_cov(mesh, n_global: int):
 
     def fn(xs):
         home = _home(mesh, xs)
-        s = _summed([torch.sum(x, dim=0) for x in xs], home)
-        outer = _summed([x.T @ x for x in xs], home)
+        moments = walk(len(xs), shard_coords(mesh),
+                       lambda i: (torch.sum(xs[i], dim=0), xs[i].T @ xs[i]),
+                       lambda i: (xs[i],))
+        s = _summed([m[0] for m in moments], home)
+        outer = _summed([m[1] for m in moments], home)
         # multiplications by the reciprocals: XLA folds the reference's
         # divisions by these constants so, and the results then agree bit
         # for bit where the moments are exact
@@ -317,15 +364,17 @@ def make_distributed_lloyd(mesh):
     def fn(xs, centroids):
         home = _home(mesh, xs)
         k = centroids.shape[0]
-        sums, counts, assigns = [], [], []
-        for x in xs:
+
+        def shard(i):
+            x = xs[i]
             a, _d = ops.kmeans_assign(x, centroids.to(x.device))
             sm, ct = cluster_sums(x[None], a[None], k)
-            sums.append(sm[0])
-            counts.append(ct[0])
-            assigns.append(a.to(home))
-        new_c = new_means(_summed(sums, home), _summed(counts, home), centroids.to(home))
-        return new_c, torch.cat(assigns)
+            return sm[0], ct[0], a
+
+        parts = walk(len(xs), shard_coords(mesh), shard, lambda i: (xs[i],))
+        new_c = new_means(_summed([p[0] for p in parts], home),
+                          _summed([p[1] for p in parts], home), centroids.to(home))
+        return new_c, torch.cat([p[2].to(home) for p in parts])
 
     return fn
 
@@ -336,8 +385,9 @@ def make_distributed_cell_sizes(mesh, sqrt_k: int):
 
     def fn(a1s, a2s):
         home = _home(mesh, a1s)
-        local = [torch.bincount(a1.long() * sqrt_k + a2.long(), minlength=sqrt_k * sqrt_k)
-                 for a1, a2 in zip(a1s, a2s)]
+        local = walk(len(a1s), shard_coords(mesh),
+                     lambda i: torch.bincount(a1s[i].long() * sqrt_k + a2s[i].long(),
+                                              minlength=sqrt_k * sqrt_k))
         return _summed(local, home).to(torch.int32).reshape(sqrt_k, sqrt_k)
 
     return fn

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from repro_torch.mesh import one_pass
+
 
 def sc_histogram(sc: torch.Tensor, n_subspaces: int) -> torch.Tensor:
     """Per-query histogram of SC-scores: (Q, N_s+1) int32."""
@@ -95,7 +97,24 @@ def compact_above_threshold(sc: torch.Tensor, thresh: torch.Tensor, cap: int):
     The reference scatters every point into its rank slot or a spare
     column ``cap``; here ``nonzero`` lists the above-threshold points in
     row-major (so index) order and only the first ``cap`` of each row are
-    written, so no slot is written twice."""
+    written, so no slot is written twice. ``nonzero`` has no meta kernel
+    (its output's size is the data's), so on ``meta`` tensors the outputs
+    are made by shape. An op counter
+    (:class:`repro_torch.launch.op_analysis.OpCounter`) counts either as one
+    pass: ``sc`` and ``thresh`` read, the outputs written."""
+    q, _n = sc.shape
+    with one_pass() as moves:
+        if sc.is_meta:
+            ids = torch.empty((q, cap), dtype=torch.int32, device=sc.device)
+            valid = torch.empty((q, cap), dtype=torch.bool, device=sc.device)
+            count = torch.empty((q,), dtype=torch.int32, device=sc.device)
+        else:
+            ids, valid, count = _compact(sc, thresh, cap)
+        moves(sc, thresh, ids, valid, count)
+    return ids, valid, count
+
+
+def _compact(sc: torch.Tensor, thresh: torch.Tensor, cap: int):
     q, _n = sc.shape
     mask = sc >= thresh[:, None]
     count = torch.sum(mask, dim=1, dtype=torch.int32)

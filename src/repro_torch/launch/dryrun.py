@@ -1,0 +1,260 @@
+"""Dry run of the LM cells (mirrors ``repro.launch.dryrun``): every (arch x
+shape) cell's step on ``meta`` tensors over the production mesh, counted per
+position by :mod:`repro_torch.launch.op_analysis`, with the bytes a
+position holds, written to a JSON artifact.
+
+    python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k \\
+        [--multi-pod] [--out artifacts/torch_dryrun]
+    python -m repro_torch.launch.dryrun --all [--multi-pod]   # every cell
+
+Nothing is allocated and nothing runs on a card. The port's layout, which
+the artifact states (``layout``): a position holds its block of the batch,
+B / |dp| rows over the data axes (the whole batch where it does not divide,
+as the reference replicates it), with the whole model; the exception is
+the manual MoE's experts, split over ``model``. There is no counterpart of
+the reference's GSPMD parameter split or of its ZeRO-1, so per-position
+flops of a dense model are about |model| times the reference's per-device
+ones, and the largest models do not fit a position (``fits_one_card``).
+Every step's MoE takes a position's block as one dispatch chunk, and the
+manual MoE walks the position's (1, |model|) slice of the grid (the
+count's ambient mesh), so flops, bytes and argument bytes all describe
+that one block.
+
+  train    ``make_shardmap_train_step`` over the data axes, uncompressed
+           (the reference's GSPMD step sums in float32);
+  prefill  ``prefill`` of one position's block, without gradients;
+  decode   ``decode_step`` of one position's block on its cache, without
+           gradients.
+
+Prefill and decode have no position loop of their own: they run one
+position's block, placed at data index 0. Each step's walks trace one
+representative position of each class of equal ones
+(``represented_positions`` counts the others; see
+:func:`repro_torch.mesh.walk`), and without gradients a Mamba scan traces
+its first step (``represented_steps``, :func:`repro_torch.mesh.scan`). A
+kernel's work is counted as its plain version's.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES, get_arch, input_specs, skip_reason
+from repro_torch.configs.shapes import resolve_arch_for_shape
+from repro_torch.launch.dryrun_ann import CARD_BYTES
+from repro_torch.launch.mesh import dp_axes, make_production_mesh
+from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.mesh import DeviceMesh, axis_size, set_mesh, tensor_bytes
+from repro_torch.models.model import (
+    decode_step,
+    init_params,
+    map_tree,
+    meta_params,
+    prefill,
+    tree_leaves,
+)
+from repro_torch.optim import adafactor, adamw, warmup_cosine
+from repro_torch.train.loop import TrainState, make_shardmap_train_step
+from repro_torch.utils import tree_flatten
+
+LAYOUT = ("a position holds B/|dp| rows of the batch over the data axes (all B where "
+          "they do not divide) and the whole model, the manual MoE's experts split over "
+          "'model'; each step's MoE takes a position's block as one dispatch chunk, the "
+          "manual MoE over the position's (1, |model|) slice of the grid; no parameter "
+          "split, no ZeRO-1; kernels counted as their plain versions")
+
+
+def pick_optimizer(arch):
+    n_approx = arch.n_layers * arch.d_model * arch.d_ff * (
+        3 * max(arch.n_experts, 1)
+    )
+    return (adafactor(), "adafactor") if n_approx > 1e11 else (adamw(), "adamw")
+
+
+def sharded_arch(arch, multi_pod: bool):
+    """The reference's ``sharded_arch`` (dryrun.py:73-91) in the port's
+    fields: the manual MoE where the expert count divides by 16, its batch
+    split over the data axes. The reference dispatches the global batch in
+    one chunk a DP shard; a step here runs one shard's block, so that block
+    is one chunk."""
+    manual = bool(arch.n_experts) and arch.n_experts % 16 == 0
+    return dataclasses.replace(
+        arch,
+        moe_dispatch_chunks=1,
+        moe_impl="manual" if manual else "gspmd",
+        moe_dp_axes=dp_axes(multi_pod),
+    )
+
+
+def _param_bytes(tree, arch, ep: int, experts: bool = False) -> int:
+    """Parameter bytes at one position: every leaf whole, the manual MoE's
+    expert weights (gate, up, down under each ``moe``) an ``ep``-th."""
+    if not isinstance(tree, dict):
+        return tensor_bytes(tree)
+    total = 0
+    for key, sub in tree.items():
+        if experts and key in ("gate", "up", "down"):
+            total += tensor_bytes(sub) // ep
+        else:
+            total += _param_bytes(sub, arch, ep, key == "moe" and arch.moe_impl == "manual")
+    return total
+
+
+def position_slice(mesh: DeviceMesh, axes) -> DeviceMesh:
+    """``mesh`` cut to index 0 of each of ``axes`` (kept, of size 1): the
+    slice of the grid one position's block of the batch runs over."""
+    cut = tuple(slice(0, 1) if n in axes else slice(None) for n in mesh.axis_names)
+    return DeviceMesh(mesh.devices[cut], mesh.axis_names)
+
+
+def _placed(tree, device):
+    """A tree of meta tensors as zeros on ``device`` (itself on meta)."""
+    if torch.device(device).type == "meta":
+        return tree
+    return map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), tree)
+
+
+def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, arch=None,
+               device="meta"):
+    """(per-position analysis, meta) of one cell, or (None, {"skipped": why}).
+    ``mesh`` defaults to the production mesh of ``device`` positions (meta:
+    nothing allocated), ``arch`` to the registry's config of ``arch_name``.
+    On another device the same step runs on seeded parameters and zero
+    inputs of the same shapes, for a count to hold the meta one against."""
+    n_dev = 512 if multi_pod else 256
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod, devices=[device] * n_dev)
+    dp = dp_axes(multi_pod)
+    n_dp, ep = axis_size(mesh, dp), axis_size(mesh, "model")
+    shape = SHAPES[shape_name]
+    arch = get_arch(arch_name) if arch is None else arch
+    reason = skip_reason(arch, shape)
+    if reason:
+        return None, {"skipped": reason}
+    arch = sharded_arch(resolve_arch_for_shape(arch, shape), multi_pod)
+    if shape.kind in ("decode", "prefill"):
+        # inference serves bf16 weights, as the reference's dry run does
+        arch = dataclasses.replace(arch, param_dtype="bfloat16")
+    params = (meta_params(arch) if torch.device(device).type == "meta" else
+              init_params(torch.Generator(device).manual_seed(0), arch, device=device))
+    meta = {
+        "arch": arch_name, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16", "n_devices": mesh.size,
+        "param_count": int(sum(t.numel() for t in tree_leaves(params))),
+        "attention_kind": arch.attention_kind, "moe_impl": arch.moe_impl if arch.n_experts
+        else None, "layout": LAYOUT,
+        "counter": f"repro_torch.launch.op_analysis ({torch.device(device).type} tensors)",
+    }
+    arg_bytes = _param_bytes(params, arch, ep)
+    # the step's inputs are made before the counter starts: what it counts
+    # is the step alone, as the reference lowers the step over given inputs
+    if shape.kind == "train":
+        opt, opt_name = pick_optimizer(arch)
+        state = TrainState(params=params, opt_state=opt[0](params),
+                           step=torch.zeros((), dtype=torch.int32))
+        batch = _placed(input_specs(arch, shape), device)
+        block = shape.global_batch // n_dp
+        arg_bytes += sum(tensor_bytes(t) for t in tree_flatten(state.opt_state)[0])
+        arg_bytes += sum(tensor_bytes(t[:block]) for t in batch.values())
+        meta.update(optimizer=opt_name, step_kind="train_step")
+        step = make_shardmap_train_step(arch, opt, warmup_cosine(3e-4, 100, 10000), mesh,
+                                        data_axes=dp, compress_grads=False, impl="torch")
+
+        def run():
+            step(state, batch)
+    else:
+        b = shape.global_batch
+        block = b // n_dp if b % n_dp == 0 else b
+        specs = _placed(input_specs(arch, shape, batch_override=block), device)
+        if shape.kind == "prefill":
+            meta["step_kind"] = "prefill"
+            arg_bytes += sum(tensor_bytes(t) for t in specs.values())
+
+            def run():
+                with torch.no_grad():
+                    prefill(params, arch, specs, shape.seq_len, impl="torch")
+        else:
+            meta["step_kind"] = "serve_step"
+            arg_bytes += tensor_bytes(specs["tokens"], specs["pos"])
+            arg_bytes += sum(tensor_bytes(t) for t in tree_leaves(specs["cache"]))
+
+            def run():
+                with torch.no_grad():
+                    decode_step(params, arch, specs["cache"], specs["tokens"],
+                                shape.seq_len - 1)
+    meta["rows_per_position"] = block
+    # the ambient mesh, which the manual MoE walks: a position's slice; in
+    # the train step each data shard's walk places it at the shard's
+    # coordinates (repro_torch.mesh.position: the enclosing axes win)
+    with set_mesh(position_slice(mesh, dp)), OpCounter(mesh, represent=True) as counter:
+        run()
+    meta["represented_positions"] = counter.represented
+    meta["represented_steps"] = counter.represented_steps
+    meta["argument_size_in_bytes"] = arg_bytes
+    meta["fits_one_card"] = arg_bytes <= CARD_BYTES
+    return counter.analysis(), meta
+
+
+def run_cell(arch_name: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:
+    t0 = time.perf_counter()
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    try:
+        h, meta = count_cell(arch_name, shape_name, multi_pod)
+    except Exception as e:  # recorded in the artifact, as the reference records its errors
+        return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
+                "error": f"count: {type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-2000:]}
+    if h is None:
+        return meta | {"arch": arch_name, "shape": shape_name, "mesh": mesh_name}
+    meta["compile_s"] = round(time.perf_counter() - t0, 2)
+    meta["memory_analysis"] = {"argument_size_in_bytes": meta["argument_size_in_bytes"]}
+    meta["cost_analysis"] = {"flops": float(h["flops"]), "bytes accessed": float(h["bytes"])}
+    meta["op_analysis"] = h
+    meta["collectives"] = {**h["collective_bytes"], "counts": h["collective_counts"],
+                           "total": h["collective_total"]}
+    print(f"[{arch_name} x {shape_name} x {mesh_name}] memory_analysis:",
+          meta["memory_analysis"], "fits_one_card:", meta["fits_one_card"])
+    print(f"[{arch_name} x {shape_name} x {mesh_name}] cost_analysis:", meta["cost_analysis"])
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        tag = f"{arch_name}__{shape_name}__{mesh_name.replace('x', '_')}"
+        with open(os.path.join(out_dir, f"{tag}.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+    return meta
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--shape", choices=tuple(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="artifacts/torch_dryrun")
+    args = ap.parse_args(argv)
+    if not args.all and (args.arch is None or args.shape is None):
+        ap.error("give --arch and --shape, or --all")
+
+    cells = ([(a, s) for a in ARCHS for s in SHAPES] if args.all
+             else [(args.arch, args.shape)])
+    failures = 0
+    for arch_name, shape_name in cells:
+        r = run_cell(arch_name, shape_name, args.multi_pod, args.out)
+        status = ("SKIP: " + r["skipped"][:60]) if "skipped" in r else (
+            "FAIL: " + r["error"][:120] if "error" in r else
+            f"ok meta={r['compile_s']}s flops={r['op_analysis']['flops']:.3e} "
+            f"bytes={r['op_analysis']['bytes']:.3e} coll={r['collectives']['total']:.3e}B "
+            f"args={r['argument_size_in_bytes']:.3e}B fits_one_card={r['fits_one_card']}"
+        )
+        print(f"{arch_name:24s} {shape_name:12s} {r.get('mesh', '')}  {status}", flush=True)
+        failures += 1 if "error" in r else 0
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,6 +16,15 @@ port has been run on one H100 only).
 A 1-D mesh iterates as its list of devices, so it is accepted wherever
 :mod:`repro_torch.core.distributed` and the sharded searcher take a list of
 shard devices.
+
+Counting hooks. The port's position loops (the shard loops of
+:mod:`repro_torch.core.distributed`, the data-shard loop of
+``make_shardmap_train_step``, the (i, j) loop of ``moe_apply_manual``) run
+each position's work under :func:`position` (through :func:`walk`), and the
+places where data crosses positions report their payload to :func:`tally`.
+Both do nothing unless a counter is active (:func:`counting`, used by
+:mod:`repro_torch.launch.op_analysis`): results and launches are the same
+either way.
 """
 from __future__ import annotations
 
@@ -73,6 +82,17 @@ class DeviceMesh:
         arr = arr[(Ellipsis,) + (0,) * len(rest)] if rest else arr
         return arr.reshape([axis_size(self, g) for g in groups])
 
+    def coords(self, groups, index) -> dict[str, int]:
+        """The axis coordinates of position ``index`` (one entry a group) of
+        :meth:`grid` over ``groups``: a group's flat index unravelled over its
+        axes in the order given, ``{axis name: index}``."""
+        out = {}
+        for g, i in zip(groups, index):
+            names = (g,) if isinstance(g, str) else tuple(g)
+            sizes = [self.shape[n] for n in names]
+            out.update(zip(names, (int(c) for c in np.unravel_index(int(i), sizes))))
+        return out
+
 
 def make_mesh(shape, names, devices=None) -> DeviceMesh:
     """A mesh of ``shape`` named ``names`` over the first ``prod(shape)`` of
@@ -122,3 +142,262 @@ def axis_size(mesh: DeviceMesh, name) -> int:
     if missing:
         raise ValueError(f"axes {missing} are not in the mesh {mesh.shape}")
     return math.prod(mesh.shape[n] for n in names)
+
+
+# ------------------------------------------------------------ counting ----
+_COUNTER: contextvars.ContextVar = contextvars.ContextVar("repro_torch_counter", default=None)
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Make ``counter`` the active one in this context and thread. It holds
+    the current coordinates in ``coords`` (on the counter, not in this
+    context, so that work autograd runs on its own thread is placed too)
+    and takes ``add(coords, flops, nbytes)``, ``add_collective(coords,
+    kind, nbytes)``, ``suspended()``, ``replay(coords, entry)`` and the
+    ``recorders`` list :func:`walk` uses (each a dict of the entries
+    counted while it is listed, by coordinates); its ``represent``
+    attribute lets :func:`walk` run one position of a class of equal ones."""
+    token = _COUNTER.set(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTER.reset(token)
+
+
+def counting_active() -> bool:
+    """Whether a counter is active in this context (:func:`counting`)."""
+    return _COUNTER.get() is not None
+
+
+@contextlib.contextmanager
+def position(**coords):
+    """Attribute the work in this context to the positions whose
+    coordinates agree with ``coords`` (axes not named: every index). Nested
+    positions merge, an axis the enclosing position already fixes keeping
+    its index: a walk inside a walk over the same axes (the manual MoE's
+    data blocks inside a train step's data shard) counts each op at one set
+    of coordinates. Does nothing unless a counter is active."""
+    counter = _COUNTER.get()
+    if counter is None:
+        yield
+        return
+    outer = counter.coords
+    counter.coords = tuple(sorted({**{a: int(i) for a, i in coords.items()},
+                                   **dict(outer)}.items()))
+    try:
+        yield
+    finally:
+        counter.coords = outer
+
+
+def tally(kind: str, nbytes: int) -> None:
+    """Report ``nbytes`` crossing positions in one collective of ``kind``
+    (``all-reduce``, ``all-gather``; the payload one position sends or
+    receives, as ``hlo_analysis`` reads an op's output shape) at the
+    current position. Does nothing unless a counter is active."""
+    counter = _COUNTER.get()
+    if counter is not None:
+        counter.add_collective(counter.coords, kind, int(nbytes))
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def walk(n: int, coords, fn, inputs=None) -> list:
+    """``[fn(i) for i in range(n)]``, call i under ``position(**coords(i))``.
+
+    ``coords(i)`` gives position i's coordinates; it is called only while a
+    counter is active, so a walk costs its calls alone otherwise. Under a
+    counter whose ``represent`` is set the walk may run one representative
+    position of a class of equal ones: where ``inputs(i)`` gives ``meta``
+    tensors (which carry no values, so no op can depend on data) of the
+    same shapes and dtypes at every i, ``fn`` runs for index 0 only; every
+    other index gets call 0's result and call 0's counts, re-addressed from
+    position 0's coordinates to its own. Where call 0's result requires a
+    gradient, the backward pass it would take later runs outside the walk
+    and cannot be represented, so every position runs. The caller
+    guarantees that ``fn`` does not branch on i beyond indexing its
+    inputs. Otherwise every position runs."""
+    counter = _COUNTER.get()
+    if counter is None:
+        return [fn(i) for i in range(n)]
+    if (not counter.represent or n < 2 or inputs is None
+            or not _equal_meta_inputs(inputs, n)):
+        out = []
+        for i in range(n):
+            with position(**coords(i)):
+                out.append(fn(i))
+        return out
+    outer = dict(counter.coords)
+    with position(**coords(0)):
+        first, recorder = _traced(counter, lambda: fn(0))
+    if _requires_grad(first):
+        out = [first]
+        for i in range(1, n):
+            with position(**coords(i)):
+                out.append(fn(i))
+        return out
+    base = {**coords(0), **outer}
+    for i in range(1, n):
+        here = {**coords(i), **outer}
+        moved = {a: here[a] for a in base if here[a] != base[a]}
+        for key, entry in list(recorder.items()):
+            counter.replay(tuple(sorted({**dict(key), **moved}.items())), entry)
+        counter.represented += 1
+    return [first] * n
+
+
+def _requires_grad(value) -> bool:
+    if isinstance(value, torch.Tensor):
+        return value.requires_grad
+    if isinstance(value, dict):
+        value = list(value.values())
+    return isinstance(value, (list, tuple)) and any(_requires_grad(v) for v in value)
+
+
+def _equal_meta_inputs(inputs, n: int) -> bool:
+    first = None
+    for i in range(n):
+        ts = list(inputs(i))
+        if not ts or any(t.device.type != "meta" for t in ts):
+            return False
+        sig = [(tuple(t.shape), t.dtype) for t in ts]
+        if first is None:
+            first = sig
+        elif sig != first:
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def one_pass():
+    """Count the work in this context as one pass over the tensors handed
+    to the yielded ``moves(*tensors)`` (inputs read once, outputs written
+    once) in place of its ops: for a function whose ops depend on the data
+    (``nonzero``), so that a count on the card and one on meta tensors,
+    which cannot run those ops, agree; and for the port's sum of the
+    positions' parts, which stands for a collective. Does nothing unless a
+    counter is active."""
+    counter = _COUNTER.get()
+    if counter is None:
+        yield lambda *tensors: None
+        return
+    moved: list = []
+    with counter.suspended():
+        yield lambda *tensors: moved.extend(tensors)
+    counter.add(counter.coords, 0, tensor_bytes(*moved))
+
+
+def scan(core, n: int, carry, seqs=(), consts=()):
+    """The sequential loop ``y_t, carry = core(*[x[:, t] for x in seqs],
+    carry, *consts)`` for t < n; returns ([y_t], carry).
+
+    Under a counter whose ``represent`` is set, on ``meta`` tensors (no
+    values, so every step's ops repeat while the carry keeps its shape),
+    one step is traced and the others are given its counts: without
+    gradients step 0 runs and the rest reuse its result; with gradients
+    each step is one node of :class:`_RepresentedStep`, whose forward and
+    backward are traced once for each signature (which gradients flow)
+    and replayed for the other steps, while the slicing of ``seqs``, the
+    chain of carries and the accumulation of the gradients over the steps
+    stay autograd's own, step by step. ``core`` must not branch on
+    anything but its inputs' shapes. Otherwise every step runs as
+    written."""
+    counter = _COUNTER.get()
+    if counter is None or not counter.represent or n < 2 or not carry.is_meta:
+        ys = []
+        for t in range(n):
+            y, carry = core(*[x[:, t] for x in seqs], carry, *consts)
+            ys.append(y)
+        return ys, carry
+    if torch.is_grad_enabled():
+        state = {"core": core, "counter": counter, "forward": None, "backward": {}}
+        ys = []
+        for t in range(n):
+            y, carry = _RepresentedStep.apply(state, *[x[:, t] for x in seqs], carry, *consts)
+            ys.append(y)
+        counter.represented_steps += n - 1
+        return ys, carry
+    (y, after), recorder = _traced(counter, lambda: core(*[x[:, 0] for x in seqs], carry,
+                                                          *consts))
+    if (after.shape, after.dtype) != (carry.shape, carry.dtype):
+        raise ValueError("scan: the carry changed its shape, so the steps are not equal")
+    for _ in range(n - 1):
+        _replay(counter, recorder)
+    counter.represented_steps += n - 1
+    return [y] * n, after
+
+
+def _replay(counter, recorder: dict) -> None:
+    for key, entry in list(recorder.items()):
+        counter.replay(key, entry)
+
+
+def _traced(counter, fn):
+    """(fn()'s result, the entries counted while it ran)."""
+    recorder: dict = {}
+    counter.recorders.append(recorder)
+    try:
+        out = fn()
+    finally:
+        counter.recorders.remove(recorder)
+    return out, recorder
+
+
+def _empty_like_spec(spec):
+    return None if spec is None else torch.empty(spec[0], dtype=spec[1], device="meta")
+
+
+def _spec_of(t):
+    return None if t is None else (tuple(t.shape), t.dtype)
+
+
+class _RepresentedStep(torch.autograd.Function):
+    """One step of :func:`scan` under gradients on meta tensors: the first
+    forward and the first backward of each signature are traced (the
+    backward as the step's own vector-Jacobian product, its forward
+    recomputed uncounted), every other call replays their counts and
+    returns empty meta tensors of their shapes."""
+
+    @staticmethod
+    def forward(ctx, state, *tensors):
+        ctx.state = state
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        counter = state["counter"]
+        if state["forward"] is None:
+            outs, rec = _traced(counter, lambda: state["core"](*tensors))
+            state["forward"] = (rec, [_spec_of(o) for o in outs])
+            return tuple(outs)
+        rec, specs = state["forward"]
+        _replay(counter, rec)
+        return tuple(_empty_like_spec(s) for s in specs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        state = ctx.state
+        counter = state["counter"]
+        needs = ctx.needs_input_grad[1:]
+        key = (tuple(g is not None for g in grads), needs)
+        if key not in state["backward"]:
+            inputs = ctx.saved_tensors
+
+            def vjp():
+                with torch.enable_grad():
+                    ins = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+                    with counter.suspended():
+                        outs = state["core"](*ins)
+                    wrt = [i for i in ins if i.requires_grad]
+                    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+                    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                                   [g for _, g in pairs], allow_unused=True))
+                    return [next(got) if need else None for need in needs]
+
+            gins, rec = _traced(counter, vjp)
+            state["backward"][key] = (rec, [_spec_of(g) for g in gins])
+            return (None, *gins)
+        rec, specs = state["backward"][key]
+        _replay(counter, rec)
+        return (None, *[_empty_like_spec(s) for s in specs])

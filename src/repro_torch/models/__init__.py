@@ -8,6 +8,7 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     init_params,
+    meta_params,
     param_count,
 )
 
@@ -17,6 +18,7 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "meta_params",
     "param_count",
     "params_from_arrays",
 ]

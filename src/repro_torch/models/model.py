@@ -91,6 +91,10 @@ class ArchConfig:
     remat: bool = True
     moe_dispatch_chunks: int = 1  # == DP shard count for shard-local dispatch
     moe_impl: str = "gspmd"  # gspmd | manual (expert-parallel over the ambient mesh)
+    #: the mesh axes the manual MoE splits the batch over, as one flattened
+    #: group (the reference's ``act_spec[0]``; ``("pod", "data")`` on the
+    #: multi-pod mesh). Port-only: ``act_spec`` itself has no counterpart.
+    moe_dp_axes: tuple[str, ...] = ("data",)
 
     @property
     def hd(self) -> int:
@@ -345,6 +349,18 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     return map_tree(draw, param_layout(cfg))
 
 
+def meta_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as empty ``meta`` tensors, nothing drawn: each
+    leaf's shape and dtype as :func:`init_params` gives them (the port's
+    ``jax.eval_shape(init_params)``). The optimizers' init runs on it."""
+
+    def leaf(spec: Leaf) -> torch.Tensor:
+        dtype = getattr(torch, spec.dtype) if spec.dtype else cfg.pdtype
+        return torch.empty(spec.shape, dtype=dtype, device="meta")
+
+    return map_tree(leaf, param_layout(cfg))
+
+
 def param_count(params) -> int:
     return int(sum(x.numel() for x in tree_leaves(params)))
 
@@ -383,7 +399,8 @@ def _frontend(cfg: ArchConfig, batch: dict, what: str):
 def _moe(cfg: ArchConfig, p, h):
     """The reference's switch: ``moe_impl="manual"`` runs
     :func:`~repro_torch.models.moe.moe_apply_manual` over the ambient mesh
-    (:func:`repro_torch.mesh.set_mesh`) when the batch axis divides by
+    (:func:`repro_torch.mesh.set_mesh`), the batch split over
+    ``cfg.moe_dp_axes``, when the batch axis divides by
     ``moe_dispatch_chunks`` (the DP shard count); tiny decode batches, and
     ``"gspmd"``, take ``moe_apply`` with that many dispatch chunks."""
     if cfg.moe_impl == "manual" and h.shape[0] % max(cfg.moe_dispatch_chunks, 1) == 0:
@@ -394,7 +411,7 @@ def _moe(cfg: ArchConfig, p, h):
         return MOE.moe_apply_manual(p, h, n_experts=cfg.n_experts,
                                     experts_per_token=cfg.experts_per_token,
                                     capacity_factor=cfg.capacity_factor, mesh=mesh,
-                                    dp_axes=("data",), ep_axis="model")
+                                    dp_axes=cfg.moe_dp_axes, ep_axis="model")
     return MOE.moe_apply(p, h, n_experts=cfg.n_experts,
                          experts_per_token=cfg.experts_per_token,
                          capacity_factor=cfg.capacity_factor,

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.mesh import DeviceMesh
+from repro_torch.mesh import DeviceMesh, counting_active, one_pass, tally, tensor_bytes, walk
 from repro_torch.models.layers import silu
 
 
@@ -153,7 +153,15 @@ def moe_apply_manual(p, x: torch.Tensor, *, n_experts: int, experts_per_token: i
     expert blocks are views of the weights, not copies. aux is the mean
     over the dp blocks of each block's Switch product (the reference's
     ``pmean`` of its per-shard estimator). Raises unless E % ep == 0 and
-    B % dp == 0."""
+    B % dp == 0.
+
+    ``dp_axes`` names one mesh axis or a group of them, flattened in the
+    order given as one batch axis (the reference's ``act_spec[0]``, e.g.
+    ``("pod", "data")``: 32 blocks on the multi-pod mesh). Block i runs at
+    its data coordinates and (i, j) at its grid position
+    (:func:`repro_torch.mesh.walk`); under an op counter the sum over j is
+    counted as one all-reduce of a part. Without one, the coordinates are
+    never built and each part is added as it is made."""
     grid = mesh.grid(dp_axes, ep_axis)
     dp, ep = grid.shape
     if n_experts % ep or x.shape[0] % dp:
@@ -164,25 +172,47 @@ def moe_apply_manual(p, x: torch.Tensor, *, n_experts: int, experts_per_token: i
     b_loc, e_loc = b // dp, n_experts // ep
     t_loc = b_loc * s
     cap = max(1, int(t_loc * k * capacity_factor / n_experts))
-    outs, auxes = [], []
-    for i in range(dp):
+    groups = (dp_axes, ep_axis)
+
+    def experts(j):
+        return [p[n][j * e_loc:(j + 1) * e_loc] for n in ("gate", "up", "down")]
+
+    def block(i):
         home = grid[i, 0]
         x2 = x[i * b_loc:(i + 1) * b_loc].reshape(t_loc, d).to(home)
         probs = _router_probs(p["router"].to(home), x2)
         exp_idx, gate_vals, fe, pos, keep = route(probs, k, cap)
         gates_flat = gate_vals.T.reshape(-1)
-        total = None
-        for j in range(ep):
+
+        def part(j):
             dev = grid[i, j]
             le, kept = fe.to(dev) - j * e_loc, keep.to(dev)
             kept = kept & (le >= 0) & (le < e_loc)
             row = torch.where(kept, le * cap + pos.to(dev), e_loc * cap)
-            part = _dispatch(x2.to(dev), row, kept, gates_flat.to(dev), cap,
-                             [p[n][j * e_loc:(j + 1) * e_loc].to(dev)
-                              for n in ("gate", "up", "down")]).to(home)
-            total = part if total is None else total + part
-        outs.append(total.to(x.device))
-        auxes.append(_aux(probs, exp_idx[:, 0], n_experts).to(x.device))
+            return _dispatch(x2.to(dev), row, kept, gates_flat.to(dev), cap,
+                             [w.to(dev) for w in experts(j)]).to(home)
+
+        if not counting_active():
+            # the sum over j as the parts are made, one alive at a time
+            total = part(0)
+            for j in range(1, ep):
+                total = total + part(j)
+        else:
+            parts = walk(ep, lambda j: mesh.coords(groups, (i, j)), part,
+                         lambda j: [x2, *experts(j)])
+            # the reference's psum over ep_axis: one all-reduce of a part
+            tally("all-reduce", tensor_bytes(parts[0]))
+            with one_pass() as moves:
+                total = parts[0]
+                for pt in parts[1:]:
+                    total = total + pt
+                moves(parts[0], total)
+        return total.to(x.device), _aux(probs, exp_idx[:, 0], n_experts).to(x.device)
+
+    blocks = walk(dp, lambda i: mesh.coords([dp_axes], [i]), block,
+                  lambda i: [x[i * b_loc:(i + 1) * b_loc], p["router"]])
+    outs = [o for o, _a in blocks]
+    auxes = [a for _o, a in blocks]
     aux = auxes[0]
     for a in auxes[1:]:
         aux = aux + a

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.mesh import scan
 from repro_torch.models.layers import apply_norm, dense, silu
 
 
@@ -197,8 +198,9 @@ def _mamba_step_core(p, xt, dt, b_mat, c_mat, h):
 def mamba_seq(p, x: torch.Tensor, *, d_state: int = 16, d_conv: int = 4,
               expand: int = 2, dt_rank: int | None = None, return_state: bool = False):
     """x (B, S, D) -> (B, S, D). Causal depthwise conv + the sequential
-    selective scan. With return_state, also returns (conv_buf (B, d_conv-1,
-    din), h (B, din, N) float32)."""
+    selective scan (:func:`repro_torch.mesh.scan`, a plain loop unless a
+    dry run's counter represents its steps). With return_state, also
+    returns (conv_buf (B, d_conv-1, din), h (B, din, N) float32)."""
     b, s, d = x.shape
     din = expand * d
     dt_rank = dt_rank or max(1, d // 16)
@@ -213,10 +215,9 @@ def mamba_seq(p, x: torch.Tensor, *, d_state: int = 16, d_conv: int = 4,
     dt, b_mat, c_mat = _mamba_ssm_params(p, xi, dt_rank, d_state)
 
     h = torch.zeros((b, din, d_state), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(s):
-        y, h = _mamba_step_core(p, xi[:, t], dt[:, t], b_mat[:, t], c_mat[:, t], h)
-        ys.append(y)
+    ys, h = scan(lambda xt, dtt, bt, ct, hh, a_log, dd: _mamba_step_core(
+        {"a_log": a_log, "d": dd}, xt, dtt, bt, ct, hh), s, h, (xi, dt, b_mat, c_mat),
+        (p["a_log"], p["d"]))
     y = torch.stack(ys, dim=1).to(x.dtype) * silu(z)
     out = dense(p["out_proj"], y)
     if return_state:

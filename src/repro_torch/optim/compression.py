@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.mesh import one_pass, tally
 from repro_torch.utils import tree_flatten
 
 
@@ -67,10 +68,20 @@ def compressed_psum(trees, *, enabled: bool = True):
     leaf: the quantized payloads are summed as int32 (exact) and rescaled by
     the shared scale (:func:`shared_scale`), then cast back to the leaf's
     dtype. ``enabled=False`` is the plain sum in shard order. The result is
-    on the first shard's device."""
+    on the first shard's device.
+
+    Under an op counter (:mod:`repro_torch.launch.op_analysis`) each leaf's
+    sum is one all-reduce of :func:`payload_bytes` (the first shard's
+    copy), counted as one pass: the shard's copy read, the sum written."""
     flat = [tree_flatten(t)[0] for t in trees]
     rebuild = tree_flatten(trees[0])[1]
-    return rebuild([_sum_leaf(gs, enabled) for gs in zip(*flat)])
+    out = []
+    for gs in zip(*flat):
+        tally("all-reduce", payload_bytes(gs[0], enabled=enabled))
+        with one_pass() as moves:
+            out.append(_sum_leaf(gs, enabled))
+            moves(gs[0], out[-1])
+    return rebuild(out)
 
 
 def payload_bytes(tree, *, enabled: bool = True) -> int:

@@ -30,7 +30,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.mesh import DeviceMesh
+from repro_torch.mesh import DeviceMesh, walk
 from repro_torch.models.model import ArchConfig, forward, init_params
 from repro_torch.optim import clip_by_global_norm, compressed_psum
 from repro_torch.train.losses import cross_entropy
@@ -148,7 +148,8 @@ def make_shardmap_train_step(cfg: ArchConfig, optimizer, lr_schedule: Callable,
     gradient sets are alive (the shared scale needs every shard's max);
     the sum goes leaf by leaf, each leaf's S copies freed once summed. The
     summed gradients are divided by S in their dtype, then clipped and
-    applied once, on the parameters' device."""
+    applied once, on the parameters' device. Shard s runs at its position
+    of the mesh (:func:`repro_torch.mesh.walk`), for an op counter."""
     _opt_init, opt_update = optimizer
     devices = list(mesh.grid(data_axes).reshape(-1))
     nshards = len(devices)
@@ -161,17 +162,25 @@ def make_shardmap_train_step(cfg: ArchConfig, optimizer, lr_schedule: Callable,
         if rows % nshards:
             raise ValueError(f"a batch of {rows} rows does not split over {nshards} data shards")
         size = rows // nshards
-        losses, auxes, shard_grads = [], [], []
-        for s, dev in enumerate(devices):
+
+        def block(s):
+            return {k: v[s * size:(s + 1) * size] for k, v in batch.items()}
+
+        def shard(s):
+            dev = devices[s]
             local = leaves if dev == home else [p.detach().to(dev) for p in leaves]
             for p in local:
                 p.requires_grad_(True)
-            part = {k: v[s * size:(s + 1) * size].to(dev) for k, v in batch.items()}
+            part = {k: v.to(dev) for k, v in block(s).items()}
             loss, aux, grads = _value_and_grad(cfg, impl, local, rebuild, part)
-            losses.append(loss)
-            auxes.append(aux)
-            shard_grads.append(list(grads))
-            del local, grads
+            return loss, aux, list(grads)
+
+        results = walk(nshards, lambda s: mesh.coords([data_axes], [s]), shard,
+                       lambda s: [*block(s).values(), *leaves])
+        losses = [r[0] for r in results]
+        auxes = [r[1] for r in results]
+        shard_grads = [list(r[2]) for r in results]
+        del results
         summed = []
         for j, leaf in enumerate(leaves):
             g = compressed_psum([sg[j] for sg in shard_grads], enabled=compress_grads)

@@ -1,0 +1,290 @@
+"""The port's counter (``repro_torch.launch.op_analysis``), its position
+hooks (``repro_torch.mesh``: ``position``, ``walk``, ``scan``, ``tally``,
+``one_pass``) and the LM dry run (``repro_torch.launch.dryrun``), on the
+CPU.
+
+* A hand-checked tiny case: one ``x.T @ x`` counts 2 n d^2 flops and its
+  operands and output once (the transpose is a view, free), a reshape is
+  free, work outside any position counts at every position, work inside
+  one only where the coordinates agree, a payload by kind.
+* Counts on meta tensors equal counts of the same code on CPU tensors of
+  the same shapes, exactly, for the distributed build covariance and both
+  query pipelines (the card's check in ``chip_smoke.py`` does the same on
+  the H100). The Lloyd step is left out: on meta it counts the card's
+  one-hot sums, which the CPU does not run.
+* Tracing one representative position (and one step of a Mamba scan
+  without gradients) gives the counts of tracing them all, exactly.
+* The LM cells (``dryrun.count_cell``) at tiny shapes: the manual MoE's
+  and jamba's train and prefill steps, and a manual-MoE decode step,
+  counted on CPU tensors and on meta tensors with representatives equal
+  exactly; a manual-MoE decode cell holds and runs one position's block.
+* granite-3-2b x decode_32k beside the reference's dry run in a subprocess
+  (``param_count``, ``step_kind``, ``n_devices``), and a smoke config's
+  train cell on a small meta mesh.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core import taco_config
+from repro_torch.launch import dryrun, dryrun_ann
+from repro_torch.launch.op_analysis import OpCounter
+from repro_torch.mesh import make_mesh, position, set_mesh, tally, tensor_bytes, walk
+from repro_torch.models import model as TM
+from repro_torch.optim import adamw, constant_lr
+from repro_torch.train.loop import TrainState, make_shardmap_train_step
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_counter_on_a_hand_checked_case():
+    n, d = 6, 4
+    mesh = make_mesh((2, 3), ("data", "model"), ["meta"] * 6)
+    x = torch.empty((n, d), device="meta")
+    with OpCounter(mesh) as c:
+        x.T @ x  # a view, then one product: 2 n d^2, x read twice, d x d written
+    h = c.analysis()
+    assert h["flops"] == 2 * n * d * d
+    assert h["bytes"] == 2 * n * d * 4 + d * d * 4
+    with OpCounter(mesh) as c:
+        x.reshape(d, n).T.view(n, d)[1:]  # views only
+    assert c.analysis()["bytes"] == 0 and c.analysis()["flops"] == 0
+    with OpCounter(mesh) as c:
+        x + 1  # everywhere: n d read, n d written
+        with position(data=1):
+            x * 2  # only on the data=1 row of the mesh
+            tally("all-reduce", 100)
+    totals = {tuple(here.values()): t for here, t in c.position_totals()}
+    assert totals[(0, 2)]["bytes"] == 2 * n * d * 4
+    assert totals[(1, 0)]["bytes"] == 4 * n * d * 4
+    assert totals[(0, 0)]["collective_bytes"] == {}
+    h = c.analysis()
+    assert h["bytes"] == 4 * n * d * 4 and h["collective_total"] == 100
+    assert h["collective_counts"]["all-reduce"] == 1 and h["positions"] == 6
+
+
+def test_counter_keeps_fill_values_of_each_type_apart():
+    """The counter reuses a meta op's output metadata by signature; 0, 0.0
+    and False are equal in Python but give ``full`` three dtypes."""
+    mesh = make_mesh((2,), ("data",), ["meta"] * 2)
+    with OpCounter(mesh):
+        got = [torch.full((3,), v, device="meta").dtype for v in (0, 0.0, False, 0)]
+    assert got == [torch.int64, torch.float32, torch.bool, torch.int64]
+
+
+def test_walk_builds_coordinates_only_under_a_counter():
+    def coords(i):
+        raise AssertionError("coordinates built without a counter")
+
+    assert walk(3, coords, lambda i: i * i) == [0, 1, 4]
+    mesh = make_mesh((3,), ("data",), ["meta"] * 3)
+    with OpCounter(mesh) as c:
+        walk(3, lambda i: {"data": i}, lambda i: torch.empty((i + 1,), device="meta") + 1)
+    assert [t["bytes"] for _here, t in c.position_totals()] == [8, 16, 24]
+
+
+def _small_ann(device, rerank):
+    """The ANN jobs at n = 4 x 2048 over 4 shards on ``device``, a small
+    config (1024 cells), the inputs drawn where the device holds values."""
+    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, alpha=0.05, beta=0.005,
+                      k=10, candidate_cap=64, rerank=rerank)
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    n, d = 4 * 2048, 32
+    index = dryrun_ann.make_index(n, d, cfg, device=device, generator=gen)
+
+    def draw(*shape):
+        if gen is None:
+            return torch.empty(shape, device=device)
+        return torch.randn(shape, generator=gen)
+
+    shards = make_mesh((4,), ("shard",), [device] * 4)
+    return shards, dryrun_ann.ann_jobs(shards, index, cfg, draw(8, d), draw(n, d), draw(n, 4),
+                                       draw(cfg.sqrt_k, 4))
+
+
+@pytest.mark.parametrize("job, rerank", [("build_cov", "gather"), ("query", "gather"),
+                                         ("query", "masked_full")])
+def test_meta_counts_equal_the_counts_on_real_tensors(job, rerank):
+    """The same code on CPU tensors (drawn values) and on meta tensors of
+    the same shapes, every shard traced and one representative shard:
+    flops, bytes, payloads and argument bytes equal."""
+    results = []
+    for device, represent in (("cpu", False), ("meta", False), ("meta", True)):
+        shards, jobs = _small_ann(device, rerank)
+        fn, arg_bytes = jobs[job]
+        h, _secs = dryrun_ann.count_job(shards, fn, represent=represent)
+        results.append((h["flops"], h["bytes"], h["collective_bytes"], arg_bytes))
+        assert (h["represented_positions"] > 0) == (device == "meta" and represent)
+    assert results[0] == results[1] == results[2]
+    assert results[0][0] > 0 and results[0][1] > 0 and sum(results[0][2].values()) > 0
+
+
+def test_a_representative_position_counts_as_tracing_them_all():
+    """make_shardmap_train_step over a (data 2, model 2) meta mesh with the
+    smoke granite-moe's manual MoE nested in each data shard, a jamba smoke
+    prefill without gradients and a jamba smoke train step (its Mamba
+    scans with and without gradients, remat): representing walks and scan
+    steps gives every count of the full trace."""
+    mesh = make_mesh((2, 2), ("data", "model"), ["meta"] * 4)
+    cfg = dataclasses.replace(get_smoke("granite-moe-3b-a800m"), moe_impl="manual",
+                              moe_dispatch_chunks=2)
+    opt = adamw()
+    tokens = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    jamba = get_smoke("jamba-1.5-large-398b")
+    jamba_params = TM.meta_params(jamba)
+    analyses = []
+    for represent in (False, True):
+        params = TM.meta_params(cfg)
+        state = TrainState(params=params, opt_state=opt[0](params),
+                           step=torch.zeros((), dtype=torch.int32))
+        step = make_shardmap_train_step(cfg, opt, constant_lr(1e-3), mesh, compress_grads=False,
+                                        impl="torch")
+        with set_mesh(mesh), OpCounter(mesh, represent=represent) as c:
+            step(state, {"tokens": tokens, "labels": tokens})
+        with OpCounter(mesh, represent=represent) as s, torch.no_grad():
+            TM.prefill(jamba_params, jamba, {"tokens": tokens[:1]}, 16, impl="torch")
+        jstate = TrainState(params=jamba_params, opt_state=opt[0](jamba_params),
+                            step=torch.zeros((), dtype=torch.int32))
+        jstep = make_shardmap_train_step(jamba, opt, constant_lr(1e-3), mesh,
+                                         compress_grads=False, impl="torch")
+        with OpCounter(mesh, represent=represent) as g:
+            jstep(jstate, {"tokens": tokens, "labels": tokens})
+        analyses.append((c.analysis(), c.represented, s.analysis(), s.represented_steps,
+                         g.analysis(), g.represented_steps))
+    (full, none, full_scan, no_steps, full_grad, no_grad_steps), \
+        (rep, some, rep_scan, steps, rep_grad, grad_steps) = analyses
+    assert none == 0 and some > 0 and no_steps == 0 and steps > 0
+    assert no_grad_steps == 0 and grad_steps > 0
+    for key in ("flops", "bytes", "collective_bytes", "collective_counts", "collective_total"):
+        assert rep[key] == full[key], key
+        assert rep_scan[key] == full_scan[key], key
+        assert rep_grad[key] == full_grad[key], key
+    assert full["collective_bytes"]["all-reduce"] > 0
+
+
+#: tiny stand-ins for the cells' shapes: the same kinds, 4 sequences of 16
+TINY = {"train_4k": ShapeSpec("train_4k", "train", 16, 4),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", 16, 4),
+        "decode_32k": ShapeSpec("decode_32k", "decode", 16, 4)}
+
+
+def _manual(arch_name):
+    """The smoke config with 16 experts, so that the dry run's
+    ``sharded_arch`` takes the manual MoE (the smoke configs have 4)."""
+    return dataclasses.replace(get_smoke(arch_name), n_experts=16)
+
+
+@pytest.mark.parametrize("arch_name, shape_name", [
+    ("granite-moe-3b-a800m", "train_4k"), ("granite-moe-3b-a800m", "prefill_32k"),
+    ("jamba-1.5-large-398b", "train_4k"), ("jamba-1.5-large-398b", "prefill_32k"),
+    ("arctic-480b", "decode_32k")])
+def test_lm_meta_counts_equal_the_counts_on_real_tensors(monkeypatch, arch_name, shape_name):
+    """count_cell at a tiny shape over a (data 2, model 2) grid, on CPU
+    tensors (seeded weights, zero inputs; every position and scan step
+    traced) and on meta tensors with representative positions and scan
+    steps: flops, bytes, payloads and argument bytes equal exactly. The
+    CPU side runs on one thread: its ops are tiny, and a pool of threads
+    a worker makes jamba's train step ten times slower beside other
+    workers."""
+    monkeypatch.setitem(dryrun.SHAPES, shape_name, TINY[shape_name])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got, traced = _count_cpu_and_meta(arch_name, shape_name)
+    finally:
+        torch.set_num_threads(threads)
+    assert got[0] == got[1]
+    assert got[0][0] > 0 and got[0][2]["all-reduce"] > 0
+    assert traced[0] == 0 and (traced[1] > 0 or shape_name == "decode_32k")
+
+
+def _count_cpu_and_meta(arch_name, shape_name):
+    got, traced = [], []
+    for device in ("cpu", "meta"):
+        mesh = make_mesh((2, 2), ("data", "model"), [device] * 4)
+        h, meta = dryrun.count_cell(arch_name, shape_name, False, mesh=mesh,
+                                    arch=_manual(arch_name), device=device)
+        assert meta["moe_impl"] == "manual" and meta["rows_per_position"] == 2
+        got.append((h["flops"], h["bytes"], h["collective_bytes"], h["collective_counts"],
+                    meta["argument_size_in_bytes"]))
+        traced.append(meta["represented_positions"] + meta["represented_steps"])
+    return got, traced
+
+
+def test_a_manual_moe_decode_cell_runs_one_positions_block():
+    """arctic's smoke config with 16 experts at decode_32k (B 128) over
+    (data 4, model 2) and (data 2, model 2) meta grids: a position holds
+    and runs B / |data| sequences. Its argument bytes are the bf16 weights
+    with the experts halved, one token and the position of each of its
+    sequences, and their caches; its MoE is one block a layer, whose sum
+    over the expert blocks is one all-reduce of the block's activations."""
+    arch = _manual("arctic-480b")
+    rows, payload = {}, {}
+    for data in (4, 2):
+        mesh = make_mesh((data, 2), ("data", "model"), ["meta"] * (2 * data))
+        h, meta = dryrun.count_cell("arctic-480b", "decode_32k", False, mesh=mesh, arch=arch)
+        block = 128 // data
+        bf16 = dataclasses.replace(arch, param_dtype="bfloat16")
+        params = TM.meta_params(bf16)
+        experts = sum(tensor_bytes(params["blocks"][g]["moe"][n])
+                      for g in params["blocks"] for n in ("gate", "up", "down"))
+        cache = TM.init_cache(bf16, block, 32768, device="meta")
+        want = (sum(tensor_bytes(t) for t in TM.tree_leaves(params)) - experts // 2
+                + 4 * block + 4 + sum(tensor_bytes(t) for t in TM.tree_leaves(cache)))
+        assert meta["rows_per_position"] == block
+        assert meta["argument_size_in_bytes"] == want
+        assert h["collective_counts"]["all-reduce"] == arch.n_layers
+        rows[data], payload[data] = meta["rows_per_position"], h["collective_bytes"]["all-reduce"]
+    assert rows == {4: 32, 2: 64} and payload[2] == 2 * payload[4]
+
+
+def test_smoke_train_cell_on_a_small_meta_mesh():
+    """count_cell at train_4k with the smoke granite-3-2b over a (data 4,
+    model 2) meta mesh: a position holds 256 / 4 rows, the gradient sum is
+    one all-reduce of each leaf's bytes (uncompressed f32), and the
+    artifact's fields are filled."""
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    h, meta = dryrun.count_cell("granite-3-2b", "train_4k", False, mesh=mesh,
+                                arch=get_smoke("granite-3-2b"))
+    params = TM.meta_params(get_smoke("granite-3-2b"))
+    leaves = TM.tree_leaves(params)
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["param_count"] == sum(t.numel() for t in leaves)
+    assert h["collective_bytes"]["all-reduce"] == sum(4 * t.numel() for t in leaves)
+    assert h["collective_counts"]["all-reduce"] == len(leaves)
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
+    assert meta["represented_positions"] == 3
+
+
+REF_DRYRUN = ["-m", "repro.launch.dryrun", "--arch", "granite-3-2b", "--shape", "decode_32k"]
+
+
+def test_decode_cell_beside_the_reference(tmp_path):
+    """granite-3-2b x decode_32k: the port's artifact beside the reference's
+    (run in a subprocess, as it forces 512 host devices): the same
+    param_count, step_kind and n_devices; the port's flops are one
+    position's 8 sequences with the whole model, about |model| = 16 times
+    the reference's per-device flops."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, *REF_DRYRUN, "--out", str(tmp_path / "ref")],
+                          env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = json.loads((tmp_path / "ref" / "granite-3-2b__decode_32k__16_16.json").read_text())
+    assert dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k",
+                        "--out", str(tmp_path / "port")]) == 0
+    got = json.loads((tmp_path / "port" / "granite-3-2b__decode_32k__16_16.json").read_text())
+    for key in ("param_count", "step_kind", "n_devices", "arch", "shape", "mesh"):
+        assert got[key] == want[key], key
+    assert got["param_count"] == 2_635_237_376
+    assert got["rows_per_position"] == 8 and got["fits_one_card"]
+    ratio = got["op_analysis"]["flops"] / want["hlo_analysis"]["flops"]
+    assert 14 < ratio < 18, ratio

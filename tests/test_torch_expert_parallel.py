@@ -41,6 +41,10 @@ CAPACITIES = (1.25, 8.0)
 ARCH = "granite-moe-3b-a800m"
 FWD_GRID = (2, 4)
 PROMPT, DECODE = 12, 3
+#: the multi-pod layout in small: (pod, data, model), the batch over the
+#: (pod, data) group as the reference's act_spec P(("pod", "data"), ...) puts it
+POD_GRID = (2, 2, 2)
+POD_AXES = ("pod", "data", "model")
 
 REFERENCE = r"""
 import dataclasses, sys
@@ -49,8 +53,9 @@ from repro.compat import AxisType, make_mesh, set_mesh
 from repro.configs import get_smoke
 from repro.models import model as RM
 from repro.models.moe import moe_apply_manual
+from jax.sharding import PartitionSpec as P
 from tests.test_torch_expert_parallel import (
-    ARCH, CAPACITIES, DECODE, E, FWD_GRID, GRIDS, K, PROMPT)
+    ARCH, CAPACITIES, DECODE, E, FWD_GRID, GRIDS, K, POD_AXES, POD_GRID, PROMPT)
 
 inputs, out = sys.argv[1:3]
 assert len(jax.devices()) == 8, jax.devices()
@@ -66,6 +71,14 @@ for grid in GRIDS:
             o, aux = jax.jit(lambda pp, xx: moe_apply_manual(
                 pp, xx, n_experts=E, experts_per_token=K, capacity_factor=cf))(p, x)
         res[f"manual/{grid}/{cf}/out"], res[f"manual/{grid}/{cf}/aux"] = o, aux
+pod_mesh = make_mesh(POD_GRID, POD_AXES, axis_types=(AxisType.Auto,) * 3,
+                     devices=jax.devices()[:8])
+for cf in CAPACITIES:
+    with set_mesh(pod_mesh):
+        o, aux = jax.jit(lambda pp, xx: moe_apply_manual(
+            pp, xx, n_experts=E, experts_per_token=K, capacity_factor=cf,
+            dp_axes=("pod", "data")))(p, x)
+    res[f"pod/{cf}/out"], res[f"pod/{cf}/aux"] = o, aux
 mesh = make_mesh(FWD_GRID, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
                  devices=jax.devices()[:8])
 params = RM.init_params(jax.random.PRNGKey(0), get_smoke(ARCH))
@@ -84,6 +97,12 @@ for impl in ("manual", "gspmd"):
                 for s in range(PROMPT, PROMPT + DECODE - 1):
                     step_logits, cache = RM.decode_step(params, cfg, cache, t[:, s:s + 1], s)
                     res[f"decode/{rows}/{s}"] = step_logits[:, 0]
+pod_cfg = dataclasses.replace(get_smoke(ARCH), moe_impl="manual", moe_dispatch_chunks=4,
+                              act_spec=P(("pod", "data"), None, None))
+with set_mesh(pod_mesh):
+    logits, aux = jax.jit(lambda pp, b: RM.forward(pp, pod_cfg, b))(
+        params, {"tokens": jnp.asarray(arr["pod_tokens"])})
+res["pod/forward/logits"], res["pod/forward/aux"] = logits, aux
 np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
 print("REFERENCE_OK")
 """
@@ -100,14 +119,16 @@ def leaning_inputs(rng):
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """(numpy weights, tokens x, model tokens, the reference's results)."""
+    """(numpy weights, tokens x, model tokens, the reference's results and
+    the multi-pod forward's tokens)."""
     tmp = tmp_path_factory.mktemp("expert_parallel")
     rng = np.random.default_rng(4)
     p, x = leaning_inputs(rng)
     tokens = rng.integers(0, ref_smoke(ARCH).vocab_size, (2, 16)).astype(np.int32)
-    np.savez(tmp / "inputs.npz", x=x, tokens=tokens, **p)
+    pod_tokens = rng.integers(0, ref_smoke(ARCH).vocab_size, (4, 16)).astype(np.int32)
+    np.savez(tmp / "inputs.npz", x=x, tokens=tokens, pod_tokens=pod_tokens, **p)
     run_reference(REFERENCE, tmp / "inputs.npz", tmp / "ref.npz")
-    return p, x, tokens, dict(np.load(tmp / "ref.npz"))
+    return p, x, tokens, dict(np.load(tmp / "ref.npz"), pod_tokens=pod_tokens)
 
 
 def ref_probs(p, x2):
@@ -238,6 +259,51 @@ def test_manual_keeps_what_chunked_dispatch_keeps(ref, monkeypatch, grid, cf):
     for a, b in zip(routes["manual"], routes["chunked"]):
         assert torch.equal(a[0], b[0]) and torch.equal(a[4], b[4])
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cf", CAPACITIES)
+def test_manual_over_a_pod_and_data_group_matches_reference(ref, monkeypatch, cf):
+    """moe_apply_manual with dp_axes=("pod", "data") on a (pod 2, data 2,
+    model 2) grid of CPU positions against the reference's shard_map over
+    the same grid of host devices: the group is one batch axis of 4
+    blocks (not data's 2), the kept set at every position bit for bit, the
+    output within 1e-5, aux within 1e-6."""
+    p, x, _, want = ref
+    seen: list = []
+    spy_routes(monkeypatch, seen)
+    got, aux = TMOE.moe_apply_manual(torch_params(p), torch.from_numpy(x), n_experts=E,
+                                     experts_per_token=K, capacity_factor=cf,
+                                     mesh=make_mesh(POD_GRID, POD_AXES, [CPU] * 8),
+                                     dp_axes=("pod", "data"))
+    dp, ep = POD_GRID[0] * POD_GRID[1], POD_GRID[2]
+    assert len(seen) == dp
+    kept = ref_kept_manual(p, x, cf, dp, ep)
+    for i, (_, _, fe, _, keep) in enumerate(seen):
+        for j in range(ep):
+            local = (fe >= j * (E // ep)) & (fe < (j + 1) * (E // ep))
+            np.testing.assert_array_equal((keep & local).numpy(), kept[i, j])
+    assert (not torch.cat([r[4] for r in seen]).all()) == (cf == 1.25)
+    np.testing.assert_allclose(got.numpy(), want[f"pod/{cf}/out"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want[f"pod/{cf}/aux"]), rtol=0, atol=1e-6)
+
+
+def test_forward_splits_the_batch_over_moe_dp_axes(ref, model, monkeypatch):
+    """forward of granite-moe's smoke config with moe_impl="manual" and
+    ``moe_dp_axes=("pod", "data")`` under a (pod 2, data 2, model 2) mesh,
+    against the reference's with act_spec P(("pod", "data"), None, None):
+    every MoE layer routes 4 blocks of one row (the default ("data",) would
+    route 2), logits within 1e-4, the summed aux within 1e-6."""
+    _, _, _, want = ref
+    _, tp = model
+    seen: list = []
+    spy_routes(monkeypatch, seen)
+    cfg = dataclasses.replace(get_smoke(ARCH), moe_impl="manual", moe_dispatch_chunks=4,
+                              moe_dp_axes=("pod", "data"))
+    with set_mesh(make_mesh(POD_GRID, POD_AXES, [CPU] * 8)):
+        logits, aux = TM.forward(tp, cfg, {"tokens": torch.from_numpy(want["pod_tokens"])})
+    assert len(seen) == 4 * cfg.n_layers
+    np.testing.assert_allclose(logits.numpy(), want["pod/forward/logits"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want["pod/forward/aux"]), rtol=0, atol=1e-6)
 
 
 def test_manual_refuses_what_does_not_split():

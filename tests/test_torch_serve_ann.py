@@ -147,6 +147,31 @@ def test_kernels_on_card_switches_use_kernels_on_for_the_card_only(capsys):
     assert kernels is on and capsys.readouterr().out == ""
 
 
+@pytest.mark.parametrize("rerank", ["masked_full", "auto"])
+def test_kernels_on_card_keeps_the_plain_path_where_a_kernel_refuses(capsys, rerank):
+    """A masked-full config at k = 2000 (past masked_rerank's 1024) stays on
+    the plain path on the card, the refusing limit printed, and is decided
+    before any launch (the device is only named: no card is needed); at
+    k = 10 the kernels are switched on. A --k past the limit refuses a
+    k = 10 save too; the gather pipeline has no such limit."""
+    for k, on in ((2000, False), (10, True)):
+        cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, k=k, rerank=rerank)
+        got = serve_ann.kernels_on_card(cfg, torch.device("cuda"), d=128)
+        out = capsys.readouterr().out
+        assert got.use_kernels is on
+        if on:
+            assert got == dataclasses.replace(cfg, use_kernels=True)
+            assert "through the CUDA kernels" in out
+        else:
+            assert got is cfg
+            assert "plain PyTorch path" in out and "k <= 1024, got 2000" in out
+    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, k=10, rerank=rerank)
+    assert not serve_ann.kernels_on_card(cfg, torch.device("cuda"), k_max=2000).use_kernels
+    gather = dataclasses.replace(cfg, rerank="gather", k=2000)
+    assert serve_ann.kernels_on_card(gather, torch.device("cuda")).use_kernels
+    assert serve_ann.kernel_refusal(dataclasses.replace(cfg, n_subspaces=17)) is not None
+
+
 @pytest.mark.parametrize("mutable", [False, True], ids=["immutable", "mutable"])
 def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsys,
                                                                    monkeypatch, mutable):
@@ -162,9 +187,9 @@ def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsy
     index.mutable().save(path) if mutable else index.save(path)
     seen = []
 
-    def on_card(c, device):
+    def on_card(c, device, **limits):
         assert device.type == "cpu"
-        seen.append(serve_ann.kernels_on_card.__wrapped__(c, torch.device("cuda")))
+        seen.append(serve_ann.kernels_on_card.__wrapped__(c, torch.device("cuda"), **limits))
         return seen[-1]
 
     on_card.__wrapped__ = serve_ann.kernels_on_card
