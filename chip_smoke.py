@@ -222,9 +222,15 @@ Phases, in order; any failure exits nonzero:
  16. dryrun  — the dry runs (repro_torch.launch.dryrun_ann, dryrun) held to
                the card: launch.op_analysis counts the distributed build
                covariance and both query pipelines at 2^22 x 128 f32 over a
-               (4, 4) grid of the card, and granite-3-2b's decode_32k step
-               at one position's block (8 sequences, a 32,768 cache, bf16
-               weights), on the card and on meta tensors of the same shapes
+               (4, 4) grid of the card, and two decode_32k steps at one
+               position's block (8 sequences, a 32,768 cache, bf16
+               weights), one a layout: granite-3-2b's in the tensor-parallel
+               layout (the sharded decode step over the position's row of
+               16 'model' positions, each its sixteenth of the weights and
+               of the cache's sequence) and granite-moe-3b-a800m's in the
+               replicated layout (the whole model at the position, its MoE
+               the gspmd dispatch), on the card and on meta tensors of the
+               same shapes
                by the same code, the plain path on both sides: flops, bytes,
                payloads and argument bytes equal exactly; then the dry runs
                in child processes at once (dryrun_ann at n = 10^9 on both
@@ -235,7 +241,23 @@ Phases, in order; any failure exits nonzero:
                exiting 0 with its artifact (chiprun_out/dryrun/), per job
                flops, bytes, payload, argument bytes, fits_one_card and
                seconds printed; no kernel is launched;
- 17. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 17. tensor_parallel — granite-3-2b at full width and depth over a (data
+               2, model 4) grid of views of the card (repro_torch.models.
+               sharded: Megatron splits over 'model', ZeRO-1 AdamW over
+               'data'): make_sharded_train_step, batch 8 x 128, bf16
+               compute, 3 steps timed with CUDA events beside
+               make_train_step's in the same call, peak memory, the first
+               step's payload bytes by kind (equal to the same step's count
+               on meta tensors); the same step at 4 layers in
+               float32 against make_train_step for 2 steps (loss and grad
+               norm within 1e-4 relative, every parameter within 1e-5 of its
+               norm); sharded_prefill of 2 x 4096 tokens, one sequence a
+               data block, and 16 sharded decode steps on the sequence-split
+               cache against prefill and decode_step on one device, in
+               float32 (within 1e-3, top-1 >= 99 %) and bf16 (the lm phase's
+               top-1 and distance gates), timed beside them; each new flash
+               shape's first call held against the plain version;
+ 18. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -258,7 +280,9 @@ families: flash_attention exactly once an attention layer a prefill, twice
 with cross-attention, once more an encoder layer: 72 for whisper-medium;
 none for rwkv6-7b; parallel: flash_attention exactly twice a layer a shard a
 step in the sharded and microbatched steps, once a layer a prefill or
-forward under either MoE implementation; dryrun: none),
+forward under either MoE implementation; dryrun: none; tensor_parallel:
+flash_attention exactly twice a layer a position a step in the sharded
+steps, once a layer a prefill position, none in decode),
 l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
@@ -333,6 +357,11 @@ PATHS = {
     "parallel_dp_compressed": ("flash_attention",),
     "parallel_ep": ("flash_attention",),
     "dryrun": (),
+    "tensor_parallel_train": ("flash_attention",),
+    "tensor_parallel_single": ("flash_attention",),
+    "tensor_parallel_held": ("flash_attention",),
+    "tensor_parallel_prefill": ("flash_attention",),
+    "tensor_parallel_decode": (),
 }
 
 
@@ -4233,12 +4262,15 @@ def phase_parallel(torch) -> dict:
 
 #: the dry-run phase: the card-identity shapes (2^22 x 128 f32 over a
 #: (4, 4) grid of the card, the billion-scale query config; granite-3-2b's
-#: decode_32k step at one position's block of 8 sequences), then the dry
-#: runs themselves in child processes, on meta tensors
+#: decode_32k step at one position's block of 8 sequences in the
+#: tensor-parallel layout, granite-moe-3b-a800m's in the replicated one),
+#: then the dry runs themselves in child processes, on meta tensors
 DRY_N = 1 << 22
 DRY_GRID = (4, 4)
 DRY_ANN_JOBS = (("build_cov", "gather"), ("query", "gather"), ("query", "masked_full"))
-DRY_CELL = ("granite-3-2b", "decode_32k")
+#: (arch, shape, the layout launch.dryrun must give the cell)
+DRY_CELLS = (("granite-3-2b", "decode_32k", "tensor_parallel"),
+             ("granite-moe-3b-a800m", "decode_32k", "replicated"))
 DRY_CHILDREN = tuple(
     [("repro_torch.launch.dryrun_ann", (*mp, "--rerank", r))
      for mp in ((), ("--multi-pod",)) for r in ("gather", "masked_full")]
@@ -4295,31 +4327,40 @@ def dry_ann_identity(torch) -> dict:
 
 
 def dry_decode_identity(torch) -> dict:
-    """granite-3-2b's decode_32k step at one position's block (8 sequences,
-    a 32,768 cache, bf16 weights) through launch.dryrun.count_cell on the
-    card (seeded weights, zero inputs) and on meta: every count equal."""
+    """Each of DRY_CELLS' decode_32k steps at one position's block (8
+    sequences, a 32,768 cache, bf16 weights) through launch.dryrun.count_cell
+    on the card (seeded weights, zero inputs) and on meta, in the layout the
+    dry run gives it: every count equal."""
     from repro_torch.launch import dryrun
 
     card = torch.device("cuda", torch.cuda.current_device())
-    got = {}
-    torch.cuda.reset_peak_memory_stats()
-    for device in (card, torch.device("meta")):
-        t0 = time.perf_counter()
-        h, meta = dryrun.count_cell(*DRY_CELL, False, device=device)
-        torch.cuda.synchronize()
-        side = "card" if device == card else "meta"
-        got[side] = dict(dry_numbers(h, meta["argument_size_in_bytes"]),
-                         rows=meta["rows_per_position"], seconds=time.perf_counter() - t0)
-        if device == card:
-            got["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        torch.cuda.empty_cache()
-    a, b = got["card"], got["meta"]
-    same = all(a[key] == b[key] for key in ("flops", "bytes", "payload", "argument_bytes"))
-    print(f"dryrun identity {DRY_CELL[0]} x {DRY_CELL[1]}: card {json.dumps(a)} meta "
-          f"{json.dumps(b)} equal {same}; the card's peak {got['peak_gib']:.2f} GiB", flush=True)
-    check(same, f"dryrun: {DRY_CELL} counted on the card differs from meta")
-    check(a["rows"] == 8 and a["flops"] > 0, f"dryrun: {DRY_CELL} ran {a['rows']} rows")
-    return got
+    rows = {}
+    for arch, shape, layout in DRY_CELLS:
+        got = {}
+        torch.cuda.reset_peak_memory_stats()
+        for device in (card, torch.device("meta")):
+            t0 = time.perf_counter()
+            h, meta = dryrun.count_cell(arch, shape, False, device=device)
+            torch.cuda.synchronize()
+            side = "card" if device == card else "meta"
+            got[side] = dict(dry_numbers(h, meta["argument_size_in_bytes"]),
+                             rows=meta["rows_per_position"], layout=meta["layout_name"],
+                             seconds=time.perf_counter() - t0)
+            if device == card:
+                got["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del h, meta
+            torch.cuda.empty_cache()
+        a, b = got["card"], got["meta"]
+        same = all(a[key] == b[key] for key in ("flops", "bytes", "payload", "argument_bytes"))
+        print(f"dryrun identity {arch} x {shape} ({a['layout']}): card {json.dumps(a)} meta "
+              f"{json.dumps(b)} equal {same}; the card's peak {got['peak_gib']:.2f} GiB",
+              flush=True)
+        check(same, f"dryrun: {arch} x {shape} counted on the card differs from meta")
+        check(a["layout"] == b["layout"] == layout,
+              f"dryrun: {arch} x {shape} ran the {a['layout']} layout, not {layout}")
+        check(a["rows"] == 8 and a["flops"] > 0, f"dryrun: {arch} x {shape} ran {a['rows']} rows")
+        rows[layout] = got
+    return rows
 
 
 def dry_children(root) -> dict:
@@ -4372,6 +4413,355 @@ def phase_dryrun(torch, root) -> dict:
     check(not any(launches.values()), f"dryrun: the plain path launched {launches}")
     rows["children"] = dry_children(root)
     rows["launches"] = launches
+    return rows
+
+
+#: the tensor-parallel phase: granite-3-2b at full width and depth over a
+#: (data 2, model 4) grid of views of the card (repro_torch.models.sharded):
+#: the train step with ZeRO-1, an f32 held check at TP_HELD_LAYERS layers,
+#: prefill and decode on the sequence-split cache
+TP_GRID = (2, 4)
+TP_STEPS = 3
+TP_HELD_LAYERS, TP_HELD_STEPS = 4, 2
+TP_PREFILL = (2, 4096)  # rows x prompt: one sequence a data block
+TP_DECODE = 16
+#: the held check against make_train_step, float32: loss and grad norm
+#: relative, and each parameter's distance relative to its norm
+TP_METRIC_RTOL, TP_PARAM_RTOL = 1e-4, 1e-5
+
+
+def tp_mesh():
+    from repro_torch.mesh import make_mesh
+
+    return make_mesh(TP_GRID, ("data", "model"))
+
+
+def tp_payloads(torch, mesh, fn):
+    """``fn()`` with the collectives' payloads tallied (a counter active
+    for the walks' positions and tallies, not tracing any op): the bytes
+    one position moves by kind and the counts, the largest over the grid."""
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.mesh import counting
+
+    counter = OpCounter(mesh)
+    with counting(counter):
+        out = fn()
+    h = counter.analysis()
+    return out, {"bytes": h["collective_bytes"], "counts": h["collective_counts"]}
+
+
+def tp_meta_payloads(torch, cfg, opt, lr, batch) -> dict:
+    """The payloads of the same sharded step counted on meta tensors over a
+    TP_GRID grid of meta positions (launch.op_analysis, one data block
+    represented), as the dry run counts it."""
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.train import TrainState, make_sharded_train_step
+
+    mesh = make_mesh(TP_GRID, ("data", "model"), ["meta"] * math.prod(TP_GRID))
+    params = M.meta_params(cfg)
+    state = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
+                                             step=torch.zeros((), dtype=torch.int32)), mesh)
+    step = make_sharded_train_step(cfg, opt, lr, mesh, impl="torch")
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.long, device="meta")
+                  for k, v in batch.items()}
+    with OpCounter(mesh, represent=True) as counter:
+        step(state, meta_batch)
+    h = counter.analysis()
+    return {"bytes": h["collective_bytes"], "counts": h["collective_counts"]}
+
+
+def tp_train(torch) -> dict:
+    """make_sharded_train_step at granite-3-2b's full width and depth over
+    TP_GRID (batch 8 x 128, f32 parameters, bf16 compute, remat, AdamW,
+    warmup_cosine): TP_STEPS steps timed with CUDA events, exactly 2 flash
+    launches a layer a position a step (forward and recompute), the first
+    step's payloads by kind tallied on the card and equal to the same
+    step's meta count (tp_meta_payloads), peak memory; make_train_step on
+    one device for as many steps in the same call; each new flash shape's
+    first call held against the plain version (fam_flash_shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+
+    cfg = get_arch(LM_ARCH)
+    check(cfg.remat and cfg.compute_dtype == "bfloat16", "tensor parallel: the config moved")
+    mesh = tp_mesh()
+    positions = math.prod(TP_GRID)
+    opt, lr = adamw(), warmup_cosine(3e-4, 20, TRAIN_STEPS + 1)
+    stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    placed = SHD.place_train_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    place_s = time.perf_counter() - t0
+    step = make_sharded_train_step(cfg, opt, lr, mesh)
+    rows, payload, seen = [], {}, {}
+
+    def run():
+        nonlocal placed
+        for s in range(TP_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if s == 0:
+                (placed, m), tallied = tp_payloads(torch, mesh,
+                                                   lambda: step(placed, stream.batch(s)))
+                payload.update(tallied)
+            else:
+                placed, m = step(placed, stream.batch(s))
+            end.record()
+            torch.cuda.synchronize()
+            rows.append(dict(ms=start.elapsed_time(end), loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"])))
+
+    flash = 2 * cfg.n_layers * positions
+    restore = capture_shapes(ops, seen)
+    try:
+        _, l_tp = run_path(torch, "tensor_parallel_train", run,
+                           expect={"flash_attention": flash * TP_STEPS})
+    finally:
+        restore()
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          f"tensor parallel: a non-finite loss or grad norm {rows}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_payload = tp_meta_payloads(torch, cfg, opt, lr, stream.batch(0))
+    meta_s = time.perf_counter() - t0
+    check(meta_payload == payload, f"tensor parallel: the card's payloads {payload} against "
+                                   f"the meta count's {meta_payload}")
+    check(len(seen) == 1, f"tensor parallel: flash shapes {sorted(seen)}")
+    flash_rows = fam_flash_shapes(torch, seen, "tensor parallel train")
+    del seen
+    torch.cuda.reset_peak_memory_stats()
+    state, single_rows, l_single = par_train_run(
+        torch, cfg, make_train_step(cfg, opt, lr), stream, "tensor_parallel_single",
+        2 * cfg.n_layers * TP_STEPS, TP_STEPS)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, grid=list(TP_GRID), steps=TP_STEPS, batch=[8, 128],
+               sharded=rows, single_device=single_rows, place_s=place_s,
+               step_ms_sharded=par_steady_ms(rows), step_ms_single=par_steady_ms(single_rows),
+               flash_per_step=flash, payload_first_step=payload,
+               meta_count_s=meta_s, peak_gib=peak,
+               peak_gib_single=single_peak, flash=flash_rows)
+    print(f"tensor parallel train: {json.dumps({k: v for k, v in row.items() if k not in ('sharded', 'single_device')})}",
+          flush=True)
+    row["launches"] = [l_tp, l_single]
+    return row
+
+
+def tp_held(torch) -> dict:
+    """The sharded step against make_train_step at full width, TP_HELD_LAYERS
+    layers, float32 compute, TP_HELD_STEPS steps from one seeded state on
+    the same batches: loss and grad norm within TP_METRIC_RTOL relative,
+    every parameter within TP_PARAM_RTOL of its norm (its distance from the
+    plain step's, relative to its update, printed); the f32 training flash
+    shape held against the plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+    from repro_torch.utils import tree_flatten
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TP_HELD_LAYERS,
+                              compute_dtype="float32")
+    print(f"tensor parallel: cut: the held check at {TP_HELD_LAYERS} of 40 layers, float32",
+          flush=True)
+    mesh = tp_mesh()
+    opt, lr = adamw(), warmup_cosine(3e-4, 2, 10)
+    stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=1)
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    start = [p.detach().clone() for p in tree_flatten(state.params)[0]]
+    placed = SHD.place_train_state(state, mesh)
+    sharded, plain = make_sharded_train_step(cfg, opt, lr, mesh), make_train_step(cfg, opt, lr)
+    metrics, seen = [], {}
+
+    def run_sharded():
+        nonlocal placed
+        for s in range(TP_HELD_STEPS):
+            placed, m = sharded(placed, stream.batch(s))
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+
+    restore = capture_shapes(ops, seen)
+    try:
+        _, l_sharded = run_path(torch, "tensor_parallel_held", run_sharded, expect={
+            "flash_attention": 2 * cfg.n_layers * math.prod(TP_GRID) * TP_HELD_STEPS})
+    finally:
+        restore()
+    want = []
+
+    def run_plain():
+        nonlocal state
+        for s in range(TP_HELD_STEPS):
+            state, m = plain(state, stream.batch(s))
+            want.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+
+    _, l_plain = run_path(torch, "tensor_parallel_held", run_plain,
+                          expect={"flash_attention": 2 * cfg.n_layers * TP_HELD_STEPS})
+    for a, b in zip(metrics, want):
+        for key in ("loss", "grad_norm", "lr"):
+            check(abs(a[key] - b[key]) <= TP_METRIC_RTOL * abs(b[key]),
+                  f"tensor parallel held: {key} {a[key]} sharded against {b[key]}")
+    back = SHD.unplace_train_state(placed)
+    worst_norm = worst_update = 0.0
+    for p, q, p0 in zip(tree_flatten(back.params)[0], tree_flatten(state.params)[0], start):
+        d = float((p - q.detach()).norm())
+        worst_norm = max(worst_norm, d / max(float(q.detach().norm()), 1e-30))
+        worst_update = max(worst_update, d / max(float((q.detach() - p0).norm()), 1e-30))
+    check(worst_norm <= TP_PARAM_RTOL, f"tensor parallel held: a parameter {worst_norm} of "
+                                       "its norm from make_train_step's")
+    del back, placed, state, start
+    torch.cuda.empty_cache()
+    check(len(seen) == 1, f"tensor parallel held: flash shapes {sorted(seen)}")
+    flash_rows = fam_flash_shapes(torch, seen, "tensor parallel held")
+    row = dict(layers=TP_HELD_LAYERS, steps=TP_HELD_STEPS, sharded=metrics, single=want,
+               worst_param_vs_norm=worst_norm, worst_param_vs_update=worst_update,
+               flash=flash_rows)
+    print(f"tensor parallel held: {json.dumps(row)}", flush=True)
+    row["launches"] = [l_sharded, l_plain]
+    return row
+
+
+def tp_inference(torch) -> dict:
+    """sharded_prefill of TP_PREFILL tokens (one sequence a data block;
+    exactly one flash launch a layer a position) and TP_DECODE sharded
+    decode steps on the sequence-split cache, in float32 and bf16 compute
+    on the same f32 weights, against prefill and decode_step on one device
+    (the last prompt position's logits and each step's): float32 within
+    LM_F32_TOL with top-1 agreement >= LM_F32_TOP1; bf16 top-1 >=
+    LM_BF16_TOP1 and mean |logits - f32 unsharded logits| at most
+    LM_BF16_MEAN_SLACK times the unsharded bf16 run's. Prefill and decode
+    timed with CUDA events beside the unsharded ones; each new flash shape
+    held against the plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+
+    cfg = get_arch(LM_ARCH)
+    mesh = tp_mesh()
+    rows_n, n = TP_PREFILL
+    max_seq = n + TP_DECODE
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (rows_n, max_seq), generator=g, device="cuda")
+    out, f32_logits, flash_rows = {}, None, []
+    positions = math.prod(TP_GRID)
+
+    def timed_call(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end)
+
+    launches = []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        prompt = {"tokens": tokens[:, :n]}
+        seen: dict = {}
+        restore = capture_shapes(ops, seen)
+        try:
+            ((got0, cache), ms_tp), l_tp = run_path(
+                torch, "tensor_parallel_prefill",
+                lambda: timed_call(lambda: SHD.sharded_prefill(placed, c, prompt, max_seq, mesh)),
+                expect={"flash_attention": c.n_layers * positions})
+        finally:
+            restore()
+        ((want0, wcache), ms_one), l_one = run_path(
+            torch, "tensor_parallel_prefill",
+            lambda: timed_call(lambda: M.prefill(params, c, prompt, max_seq)),
+            expect={"flash_attention": c.n_layers})
+        got, want, step_ms, one_ms = [got0[:, 0]], [want0[:, 0]], [], []
+
+        def decode():
+            nonlocal cache, wcache
+            for t in range(n, max_seq):
+                tok = tokens[:, t:t + 1]
+                (lg, cache), ms = timed_call(
+                    lambda: SHD.sharded_decode_step(placed, c, cache, tok, t, mesh))
+                (lw, wcache), ms1 = timed_call(lambda: M.decode_step(params, c, wcache, tok, t))
+                got.append(lg[:, 0])
+                want.append(lw[:, 0])
+                step_ms.append(ms)
+                one_ms.append(ms1)
+
+        _, l_dec = run_path(torch, "tensor_parallel_decode", decode,
+                            expect={"flash_attention": 0})
+        launches += [l_tp, l_one, l_dec]
+        got, want = torch.stack(got), torch.stack(want)
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (
+            TP_DECODE + 1, rows_n, cfg.vocab_size), f"tensor parallel {dtype}: logits "
+                                                    f"{tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        row = dict(max_abs_err=err, top1_agreement=top1, prefill_ms=ms_tp,
+                   prefill_ms_single=ms_one, decode_step_ms=sorted(step_ms)[len(step_ms) // 2],
+                   decode_step_ms_single=sorted(one_ms)[len(one_ms) // 2])
+        if dtype == "float32":
+            check(torch.allclose(got, want, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+                  and top1 >= LM_F32_TOP1,
+                  f"tensor parallel f32: max abs err {err}, top-1 agreement {top1}")
+            f32_logits = want
+        else:
+            mean = {"sharded": float((got - f32_logits).abs().mean()),
+                    "single": float((want - f32_logits).abs().mean())}
+            check(top1 >= LM_BF16_TOP1
+                  and mean["sharded"] <= LM_BF16_MEAN_SLACK * mean["single"],
+                  f"tensor parallel bf16: top-1 agreement {top1}, mean |logits - f32| {mean}")
+            row["mean_abs_vs_f32"] = mean
+        check(len(seen) == 1, f"tensor parallel prefill {dtype}: flash shapes {sorted(seen)}")
+        flash_rows += fam_flash_shapes(torch, seen, f"tensor parallel prefill {dtype}")
+        del seen
+        out[dtype] = row
+        print(f"tensor parallel {dtype}: prefill {rows_n} x {n} and {TP_DECODE} decode steps: "
+              f"{json.dumps(row)}", flush=True)
+        del cache, wcache, got, want
+        torch.cuda.empty_cache()
+    del placed, params
+    torch.cuda.empty_cache()
+    out["flash"] = flash_rows
+    out["launches"] = launches
+    return out
+
+
+def phase_tensor_parallel(torch) -> dict:
+    """Phase 17: granite-3-2b's tensor parallelism over 'model' and ZeRO-1
+    over 'data' on a (2, 4) grid of views of the card: the train step
+    beside make_train_step, the f32 held check, prefill and decode on the
+    sequence-split cache; each model freed before the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "tensor parallel: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("train", tp_train), ("held", tp_held), ("inference", tp_inference)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib_phase"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"tensor parallel {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib_phase']:.2f} GiB", flush=True)
+    rows["launches"] = [c for r in ("train", "held", "inference") for c in rows[r]["launches"]]
     return rows
 
 
@@ -4486,8 +4876,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 16. the dry runs: their counts held to the card, then the runs themselves
     dry = phase("dryrun", phase_dryrun, torch, root)
+    torch.cuda.empty_cache()
+    # 17. tensor parallelism and ZeRO-1 over a (data, model) grid of the card
+    tp = phase("tensor_parallel", phase_tensor_parallel, torch)
 
-    # 17. summary: each kernel's launches over every path run above
+    # 18. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -4497,7 +4890,7 @@ def main(argv=None) -> int:
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
                    baselines["launches"], *train["launches"], *families["launches"],
-                   *parallel["launches"], dry["launches"]):
+                   *parallel["launches"], dry["launches"], *tp["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -4517,7 +4910,7 @@ def main(argv=None) -> int:
                                "serve": serve, "lm": lm, "baselines": baselines,
                                "train": train, "families": families,
                                "parallel": parallel, "dryrun": dry,
-                               "phase_seconds": phase_seconds},
+                               "tensor_parallel": tp, "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,18 +7,34 @@ position holds, written to a JSON artifact.
         [--multi-pod] [--out artifacts/torch_dryrun]
     python -m repro_torch.launch.dryrun --all [--multi-pod]   # every cell
 
-Nothing is allocated and nothing runs on a card. The port's layout, which
-the artifact states (``layout``): a position holds its block of the batch,
-B / |dp| rows over the data axes (the whole batch where it does not divide,
-as the reference replicates it), with the whole model; the exception is
-the manual MoE's experts, split over ``model``. There is no counterpart of
-the reference's GSPMD parameter split or of its ZeRO-1, so per-position
-flops of a dense model are about |model| times the reference's per-device
-ones, and the largest models do not fit a position (``fits_one_card``).
-Every step's MoE takes a position's block as one dispatch chunk, and the
-manual MoE walks the position's (1, |model|) slice of the grid (the
-count's ambient mesh), so flops, bytes and argument bytes all describe
-that one block.
+Nothing is allocated and nothing runs on a card. Two layouts, which each
+artifact names (``layout_name``, and ``layout`` states it):
+
+  tensor_parallel  the dense decoder stack (starcoder2-3b, granite-3-2b,
+           codeqwen1.5-7b, qwen1.5-4b, llava-next-mistral-7b's text stack)
+           at train_4k, prefill_32k and decode_32k: the parameters split
+           by :mod:`repro_torch.launch.sharding`'s rule table over 'model'
+           (Megatron tensor parallelism), AdamW's moments also over the data
+           axes (ZeRO-1), the decode cache over 'model' along the sequence;
+           the step is :mod:`repro_torch.models.sharded`'s, and the argument
+           bytes are :func:`~repro_torch.launch.sharding.position_bytes` of
+           the reference's arguments under the sanitized specs.
+
+  train    ``make_sharded_train_step`` over the whole mesh (every data
+           block; the float32 reduce-scatter, ZeRO-1 AdamW, the gather);
+  prefill  ``sharded_prefill`` of one position's block of rows over its
+           row of 'model' positions, without gradients;
+  decode   ``sharded_decode_step`` of one position's block of rows on its
+           cache, over its row of 'model' positions, without gradients.
+
+  replicated  every other cell: a position holds its block of the batch,
+           B / |dp| rows over the data axes (the whole batch where it does
+           not divide, as the reference replicates it), with the whole
+           model; the exception is the manual MoE's experts, split over
+           ``model``. Every step's MoE takes a position's block as one
+           dispatch chunk, and the manual MoE walks the position's (1,
+           |model|) slice of the grid (the count's ambient mesh), so flops,
+           bytes and argument bytes all describe that one block.
 
   train    ``make_shardmap_train_step`` over the data axes, uncompressed
            (the reference's GSPMD step sums in float32);
@@ -47,10 +63,12 @@ import torch
 
 from repro_torch.configs import ARCHS, SHAPES, get_arch, input_specs, skip_reason
 from repro_torch.configs.shapes import resolve_arch_for_shape
+from repro_torch.launch import sharding as SH
 from repro_torch.launch.dryrun_ann import CARD_BYTES
 from repro_torch.launch.mesh import dp_axes, make_production_mesh
 from repro_torch.launch.op_analysis import OpCounter
-from repro_torch.mesh import DeviceMesh, axis_size, set_mesh, tensor_bytes
+from repro_torch.mesh import P, DeviceMesh, axis_size, set_mesh, tensor_bytes
+from repro_torch.models import sharded as SHD
 from repro_torch.models.model import (
     decode_step,
     init_params,
@@ -60,14 +78,33 @@ from repro_torch.models.model import (
     tree_leaves,
 )
 from repro_torch.optim import adafactor, adamw, warmup_cosine
-from repro_torch.train.loop import TrainState, make_shardmap_train_step
+from repro_torch.train.loop import TrainState, make_sharded_train_step, make_shardmap_train_step
 from repro_torch.utils import tree_flatten
 
-LAYOUT = ("a position holds B/|dp| rows of the batch over the data axes (all B where "
-          "they do not divide) and the whole model, the manual MoE's experts split over "
-          "'model'; each step's MoE takes a position's block as one dispatch chunk, the "
-          "manual MoE over the position's (1, |model|) slice of the grid; no parameter "
-          "split, no ZeRO-1; kernels counted as their plain versions")
+LAYOUTS = {
+    "replicated": (
+        "a position holds B/|dp| rows of the batch over the data axes (all B where they do "
+        "not divide) and the whole model, the manual MoE's experts split over 'model'; each "
+        "step's MoE takes a position's block as one dispatch chunk, the manual MoE over the "
+        "position's (1, |model|) slice of the grid; no parameter split, no ZeRO-1; kernels "
+        "counted as their plain versions"),
+    "tensor_parallel": (
+        "parameters split over 'model' by launch.sharding's rule table (column-parallel "
+        "wq/wk/wv/gate/up/fc, row-parallel wo/down/proj, the embedding over its vocabulary, "
+        "lm_head over its columns; norms replicated), AdamW's moments also over the data "
+        "axes (ZeRO-1); the train step runs every data block (B/|dp| rows) over its row of "
+        "'model' positions, its vocab-parallel loss never gathering the logits, the "
+        "gradients reduce-scattered in float32, AdamW on each slice, the slices gathered; "
+        "prefill and decode run one position's block of rows over its row of 'model' "
+        "positions, the cache split over 'model' along the sequence (decode gathers q, "
+        "attends over its block of the sequence for every head and merges by log-sum-exp); "
+        "row-parallel partial sums added in float32 and cast once; where the heads do not "
+        "divide |model|, whole heads gathered before the attention core and the output "
+        "gathered again for wo; kernels counted as their plain versions"),
+}
+#: the cells the tensor-parallel layout covers: the dense stack's
+TP_FAMILIES = ("dense", "vlm")
+TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def pick_optimizer(arch):
@@ -143,14 +180,20 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
         arch = dataclasses.replace(arch, param_dtype="bfloat16")
     params = (meta_params(arch) if torch.device(device).type == "meta" else
               init_params(torch.Generator(device).manual_seed(0), arch, device=device))
+    layout = "tensor_parallel" if tensor_parallel_cell(arch, shape) else "replicated"
     meta = {
         "arch": arch_name, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16", "n_devices": mesh.size,
         "param_count": int(sum(t.numel() for t in tree_leaves(params))),
         "attention_kind": arch.attention_kind, "moe_impl": arch.moe_impl if arch.n_experts
-        else None, "layout": LAYOUT,
+        else None, "layout_name": layout, "layout": LAYOUTS[layout],
         "counter": f"repro_torch.launch.op_analysis ({torch.device(device).type} tensors)",
     }
+    if layout == "tensor_parallel":
+        meta["heads"] = SHD.HeadPlan(ep, arch.n_heads, arch.n_kv_heads).describe()
+        run, arg_bytes, block = _tensor_parallel_step(arch, shape, params, mesh, dp, device,
+                                                      meta)
+        return _counted(run, mesh, dp, meta, arg_bytes, block)
     arg_bytes = _param_bytes(params, arch, ep)
     # the step's inputs are made before the counter starts: what it counts
     # is the step alone, as the reference lowers the step over given inputs
@@ -188,6 +231,10 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
                 with torch.no_grad():
                     decode_step(params, arch, specs["cache"], specs["tokens"],
                                 shape.seq_len - 1)
+    return _counted(run, mesh, dp, meta, arg_bytes, block)
+
+
+def _counted(run, mesh, dp, meta: dict, arg_bytes: int, block: int):
     meta["rows_per_position"] = block
     # the ambient mesh, which the manual MoE walks: a position's slice; in
     # the train step each data shard's walk places it at the shard's
@@ -199,6 +246,71 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
     meta["argument_size_in_bytes"] = arg_bytes
     meta["fits_one_card"] = arg_bytes <= CARD_BYTES
     return counter.analysis(), meta
+
+
+def tensor_parallel_cell(arch, shape) -> bool:
+    """Whether the cell runs the tensor-parallel layout: the dense stack at
+    train_4k, prefill_32k and decode_32k."""
+    return arch.family in TP_FAMILIES and shape.name in TP_SHAPES
+
+
+def _tensor_parallel_step(arch, shape, params, mesh: DeviceMesh, dp, device, meta: dict):
+    """(run, argument bytes, rows a position runs) of a tensor-parallel
+    cell. The argument bytes are the reference's arguments (its train state
+    and batch; or its parameters and batch; or its parameters, cache,
+    tokens and position) at one position under the sanitized specs."""
+    n_dp = axis_size(mesh, dp)
+    inputs = input_specs(arch, shape)
+    pspecs = SH.sanitize_specs(params, SH.param_pspecs(params), mesh)
+    if shape.kind == "train":
+        opt, opt_name = pick_optimizer(arch)
+        if opt_name != "adamw":
+            raise NotImplementedError(f"{arch.name}: the sharded step runs AdamW")
+        state = TrainState(params=params, opt_state=opt[0](params),
+                           step=torch.zeros((), dtype=torch.int32))
+        specs = SH.sanitize_specs(state, SH.train_state_pspecs(state, dp, mesh), mesh)
+        bspecs = SH.sanitize_specs(inputs, SH.batch_pspecs(inputs, dp), mesh)
+        arg_bytes = (SH.position_bytes(state, specs, mesh)
+                     + SH.position_bytes(inputs, bspecs, mesh))
+        placed = SHD.place_train_state(state, mesh, dp)
+        del state
+        batch = _placed(inputs, device)
+        meta.update(optimizer=opt_name, step_kind="train_step")
+        step = make_sharded_train_step(arch, opt, warmup_cosine(3e-4, 100, 10000), mesh,
+                                       data_axes=dp, impl="torch")
+        return (lambda: step(placed, batch)), arg_bytes, shape.global_batch // n_dp
+    # inference: one position's block of rows over its row of 'model' positions
+    row = position_slice(mesh, dp)
+    placed = SHD.place(params, pspecs, mesh)
+    block = shape.global_batch // n_dp
+    specs = input_specs(arch, shape, batch_override=block)
+    if shape.kind == "prefill":
+        specs = _placed(specs, device)
+        meta["step_kind"] = "prefill"
+        bspecs = SH.sanitize_specs(inputs, SH.batch_pspecs(inputs, dp), mesh)
+        arg_bytes = (SH.position_bytes(params, pspecs, mesh)
+                     + SH.position_bytes(inputs, bspecs, mesh))
+
+        def run():
+            SHD.sharded_prefill(placed, arch, specs, shape.seq_len, row, data_axes=dp,
+                                impl="torch")
+        return run, arg_bytes, block
+    meta["step_kind"] = "serve_step"
+    cspecs = SH.sanitize_specs(inputs["cache"], SH.cache_pspecs(inputs["cache"], dp), mesh)
+    tspec = SH.sanitize_specs(inputs["tokens"], P(dp, None), mesh)
+    arg_bytes = (SH.position_bytes(params, pspecs, mesh)
+                 + SH.position_bytes(inputs["cache"], cspecs, mesh)
+                 + SH.position_bytes(inputs["tokens"], tspec, mesh)
+                 + tensor_bytes(inputs["pos"]))
+    cache = SHD.sharded_init_cache(arch, block, shape.seq_len, row, data_axes=dp,
+                                   device="meta" if torch.device(device).type == "meta"
+                                   else None)
+    specs = {"tokens": _placed(specs["tokens"], device)}
+
+    def run():
+        SHD.sharded_decode_step(placed, arch, cache, specs["tokens"], shape.seq_len - 1, row,
+                                data_axes=dp)
+    return run, arg_bytes, block
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:

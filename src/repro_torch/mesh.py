@@ -24,7 +24,14 @@ each position's work under :func:`position` (through :func:`walk`), and the
 places where data crosses positions report their payload to :func:`tally`.
 Both do nothing unless a counter is active (:func:`counting`, used by
 :mod:`repro_torch.launch.op_analysis`): results and launches are the same
-either way.
+either way. A walk given ``enter`` also places the backward pass of each
+position's work at that position, and :func:`recompute_context` places a
+checkpointed region's recomputation where its forward ran.
+
+Partition specs. :class:`P` is the port's ``jax.sharding.PartitionSpec``;
+:func:`local_shape` and :func:`block` give the shape and the block of a
+tensor that one position holds under a spec, tiled as ``NamedSharding``
+tiles it.
 """
 from __future__ import annotations
 
@@ -92,6 +99,77 @@ class DeviceMesh:
             sizes = [self.shape[n] for n in names]
             out.update(zip(names, (int(c) for c in np.unravel_index(int(i), sizes))))
         return out
+
+
+# ------------------------------------------------------------ partitions --
+def _spec_entry(entry):
+    if entry is None or isinstance(entry, str):
+        return entry
+    names = tuple(entry)
+    if not all(isinstance(n, str) for n in names):
+        raise TypeError(f"a partition spec entry names mesh axes; got {entry!r}")
+    return None if not names else names[0] if len(names) == 1 else names
+
+
+class P(tuple):
+    """A partition spec, as ``jax.sharding.PartitionSpec``: one entry a
+    dimension, each ``None`` (not split), a mesh axis name, or a tuple of
+    names (split over their flattened product, row-major in the order
+    given); dimensions past the last entry are not split. As in jax, a
+    one-name tuple is that name and an empty one is None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_spec_entry(e) for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "P(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names, in order (none for None)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _full_spec(shape, spec) -> tuple:
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"a spec of {len(spec)} entries {spec} for a {len(shape)}-d shape")
+    return spec + (None,) * (len(shape) - len(spec))
+
+
+def local_shape(shape, spec, mesh: DeviceMesh) -> tuple[int, ...]:
+    """The shape of one position's block of a ``shape`` tensor split by
+    ``spec`` over ``mesh``: each dimension divided by the size of the axes
+    its entry names, rounded up (as XLA pads a split that does not divide;
+    the specs the port places, :func:`repro_torch.launch.sharding.sanitize_specs`
+    ones, always divide)."""
+    return tuple(-(-int(size) // axis_size(mesh, entry)) if entry is not None else int(size)
+                 for size, entry in zip(shape, _full_spec(shape, spec)))
+
+
+def block_slices(shape, spec, mesh: DeviceMesh, coords: dict) -> tuple[slice, ...]:
+    """The index of position ``coords``' block (``{axis name: index}``; it
+    must name every axis the spec does): along a split dimension the
+    position's index over the entry's axes, row-major in the entry's order,
+    picks one of the equal pieces."""
+    out = []
+    for size, entry, n in zip(shape, _full_spec(shape, spec), local_shape(shape, spec, mesh)):
+        axes = entry_axes(entry)
+        if not axes:
+            out.append(slice(None))
+            continue
+        i = int(np.ravel_multi_index([coords[a] for a in axes], [mesh.shape[a] for a in axes]))
+        out.append(slice(min(i * n, int(size)), min((i + 1) * n, int(size))))
+    return tuple(out)
+
+
+def block(tensor: torch.Tensor, spec, mesh: DeviceMesh, coords: dict) -> torch.Tensor:
+    """Position ``coords``' block of ``tensor`` under ``spec`` (a view), as
+    ``NamedSharding(mesh, spec)`` tiles it."""
+    return tensor[block_slices(tensor.shape, spec, mesh, coords)]
 
 
 def make_mesh(shape, names, devices=None) -> DeviceMesh:
@@ -201,11 +279,22 @@ def tally(kind: str, nbytes: int) -> None:
         counter.add_collective(counter.coords, kind, int(nbytes))
 
 
+def deferred_tally():
+    """A :func:`tally` bound to the active counter, for a backward pass
+    (which may run on autograd's own thread): called later, it counts at
+    the counter's coordinates then. Does nothing unless a counter was
+    active."""
+    counter = _COUNTER.get()
+    if counter is None:
+        return None
+    return lambda kind, nbytes: counter.add_collective(counter.coords, kind, int(nbytes))
+
+
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def walk(n: int, coords, fn, inputs=None) -> list:
+def walk(n: int, coords, fn, inputs=None, *, enter=None) -> list:
     """``[fn(i) for i in range(n)]``, call i under ``position(**coords(i))``.
 
     ``coords(i)`` gives position i's coordinates; it is called only while a
@@ -219,8 +308,22 @@ def walk(n: int, coords, fn, inputs=None) -> list:
     gradient, the backward pass it would take later runs outside the walk
     and cannot be represented, so every position runs. The caller
     guarantees that ``fn`` does not branch on i beyond indexing its
-    inputs. Otherwise every position runs."""
+    inputs. Otherwise every position runs.
+
+    With ``enter``, call i is ``fn(i, *enter(i))``: ``enter(i)`` gives the
+    tensors position i takes from work outside it. Under a counter, while
+    gradients are taken, autograd runs the backward pass of call i's work
+    (from its outputs back to those tensors) at position i's coordinates,
+    and the work outside the walk's positions at the walk's own: each is
+    marked by an identity node (:class:`_Leave` on the outputs,
+    :class:`_Arrive` on the entered tensors) whose backward sets the
+    coordinates. This relies on autograd running a graph's nodes in the
+    reverse order of their creation where the dependencies allow it (its
+    ready queue is ordered by sequence number), so that one position's
+    backward nodes run together."""
     counter = _COUNTER.get()
+    if enter is not None:
+        fn = _entering(counter, fn, enter)
     if counter is None:
         return [fn(i) for i in range(n)]
     if (not counter.represent or n < 2 or inputs is None
@@ -247,6 +350,105 @@ def walk(n: int, coords, fn, inputs=None) -> list:
             counter.replay(tuple(sorted({**dict(key), **moved}.items())), entry)
         counter.represented += 1
     return [first] * n
+
+
+def _entering(counter, fn, enter):
+    """``i -> fn(i, *enter(i))``, marked for the backward pass under a
+    counter while gradients are taken (:func:`walk`)."""
+    if counter is None or not torch.is_grad_enabled():
+        return lambda i: fn(i, *enter(i))
+    outer = counter.coords
+
+    def call(i):
+        ins = [_Arrive.apply(counter, outer, t) if _requires_grad(t) else t for t in enter(i)]
+        out = fn(i, *ins)
+        return _mark(out, lambda t: _Leave.apply(counter, counter.coords, t))
+    return call
+
+
+def _mark(value, mark):
+    if isinstance(value, torch.Tensor):
+        return mark(value) if value.requires_grad else value
+    if isinstance(value, (list, tuple)):
+        return type(value)(_mark(v, mark) for v in value)
+    return value
+
+
+class _Leave(torch.autograd.Function):
+    """Identity on a position's output; its backward runs the position's
+    backward work at the position's coordinates (:func:`walk`)."""
+
+    @staticmethod
+    def forward(ctx, counter, coords, x):
+        ctx.counter, ctx.coords = counter, coords
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.counter.coords = ctx.coords
+        return None, None, grad
+
+
+class _Arrive(torch.autograd.Function):
+    """Identity on a tensor entering a position; its backward returns to
+    the coordinates outside the position (:func:`walk`)."""
+
+    @staticmethod
+    def forward(ctx, counter, coords, x):
+        ctx.counter, ctx.coords = counter, coords
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.counter.coords = ctx.coords
+        return None, None, grad
+
+
+@contextlib.contextmanager
+def _at_coords(counter, coords):
+    outer = counter.coords
+    counter.coords = coords
+    try:
+        yield
+    finally:
+        counter.coords = outer
+
+
+@contextlib.contextmanager
+def backward_pass():
+    """Around ``torch.autograd.grad``: the coordinates are the enclosing
+    ones again once the backward pass is done, whichever position's
+    identity node (:func:`walk`) ran last. Does nothing unless a counter is
+    active."""
+    counter = _COUNTER.get()
+    if counter is None:
+        yield
+        return
+    with _at_coords(counter, counter.coords):
+        yield
+
+
+@contextlib.contextmanager
+def _recomputing(counter, coords):
+    token = _COUNTER.set(counter)
+    try:
+        with _at_coords(counter, coords):
+            yield
+    finally:
+        _COUNTER.reset(token)
+
+
+def recompute_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant): the
+    region's recomputation in the backward pass counts at the coordinates
+    its forward ran at (and the walks inside it at their positions), not at
+    those of the backward node that asks for it, with the counter active
+    in the thread autograd recomputes on (a card's backward pass runs on a
+    thread of its own). Does nothing unless a counter is active."""
+    counter = _COUNTER.get()
+    if counter is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    return contextlib.nullcontext(), _recomputing(counter, counter.coords)
 
 
 def _requires_grad(value) -> bool:
@@ -342,7 +544,9 @@ def _traced(counter, fn):
     try:
         out = fn()
     finally:
-        counter.recorders.remove(recorder)
+        # by identity: a nested walk's recorder may equal this one in value
+        at = next(i for i, r in enumerate(counter.recorders) if r is recorder)
+        del counter.recorders[at]
     return out, recorder
 
 

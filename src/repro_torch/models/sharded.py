@@ -1,0 +1,833 @@
+"""Tensor parallelism over 'model' for the dense decoder stack: the port's
+counterpart of what GSPMD makes of ``repro.models.model``'s ``forward``,
+``prefill`` and ``decode_step`` under ``repro.launch.sharding``'s specs
+(:mod:`repro_torch.launch.sharding`).
+
+A parameter tree is placed (:func:`place`) as a tree of :class:`Placed`:
+each leaf split by its spec into per-position blocks, each block its own
+leaf tensor on its position's device, so that autograd gives each block its
+own gradient; blocks that only replicated axes tell apart are one block, so
+on one card the blocks of a model are one copy of it. The execution keeps
+the idiom of :mod:`repro_torch.mesh`: one process walks the positions in
+order, a collective is a sum or a concatenation in position order
+(:mod:`repro_torch.models.sharding_utils`), which reports its payload.
+
+Per data block (``B / |dp|`` rows over the data axes) and per 'model'
+position, as Megatron splits a layer:
+
+  embedding   the table split over the vocabulary: a position looks up the
+              ids in its range, zeros elsewhere; ``model_sum``.
+  attention   ``wq``/``wk``/``wv`` column blocks, ``wo`` a row block; each
+              position runs :func:`repro_torch.models.attention.self_attention`
+              (the flash kernel on the card) on its heads; the out
+              projection's partial sums through ``model_sum``. Where the
+              heads do not divide |model| (the split falls inside a head),
+              whole heads are gathered first (q, k, v; k and v alone where
+              only the KV heads do not divide), each position runs
+              ceil(H / |model|) heads (positions past H none), and the
+              output is gathered again to be re-split into ``wo``'s rows.
+  MLP         gate/up/fc column blocks, down/proj row blocks, ``model_sum``.
+  head        ``lm_head`` split over its columns: the logits stay split
+              (the train loss is a vocab-parallel cross entropy);
+              prefill and decode gather one position's logits only.
+  norms       replicated: the residual stream is computed once a data
+              block, outside the positions, as every position holds it.
+
+A row-parallel partial sum is added in float32 and cast once. Prefill
+writes its cache in :func:`repro_torch.launch.sharding.cache_pspecs`'
+layout, K/V split over 'model' along the sequence (an all-to-all from the
+head split); decode gathers q over 'model', each position attends over its
+block of the sequence for all heads, and the partial softmax sums are
+merged by log-sum-exp (``lse_combine``) before ``wo``'s row blocks.
+
+Only the dense stack runs here (attention mixers and dense MLPs, RoPE or
+none, an optional vlm patch prefix; full attention); the MoE, RWKV, Mamba,
+enc-dec and TaCo layouts raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+
+import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+from repro_torch.launch.sharding import (
+    cache_pspecs,
+    param_pspecs,
+    sanitize_specs,
+    train_state_pspecs,
+)
+from repro_torch.mesh import (
+    P,
+    DeviceMesh,
+    axis_size,
+    block,
+    block_slices,
+    entry_axes,
+    local_shape,
+    one_pass,
+    recompute_context,
+    tally,
+    tensor_bytes,
+    walk,
+)
+from repro_torch.models import attention as A
+from repro_torch.models.layers import apply_norm, apply_rope, dense, gelu, rope_angles, silu
+from repro_torch.models.model import ArchConfig, _frontend, init_cache, map_tree
+from repro_torch.models.sharding_utils import (
+    lse_combine,
+    model_copy,
+    model_gather,
+    model_max,
+    model_sum,
+)
+from repro_torch.train.losses import IGNORE
+from repro_torch.utils import tree_flatten, tree_map
+
+MODEL = "model"
+
+
+# ============================================================ placement ===
+class Placed:
+    """One tensor of ``shape`` split by ``spec`` over ``mesh``: ``blocks``
+    maps the coordinates of ``axes`` (the mesh axes the spec names, in mesh
+    order) to that block, on the device of the first position with them."""
+
+    __slots__ = ("spec", "shape", "dtype", "mesh", "axes", "blocks")
+
+    def __init__(self, spec, shape, dtype, mesh: DeviceMesh, blocks: dict):
+        named = {a for e in spec for a in entry_axes(e)}
+        self.spec, self.shape, self.dtype, self.mesh = P(*spec), tuple(shape), dtype, mesh
+        self.axes = tuple(a for a in mesh.axis_names if a in named)
+        self.blocks = blocks
+
+    def keys(self) -> list:
+        """The blocks' coordinates in position order (row-major over the
+        mesh's axes)."""
+        return list(itertools.product(*(range(self.mesh.shape[a]) for a in self.axes)))
+
+    def coords(self, key) -> dict:
+        return dict(zip(self.axes, key))
+
+    def key(self, coords: dict) -> tuple:
+        return tuple(coords[a] for a in self.axes)
+
+    def at(self, coords: dict) -> torch.Tensor:
+        """The block of the position at ``coords`` (it names at least the
+        spec's axes)."""
+        return self.blocks[self.key(coords)]
+
+    def __repr__(self):
+        return f"Placed({self.spec}, {self.shape}, {self.dtype}, {len(self.blocks)} blocks)"
+
+
+def _device(mesh: DeviceMesh, coords: dict) -> torch.device:
+    return mesh.devices[tuple(coords.get(a, 0) for a in mesh.axis_names)]
+
+
+def _full(spec, ndim: int) -> P:
+    return P(*(tuple(spec) + (None,) * (ndim - len(spec))))
+
+
+def place_leaf(t: torch.Tensor, spec, mesh: DeviceMesh) -> Placed:
+    """``t`` split by ``spec``: each block a new contiguous tensor on its
+    position's device (a ``meta`` tensor stays meta)."""
+    spec = _full(spec, t.dim())
+    out = Placed(spec, t.shape, t.dtype, mesh, {})
+    for key in out.keys():
+        coords = out.coords(key)
+        dev = t.device if t.is_meta else _device(mesh, coords)
+        part = block(t.detach(), spec, mesh, coords)
+        out.blocks[key] = torch.empty(part.shape, dtype=t.dtype, device=dev).copy_(part)
+    return out
+
+
+def place(tree, specs, mesh: DeviceMesh):
+    """A tree of tensors as a tree of :class:`Placed` (``specs`` a tree of
+    :class:`~repro_torch.mesh.P` of the same structure)."""
+    return tree_map(lambda t, s: place_leaf(t, s, mesh), tree, specs)
+
+
+def placed_zeros(shape, dtype, spec, mesh: DeviceMesh, device=None) -> Placed:
+    """A zero tensor of ``shape`` placed by ``spec``, made block by block
+    (``device`` overrides the positions' devices: ``meta``)."""
+    spec = _full(spec, len(shape))
+    out = Placed(spec, shape, dtype, mesh, {})
+    local = local_shape(shape, spec, mesh)
+    for key in out.keys():
+        dev = device if device is not None else _device(mesh, out.coords(key))
+        out.blocks[key] = torch.zeros(local, dtype=dtype, device=dev)
+    return out
+
+
+def unplace(tree):
+    """The whole tensors of a tree of :class:`Placed` (on each leaf's first
+    block's device)."""
+    def whole(pl: Placed) -> torch.Tensor:
+        first = next(iter(pl.blocks.values()))
+        out = torch.empty(pl.shape, dtype=pl.dtype, device=first.device)
+        for key, b in pl.blocks.items():
+            out[block_slices(pl.shape, pl.spec, pl.mesh, pl.coords(key))] = b.detach().to(
+                out.device)
+        return out
+
+    return tree_map(whole, tree)
+
+
+def place_train_state(state, mesh: DeviceMesh, data_axes=("data",)):
+    """A :class:`~repro_torch.train.loop.TrainState` of whole tensors placed
+    by :func:`~repro_torch.launch.sharding.train_state_pspecs`, sanitized
+    (the parameters over 'model', AdamW's moments also over ``data_axes``:
+    ZeRO-1); the step counters stay on the host."""
+    specs = sanitize_specs(state, train_state_pspecs(state, tuple(data_axes), mesh), mesh)
+    opt = dataclasses.replace(
+        state.opt_state,
+        **{f.name: place(getattr(state.opt_state, f.name),
+                         getattr(specs.opt_state, f.name), mesh)
+           for f in dataclasses.fields(state.opt_state) if f.name != "step"})
+    return dataclasses.replace(state, params=place(state.params, specs.params, mesh),
+                               opt_state=opt)
+
+
+def unplace_train_state(state):
+    """The whole tensors of a placed train state."""
+    opt = dataclasses.replace(
+        state.opt_state, **{f.name: unplace(getattr(state.opt_state, f.name))
+                            for f in dataclasses.fields(state.opt_state) if f.name != "step"})
+    return dataclasses.replace(state, params=unplace(state.params), opt_state=opt)
+
+
+def param_specs(params, mesh: DeviceMesh):
+    """The sanitized parameter specs of a tree of tensors."""
+    return sanitize_specs(params, param_pspecs(params), mesh)
+
+
+def cache_specs(cache, mesh: DeviceMesh, data_axes):
+    return sanitize_specs(cache, cache_pspecs(cache, tuple(data_axes)), mesh)
+
+
+# ======================================================= the positions ===
+def check_dense(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError unless ``cfg`` is the dense stack this
+    module splits."""
+    if (cfg.mixer != "attn" or cfg.n_experts or cfg.encoder_layers
+            or cfg.frontend not in (None, "vlm") or cfg.attention_kind != "full"):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism covers the dense stack (attention and dense "
+            "MLPs, full attention); the MoE, RWKV, Mamba, enc-dec and TaCo layouts are "
+            "not ported")
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """Which heads each of ``n`` 'model' positions runs. ``q_local``: the
+    query heads divide, so a position's column block of ``wq`` is whole
+    heads; ``kv_local``: so do the KV heads, and a position's KV block is
+    the one its query heads read."""
+
+    n: int
+    heads: int
+    kv: int
+
+    @property
+    def group(self) -> int:
+        return self.heads // self.kv
+
+    @property
+    def q_local(self) -> bool:
+        return self.heads % self.n == 0
+
+    @property
+    def kv_local(self) -> bool:
+        return self.q_local and self.kv % self.n == 0
+
+    def q_range(self, m: int) -> tuple[int, int]:
+        per = -(-self.heads // self.n)
+        return min(m * per, self.heads), min((m + 1) * per, self.heads)
+
+    def describe(self) -> str:
+        if self.kv_local:
+            return "heads split"
+        if self.q_local:
+            return "query heads split, K/V gathered"
+        return f"q, k, v gathered, {-(-self.heads // self.n)} heads a position"
+
+
+def _kv_heads(k, h0: int, h1: int, g: int):
+    """The KV heads query heads [h0, h1) read, as a (B, S, kv, hd) tensor
+    those heads share by GQA's grouping: whole groups, one group, or each
+    query head's own copy."""
+    if h0 % g == 0 and (h1 - h0) % g == 0:
+        return k[:, :, h0 // g:h1 // g]
+    if h0 // g == (h1 - 1) // g:
+        return k[:, :, h0 // g:h0 // g + 1]
+    return k.repeat_interleave(g, dim=2)[:, :, h0:h1]
+
+
+class _Row:
+    """One data block's walk over the 'model' positions: its data
+    coordinates ``row``."""
+
+    def __init__(self, cfg: ArchConfig, mesh: DeviceMesh, row: dict, impl: str):
+        self.cfg, self.mesh, self.row, self.impl = cfg, mesh, row, impl
+        self.n = axis_size(mesh, MODEL)
+        self.plan = HeadPlan(self.n, cfg.n_heads, cfg.n_kv_heads)
+        self.home = _device(mesh, self.at(0))
+
+    def at(self, m: int) -> dict:
+        return {**self.row, MODEL: m}
+
+    def dev(self, m: int) -> torch.device:
+        return _device(self.mesh, self.at(m))
+
+    def walk(self, fn, enter, params=(), even: bool = True) -> list:
+        """``fn(m, *enter(m))`` at each position; ``params(m)`` are the
+        position's blocks it reads, for the counter's representative
+        (``even``: the positions' work differs in nothing but their
+        blocks)."""
+        inputs = ((lambda m: [t for t in (*enter(m), *params(m)) if t is not None])
+                  if even else None)
+        return walk(self.n, self.at, fn, inputs, enter=enter)
+
+    def local(self, tree, m: int):
+        """A subtree of :class:`Placed` as position m's tensors."""
+        return map_tree(lambda pl: pl.at(self.at(m)), tree)
+
+
+def _kind(pl: Placed) -> str:
+    """'column', 'row' or 'whole': how a (group view of a) weight or bias is
+    split over 'model' (nothing else is)."""
+    spec = tuple(pl.spec)
+    split = [i for i, e in enumerate(spec) if MODEL in entry_axes(e)]
+    if any(e is not None and MODEL not in entry_axes(e) for e in spec) or len(split) > 1:
+        raise NotImplementedError(f"a parameter split {pl.spec} is not a Megatron split")
+    if not split:
+        return "whole"
+    return "column" if split[0] == len(spec) - 1 else "row"
+
+
+def _check(r: _Row, p: dict, want: str, name: str) -> None:
+    """Raise NotImplementedError unless projection ``p`` is split as ``want``
+    ('column': weight and bias over their last dimension; 'row': the weight
+    over its first, the bias whole). With one 'model' position a whole
+    weight or bias is its block; with more, each position would compute the
+    whole product and the sums would count it |model| times."""
+    bias = "column" if want == "column" else "whole"
+    kinds = [(_kind(p["w"]), want)] + ([(_kind(p["b"]), bias)] if "b" in p else [])
+    if any(got != need and not (got == "whole" and r.n == 1) for got, need in kinds):
+        raise NotImplementedError(f"{name}: a {kinds[0][0]} split where tensor parallelism "
+                                  f"over {r.n} 'model' positions needs {want} blocks")
+
+
+def _bias(p: dict, dtype):
+    """A row-parallel projection's bias (replicated), added once after the
+    sum."""
+    return p["b"].at({}).to(dtype) if "b" in p else None
+
+
+def _row_sum(parts, bias, dtype):
+    y = model_sum(parts, dtype=dtype)
+    return y if bias is None else y + bias.to(y.device)
+
+
+def _groups(tree, n: int) -> list:
+    """The ``n`` group views of a tree of stacked :class:`Placed` (one
+    ``unbind`` a block, as :func:`repro_torch.models.model._groups`)."""
+    leaves, rebuild = tree_flatten(tree)
+    parts = [{k: torch.unbind(b, 0) for k, b in pl.blocks.items()} for pl in leaves]
+    out = []
+    for g in range(n):
+        out.append(rebuild([
+            Placed(P(*pl.spec[1:]), pl.shape[1:], pl.dtype, pl.mesh,
+                   {k: v[g] for k, v in part.items()})
+            for pl, part in zip(leaves, parts)]))
+    return out
+
+
+# ---------------------------------------------------------- embedding ---
+def _embed(r: _Row, table: Placed, ids):
+    if _kind(table) == "whole":
+        return table.at({})[ids.to(table.at({}).device)]
+    if _kind(table) != "row":
+        raise NotImplementedError(f"an embedding split {table.spec}")
+
+    def part(m):
+        t = table.at(r.at(m))
+        local = ids.to(t.device) - m * t.shape[0]
+        inside = (local >= 0) & (local < t.shape[0])
+        rows = t[local.clamp(0, t.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device))
+
+    parts = r.walk(lambda m: part(m), lambda m: (), lambda m: [ids, table.at(r.at(m))])
+    return model_sum(parts, dtype=table.dtype)
+
+
+# ---------------------------------------------------------- attention ---
+def _qkv_columns(r: _Row, p: dict, h):
+    """Each position's column products (q, k, v) of the normed h."""
+    for name in ("wq", "wk", "wv"):
+        _check(r, p[name], "column", name)
+    leaves = [p[n][k] for n in ("wq", "wk", "wv") for k in ("w", "b") if k in p[n]]
+
+    def cols(m, hm):
+        lp = r.local({n: p[n] for n in ("wq", "wk", "wv")}, m)
+        return tuple(dense(lp[n], hm.to(r.dev(m))) for n in ("wq", "wk", "wv"))
+
+    h = model_copy(h)
+    return r.walk(cols, lambda m: (h,), lambda m: [pl.at(r.at(m)) for pl in leaves])
+
+
+def _heads(r: _Row, cols, rope, b: int, s: int):
+    """The heads gathered over 'model' where a position's column blocks are
+    not whole heads: (q, k, v), q and k with RoPE, each None where the
+    positions' own blocks serve (:class:`HeadPlan`)."""
+    cfg, plan = r.cfg, r.plan
+    hd = cfg.hd
+    qf = kf = vf = None
+    if not plan.q_local:
+        qf = model_gather([c[0] for c in cols], -1).reshape(b, s, cfg.n_heads, hd)
+        if rope is not None:
+            qf = apply_rope(qf, *rope)
+    if not plan.kv_local:
+        kf = model_gather([c[1] for c in cols], -1).reshape(b, s, cfg.n_kv_heads, hd)
+        vf = model_gather([c[2] for c in cols], -1).reshape(b, s, cfg.n_kv_heads, hd)
+        if rope is not None:
+            kf = apply_rope(kf, *rope)
+    return qf, kf, vf
+
+
+def _core(r: _Row, m: int, cols, qf, kf, vf, rope, b: int, s: int, causal_chunk: int):
+    """Position m's attention core over its query heads: (out (B, S, n·hd),
+    its RoPE'd k and its v where the KV heads are its own)."""
+    cfg, plan = r.cfg, r.plan
+    hd, g = cfg.hd, plan.group
+    h0, h1 = plan.q_range(m)
+    k_own = v_own = None
+    if plan.q_local:
+        q = cols[0].reshape(b, s, h1 - h0, hd)
+        if rope is not None:
+            q = apply_rope(q, *rope)
+    else:
+        q = qf[:, :, h0:h1]
+    if plan.kv_local:
+        k_own = cols[1].reshape(b, s, cfg.n_kv_heads // r.n, hd)
+        v_own = cols[2].reshape(b, s, cfg.n_kv_heads // r.n, hd)
+        if rope is not None:
+            k_own = apply_rope(k_own, *rope)
+        k, v = k_own, v_own
+    elif h1 > h0:
+        k, v = _kv_heads(kf, h0, h1, g), _kv_heads(vf, h0, h1, g)
+    if h1 <= h0:
+        return q.reshape(b, s, 0), k_own, v_own
+    out = A.self_attention(q, k, v, causal=True, q_chunk=causal_chunk, impl=r.impl)
+    return out.reshape(b, s, (h1 - h0) * hd), k_own, v_own
+
+
+def _attention(r: _Row, p: dict, h, rope, cache=None):
+    """Causal self-attention of one data block's normed h (B, S, D) over
+    'model'; with ``cache`` (this group's K/V :class:`Placed` blocks of the
+    row) the RoPE'd K/V are written in its sequence split. Returns the
+    sub-layer's output (B, S, D)."""
+    cfg, plan = r.cfg, r.plan
+    b, s = h.shape[:2]
+    _check(r, p["wo"], "row", "wo")
+    qc = cfg.attn_q_chunk or (2048 if s >= 8192 else 0)
+    qc = qc if s > qc else 0
+    cols = _qkv_columns(r, p, h)
+    qf, kf, vf = _heads(r, cols, rope, b, s)
+    wo = p["wo"]
+
+    def core(m, q_m, k_m, v_m, qf_m, kf_m, vf_m):
+        out, k_own, v_own = _core(r, m, (q_m, k_m, v_m), qf_m, kf_m, vf_m, rope, b, s, qc)
+        if not plan.q_local:
+            return out, k_own, v_own
+        return dense({"w": wo["w"].at(r.at(m))}, out), k_own, v_own
+
+    even = plan.q_local
+    outs = r.walk(core, lambda m: (*cols[m], qf, kf, vf), lambda m: [wo["w"].at(r.at(m))],
+                  even=even)
+    if plan.q_local:
+        partials = [o[0] for o in outs]
+    else:
+        full = model_gather([o[0] for o in outs], -1)
+        rows = full.shape[-1] // r.n
+
+        def proj(m, f):
+            return dense({"w": wo["w"].at(r.at(m))}, f[..., m * rows:(m + 1) * rows])
+
+        partials = r.walk(proj, lambda m: (full,), lambda m: [wo["w"].at(r.at(m))])
+    y = _row_sum(partials, _bias(wo, h.dtype), h.dtype)
+    if cache is not None:
+        if plan.kv_local:
+            kf = _all_to_all([o[1] for o in outs])
+            vf = _all_to_all([o[2] for o in outs])
+        _write_prompt(r, cache, kf, vf)
+    return y
+
+
+def _all_to_all(parts):
+    """The positions' head blocks (B, S, kv/n, hd) as the whole (B, S, kv,
+    hd): an all-to-all to the sequence split, each position sending a
+    sequence block of its heads to each other."""
+    home = parts[0].device
+    tally("all-to-all", tensor_bytes(parts[0]))
+    with one_pass() as moves:
+        out = torch.cat([p.to(home) for p in parts], dim=2)
+        moves(parts[0], out)
+    return out
+
+
+def _write_prompt(r: _Row, cache: dict, k, v):
+    """Write the prompt's k, v (B, T, kv, hd) at sequence positions [0, T)
+    of the row's cache blocks, each position its block of the sequence."""
+    size = cache["k"].at(r.at(0)).shape[1]
+
+    def window(m):
+        return m * size, min(k.shape[1], (m + 1) * size)
+
+    def write(m):
+        a, z = window(m)
+        for name, src in (("k", k), ("v", v)):
+            dst = cache[name].at(r.at(m))
+            if z > a:
+                dst[:, :z - a] = src[:, a:z].to(dst.device, dst.dtype)
+
+    even = len({max(0, z - a) for a, z in map(window, range(r.n))}) == 1
+    r.walk(lambda m: write(m), lambda m: (), lambda m: [cache["k"].at(r.at(m))], even=even)
+
+
+# ---------------------------------------------------------------- MLP ---
+def _mlp(r: _Row, p: dict, h):
+    if "gate" in p:
+        ins, out = ("gate", "up"), "down"
+    else:
+        ins, out = ("fc",), "proj"
+    for name in ins:
+        _check(r, p[name], "column", name)
+    _check(r, p[out], "row", out)
+    leaves = [p[n][k] for n in (*ins, out) for k in ("w", "b") if k in p[n]
+              and not (n == out and k == "b")]
+
+    def part(m, hm):
+        lp = r.local({n: p[n] for n in ins}, m)
+        hm = hm.to(r.dev(m))
+        if "gate" in lp:
+            z = silu(dense(lp["gate"], hm)) * dense(lp["up"], hm)
+        else:
+            z = gelu(dense(lp["fc"], hm))
+        return dense({"w": p[out]["w"].at(r.at(m))}, z)
+
+    hc = model_copy(h)
+    parts = r.walk(part, lambda m: (hc,), lambda m: [pl.at(r.at(m)) for pl in leaves])
+    return _row_sum(parts, _bias(p[out], h.dtype), h.dtype)
+
+
+# ---------------------------------------------------------- the stack ---
+def _sublayer(r: _Row, p: dict, x, rope, cache=None):
+    cfg = r.cfg
+    x = x + _attention(r, p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), rope, cache)
+    return x + _mlp(r, p["ffn"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def _replicated(tree):
+    """The norms' blocks (replicated) as tensors."""
+    return map_tree(lambda pl: pl.at({}), tree)
+
+
+def _layer_params(gp: dict) -> dict:
+    """A group view's sub-layer tree with the replicated norms as tensors
+    and the split weights as :class:`Placed`."""
+    out = {}
+    for name, sub in gp.items():
+        out[name] = _replicated(sub) if name.startswith("ln") else sub
+    return out
+
+
+def _group(r: _Row, specs, gp, x, rope, caches=None):
+    for i, _spec in enumerate(specs):
+        x = _sublayer(r, _layer_params(gp[f"l{i}"]), x, rope,
+                      None if caches is None else caches[f"l{i}"])
+    return x
+
+
+def _run_stack(r: _Row, params, x, rope, *, remat: bool, caches=None):
+    cfg = r.cfg
+    specs = cfg.layer_specs()
+    groups = _groups(params["blocks"], cfg.n_groups)
+    cgroups = None if caches is None else _groups(caches, cfg.n_groups)
+    for g, gp in enumerate(groups):
+        c = None if cgroups is None else cgroups[g]
+        if remat:
+            # the whole group is recomputed, as at every position alone (an
+            # early stop would end at the last position's last saved input)
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(functools.partial(_group, r, specs, gp, rope=rope, caches=c), x,
+                               use_reentrant=False, context_fn=recompute_context)
+        else:
+            x = _group(r, specs, gp, x, rope, c)
+    return x
+
+
+def _inputs(r: _Row, params, batch: dict, what: str):
+    """(x, n_patches): the block's embeddings behind a vlm's patches."""
+    cfg = r.cfg
+    x = _embed(r, params["embed"]["table"], batch["tokens"]).to(cfg.cdtype)
+    patches = _frontend(cfg, batch, what)
+    n_patches = 0
+    if patches is not None:
+        n_patches = patches.shape[1]
+        x = torch.cat([patches.to(x.device, cfg.cdtype), x], dim=1)
+    return x, n_patches
+
+
+def _rope(cfg: ArchConfig, positions):
+    return rope_angles(positions, cfg.hd, cfg.rope_theta) if cfg.use_rope else None
+
+
+def _head(r: _Row, params, x):
+    """Each position's logits of its vocabulary columns that are real
+    (below ``vocab_size``), float32: [(logits (B, S, n_m), first column)]."""
+    cfg = r.cfg
+    head = params["lm_head"]
+    _check(r, head, "column", "lm_head")
+    x = apply_norm(_replicated(params["final_norm"]), x, cfg.norm_eps)
+
+    def part(m, xm):
+        w = head["w"].at(r.at(m))
+        lo = m * w.shape[-1] if _kind(head["w"]) == "column" else 0
+        n = max(0, min(lo + w.shape[-1], cfg.vocab_size) - lo)
+        return dense({"w": w[:, :n]}, xm.to(w.device)).to(torch.float32)
+
+    x = model_copy(x)
+    blocks = r.walk(part, lambda m: (x,), lambda m: [head["w"].at(r.at(m))],
+                    even=cfg.vocab_size == cfg.padded_vocab)
+    width = head["w"].at(r.at(0)).shape[-1]
+    return [(blk, m * width if _kind(head["w"]) == "column" else 0)
+            for m, blk in enumerate(blocks)]
+
+
+def _vocab_parallel_cross_entropy(r: _Row, blocks, labels, denom, z_loss: float = 1e-4):
+    """The next-token cross entropy (:func:`repro_torch.train.losses.cross_entropy`)
+    of one data block over logits split by vocabulary columns, summed over
+    the block and divided by ``denom`` (the whole batch's count of labels):
+    each position's max and sum of exp over its columns, combined by
+    ``model_max`` and ``model_sum``; the label's logit from the position
+    that owns it. No position holds the (B, S, V) logits."""
+    mask = (labels != IGNORE).to(torch.float32)
+    safe = torch.clamp_min(labels, 0).long()
+    mx = model_max([blk.detach().amax(-1) if blk.shape[-1] else
+                    torch.full(blk.shape[:-1], -torch.inf, device=blk.device)
+                    for blk, _lo in blocks])
+
+    def part(m, blk, mxm):
+        lo = blocks[m][1]
+        if not blk.shape[-1]:
+            return torch.zeros((2, *blk.shape[:-1]), dtype=torch.float32, device=blk.device)
+        sumexp = torch.exp(blk - mxm[..., None]).sum(-1)
+        local = safe.to(blk.device) - lo
+        inside = (local >= 0) & (local < blk.shape[-1])
+        gold = torch.gather(blk, -1, local.clamp(0, blk.shape[-1] - 1)[..., None])[..., 0]
+        return torch.stack([sumexp, torch.where(inside, gold, 0.0)])
+
+    parts = r.walk(part, lambda m: (blocks[m][0], mx), lambda m: [],
+                   even=len({blk.shape for blk, _ in blocks}) == 1)
+    sumexp, gold = model_sum(parts)
+    lse = torch.log(sumexp) + mx
+    nll = (lse - gold) * mask
+    loss = torch.sum(nll) / denom
+    if z_loss:
+        loss = loss + z_loss * torch.sum((lse * mask) ** 2) / denom
+    return loss
+
+
+def _data_blocks(mesh: DeviceMesh, data_axes, batch: dict) -> tuple[int, int]:
+    n = axis_size(mesh, tuple(data_axes))
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over {n} data positions")
+    return n, rows // n
+
+
+def _row_coords(mesh, data_axes, d: int) -> dict:
+    return mesh.coords([tuple(data_axes)], [d])
+
+
+def block_loss(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, row: dict, denom, *,
+               impl: str = "auto"):
+    """One data block's share of the train loss (its rows of ``batch``,
+    {'tokens', 'labels'}, and a vlm's 'patch_embeds'), with its row of
+    'model' positions at ``row``: a vocab-parallel cross entropy over the
+    head's column blocks, divided by ``denom``."""
+    check_dense(cfg)
+    r = _Row(cfg, mesh, row, impl)
+    x, n_patches = _inputs(r, params, batch, "forward")
+    x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                   remat=cfg.remat and torch.is_grad_enabled())
+    blocks = [(blk[:, n_patches:], lo) for blk, lo in _head(r, params, x)]
+    return _vocab_parallel_cross_entropy(r, blocks, batch["labels"].to(x.device), denom)
+
+
+def sharded_forward(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, *,
+                    data_axes=("data",), impl: str = "auto"):
+    """``forward`` over placed parameters: (logits (B, S, V) float32, aux 0).
+    The logits are gathered over 'model' for the caller; the train step
+    never gathers them (:func:`block_loss`)."""
+    check_dense(cfg)
+    n, size = _data_blocks(mesh, data_axes, batch)
+
+    def one(d):
+        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
+        part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
+        x, n_patches = _inputs(r, params, part, "forward")
+        x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                       remat=False)
+        return model_gather([blk for blk, _ in _head(r, params, x)], -1)[:, n_patches:]
+
+    outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one)
+    home = outs[0].device
+    return torch.cat([o.to(home) for o in outs]), torch.zeros((), dtype=torch.float32,
+                                                               device=home)
+
+
+# ============================================================ inference ==
+def sharded_init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, mesh: DeviceMesh, *,
+                       data_axes=("data",), device=None) -> dict:
+    """The decode cache placed in :func:`~repro_torch.launch.sharding.cache_pspecs`'
+    layout (sanitized), zeros made block by block; K/V must come out split
+    over 'model' along the sequence."""
+    check_dense(cfg)
+    shapes = init_cache(cfg, batch_size, max_seq, device="meta")
+    specs = cache_specs(shapes, mesh, data_axes)
+    cache = tree_map(lambda t, s: placed_zeros(t.shape, t.dtype, s, mesh, device), shapes,
+                     specs)
+    for c in cache.values():
+        for name in ("k", "v"):
+            seq = entry_axes(c[name].spec[2])
+            if MODEL not in seq or any(mesh.shape[a] > 1 for a in seq if a != MODEL):
+                raise NotImplementedError(
+                    f"a cache split {c[name].spec}: sharded decode splits the sequence over "
+                    "'model' alone (a one-row batch's context parallelism over the data axes "
+                    "is not ported)")
+    return cache
+
+
+def sharded_prefill(params, cfg: ArchConfig, batch: dict, max_seq: int, mesh: DeviceMesh, *,
+                    data_axes=("data",), impl: str = "auto"):
+    """``prefill`` over placed parameters: (last logits (B, 1, V) float32,
+    the cache placed in ``cache_pspecs``' layout, written)."""
+    check_dense(cfg)
+    n, size = _data_blocks(mesh, data_axes, batch)
+    on_meta = next(iter(params["embed"]["table"].blocks.values())).is_meta
+    cache = sharded_init_cache(cfg, n * size, max_seq, mesh, data_axes=data_axes,
+                               device="meta" if on_meta else None)
+
+    def one(d):
+        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
+        part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
+        x, _ = _inputs(r, params, part, "prefill")
+        x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                       remat=False, caches=_row_view(cache, r))
+        blocks = _head(r, params, x[:, -1:])
+        return model_gather([blk for blk, _ in blocks], -1)
+
+    with torch.no_grad():
+        outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one,
+                    lambda d: [v[d * size:(d + 1) * size] for v in batch.values()])
+    home = outs[0].device
+    return torch.cat([o.to(home) for o in outs]), cache
+
+
+def _row_view(cache, r: _Row):
+    """The cache tree with each :class:`Placed` cut to the row's blocks
+    (keys over 'model' only), so the group views index one row."""
+    def cut(pl: Placed) -> Placed:
+        blocks = {(m,): pl.at(r.at(m)) for m in range(r.n)}
+        spec = tuple(MODEL if MODEL in entry_axes(e) else None for e in pl.spec)
+        return Placed(spec, pl.shape, pl.dtype, pl.mesh, blocks)
+
+    return tree_map(cut, cache)
+
+
+def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh: DeviceMesh, *,
+                        data_axes=("data",)):
+    """``decode_step`` over placed parameters and a cache in
+    ``cache_pspecs``' layout: (logits (B, 1, V) float32, cache), the new
+    token's K/V written in place into the position that owns ``pos`` (an
+    int, or a (B,) tensor per sequence)."""
+    check_dense(cfg)
+    n, size = _data_blocks(mesh, data_axes, {"tokens": tokens})
+
+    def one(d):
+        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), "torch")
+        toks = tokens[d * size:(d + 1) * size].to(r.home)
+        pos_b = torch.as_tensor(pos, dtype=torch.long, device=r.home)
+        if pos_b.dim():
+            pos_b = pos_b[d * size:(d + 1) * size]
+        pos_b = pos_b.expand(size)
+        x = _embed(r, params["embed"]["table"], toks).to(cfg.cdtype)
+        rope = _rope(cfg, pos_b[:, None])
+        caches = _groups(_row_view(cache, r), cfg.n_groups)
+        for g, gp in enumerate(_groups(params["blocks"], cfg.n_groups)):
+            for i, _spec in enumerate(cfg.layer_specs()):
+                p = _layer_params(gp[f"l{i}"])
+                h = apply_norm(p["ln1"], x, cfg.norm_eps)
+                x = x + _decode_attention(r, p["attn"], h, caches[g][f"l{i}"], pos_b, rope)
+                x = x + _mlp(r, p["ffn"], apply_norm(p["ln2"], x, cfg.norm_eps))
+        blocks = _head(r, params, x)
+        return model_gather([blk for blk, _ in blocks], -1)
+
+    with torch.no_grad():
+        outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one,
+                    lambda d: [tokens[d * size:(d + 1) * size]])
+    home = outs[0].device
+    return torch.cat([o.to(home) for o in outs]), cache
+
+
+def _decode_attention(r: _Row, p: dict, h, cache: dict, pos_b, rope):
+    """One new token's attention over the sequence-split cache."""
+    cfg = r.cfg
+    b = h.shape[0]
+    hd, heads, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    _check(r, p["wo"], "row", "wo")
+    cols = _qkv_columns(r, p, h)
+    q = model_gather([c[0] for c in cols], -1).reshape(b, 1, heads, hd)
+    k = model_gather([c[1] for c in cols], -1).reshape(b, 1, kv, hd)
+    v = model_gather([c[2] for c in cols], -1).reshape(b, 1, kv, hd)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    rows = torch.arange(b, device=h.device)
+
+    def part(m):
+        ck, cv = cache["k"].at(r.at(m)), cache["v"].at(r.at(m))
+        size = ck.shape[1]
+        local = pos_b.to(ck.device) - m * size
+        here = (local >= 0) & (local < size)
+        slot = local.clamp(0, size - 1)
+        for dst, new in ((ck, k), (cv, v)):
+            dst[rows, slot] = torch.where(here[:, None, None], new[:, 0].to(dst.dtype),
+                                          dst[rows, slot])
+        scores = A.gqa_scores(q.to(ck.device), ck).to(torch.float32)  # (B,Kv,G,1,size)
+        seen = (m * size + torch.arange(size, device=ck.device)[None, :]
+                <= pos_b.to(ck.device)[:, None])
+        scores = torch.where(seen[:, None, None, None, :], scores, A.NEG_INF)
+        mx = scores.amax(-1, keepdim=True)
+        e = torch.exp(scores - mx)
+        num = torch.einsum("bkgst,btkd->bkgsd", e.to(q.dtype), cv)
+        return mx, e.sum(-1, keepdim=True), num
+
+    parts = r.walk(lambda m: part(m), lambda m: (),
+                   lambda m: [q, cache["k"].at(r.at(m)), cache["v"].at(r.at(m))])
+    out = lse_combine(parts)  # (B, Kv, G, 1, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, heads * hd).to(h.dtype)
+    rows_per = heads * hd // r.n
+    wo = p["wo"]
+
+    def proj(m, o):
+        return dense({"w": wo["w"].at(r.at(m))}, o[..., m * rows_per:(m + 1) * rows_per])
+
+    partials = r.walk(proj, lambda m: (out,), lambda m: [wo["w"].at(r.at(m))])
+    return _row_sum(partials, _bias(wo, h.dtype), h.dtype)
+

@@ -3,7 +3,7 @@ int8-compressed gradient sum of the data-parallel step (mirrors
 ``repro.optim``)."""
 from repro_torch.optim.adafactor import AdafactorState, adafactor
 from repro_torch.optim.adamw import AdamWState, adamw
-from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.clip import clip_by_global_norm, clip_scale, global_norm
 from repro_torch.optim.compression import (
     compressed_psum,
     dequantize_int8,
@@ -18,6 +18,7 @@ __all__ = [
     "adafactor",
     "adamw",
     "clip_by_global_norm",
+    "clip_scale",
     "compressed_psum",
     "constant_lr",
     "dequantize_int8",

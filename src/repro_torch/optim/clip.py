@@ -15,11 +15,16 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / norm), on the norm's device (no host sync)."""
+    return torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / norm), norm). The scale stays on
-    the norm's device (no host sync); one ``_foreach_mul`` applies it."""
+    """(grads scaled by :func:`clip_scale`, norm). One ``_foreach_mul``
+    applies the scale."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    scale = clip_scale(norm, max_norm)
     leaves, rebuild = tree_flatten(grads)
     scaled = torch._foreach_mul([g.to(torch.float32) for g in leaves], scale)
     return rebuild([s.to(g.dtype) for s, g in zip(scaled, leaves)]), norm

@@ -22,18 +22,34 @@ its plain version.
     (:func:`~repro_torch.optim.compression.compressed_psum`), ``/ S``, the
     shard losses' mean, then one replicated optimizer step. The shards run
     one after another in one process (:mod:`repro_torch.mesh`).
+  * :func:`make_sharded_train_step` — the reference's ``jax.jit`` of
+    :func:`make_train_step` over ``train_state_pspecs``-sharded state:
+    tensor parallelism over 'model' (:mod:`repro_torch.models.sharded`) and
+    ZeRO-1 AdamW over the data axes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from repro_torch.mesh import DeviceMesh, walk
+from repro_torch.mesh import (
+    DeviceMesh,
+    axis_size,
+    backward_pass,
+    entry_axes,
+    one_pass,
+    tally,
+    tensor_bytes,
+    walk,
+)
+from repro_torch.models import sharded as SHD
 from repro_torch.models.model import ArchConfig, forward, init_params
-from repro_torch.optim import clip_by_global_norm, compressed_psum
-from repro_torch.train.losses import cross_entropy
+from repro_torch.models.sharding_utils import reduce_scatter
+from repro_torch.optim import AdamWState, clip_by_global_norm, clip_scale, compressed_psum
+from repro_torch.train.losses import IGNORE, cross_entropy
 from repro_torch.utils import tree_flatten
 
 
@@ -62,7 +78,14 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01, *,
 
 
 def _on(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+    """The batch on ``device``: integer inputs (tokens, labels) as int64, a
+    frontend's float embeddings in their own dtype."""
+    return {k: _input(v, device) for k, v in batch.items()}
+
+
+def _input(v, device: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(v).to(device)
+    return t if t.is_floating_point() else t.long()
 
 
 def _value_and_grad(cfg: ArchConfig, impl: str, leaves, rebuild, batch):
@@ -195,3 +218,170 @@ def make_shardmap_train_step(cfg: ArchConfig, optimizer, lr_schedule: Callable,
         return state, _metrics(total / nshards, auxes[0], gnorm, lr)
 
     return train_step
+
+
+def _zero_dim(pl, mp, data_axes: tuple) -> int | None:
+    """The dimension ZeRO-1 splits a moment over the data axes along (None
+    where no dimension divided), after checking that the moment's layout is
+    the parameter's with that one split added."""
+    zdim, rest = None, []
+    for i, e in enumerate(mp.spec):
+        axes = entry_axes(e)
+        if any(a in data_axes for a in axes):
+            if axes != data_axes or zdim is not None:
+                raise ValueError(f"a moment split {mp.spec} over the data axes {data_axes}")
+            zdim, e = i, None
+        rest.append(e)
+    if tuple(rest) != tuple(pl.spec):
+        raise ValueError(f"a moment split {mp.spec} does not nest in its parameter's {pl.spec}")
+    return zdim
+
+
+def make_sharded_train_step(cfg: ArchConfig, optimizer, lr_schedule: Callable,
+                            mesh: DeviceMesh, *, data_axes=("data",), grad_clip: float = 1.0,
+                            impl: str = "auto"):
+    """The train step over a state placed by
+    :func:`repro_torch.models.sharded.place_train_state` (the parameters in
+    'model' blocks, AdamW's moments also split over ``data_axes``: ZeRO-1).
+    Returns train_step(state, batch) -> (state, metrics), the metrics of
+    :func:`make_train_step` ('aux_loss' 0: the dense stack has no MoE).
+
+    Each data block (B / |dp| rows) runs the sharded forward and backward
+    over its row of 'model' positions (:func:`repro_torch.models.sharded.block_loss`,
+    its loss divided by the whole batch's label count, so the blocks' losses
+    and gradients add up to the batch's); the blocks' gradients are summed
+    in float32 in position order and each position keeps its ZeRO-1 slice
+    (``reduce_scatter``); the global norm is one small all-reduce of the
+    slices' squares (each distinct slice once); AdamW's ``update`` runs
+    unchanged on each slice of g, m, v and p (it is elementwise), and the
+    updated slices are gathered over the data axes into the parameter's
+    block (written in place: on one card the gather is the write). The
+    state's tensors are updated in place and returned."""
+    _opt_init, opt_update = optimizer
+    data_axes = tuple(data_axes)
+    n_dp = axis_size(mesh, data_axes)
+    SHD.check_dense(cfg)
+
+    def row(d: int) -> dict:
+        return mesh.coords([data_axes], [d])
+
+    def train_step(state: TrainState, batch: dict):
+        if not isinstance(state.opt_state, AdamWState):
+            raise NotImplementedError(
+                f"{type(state.opt_state).__name__}: the sharded step runs AdamW (ZeRO-1); "
+                "Adafactor's factored moments are not split")
+        params, _ = tree_flatten(state.params)
+        moments = list(zip(tree_flatten(state.opt_state.m)[0],
+                           tree_flatten(state.opt_state.v)[0]))
+        home = mesh.devices.flat[0]  # data block 0's first 'model' position
+        batch = _on(batch, home)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n_dp:
+            raise ValueError(f"a batch of {rows} rows does not split over {n_dp} data positions")
+        size = rows // n_dp
+        denom = torch.clamp_min(torch.sum(batch["labels"] != IGNORE).to(torch.float32), 1.0)
+        index = [(j, key) for j, pl in enumerate(params) for key in pl.keys()]
+        flat = [params[j].blocks[key] for j, key in index]
+        for t in flat:
+            t.requires_grad_(True)
+
+        def part(d):
+            return {k: v[d * size:(d + 1) * size] for k, v in batch.items()}
+
+        def data_block(d):
+            loss = SHD.block_loss(state.params, cfg, part(d), mesh, row(d), denom, impl=impl)
+            with backward_pass():
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), list(grads)
+
+        results = walk(n_dp, row, data_block, lambda d: [*part(d).values(), *flat])
+        loss = results[0][0]
+        for r in results[1:]:
+            loss = loss + r[0].to(loss.device)
+        at = {jk: i for i, jk in enumerate(index)}
+        zdims = [_zero_dim(pl, mp, data_axes) for pl, (mp, _vp) in zip(params, moments)]
+
+        # the blocks' gradients summed over the data axes: each position's slice
+        slices = []
+        for j, pl in enumerate(params):
+            slices.append(_scatter(pl, moments[j][0], zdims[j], results, at, j, n_dp, row))
+            for r in results:
+                for key in pl.keys():
+                    r[1][at[j, key]] = None
+        del results
+
+        # the global norm: each distinct slice's squares, one scalar a position
+        total = None
+        for j, (mp, _vp) in enumerate(moments):
+            keys = mp.keys()
+            sq = walk(len(keys), lambda i, mp=mp, keys=keys: mp.coords(keys[i]),
+                      lambda i, j=j, keys=keys: torch.sum(slices[j][keys[i]].to(torch.float32)
+                                                          ** 2),
+                      lambda i, j=j, keys=keys: [slices[j][keys[i]]])
+            for x in sq:
+                total = x if total is None else total + x.to(total.device)
+        tally("all-reduce", 4)
+        gnorm = torch.sqrt(total)
+        scale = clip_scale(gnorm, grad_clip)
+        lr = lr_schedule(state.step)
+
+        new_step = state.opt_state.step + 1
+        for j, pl in enumerate(params):
+            _update(pl, *moments[j], zdims[j], slices[j], scale, state.opt_state.step, lr,
+                    opt_update, data_axes, mesh)
+            slices[j] = None
+        opt_state = AdamWState(step=new_step, m=state.opt_state.m, v=state.opt_state.v)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return (TrainState(params=state.params, opt_state=opt_state, step=state.step + 1),
+                _metrics(loss, aux, gnorm, lr))
+
+    return train_step
+
+
+def _scatter(pl, mp, zdim, results, at, j: int, n_dp: int, row) -> dict:
+    """Leaf j's data blocks' gradients reduce-scattered into its moment's
+    slices: {moment key: slice in the parameter's dtype}."""
+    keys = pl.keys()
+
+    def one(i):
+        return reduce_scatter([r[1][at[j, keys[i]]] for r in results], zdim, n_dp)
+
+    per_key = walk(len(keys), lambda i: pl.coords(keys[i]), one,
+                   lambda i: [r[1][at[j, keys[i]]] for r in results])
+    out = {}
+    for key, sl in zip(keys, per_key):
+        for d, g in enumerate(sl):
+            out[mp.key({**pl.coords(key), **row(d)})] = g.to(pl.dtype)
+    return out
+
+
+def _update(pl, mp, vp, zdim, slices: dict, scale, step, lr, opt_update, data_axes, mesh):
+    """AdamW on each distinct slice of leaf pl, at its position; the slice
+    of the parameter's block written in place, then gathered over the data
+    axes."""
+    keys = mp.keys()
+
+    def one(i):
+        coords = mp.coords(keys[i])
+        with torch.no_grad():
+            g = slices[keys[i]]
+            g = (g.to(torch.float32) * scale).to(g.dtype)
+            p_block = pl.at(coords)
+            p = p_block
+            if zdim is not None:
+                d = int(np.ravel_multi_index([coords[a] for a in data_axes],
+                                             [mesh.shape[a] for a in data_axes]))
+                width = mp.blocks[keys[i]].shape[zdim]
+                p = p_block.narrow(zdim, d * width, width)
+            u, _ = opt_update({"g": g}, AdamWState(step=step, m={"g": mp.blocks[keys[i]]},
+                                                   v={"g": vp.blocks[keys[i]]}), {"g": p}, lr)
+            p.add_(u["g"].to(p.dtype))
+            if zdim is not None:
+                tally("all-gather", tensor_bytes(p_block))
+                with one_pass() as moves:
+                    moves(p, p_block)
+
+    walk(len(keys), lambda i: mp.coords(keys[i]), one,
+         lambda i: [slices[keys[i]], mp.blocks[keys[i]], vp.blocks[keys[i]],
+                    pl.at(mp.coords(keys[i]))])

@@ -18,12 +18,17 @@ CPU.
   and jamba's train and prefill steps, and a manual-MoE decode step,
   counted on CPU tensors and on meta tensors with representatives equal
   exactly; a manual-MoE decode cell holds and runs one position's block.
+* The tensor-parallel cells (the dense stack at train_4k, prefill_32k,
+  decode_32k) at tiny shapes, counted on CPU tensors and on meta tensors
+  with representatives: equal exactly.
 * granite-3-2b x decode_32k beside the reference's dry run in a subprocess
-  (``param_count``, ``step_kind``, ``n_devices``), and a smoke config's
-  train cell on a small meta mesh.
+  (``param_count``, ``step_kind``, ``n_devices``; the argument bytes equal,
+  the flops within 0.8-1.25x), and a smoke config's tensor-parallel train
+  cell on a small meta mesh with its payloads pinned.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,11 +40,22 @@ from repro_torch.configs import get_smoke
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import taco_config
 from repro_torch.launch import dryrun, dryrun_ann
+from repro_torch.launch import sharding as SH
 from repro_torch.launch.op_analysis import OpCounter
-from repro_torch.mesh import make_mesh, position, set_mesh, tally, tensor_bytes, walk
+from repro_torch.mesh import (
+    entry_axes,
+    make_mesh,
+    position,
+    set_mesh,
+    tally,
+    tensor_bytes,
+    walk,
+)
 from repro_torch.models import model as TM
+from repro_torch.models import sharded as SHD
 from repro_torch.optim import adamw, constant_lr
 from repro_torch.train.loop import TrainState, make_shardmap_train_step
+from repro_torch.utils import tree_flatten
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -247,20 +263,104 @@ def test_a_manual_moe_decode_cell_runs_one_positions_block():
 
 def test_smoke_train_cell_on_a_small_meta_mesh():
     """count_cell at train_4k with the smoke granite-3-2b over a (data 4,
-    model 2) meta mesh: a position holds 256 / 4 rows, the gradient sum is
-    one all-reduce of each leaf's bytes (uncompressed f32), and the
-    artifact's fields are filled."""
+    model 2) meta mesh, the tensor-parallel layout: a position runs 256 / 4
+    rows. Per position: a reduce-scatter of each leaf's gradient into its
+    ZeRO-1 slice (float32; every leaf has a dimension that divides by 4)
+    and an all-gather of the updated slices into the leaf's 'model' block;
+    the all-reduces of tensor parallelism over the block's activations
+    (64 x 4096 x 64 float32): the embedding's sum, each layer's attention
+    and MLP sums twice (forward and remat's recompute) and the gradients of
+    the attention's, the MLP's and the head's replicated inputs; the
+    loss's max and its sums (64 x 4096, and 2 of them), and the global
+    norm's 4 bytes. The counter represents the data blocks past the first
+    (3), and of each leaf's walks all but the first position: its
+    reduce-scatter's over its 'model' blocks, its norm's and its update's
+    over its moment's blocks."""
     mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
-    h, meta = dryrun.count_cell("granite-3-2b", "train_4k", False, mesh=mesh,
-                                arch=get_smoke("granite-3-2b"))
-    params = TM.meta_params(get_smoke("granite-3-2b"))
-    leaves = TM.tree_leaves(params)
+    cfg = get_smoke("granite-3-2b")
+    h, meta = dryrun.count_cell("granite-3-2b", "train_4k", False, mesh=mesh, arch=cfg)
+    params = TM.meta_params(cfg)
+    leaves = tree_flatten(params)[0]
+    specs = SHD.param_specs(params, mesh)
+    blocks = sum(tensor_bytes(t) // (2 if "model" in s else 1)
+                 for t, s in zip(leaves, tree_flatten(specs)[0]))
     assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "tensor_parallel" and meta["layout"] == dryrun.LAYOUTS[
+        "tensor_parallel"]
+    assert meta["param_count"] == sum(t.numel() for t in leaves)
+    assert h["collective_counts"]["reduce-scatter"] == len(leaves)
+    assert h["collective_bytes"]["reduce-scatter"] == blocks // 4
+    assert h["collective_counts"]["all-gather"] == len(leaves)
+    assert h["collective_bytes"]["all-gather"] == blocks
+    act, row = 64 * 4096 * cfg.d_model * 4, 64 * 4096 * 4
+    layers = cfg.n_layers
+    assert h["collective_counts"]["all-reduce"] == 1 + 6 * layers + 1 + 2 + 1
+    assert h["collective_bytes"]["all-reduce"] == (1 + 6 * layers + 1) * act + 3 * row + 4
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
+    state = TrainState(params=params, opt_state=adamw()[0](params),
+                       step=torch.zeros((), dtype=torch.int32))
+    sspecs = SH.sanitize_specs(state, SH.train_state_pspecs(state, ("data",), mesh), mesh)
+
+    def n_blocks(spec):
+        return math.prod(mesh.shape[a] for e in spec for a in entry_axes(e))
+
+    walks = sum((n_blocks(p) - 1) + 2 * (n_blocks(m) - 1)
+                for p, m in zip(tree_flatten(sspecs.params)[0],
+                                tree_flatten(sspecs.opt_state.m)[0]))
+    # 9 leaves in 2 'model' blocks and 8 moment blocks; the 3 norms whole,
+    # their moments in 4 blocks over 'data'
+    assert walks == 9 * (1 + 2 * 7) + 3 * (0 + 2 * 3)
+    assert meta["represented_positions"] == 3 + walks == 156
+
+
+def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
+    """count_cell at train_4k with the smoke granite-moe-3b-a800m (the MoE
+    stays in the replicated layout) over the same (data 4, model 2) meta
+    mesh: a position holds 256 / 4 rows and the whole model, the gradient
+    sum is one all-reduce of each leaf's bytes (uncompressed f32), three
+    data shards are represented by the first, and the artifact's fields
+    are filled."""
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = get_smoke("granite-moe-3b-a800m")
+    h, meta = dryrun.count_cell("granite-moe-3b-a800m", "train_4k", False, mesh=mesh, arch=cfg)
+    leaves = TM.tree_leaves(TM.meta_params(cfg))
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "replicated" and meta["layout"] == dryrun.LAYOUTS[
+        "replicated"]
     assert meta["param_count"] == sum(t.numel() for t in leaves)
     assert h["collective_bytes"]["all-reduce"] == sum(4 * t.numel() for t in leaves)
     assert h["collective_counts"]["all-reduce"] == len(leaves)
+    assert h["collective_counts"]["reduce-scatter"] == h["collective_counts"]["all-gather"] == 0
     assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
     assert meta["represented_positions"] == 3
+
+
+@pytest.mark.parametrize("arch_name, shape_name, data", [
+    ("granite-3-2b", "train_4k", 2), ("granite-3-2b", "decode_32k", 2),
+    ("llava-next-mistral-7b", "prefill_32k", 2), ("starcoder2-3b", "decode_32k", 2),
+    ("granite-3-2b", "prefill_32k", 4)])
+def test_tensor_parallel_meta_counts_equal_the_counts_on_real_tensors(monkeypatch, arch_name,
+                                                                      shape_name, data):
+    """The tensor-parallel layout's sharded train step, prefill and decode
+    step at a tiny shape (4 sequences) over a (data, model 2) grid, on CPU
+    tensors (every position traced) and on meta tensors (representatives):
+    flops, bytes, payloads and argument bytes equal exactly. At data 4 a
+    position prefills one sequence, whose cache the rule table splits as
+    a one-row batch's (the sequence over the data axes and 'model', the
+    data axes of size 1 in the position's row), as the multi-pod mesh's
+    prefill_32k does."""
+    monkeypatch.setitem(dryrun.SHAPES, shape_name, TINY[shape_name])
+    got = []
+    for device in ("cpu", "meta"):
+        mesh = make_mesh((data, 2), ("data", "model"), [device] * (2 * data))
+        h, meta = dryrun.count_cell(arch_name, shape_name, False, mesh=mesh,
+                                    arch=get_smoke(arch_name), device=device)
+        assert meta["layout_name"] == "tensor_parallel"
+        assert meta["rows_per_position"] == 4 // data
+        got.append((h["flops"], h["bytes"], h["collective_bytes"], h["collective_counts"],
+                    meta["argument_size_in_bytes"]))
+    assert got[0] == got[1]
+    assert got[0][0] > 0 and got[0][2]["all-reduce"] > 0
 
 
 REF_DRYRUN = ["-m", "repro.launch.dryrun", "--arch", "granite-3-2b", "--shape", "decode_32k"]
@@ -269,9 +369,13 @@ REF_DRYRUN = ["-m", "repro.launch.dryrun", "--arch", "granite-3-2b", "--shape", 
 def test_decode_cell_beside_the_reference(tmp_path):
     """granite-3-2b x decode_32k: the port's artifact beside the reference's
     (run in a subprocess, as it forces 512 host devices): the same
-    param_count, step_kind and n_devices; the port's flops are one
-    position's 8 sequences with the whole model, about |model| = 16 times
-    the reference's per-device flops."""
+    param_count, step_kind and n_devices. Under the tensor-parallel layout
+    a position holds what a reference device holds, so the argument bytes
+    are XLA's exactly (1,671,893,028: the bf16 weights, the cache, the
+    tokens and the position, each split by the sanitized specs), and the
+    flops, one position's 8 sequences over its sixteenth of the weights and
+    of the cache's sequence, are within 0.8-1.25x of the reference's
+    per-device flops (the replicated layout's were 14-18x)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
@@ -286,5 +390,8 @@ def test_decode_cell_beside_the_reference(tmp_path):
         assert got[key] == want[key], key
     assert got["param_count"] == 2_635_237_376
     assert got["rows_per_position"] == 8 and got["fits_one_card"]
+    assert got["layout_name"] == "tensor_parallel"
+    assert (got["argument_size_in_bytes"] == want["memory_analysis"]["argument_size_in_bytes"]
+            == 1_671_893_028)
     ratio = got["op_analysis"]["flops"] / want["hlo_analysis"]["flops"]
-    assert 14 < ratio < 18, ratio
+    assert 0.8 < ratio < 1.25, ratio
