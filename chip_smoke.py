@@ -227,9 +227,10 @@ Phases, in order; any failure exits nonzero:
                weights), one a layout: granite-3-2b's in the tensor-parallel
                layout (the sharded decode step over the position's row of
                16 'model' positions, each its sixteenth of the weights and
-               of the cache's sequence) and granite-moe-3b-a800m's in the
-               replicated layout (the whole model at the position, its MoE
-               the gspmd dispatch), on the card and on meta tensors of the
+               of the cache's sequence), granite-moe-3b-a800m's in the
+               expert-parallel layout (its 40 experts' FFN width split over
+               16) and rwkv6-7b's in the replicated layout (the whole model
+               at the position), on the card and on meta tensors of the
                same shapes
                by the same code, the plain path on both sides: flops, bytes,
                payloads and argument bytes equal exactly; then the dry runs
@@ -257,7 +258,26 @@ Phases, in order; any failure exits nonzero:
                float32 (within 1e-3, top-1 >= 99 %) and bf16 (the lm phase's
                top-1 and distance gates), timed beside them; each new flash
                shape's first call held against the plain version;
- 18. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 18. expert_parallel — the moe family over grids of views of the card
+               (repro_torch.models.sharded's MoE sub-layer): granite-moe-
+               3b-a800m's bf16 weights at full width and depth, prefill of
+               2 x 1024 and 8 decode steps over (data 1, model 16) (the
+               expert FFN width split) and (2, 4) (whole experts, 10 a
+               position) against one device's bf16 and f32-compute runs
+               (top-1 and distance gates of the lm phase); its sharded
+               train step at 16 of 32 layers over (2, 4), 2 steps beside
+               make_train_step's, the first step's payloads equal to the
+               meta count; the f32 held check at 4 layers with the one
+               device's routing pinned to the sharded run's (loss, grad
+               norm, aux within 1e-4 relative, every parameter within 1e-5
+               of its norm); arctic-480b at full width, 1 layer, over (2, 4)
+               (32 experts a position, the manual MoE): prefill of 2 x 512
+               and 4 decode steps against one device, then one Adafactor
+               train step and its peak memory; exactly one flash launch a
+               layer a data block a position with heads a prefill and two a
+               train step; each new flash shape's first call held against
+               the plain version;
+ 19. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -282,8 +302,9 @@ none for rwkv6-7b; parallel: flash_attention exactly twice a layer a shard a
 step in the sharded and microbatched steps, once a layer a prefill or
 forward under either MoE implementation; dryrun: none; tensor_parallel:
 flash_attention exactly twice a layer a position a step in the sharded
-steps, once a layer a prefill position, none in decode),
-l2dist exactly once a
+steps, once a layer a prefill position, none in decode; expert_parallel:
+flash_attention exactly once a layer a data block a position with heads a
+prefill, twice a step in the sharded steps, none in decode), l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
@@ -362,6 +383,11 @@ PATHS = {
     "tensor_parallel_held": ("flash_attention",),
     "tensor_parallel_prefill": ("flash_attention",),
     "tensor_parallel_decode": (),
+    "expert_parallel_prefill": ("flash_attention",),
+    "expert_parallel_single": ("flash_attention",),
+    "expert_parallel_train": ("flash_attention",),
+    "expert_parallel_held": ("flash_attention",),
+    "expert_parallel_arctic": ("flash_attention",),
 }
 
 
@@ -4263,14 +4289,16 @@ def phase_parallel(torch) -> dict:
 #: the dry-run phase: the card-identity shapes (2^22 x 128 f32 over a
 #: (4, 4) grid of the card, the billion-scale query config; granite-3-2b's
 #: decode_32k step at one position's block of 8 sequences in the
-#: tensor-parallel layout, granite-moe-3b-a800m's in the replicated one),
-#: then the dry runs themselves in child processes, on meta tensors
+#: tensor-parallel layout, granite-moe-3b-a800m's in the expert-parallel
+#: one, rwkv6-7b's in the replicated one), then the dry runs themselves in
+#: child processes, on meta tensors
 DRY_N = 1 << 22
 DRY_GRID = (4, 4)
 DRY_ANN_JOBS = (("build_cov", "gather"), ("query", "gather"), ("query", "masked_full"))
 #: (arch, shape, the layout launch.dryrun must give the cell)
 DRY_CELLS = (("granite-3-2b", "decode_32k", "tensor_parallel"),
-             ("granite-moe-3b-a800m", "decode_32k", "replicated"))
+             ("granite-moe-3b-a800m", "decode_32k", "expert_parallel"),
+             ("rwkv6-7b", "decode_32k", "replicated"))
 DRY_CHILDREN = tuple(
     [("repro_torch.launch.dryrun_ann", (*mp, "--rerank", r))
      for mp in ((), ("--multi-pod",)) for r in ("gather", "masked_full")]
@@ -4765,6 +4793,641 @@ def phase_tensor_parallel(torch) -> dict:
     return rows
 
 
+#: the expert-parallel phase: the moe family over (data, model) grids of
+#: views of the card (repro_torch.models.sharded's MoE sub-layer).
+#: granite-moe-3b-a800m at full width: its 40 experts over 16 positions
+#: split the expert FFN width, over (2, 4) whole experts (10 a position)
+EP_ARCH = "granite-moe-3b-a800m"
+EP_GRIDS = ((1, 16), (2, 4))
+EP_PREFILL = (2, 1024)  # rows x prompt of the bf16 prefills, full depth
+EP_DECODE = 8
+#: the train step over (2, 4): 16 of 32 layers (the f32 state of all 32,
+#: 54 GB, and its placement would not leave room for the gradients)
+EP_TRAIN_GRID = (2, 4)
+EP_TRAIN_LAYERS, EP_TRAIN_STEPS = 16, 2
+EP_TRAIN_BATCH = (8, 128)
+EP_HELD_LAYERS, EP_HELD_STEPS = 4, 2
+#: arctic-480b at full width, 1 layer (14,273,631,232 bf16 parameters)
+#: over (2, 4): 32 experts a position, the manual MoE, Adafactor
+EP_ARCTIC = "arctic-480b"
+EP_ARCTIC_GRID = (2, 4)
+EP_ARCTIC_PREFILL = (2, 512)
+EP_ARCTIC_DECODE = 4
+EP_ARCTIC_BATCH = (4, 128)
+#: bf16 top-1: the sharded run's agreement with the f32 run (the same
+#: routing) at least the one-device bf16 run's less this share of the
+#: positions. Two bf16 runs of these random-weight models part on near-ties
+#: of the logits (0.947-0.965 between sharded and one device, PR 28), so
+#: the lm phase's absolute 95 % does not measure the sharding; each run's
+#: agreement with the same truth does
+EP_BF16_TOP1_SLACK = 0.01
+#: float32 compute: the least share of the routing decisions (a token's
+#: top-k and kept set, call by call) that a sharded run makes as one
+#: device's run does, each with its own routing. A near-tie flips a token's
+#: experts on rounding alone and moves that token's later layers; a fault in
+#: the capacity, the slot order or the dispatch chunk moves most tokens
+EP_ROUTED_ALIKE = 0.99
+
+
+def ep_active(cfg, n: int) -> int:
+    """The 'model' positions that run attention heads (HeadPlan)."""
+    from repro_torch.models.sharded import HeadPlan
+
+    plan = HeadPlan(n, cfg.n_heads, cfg.n_kv_heads)
+    return sum(plan.q_range(m)[1] > plan.q_range(m)[0] for m in range(n))
+
+
+def ep_timed(torch, fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def ep_generate(torch, prefill, decode, tokens, n: int, steps: int):
+    """The last prompt position's logits and each teacher-forced decode
+    step's, stacked (steps + 1, B, V), with the prefill's and the median
+    decode step's ms."""
+    (logits, cache), prefill_ms = ep_timed(torch, lambda: prefill({"tokens": tokens[:, :n]}))
+    out, step_ms = [logits[:, 0]], []
+    for t in range(n, n + steps):
+        (logits, cache), ms = ep_timed(torch, lambda: decode(cache, tokens[:, t:t + 1], t))
+        out.append(logits[:, 0])
+        step_ms.append(ms)
+    return torch.stack(out), prefill_ms, sorted(step_ms)[len(step_ms) // 2]
+
+
+def ep_gates(torch, label: str, got, want: dict, key: str) -> dict:
+    """``got`` against the one-device runs of ``key`` (the same routing):
+    top-1 agreement with the f32-compute run and with the bf16 run, and
+    mean |logits - f32| beside the one-device bf16 run's."""
+    bf16, f32 = want[key], want[key + "_f32"]
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(bf16.shape),
+          f"{label}: logits {tuple(got.shape)}")
+
+    def top1(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    return {"top1_vs_f32": {"sharded": top1(got, f32), "single": top1(bf16, f32)},
+            "top1_vs_single": top1(got, bf16),
+            "mean_abs_vs_f32": {"sharded": float((got - f32).abs().mean()),
+                                "single": float((bf16 - f32).abs().mean())}}
+
+
+def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, label: str,
+                 want: dict) -> dict:
+    """sharded_forward of the prompt, and sharded_prefill with ``steps``
+    sharded decode steps, of the bf16 weights ``params`` over ``grid``,
+    against ``want`` (ep_single: one device's bf16 runs and its f32-compute
+    runs on the same weights and the same routing, each data block one
+    dispatch chunk). Each sharded run's routing is pinned to the one
+    device's bf16 run's (the runs differ by rounding before each router,
+    and a near-tie would send a token to other experts; unpinned, the bf16
+    forward's numbers are reported). bf16, the f32-compute run as the
+    truth: for the forward and for prefill and decode, mean |logits - f32|
+    at most LM_BF16_MEAN_SLACK times the one device's bf16 run's (the lm
+    phase's distance gate); the forward's top-1 agreement with the truth
+    over the rows x n positions at least the one device's bf16 run's less
+    EP_BF16_TOP1_SLACK (agreement with the one-device bf16 run, and prefill
+    and decode's top-1 over rows x (steps + 1) positions, reported). float32
+    compute against one device's on its routing: within LM_F32_TOL, top-1
+    >= LM_F32_TOP1. The float32 forward unpinned, each with its own
+    routing: at least EP_ROUTED_ALIKE of the routing decisions alike (its
+    logits' distance and top-1, and the first MoE layer's share, reported).
+    Exactly one flash launch a layer a data block a position with heads a
+    forward and a prefill."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharded as SHD
+
+    mesh = ep_mesh(grid)
+    placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+    split = SHD._expert_split(SHD._Row(cfg, mesh, {"data": 0}, "auto"),
+                              SHD._groups(placed["blocks"], cfg.n_groups)[0]["l0"]["moe"])
+    seen: dict = {}
+    flash = cfg.n_layers * grid[0] * ep_active(cfg, grid[1])
+    # the cache's sequence splits over 'model' only where it divides
+    max_seq = -(-(n + steps) // grid[1]) * grid[1]
+    prompt = {"tokens": want["tokens"][:, :n]}
+
+    def forward(c):
+        return lambda: ep_timed(torch, lambda: SHD.sharded_forward(placed, c, prompt, mesh)[0])
+
+    def generate():
+        return ep_generate(
+            torch, lambda b: SHD.sharded_prefill(placed, cfg, b, max_seq, mesh),
+            lambda c, tok, t: SHD.sharded_decode_step(placed, cfg, c, tok, t, mesh),
+            want["tokens"], n, steps)
+
+    restore = capture_shapes(ops, seen)
+    try:
+        (fwd, forward_ms), _, l_fwd = ep_pinned(torch, "expert_parallel_prefill", None,
+                                                forward(cfg), flash)
+    finally:
+        restore()
+    unpinned = ep_gates(torch, label, fwd, want, "fwd")
+    row = dict(grid=list(grid), experts=split, unpinned={
+        "top1_vs_single": unpinned["top1_vs_single"], "mean_abs_vs_f32": {
+            "sharded": float((fwd - want["fwd_f32_own"]).abs().mean()),
+            "single": float((want["fwd"] - want["fwd_f32_own"]).abs().mean())}})
+    (fwd, _), alike, l_pin = ep_pinned(torch, "expert_parallel_prefill", want["routes"],
+                                       forward(cfg), flash)
+    row["forward"] = dict(ep_gates(torch, label, fwd, want, "fwd"), routed_alike=alike)
+    (got, prefill_ms, step_ms), alike, l_gen = ep_pinned(
+        torch, "expert_parallel_prefill", want["routes_gen"], generate, flash)
+    row["generate"] = dict(ep_gates(torch, label, got, want, "gen"), routed_alike=alike)
+    del fwd, got
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    (f32, _), alike, l_f32 = ep_pinned(torch, "expert_parallel_prefill", want["routes"],
+                                       forward(c32), flash)
+    row["f32"] = {"max_abs_err": float((f32 - want["fwd_f32"]).abs().max()),
+                  "top1": float((f32.argmax(-1) == want["fwd_f32"].argmax(-1)).float().mean()),
+                  "routed_alike": alike}
+    f32_close = torch.allclose(f32, want["fwd_f32"], rtol=LM_F32_TOL, atol=LM_F32_TOL)
+    del f32
+    routes, probs = [], []
+    unroute = routing_spy(MOE, routes, probs_seen=probs)
+    try:
+        (own, _), _, l_own = ep_pinned(torch, "expert_parallel_prefill", None, forward(c32),
+                                       flash)
+    finally:
+        unroute()
+    alike = ep_alike(list(zip(probs, routes)), want["routes_f32_own"])
+    per = len(alike) // cfg.n_layers  # route calls a MoE layer: one a data block
+    ref = want["fwd_f32_own"]
+    row["f32_unpinned"] = {
+        "routed_alike": sum(alike) / len(alike), "routed_alike_min": min(alike),
+        "first_layer_routed_alike": sum(alike[:per]) / per,
+        "max_abs_err": float((own - ref).abs().max()),
+        "top1": float((own.argmax(-1) == ref.argmax(-1)).float().mean())}
+    del own, ref, routes, probs
+    row.update(forward_ms=forward_ms, forward_ms_single=want["forward_ms"],
+               prefill_ms=prefill_ms, decode_step_ms=step_ms,
+               prefill_ms_single=want["prefill_ms"], decode_step_ms_single=want["step_ms"],
+               flash_per_prefill=flash)
+    print(f"{label}: {json.dumps(row)}", flush=True)
+    top1 = row["forward"]["top1_vs_f32"]
+    check(top1["sharded"] >= top1["single"] - EP_BF16_TOP1_SLACK,
+          f"{label}: bf16 top-1 agreement with f32 {top1}")
+    check(f32_close and row["f32"]["top1"] >= LM_F32_TOP1, f"{label}: float32 {row['f32']}")
+    check(row["f32_unpinned"]["routed_alike"] >= EP_ROUTED_ALIKE,
+          f"{label}: float32 unpinned {row['f32_unpinned']}")
+    for what in ("forward", "generate"):
+        r = row[what]["mean_abs_vs_f32"]
+        check(r["sharded"] <= LM_BF16_MEAN_SLACK * r["single"], f"{label}: {what} {r}")
+    check(len(seen) == 1, f"{label}: flash shapes {sorted(seen)}")
+    row["flash"] = fam_flash_shapes(torch, seen, label)
+    row["launches"] = [l_fwd, l_pin, l_gen, l_f32, l_own]
+    del placed
+    torch.cuda.empty_cache()
+    return row
+
+
+def ep_pinned(torch, path: str, routes, fn, flash: int) -> tuple:
+    """``fn()`` without gradients as one path run with exactly ``flash``
+    flash launches, its routing pinned to ``routes`` (ep_pinned_routes;
+    unpinned where None): (result, the share of tokens its own routing sent
+    alike, launches)."""
+    from repro_torch.models import moe as MOE
+
+    agree: list = []
+    unroute = ep_pinned_routes(MOE, routes, agree) if routes is not None else lambda: None
+    try:
+        with torch.no_grad():
+            out, launches = run_path(torch, path, fn, expect={"flash_attention": flash})
+    finally:
+        unroute()
+    return out, (sum(agree) / len(agree) if agree else None), launches
+
+
+def ep_mesh(grid):
+    from repro_torch.mesh import make_mesh
+
+    return make_mesh(grid, ("data", "model"))
+
+
+def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int) -> dict:
+    """The one-device runs the sharded ones are held to, with ``n_dp``
+    dispatch chunks (a data block each): forward of the prompt, then
+    prefill and decode_step, in bf16, their routing recorded (``routes``,
+    ``routes_gen``: (router probabilities, decisions) a call); the same in
+    f32 compute with the routing pinned to the bf16 runs' (``fwd_f32``,
+    ``gen_f32``: the truth the bf16 runs are measured against), and the f32
+    forward with its own routing (``fwd_f32_own``), recorded
+    (``routes_f32_own``)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    out, launches = {"tokens": tokens}, []
+
+    def runs(c):
+        return (lambda: ep_timed(torch, lambda: M.forward(params, c, {"tokens": tokens[:, :n]})[0]),
+                lambda: ep_generate(torch, lambda b: M.prefill(params, c, b, n + steps),
+                                    lambda ca, tok, t: M.decode_step(params, c, ca, tok, t),
+                                    tokens, n, steps))
+
+    def recorded(key, fn):
+        routes, probs = [], []
+        unroute = routing_spy(MOE, routes, probs_seen=probs)
+        try:
+            res, _, l_run = ep_pinned(torch, "expert_parallel_single", None, fn, cfg.n_layers)
+        finally:
+            unroute()
+        out[key] = list(zip(probs, routes))
+        launches.append(l_run)
+        return res
+
+    chunked = dataclasses.replace(cfg, moe_impl="gspmd", moe_dispatch_chunks=n_dp)
+    bf16, f32 = (dataclasses.replace(chunked, compute_dtype=d) for d in ("bfloat16", "float32"))
+    forward, generate = runs(bf16)
+    out["fwd"], out["forward_ms"] = recorded("routes", forward)
+    out["gen"], out["prefill_ms"], out["step_ms"] = recorded("routes_gen", generate)
+    forward, generate = runs(f32)
+    for key, routes, fn in (("fwd_f32", out["routes"], forward),
+                            ("gen_f32", out["routes_gen"], generate)):
+        res, _, l_run = ep_pinned(torch, "expert_parallel_single", routes, fn, cfg.n_layers)
+        out[key] = res[0]
+        launches.append(l_run)
+    out["fwd_f32_own"] = recorded("routes_f32_own", forward)[0]
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def ep_granite_inference(torch) -> dict:
+    """granite-moe-3b-a800m's bf16 weights at full width and depth (32
+    layers, 6.75 GB), prefill EP_PREFILL and EP_DECODE decode steps over
+    each of EP_GRIDS against one device in the same call."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_arch(EP_ARCH), param_dtype="bfloat16")
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rows_n, n = EP_PREFILL
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (rows_n, n + EP_DECODE), generator=g,
+                           device="cuda")
+    out, launches = {}, []
+    for grid in EP_GRIDS:
+        want = ep_single(torch, cfg, params, grid[0], tokens, n, EP_DECODE)
+        launches += want.pop("launches")
+        row = ep_inference(torch, cfg, params, grid, rows_n, n, EP_DECODE,
+                           f"expert parallel {EP_ARCH} {grid[0]}x{grid[1]}", want)
+        launches += row.pop("launches")
+        out[f"{grid[0]}x{grid[1]}"] = row
+        del want
+        torch.cuda.empty_cache()
+    check(out["1x16"]["experts"] == "width" and out["2x4"]["experts"] == "experts",
+          f"expert parallel: splits {out['1x16']['experts']}, {out['2x4']['experts']}")
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def ep_meta_payloads(torch, cfg, opt, lr, batch, grid) -> dict:
+    """The payloads of the same sharded step counted on meta tensors over
+    a ``grid`` of meta positions (launch.op_analysis), as the dry run
+    counts it."""
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.train import TrainState, make_sharded_train_step
+
+    mesh = make_mesh(grid, ("data", "model"), ["meta"] * math.prod(grid))
+    params = M.meta_params(cfg)
+    state = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
+                                             step=torch.zeros((), dtype=torch.int32)), mesh)
+    step = make_sharded_train_step(cfg, opt, lr, mesh, impl="torch")
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.long, device="meta")
+                  for k, v in batch.items()}
+    with OpCounter(mesh, represent=True) as counter:
+        step(state, meta_batch)
+    h = counter.analysis()
+    return {"bytes": h["collective_bytes"], "counts": h["collective_counts"]}
+
+
+def ep_train_steps(torch, step, placed, stream, steps: int, mesh, path: str, flash: int,
+                   seen: dict, payload: dict | None = None) -> tuple:
+    """``steps`` sharded steps as one path run (CUDA events a step; the
+    first step's payloads tallied into ``payload``): (state, rows)."""
+    from repro_torch.kernels import ops
+
+    rows = []
+
+    def run():
+        nonlocal placed
+        for s in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if s == 0 and payload is not None:
+                (placed, m), tallied = tp_payloads(torch, mesh,
+                                                   lambda: step(placed, stream.batch(s)))
+                payload.update(tallied)
+            else:
+                placed, m = step(placed, stream.batch(s))
+            end.record()
+            torch.cuda.synchronize()
+            rows.append(dict(ms=start.elapsed_time(end), loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"]), aux_loss=float(m["aux_loss"])))
+
+    restore = capture_shapes(ops, seen)
+    try:
+        _, launches = run_path(torch, path, run, expect={"flash_attention": flash * steps})
+    finally:
+        restore()
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              and math.isfinite(r["aux_loss"]) for r in rows),
+          f"{path}: a non-finite loss, grad norm or aux {rows}")
+    return placed, rows, launches
+
+
+def ep_train(torch) -> dict:
+    """make_sharded_train_step at granite-moe's full width, EP_TRAIN_LAYERS
+    layers, over EP_TRAIN_GRID (whole experts, gspmd's whole-batch aux;
+    batch EP_TRAIN_BATCH, f32 parameters, bf16 compute, remat, AdamW):
+    EP_TRAIN_STEPS steps timed, exactly 2 flash launches a layer a data
+    block a position a step, the first step's payloads tallied on the card
+    and equal to the same step's meta count, peak memory; make_train_step
+    at the same depth beside it (its MoE in a chunk a data block)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+
+    cfg = dataclasses.replace(get_arch(EP_ARCH), n_layers=EP_TRAIN_LAYERS)
+    print(f"expert parallel: cut: the train step at {EP_TRAIN_LAYERS} of 32 layers", flush=True)
+    mesh = ep_mesh(EP_TRAIN_GRID)
+    opt, lr = adamw(), warmup_cosine(3e-4, 20, EP_TRAIN_STEPS + 1)
+    stream = SyntheticTokenStream(cfg.vocab_size, EP_TRAIN_BATCH[1], EP_TRAIN_BATCH[0], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    placed = SHD.place_train_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    place_s = time.perf_counter() - t0
+    step = make_sharded_train_step(cfg, opt, lr, mesh)
+    flash = (1 + cfg.remat) * cfg.n_layers * EP_TRAIN_GRID[0] * ep_active(cfg, EP_TRAIN_GRID[1])
+    payload, seen = {}, {}
+    placed, rows, l_ep = ep_train_steps(torch, step, placed, stream, EP_TRAIN_STEPS, mesh,
+                                        "expert_parallel_train", flash, seen, payload)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_payload = ep_meta_payloads(torch, cfg, opt, lr, stream.batch(0), EP_TRAIN_GRID)
+    meta_s = time.perf_counter() - t0
+    check(meta_payload == payload, f"expert parallel: the card's payloads {payload} against "
+                                   f"the meta count's {meta_payload}")
+    check(len(seen) == 1, f"expert parallel train: flash shapes {sorted(seen)}")
+    flash_rows = fam_flash_shapes(torch, seen, "expert parallel train")
+    del seen
+    torch.cuda.reset_peak_memory_stats()
+    single_cfg = dataclasses.replace(cfg, moe_dispatch_chunks=EP_TRAIN_GRID[0])
+    state, single_rows, l_single = par_train_run(
+        torch, single_cfg, make_train_step(single_cfg, opt, lr), stream,
+        "expert_parallel_single", (1 + cfg.remat) * cfg.n_layers * EP_TRAIN_STEPS,
+        EP_TRAIN_STEPS)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, layers=cfg.n_layers, grid=list(EP_TRAIN_GRID),
+               steps=EP_TRAIN_STEPS, batch=list(EP_TRAIN_BATCH), sharded=rows,
+               single_device=single_rows, place_s=place_s,
+               step_ms_sharded=par_steady_ms(rows), step_ms_single=par_steady_ms(single_rows),
+               flash_per_step=flash, payload_first_step=payload, meta_count_s=meta_s,
+               peak_gib=peak, peak_gib_single=single_peak, flash=flash_rows)
+    print(f"expert parallel train: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}",
+          flush=True)
+    row["launches"] = [l_ep, l_single]
+    return row
+
+
+def ep_pinned_routes(moe_module, recorded: list, agree: list):
+    """Wrap the MoE's ``route`` so that each call takes the decisions
+    (expert ids, dispatch order, positions, kept set) of the recorded call
+    whose router probabilities are nearest its own (the same tokens routed
+    by the other path), its gates renormalised from its own probabilities;
+    ``agree`` gets, call by call, the share of tokens whose own top-k and
+    kept set were the same. Returns a function that puts the original
+    back."""
+    route = moe_module.route
+
+    def spy(probs, k, cap):
+        own = route(probs, k, cap)
+        near = ep_nearest(recorded, probs)
+        exp_idx, _, fe, pos, keep = near[1]
+        agree.append(float(ep_routed_alike(own, near[1]).float().mean()))
+        gates = probs.gather(1, exp_idx)
+        return exp_idx, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), fe, pos, keep
+
+    moe_module.route = spy
+    return lambda: setattr(moe_module, "route", route)
+
+
+def ep_nearest(recorded: list, probs):
+    """The recorded (router probabilities, decisions) call whose
+    probabilities are nearest ``probs``: the same tokens routed by the
+    other path."""
+    return min((r for r in recorded if r[0].shape == probs.shape),
+               key=lambda r: float((r[0] - probs.detach()).abs().max()))
+
+
+def ep_routed_alike(own, other):
+    """Token by token, whether two route calls' decisions (expert ids,
+    dispatch order, positions, kept set) give the same top-k and kept set."""
+    k, t = own[0].shape[1], own[0].shape[0]
+    return (own[0] == other[0]).all(-1) & (own[4].view(k, t) == other[4].view(k, t)).all(0)
+
+
+def ep_alike(mine: list, theirs: list) -> list:
+    """For each recorded call of ``mine``, the share of its tokens that the
+    nearest call of ``theirs`` routed alike."""
+    return [float(ep_routed_alike(own, ep_nearest(theirs, probs)[1]).float().mean())
+            for probs, own in mine]
+
+
+def ep_held(torch) -> dict:
+    """The sharded step against make_train_step at granite-moe's full
+    width, EP_HELD_LAYERS layers, float32 compute, EP_HELD_STEPS steps over
+    EP_TRAIN_GRID from one seeded state on the same batches, the
+    one-device run's routing pinned to the sharded run's (the two differ by
+    rounding before the router, and a near-tie would send a token to other
+    experts): loss, grad norm and aux within TP_METRIC_RTOL relative, every
+    parameter within TP_PARAM_RTOL of its norm; at least EP_ROUTED_ALIKE of
+    the one device's own routing decisions the sharded run's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+    from repro_torch.utils import tree_flatten
+
+    cfg = dataclasses.replace(get_arch(EP_ARCH), n_layers=EP_HELD_LAYERS,
+                              compute_dtype="float32")
+    print(f"expert parallel: cut: the held check at {EP_HELD_LAYERS} of 32 layers, float32",
+          flush=True)
+    mesh = ep_mesh(EP_TRAIN_GRID)
+    opt, lr = adamw(), warmup_cosine(3e-4, 2, 10)
+    stream = SyntheticTokenStream(cfg.vocab_size, EP_TRAIN_BATCH[1], EP_TRAIN_BATCH[0], seed=1)
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    start = [p.detach().clone() for p in tree_flatten(state.params)[0]]
+    placed = SHD.place_train_state(state, mesh)
+    sharded = make_sharded_train_step(cfg, opt, lr, mesh)
+    single_cfg = dataclasses.replace(cfg, moe_dispatch_chunks=EP_TRAIN_GRID[0])
+    plain = make_train_step(single_cfg, opt, lr)
+    flash = 2 * cfg.n_layers * EP_TRAIN_GRID[0] * ep_active(cfg, EP_TRAIN_GRID[1])
+    routes, probs = [], []
+    restore = routing_spy(MOE, routes, probs_seen=probs)
+    try:
+        placed, metrics, l_sharded = ep_train_steps(torch, sharded, placed, stream,
+                                                    EP_HELD_STEPS, mesh, "expert_parallel_held",
+                                                    flash, {})
+    finally:
+        restore()
+    probs = [p.detach() for p in probs]
+    agree, want, launches = [], [], [l_sharded]
+    for s in range(EP_HELD_STEPS):
+        # each step pinned to its own step's routes (the weights moved)
+        per = len(routes) // EP_HELD_STEPS
+        recorded = list(zip(probs[s * per:(s + 1) * per], routes[s * per:(s + 1) * per]))
+        restore = ep_pinned_routes(MOE, recorded, agree)
+        try:
+            (state, m), l_plain = run_path(
+                torch, "expert_parallel_held", lambda: plain(state, stream.batch(s)),
+                expect={"flash_attention": 2 * cfg.n_layers})
+        finally:
+            restore()
+        launches.append(l_plain)
+        want.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr", "aux_loss")})
+    del routes, probs
+    for a, b in zip(metrics, want):
+        for key in ("loss", "grad_norm", "aux_loss"):
+            check(abs(a[key] - b[key]) <= TP_METRIC_RTOL * abs(b[key]),
+                  f"expert parallel held: {key} {a[key]} sharded against {b[key]}")
+    alike = sum(agree) / len(agree)
+    check(alike >= EP_ROUTED_ALIKE,
+          f"expert parallel held: {alike} of tokens routed alike, call by call {agree}")
+    back = SHD.unplace_train_state(placed)
+    worst_norm = worst_update = 0.0
+    for p, q, p0 in zip(tree_flatten(back.params)[0], tree_flatten(state.params)[0], start):
+        d = float((p - q.detach()).norm())
+        worst_norm = max(worst_norm, d / max(float(q.detach().norm()), 1e-30))
+        worst_update = max(worst_update, d / max(float((q.detach() - p0).norm()), 1e-30))
+    check(worst_norm <= TP_PARAM_RTOL, f"expert parallel held: a parameter {worst_norm} of "
+                                       "its norm from make_train_step's")
+    del back, placed, state, start
+    torch.cuda.empty_cache()
+    row = dict(layers=EP_HELD_LAYERS, steps=EP_HELD_STEPS, sharded=metrics, single=want,
+               routed_alike=alike, routed_alike_min=min(agree), worst_param_vs_norm=worst_norm,
+               worst_param_vs_update=worst_update)
+    print(f"expert parallel held: {json.dumps(row)}", flush=True)
+    row["launches"] = launches
+    return row
+
+
+def ep_arctic(torch) -> dict:
+    """arctic-480b at full width, 1 layer (bf16 weights, 28.5 GB) over
+    EP_ARCTIC_GRID (32 experts a position, the manual MoE): the one-device
+    f32-compute and bf16 prefill EP_ARCTIC_PREFILL and EP_ARCTIC_DECODE
+    decode steps first, then the sharded ones held to them (ep_inference);
+    then one Adafactor train step of the placed state (batch
+    EP_ARCTIC_BATCH), its peak memory, exactly 2 flash launches a data
+    block a position."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adafactor, warmup_cosine
+    from repro_torch.train import TrainState, make_sharded_train_step
+
+    cfg = dataclasses.replace(get_arch(EP_ARCTIC), n_layers=1)
+    print("expert parallel: cut: arctic-480b to 1 of 35 layers", flush=True)
+    check(cfg.param_dtype == "bfloat16" and cfg.moe_dense_residual, "arctic: the config moved")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rows_n, n = EP_ARCTIC_PREFILL
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (rows_n, n + EP_ARCTIC_DECODE), generator=g,
+                           device="cuda")
+    want = ep_single(torch, cfg, params, EP_ARCTIC_GRID[0], tokens, n, EP_ARCTIC_DECODE)
+    launches = want.pop("launches")
+    manual = dataclasses.replace(cfg, moe_impl="manual")
+    row = ep_inference(torch, manual, params, EP_ARCTIC_GRID, rows_n, n, EP_ARCTIC_DECODE,
+                       f"expert parallel {EP_ARCTIC} {EP_ARCTIC_GRID[0]}x{EP_ARCTIC_GRID[1]}",
+                       want)
+    launches += row.pop("launches")
+    check(row["experts"] == "experts", f"arctic: split {row['experts']}")
+    del want
+    inference_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    mesh = ep_mesh(EP_ARCTIC_GRID)
+    opt, lr = adafactor(), warmup_cosine(3e-4, 2, 10)
+    placed = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
+                                              step=torch.zeros((), dtype=torch.int32)), mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stream = SyntheticTokenStream(cfg.vocab_size, EP_ARCTIC_BATCH[1], EP_ARCTIC_BATCH[0], seed=2)
+    step = make_sharded_train_step(manual, opt, lr, mesh)
+    flash = (1 + cfg.remat) * EP_ARCTIC_GRID[0] * ep_active(cfg, EP_ARCTIC_GRID[1])
+    seen = {}
+    placed, rows, l_train = ep_train_steps(torch, step, placed, stream, 1, mesh,
+                                           "expert_parallel_arctic", flash, seen)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    row.update(train=rows, train_peak_gib=train_peak, inference_peak_gib=inference_peak,
+               train_flash=fam_flash_shapes(torch, seen, "expert parallel arctic train"))
+    print(f"expert parallel arctic train: {json.dumps(rows)}; peak {train_peak:.2f} GiB "
+          f"(inference {inference_peak:.2f})", flush=True)
+    row["launches"] = launches + [l_train]
+    return row
+
+
+def phase_expert_parallel(torch) -> dict:
+    """Phase 18: the moe family's expert parallelism over 'model' on grids
+    of views of the card: granite-moe's bf16 prefill and decode at full
+    width and depth in both expert splits, its sharded train step beside
+    make_train_step, the f32 held check, and arctic at full width (1 layer)
+    with Adafactor; each model freed before the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "expert parallel: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("inference", ep_granite_inference), ("train", ep_train),
+                     ("held", ep_held), ("arctic", ep_arctic)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib_phase"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"expert parallel {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib_phase']:.2f} GiB", flush=True)
+    rows["launches"] = [c for r in ("inference", "train", "held", "arctic")
+                        for c in rows[r]["launches"]]
+    return rows
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -4879,8 +5542,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 17. tensor parallelism and ZeRO-1 over a (data, model) grid of the card
     tp = phase("tensor_parallel", phase_tensor_parallel, torch)
+    torch.cuda.empty_cache()
+    # 18. the moe family's expert parallelism over 'model'
+    ep = phase("expert_parallel", phase_expert_parallel, torch)
 
-    # 18. summary: each kernel's launches over every path run above
+    # 19. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -4890,7 +5556,8 @@ def main(argv=None) -> int:
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
                    baselines["launches"], *train["launches"], *families["launches"],
-                   *parallel["launches"], dry["launches"], *tp["launches"]):
+                   *parallel["launches"], dry["launches"], *tp["launches"],
+                   *ep["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -4910,7 +5577,8 @@ def main(argv=None) -> int:
                                "serve": serve, "lm": lm, "baselines": baselines,
                                "train": train, "families": families,
                                "parallel": parallel, "dryrun": dry,
-                               "tensor_parallel": tp, "phase_seconds": phase_seconds},
+                               "tensor_parallel": tp, "expert_parallel": ep,
+                               "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

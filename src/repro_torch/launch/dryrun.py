@@ -58,6 +58,7 @@ import json
 import os
 import time
 import traceback
+from typing import Callable
 
 import torch
 
@@ -67,7 +68,7 @@ from repro_torch.launch import sharding as SH
 from repro_torch.launch.dryrun_ann import CARD_BYTES
 from repro_torch.launch.mesh import dp_axes, make_production_mesh
 from repro_torch.launch.op_analysis import OpCounter
-from repro_torch.mesh import P, DeviceMesh, axis_size, set_mesh, tensor_bytes
+from repro_torch.mesh import P, DeviceMesh, axis_size, position_slice, set_mesh, tensor_bytes
 from repro_torch.models import sharded as SHD
 from repro_torch.models.model import (
     decode_step,
@@ -102,8 +103,25 @@ LAYOUTS = {
         "divide |model|, whole heads gathered before the attention core and the output "
         "gathered again for wo; kernels counted as their plain versions"),
 }
-#: the cells the tensor-parallel layout covers: the dense stack's
+LAYOUTS["expert_parallel"] = (
+    "the tensor_parallel layout for the attention, a dense residual MLP, the embedding and "
+    "the head, and the experts over 'model' as the sanitized specs split them: whole "
+    "experts where the count divides |model| (gate/up/down over their expert axis; each "
+    "position dispatches its block's tokens to its E/|model| experts at the global count's "
+    "capacity, the partial outputs summed), else the expert FFN width (gate/up over their "
+    "columns, down over its output columns; the (E, cap, D) buffer built once a block, the "
+    "hidden columns gathered, each position's output columns combined by the gates and "
+    "gathered); the router replicated, a data block's routing computed once and one "
+    "dispatch chunk; the aux loss over the whole batch for moe_impl 'gspmd' (the blocks' "
+    "token counts and router probability sums all-reduced over the data axes) or the mean "
+    "of the blocks' for 'manual'; Adafactor's factored moments split as their parameter "
+    "(vr without its last entry, vc without its second-to-last; no ZeRO-1), its row, "
+    "column and RMS means' partial sums all-reduced over 'model'; kernels counted as their "
+    "plain versions")
+#: the cells the tensor-parallel layout covers (the dense stack's) and the
+#: expert-parallel one (the moe family's)
 TP_FAMILIES = ("dense", "vlm")
+EP_FAMILIES = ("moe",)
 TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
@@ -143,13 +161,6 @@ def _param_bytes(tree, arch, ep: int, experts: bool = False) -> int:
     return total
 
 
-def position_slice(mesh: DeviceMesh, axes) -> DeviceMesh:
-    """``mesh`` cut to index 0 of each of ``axes`` (kept, of size 1): the
-    slice of the grid one position's block of the batch runs over."""
-    cut = tuple(slice(0, 1) if n in axes else slice(None) for n in mesh.axis_names)
-    return DeviceMesh(mesh.devices[cut], mesh.axis_names)
-
-
 def _placed(tree, device):
     """A tree of meta tensors as zeros on ``device`` (itself on meta)."""
     if torch.device(device).type == "meta":
@@ -157,13 +168,43 @@ def _placed(tree, device):
     return map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), tree)
 
 
+@dataclasses.dataclass
+class Cell:
+    """One cell's step, built and not run: ``run()`` runs it once over
+    ``mesh`` (data axes ``dp``); ``meta`` holds the layout, the optimizer,
+    the rows a position runs and the argument bytes. ``run`` is None where
+    the cell is skipped (``meta["skipped"]`` says why)."""
+    run: Callable[[], object] | None
+    mesh: DeviceMesh | None
+    dp: tuple
+    meta: dict
+
+
 def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, arch=None,
                device="meta"):
-    """(per-position analysis, meta) of one cell, or (None, {"skipped": why}).
-    ``mesh`` defaults to the production mesh of ``device`` positions (meta:
-    nothing allocated), ``arch`` to the registry's config of ``arch_name``.
-    On another device the same step runs on seeded parameters and zero
-    inputs of the same shapes, for a count to hold the meta one against."""
+    """(per-position analysis, meta) of one cell (:func:`build_cell`), or
+    (None, {"skipped": why})."""
+    cell = build_cell(arch_name, shape_name, multi_pod, mesh=mesh, arch=arch, device=device)
+    if cell.run is None:
+        return None, cell.meta
+    # the ambient mesh, which the manual MoE walks: a position's slice; in
+    # the train step each data shard's walk places it at the shard's
+    # coordinates (repro_torch.mesh.position: the enclosing axes win)
+    with (set_mesh(position_slice(cell.mesh, cell.dp)),
+          OpCounter(cell.mesh, represent=True) as counter):
+        cell.run()
+    cell.meta["represented_positions"] = counter.represented
+    cell.meta["represented_steps"] = counter.represented_steps
+    return counter.analysis(), cell.meta
+
+
+def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, arch=None,
+               device="meta") -> Cell:
+    """One cell's step and its meta, not run. ``mesh`` defaults to the
+    production mesh of ``device`` positions (meta: nothing allocated),
+    ``arch`` to the registry's config of ``arch_name``. On another device
+    the same step runs on seeded parameters and zero inputs of the same
+    shapes, for a count to hold the meta one against."""
     n_dev = 512 if multi_pod else 256
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, devices=[device] * n_dev)
@@ -173,14 +214,14 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
     arch = get_arch(arch_name) if arch is None else arch
     reason = skip_reason(arch, shape)
     if reason:
-        return None, {"skipped": reason}
+        return Cell(None, None, dp, {"skipped": reason})
     arch = sharded_arch(resolve_arch_for_shape(arch, shape), multi_pod)
     if shape.kind in ("decode", "prefill"):
         # inference serves bf16 weights, as the reference's dry run does
         arch = dataclasses.replace(arch, param_dtype="bfloat16")
     params = (meta_params(arch) if torch.device(device).type == "meta" else
               init_params(torch.Generator(device).manual_seed(0), arch, device=device))
-    layout = "tensor_parallel" if tensor_parallel_cell(arch, shape) else "replicated"
+    layout = cell_layout(arch, shape)
     meta = {
         "arch": arch_name, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16", "n_devices": mesh.size,
@@ -189,11 +230,15 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
         else None, "layout_name": layout, "layout": LAYOUTS[layout],
         "counter": f"repro_torch.launch.op_analysis ({torch.device(device).type} tensors)",
     }
-    if layout == "tensor_parallel":
+    if layout != "replicated":
         meta["heads"] = SHD.HeadPlan(ep, arch.n_heads, arch.n_kv_heads).describe()
+        if arch.n_experts:
+            meta["experts"] = (f"whole experts, {arch.n_experts // ep} a position"
+                               if arch.n_experts % ep == 0 else
+                               "the expert FFN width: gate/up columns, down output columns")
         run, arg_bytes, block = _tensor_parallel_step(arch, shape, params, mesh, dp, device,
                                                       meta)
-        return _counted(run, mesh, dp, meta, arg_bytes, block)
+        return _built(run, mesh, dp, meta, arg_bytes, block)
     arg_bytes = _param_bytes(params, arch, ep)
     # the step's inputs are made before the counter starts: what it counts
     # is the step alone, as the reference lowers the step over given inputs
@@ -231,41 +276,38 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
                 with torch.no_grad():
                     decode_step(params, arch, specs["cache"], specs["tokens"],
                                 shape.seq_len - 1)
-    return _counted(run, mesh, dp, meta, arg_bytes, block)
+    return _built(run, mesh, dp, meta, arg_bytes, block)
 
 
-def _counted(run, mesh, dp, meta: dict, arg_bytes: int, block: int):
+def _built(run, mesh, dp, meta: dict, arg_bytes: int, block: int) -> Cell:
     meta["rows_per_position"] = block
-    # the ambient mesh, which the manual MoE walks: a position's slice; in
-    # the train step each data shard's walk places it at the shard's
-    # coordinates (repro_torch.mesh.position: the enclosing axes win)
-    with set_mesh(position_slice(mesh, dp)), OpCounter(mesh, represent=True) as counter:
-        run()
-    meta["represented_positions"] = counter.represented
-    meta["represented_steps"] = counter.represented_steps
     meta["argument_size_in_bytes"] = arg_bytes
     meta["fits_one_card"] = arg_bytes <= CARD_BYTES
-    return counter.analysis(), meta
+    return Cell(run, mesh, dp, meta)
 
 
-def tensor_parallel_cell(arch, shape) -> bool:
-    """Whether the cell runs the tensor-parallel layout: the dense stack at
-    train_4k, prefill_32k and decode_32k."""
-    return arch.family in TP_FAMILIES and shape.name in TP_SHAPES
+def cell_layout(arch, shape) -> str:
+    """The cell's layout: ``tensor_parallel`` for the dense stack and
+    ``expert_parallel`` for the moe family at train_4k, prefill_32k and
+    decode_32k; else ``replicated``."""
+    if shape.name in TP_SHAPES and arch.family in TP_FAMILIES:
+        return "tensor_parallel"
+    if shape.name in TP_SHAPES and arch.family in EP_FAMILIES:
+        return "expert_parallel"
+    return "replicated"
 
 
 def _tensor_parallel_step(arch, shape, params, mesh: DeviceMesh, dp, device, meta: dict):
-    """(run, argument bytes, rows a position runs) of a tensor-parallel
-    cell. The argument bytes are the reference's arguments (its train state
-    and batch; or its parameters and batch; or its parameters, cache,
-    tokens and position) at one position under the sanitized specs."""
+    """(run, argument bytes, rows a position runs) of a tensor- or
+    expert-parallel cell. The argument bytes are the reference's arguments
+    (its train state, under the optimizer ``pick_optimizer`` picks, and
+    batch; or its parameters and batch; or its parameters, cache, tokens
+    and position) at one position under the sanitized specs."""
     n_dp = axis_size(mesh, dp)
     inputs = input_specs(arch, shape)
     pspecs = SH.sanitize_specs(params, SH.param_pspecs(params), mesh)
     if shape.kind == "train":
         opt, opt_name = pick_optimizer(arch)
-        if opt_name != "adamw":
-            raise NotImplementedError(f"{arch.name}: the sharded step runs AdamW")
         state = TrainState(params=params, opt_state=opt[0](params),
                            step=torch.zeros((), dtype=torch.int32))
         specs = SH.sanitize_specs(state, SH.train_state_pspecs(state, dp, mesh), mesh)

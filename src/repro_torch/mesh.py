@@ -193,6 +193,16 @@ def make_mesh(shape, names, devices=None) -> DeviceMesh:
     return DeviceMesh(arr.reshape(shape), names)
 
 
+def position_slice(mesh: DeviceMesh, axes, coords: dict | None = None) -> DeviceMesh:
+    """``mesh`` cut to one index of each of ``axes`` (kept, of size 1): the
+    slice of the grid one position's block of the batch runs over, at
+    ``coords`` (``{axis name: index}``; default index 0 of each)."""
+    coords = coords or {}
+    cut = tuple(slice(coords.get(n, 0), coords.get(n, 0) + 1) if n in axes else slice(None)
+                for n in mesh.axis_names)
+    return DeviceMesh(mesh.devices[cut], mesh.axis_names)
+
+
 _AMBIENT: contextvars.ContextVar[DeviceMesh | None] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
 
@@ -288,6 +298,14 @@ def deferred_tally():
     if counter is None:
         return None
     return lambda kind, nbytes: counter.add_collective(counter.coords, kind, int(nbytes))
+
+
+def uncounted():
+    """A context manager factory bound to the active counter, under which
+    nothing is counted (for a hook autograd may run on a thread of its
+    own); a null context without a counter."""
+    counter = _COUNTER.get()
+    return contextlib.nullcontext if counter is None else counter.suspended
 
 
 def tensor_bytes(*tensors) -> int:

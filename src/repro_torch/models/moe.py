@@ -73,13 +73,14 @@ def _aux(probs: torch.Tensor, first: torch.Tensor, n_experts: int) -> torch.Tens
 
 
 def _dispatch(x2: torch.Tensor, row: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor,
-              rows_per_expert: int, weights) -> torch.Tensor:
+              rows_per_expert: int, weights, sum_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The routed FFN of the tokens x2 (T, D) over the experts ``weights``
     (gate, up, down, each E' experts long): dispatch entry i (slot-major,
     token i % T) is stored at buffer row ``row[i]`` of the (E' ·
     rows_per_expert + 1, D) buffer, the last row the dropped entries' spare;
     the expert products; each kept entry's output gathered and gated; the
-    sum over the k entries of a token. (T, D)."""
+    sum over the k entries of a token, in ``sum_dtype`` (default x2's).
+    (T, D)."""
     t, d = x2.shape
     rows = weights[0].shape[0] * rows_per_expert
     buf = x2.new_zeros((rows + 1, d))
@@ -87,7 +88,7 @@ def _dispatch(x2: torch.Tensor, row: torch.Tensor, keep: torch.Tensor, gates: to
     y = _experts(buf[:-1].view(-1, rows_per_expert, d), *weights)
     out = y.reshape(rows, d)[torch.where(keep, row, 0)]
     out = torch.where(keep[:, None], out * gates[:, None].to(x2.dtype), 0)
-    return out.reshape(-1, t, d).sum(dim=0)
+    return out.reshape(-1, t, d).sum(dim=0, dtype=sum_dtype)
 
 
 def moe_apply(p, x: torch.Tensor, *, n_experts: int, experts_per_token: int,

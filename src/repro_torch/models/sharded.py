@@ -1,4 +1,5 @@
-"""Tensor parallelism over 'model' for the dense decoder stack: the port's
+"""Tensor parallelism over 'model' for the dense decoder stack and the moe
+family (expert parallelism over the same axis): the port's
 counterpart of what GSPMD makes of ``repro.models.model``'s ``forward``,
 ``prefill`` and ``decode_step`` under ``repro.launch.sharding``'s specs
 (:mod:`repro_torch.launch.sharding`).
@@ -32,6 +33,21 @@ position, as Megatron splits a layer:
               prefill and decode gather one position's logits only.
   norms       replicated: the residual stream is computed once a data
               block, outside the positions, as every position holds it.
+  MoE         the router replicated: each data block's routing (the f32
+              softmax, top-k, slot-major capacity ``max(1, int(T k cf / E))``
+              of its T tokens: a block is one dispatch chunk) computed once,
+              outside the positions. Where the experts divide |model| (the
+              sanitized specs split gate/up/down over their expert axis),
+              each position dispatches to its E / |model| experts and the
+              partial outputs (each token's share of its k entries, summed
+              in float32) go through ``model_sum``; where they do not
+              (granite-moe's 40 over 16: gate/up split over the expert FFN
+              width, down over its output columns), the (E, cap, D) buffer
+              is built once, each position computes its columns of
+              silu(gate) * up, those are gathered (``model_gather``), each
+              position computes its columns of the down product and combines
+              them by the gates, and the (T, D) output is gathered. A
+              dense residual MLP (arctic's) is the Megatron MLP above.
 
 A row-parallel partial sum is added in float32 and cast once. Prefill
 writes its cache in :func:`repro_torch.launch.sharding.cache_pspecs`'
@@ -40,9 +56,17 @@ head split); decode gathers q over 'model', each position attends over its
 block of the sequence for all heads, and the partial softmax sums are
 merged by log-sum-exp (``lse_combine``) before ``wo``'s row blocks.
 
-Only the dense stack runs here (attention mixers and dense MLPs, RoPE or
-none, an optional vlm patch prefix; full attention); the MoE, RWKV, Mamba,
-enc-dec and TaCo layouts raise ``NotImplementedError``.
+The MoE's load-balance aux loss is formed from each block's routing
+statistics (:func:`moe_aux`): ``moe_impl="gspmd"`` takes E sum_e f_e p_e
+over the whole batch (the blocks' token counts and probability sums added
+over the data axes first), ``"manual"`` the mean over the blocks of each
+block's product, as the reference's two MoE paths do; the train step adds
+it once for the batch.
+
+The dense stack (attention mixers and dense MLPs, RoPE or none, an
+optional vlm patch prefix; full attention) and the moe family's attention
+stack run here; the RWKV, Mamba, hybrid, enc-dec and TaCo layouts raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,6 +98,7 @@ from repro_torch.mesh import (
     walk,
 )
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import apply_norm, apply_rope, dense, gelu, rope_angles, silu
 from repro_torch.models.model import ArchConfig, _frontend, init_cache, map_tree
 from repro_torch.models.sharding_utils import (
@@ -209,15 +234,16 @@ def cache_specs(cache, mesh: DeviceMesh, data_axes):
 
 
 # ======================================================= the positions ===
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless ``cfg`` is the dense stack this
-    module splits."""
-    if (cfg.mixer != "attn" or cfg.n_experts or cfg.encoder_layers
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError unless ``cfg`` is a stack this module
+    splits: the dense stack or the moe family, attention mixers only."""
+    moe_ok = not cfg.n_experts or cfg.family == "moe"
+    if (cfg.mixer != "attn" or not moe_ok or cfg.encoder_layers
             or cfg.frontend not in (None, "vlm") or cfg.attention_kind != "full"):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism covers the dense stack (attention and dense "
-            "MLPs, full attention); the MoE, RWKV, Mamba, enc-dec and TaCo layouts are "
-            "not ported")
+            "MLPs, full attention) and the moe family's experts; the RWKV, Mamba, hybrid, "
+            "enc-dec and TaCo layouts are not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,17 +359,15 @@ def _row_sum(parts, bias, dtype):
 
 
 def _groups(tree, n: int) -> list:
-    """The ``n`` group views of a tree of stacked :class:`Placed` (one
-    ``unbind`` a block, as :func:`repro_torch.models.model._groups`)."""
+    """The ``n`` groups of a tree of stacked :class:`Placed`: entry g of
+    each block, a view of the stacked block or, where a train step reads
+    its parameters as one leaf a group
+    (:func:`repro_torch.train.loop.make_sharded_train_step`), that group's
+    leaf."""
     leaves, rebuild = tree_flatten(tree)
-    parts = [{k: torch.unbind(b, 0) for k, b in pl.blocks.items()} for pl in leaves]
-    out = []
-    for g in range(n):
-        out.append(rebuild([
-            Placed(P(*pl.spec[1:]), pl.shape[1:], pl.dtype, pl.mesh,
-                   {k: v[g] for k, v in part.items()})
-            for pl, part in zip(leaves, parts)]))
-    return out
+    return [rebuild([Placed(P(*pl.spec[1:]), pl.shape[1:], pl.dtype, pl.mesh,
+                            {k: b[g] for k, b in pl.blocks.items()}) for pl in leaves])
+            for g in range(n)]
 
 
 # ---------------------------------------------------------- embedding ---
@@ -525,11 +549,152 @@ def _mlp(r: _Row, p: dict, h):
     return _row_sum(parts, _bias(p[out], h.dtype), h.dtype)
 
 
+# ---------------------------------------------------------------- MoE ---
+def _expert_split(r: _Row, p: dict) -> str:
+    """'experts' (gate/up/down split over their expert axis, or whole over
+    one position) or 'width' (gate/up over the expert FFN width, down over
+    its output columns), read from the placed leaves; any other split
+    raises NotImplementedError."""
+    def dim(name):
+        split = [i for i, e in enumerate(p[name].spec) if MODEL in entry_axes(e)]
+        if any(e is not None and MODEL not in entry_axes(e) for e in p[name].spec) or len(
+                split) > 1:
+            raise NotImplementedError(f"moe {name}: a split {p[name].spec}")
+        return split[0] if split else None
+
+    dims = (dim("gate"), dim("up"), dim("down"))
+    if _kind(p["router"]) != "whole":
+        raise NotImplementedError(f"moe router: a split {p['router'].spec}")
+    if dims == (0, 0, 0) or (dims == (None,) * 3 and r.n == 1):
+        return "experts"
+    if dims == (2, 2, 2):
+        return "width"
+    raise NotImplementedError(f"moe: gate/up/down split along {dims} over {r.n} 'model' "
+                              "positions (the experts or the expert FFN width are)")
+
+
+def _moe(r: _Row, p: dict, h):
+    """The routed MoE of one data block's normed h (B, S, D) over 'model'
+    (one dispatch chunk): (y (B, S, D), its routing statistics (2, E)
+    float32: the first choices' token counts and the router probabilities'
+    sums over the block's tokens, the second carrying the router's
+    gradient)."""
+    cfg = r.cfg
+    b, s, d = h.shape
+    t, e, k = b * s, cfg.n_experts, cfg.experts_per_token
+    cap = max(1, int(t * k * cfg.capacity_factor / e))
+    split = _expert_split(r, p)
+    x2 = h.reshape(t, d)
+    probs = MOE._router_probs(p["router"].at({}).to(x2.device), x2)
+    exp_idx, gate_vals, fe, pos, keep = MOE.route(probs, k, cap)
+    gates = gate_vals.T.reshape(-1)
+    hot = (exp_idx[:, 0, None] == torch.arange(e, device=x2.device)).to(torch.float32)
+    stats = torch.stack([hot.sum(0), probs.sum(0)])
+    weights = ("gate", "up", "down")
+    gatesc = model_copy(gates)
+    if split == "experts":
+        e_loc = e // r.n
+        x2c = model_copy(x2)
+
+        def part(m, xm, gm):
+            dev = r.dev(m)
+            le = fe.to(dev) - m * e_loc
+            kept = keep.to(dev) & (le >= 0) & (le < e_loc)
+            row = torch.where(kept, le * cap + pos.to(dev), e_loc * cap)
+            # the position's share of each token's sum over its k entries,
+            # in float32: the sum over positions rounds once, as one sum does
+            return MOE._dispatch(xm.to(dev), row, kept, gm.to(dev), cap,
+                                 [p[n].at(r.at(m)) for n in weights], torch.float32)
+
+        parts = r.walk(part, lambda m: (x2c, gatesc),
+                       lambda m: [p[n].at(r.at(m)) for n in weights])
+        return model_sum(parts, dtype=h.dtype).reshape(b, s, d), stats
+
+    # the expert FFN width: the buffer once, h's column blocks gathered, the
+    # down product's output columns combined by the gates, then gathered
+    rows = e * cap
+    row = torch.where(keep, fe * cap + pos, rows)
+    buf = x2.new_zeros((rows + 1, d))
+    buf[row] = x2.repeat(k, 1)
+    bufc = model_copy(buf[:-1].view(e, cap, d))
+
+    def cols(m, bm):
+        bm = bm.to(r.dev(m))
+        gate, up = p["gate"].at(r.at(m)), p["up"].at(r.at(m))
+        return silu(torch.bmm(bm, gate.to(bm.dtype))) * torch.bmm(bm, up.to(bm.dtype))
+
+    hidden = model_gather(r.walk(cols, lambda m: (bufc,),
+                                 lambda m: [p[n].at(r.at(m)) for n in ("gate", "up")]), -1)
+    at = torch.where(keep, row, 0)
+
+    def out(m, hm, gm):
+        dev = r.dev(m)
+        down = p["down"].at(r.at(m))
+        y = torch.bmm(hm.to(dev), down.to(hm.dtype)).reshape(rows, -1)[at.to(dev)]
+        y = torch.where(keep.to(dev)[:, None], y * gm.to(dev)[:, None].to(y.dtype), 0)
+        return y.reshape(k, t, -1).sum(dim=0)
+
+    outs = r.walk(out, lambda m: (hidden, gatesc), lambda m: [p["down"].at(r.at(m))])
+    return model_gather(outs, -1).reshape(b, s, d), stats
+
+
+def blockwise_aux(cfg: ArchConfig) -> bool:
+    """Whether a data block's share of the aux loss (and of its gradient)
+    depends on its own routing alone: no MoE, or ``moe_impl="manual"``."""
+    return not cfg.n_experts or cfg.moe_impl == "manual"
+
+
+def moe_aux(cfg: ArchConfig, stats: list, tokens: int, n_blocks: int | None = None):
+    """The MoE layers' load-balance aux loss, summed over the layers, from
+    the data blocks' routing statistics (each (L, 2, E), a block of
+    ``tokens`` tokens): (aux, one term a block whose gradient is aux's
+    through that block's statistics).
+
+    ``moe_impl="gspmd"``: E sum_e f_e p_e over the whole batch, the
+    blocks' statistics first added over the data axes (a small all-reduce
+    in position order); ``stats`` must hold every block. aux carries no
+    gradient; block d's term, E sum_e f_e p_{d,e} / T with the batch's
+    f_e held fixed, does (the first-choice counts have none).
+    ``"manual"``: each block's product, averaged over the ``n_blocks``
+    blocks (default ``len(stats)``): a term is its block's product over
+    ``n_blocks``, and aux is the terms' sum."""
+    e = cfg.n_experts
+    if cfg.moe_impl == "manual":
+        n_blocks = n_blocks or len(stats)
+        terms = [e * torch.sum((st[:, 0] / tokens) * (st[:, 1] / tokens)) / n_blocks
+                 for st in stats]
+        aux = terms[0].detach()
+        for term in terms[1:]:
+            aux = aux + term.detach().to(aux.device)
+        return aux, terms
+    n = tokens * len(stats)
+    # an all-reduce over the data axes, model_sum's float32 sum in position order
+    summed = model_sum([st.detach() for st in stats])
+    frac_tokens = summed[:, 0] / n
+    aux = e * torch.sum(frac_tokens * (summed[:, 1] / n))
+    terms = [e * torch.sum(frac_tokens.to(st.device) * st[:, 1]) / n for st in stats]
+    return aux, terms
+
+
+def _ffn(r: _Row, spec: dict, p: dict, h):
+    """The sub-layer's FFN over h: (y, the MoE's routing statistics or
+    None)."""
+    if spec["ffn"] == "mlp":
+        return _mlp(r, p["ffn"], h), None
+    if spec["ffn"] not in ("moe", "moe_dense"):
+        raise NotImplementedError(f"a {spec['ffn']} FFN")
+    y, stats = _moe(r, p["moe"], h)
+    if spec["ffn"] == "moe_dense":
+        y = y + _mlp(r, p["ffn"], h)
+    return y, stats
+
+
 # ---------------------------------------------------------- the stack ---
-def _sublayer(r: _Row, p: dict, x, rope, cache=None):
+def _sublayer(r: _Row, spec: dict, p: dict, x, rope, cache=None):
     cfg = r.cfg
     x = x + _attention(r, p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), rope, cache)
-    return x + _mlp(r, p["ffn"], apply_norm(p["ln2"], x, cfg.norm_eps))
+    y, stats = _ffn(r, spec, p, apply_norm(p["ln2"], x, cfg.norm_eps))
+    return x + y, stats
 
 
 def _replicated(tree):
@@ -547,28 +712,37 @@ def _layer_params(gp: dict) -> dict:
 
 
 def _group(r: _Row, specs, gp, x, rope, caches=None):
-    for i, _spec in enumerate(specs):
-        x = _sublayer(r, _layer_params(gp[f"l{i}"]), x, rope,
-                      None if caches is None else caches[f"l{i}"])
-    return x
+    """The group's sub-layers over x: (x, its MoE layers' routing
+    statistics (n, 2, E), or None without MoE layers)."""
+    stats = []
+    for i, spec in enumerate(specs):
+        x, st = _sublayer(r, spec, _layer_params(gp[f"l{i}"]), x, rope,
+                          None if caches is None else caches[f"l{i}"])
+        if st is not None:
+            stats.append(st)
+    return x, torch.stack(stats) if stats else None
 
 
 def _run_stack(r: _Row, params, x, rope, *, remat: bool, caches=None):
+    """(x, the MoE layers' routing statistics (L, 2, E), or None)."""
     cfg = r.cfg
     specs = cfg.layer_specs()
     groups = _groups(params["blocks"], cfg.n_groups)
     cgroups = None if caches is None else _groups(caches, cfg.n_groups)
+    stats = []
     for g, gp in enumerate(groups):
         c = None if cgroups is None else cgroups[g]
         if remat:
             # the whole group is recomputed, as at every position alone (an
             # early stop would end at the last position's last saved input)
             with set_checkpoint_early_stop(False):
-                x = checkpoint(functools.partial(_group, r, specs, gp, rope=rope, caches=c), x,
-                               use_reentrant=False, context_fn=recompute_context)
+                x, st = checkpoint(functools.partial(_group, r, specs, gp, rope=rope, caches=c),
+                                   x, use_reentrant=False, context_fn=recompute_context)
         else:
-            x = _group(r, specs, gp, x, rope, c)
-    return x
+            x, st = _group(r, specs, gp, x, rope, c)
+        if st is not None:
+            stats.append(st)
+    return x, torch.cat(stats) if stats else None
 
 
 def _inputs(r: _Row, params, batch: dict, what: str):
@@ -659,37 +833,44 @@ def block_loss(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, row: dict
                impl: str = "auto"):
     """One data block's share of the train loss (its rows of ``batch``,
     {'tokens', 'labels'}, and a vlm's 'patch_embeds'), with its row of
-    'model' positions at ``row``: a vocab-parallel cross entropy over the
-    head's column blocks, divided by ``denom``."""
-    check_dense(cfg)
+    'model' positions at ``row``: (a vocab-parallel cross entropy over the
+    head's column blocks, divided by ``denom``; the MoE layers' routing
+    statistics (L, 2, E) for :func:`moe_aux`, or None)."""
+    check_supported(cfg)
     r = _Row(cfg, mesh, row, impl)
     x, n_patches = _inputs(r, params, batch, "forward")
-    x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                   remat=cfg.remat and torch.is_grad_enabled())
+    x, stats = _run_stack(r, params, x,
+                          _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                          remat=cfg.remat and torch.is_grad_enabled())
     blocks = [(blk[:, n_patches:], lo) for blk, lo in _head(r, params, x)]
-    return _vocab_parallel_cross_entropy(r, blocks, batch["labels"].to(x.device), denom)
+    return _vocab_parallel_cross_entropy(r, blocks, batch["labels"].to(x.device), denom), stats
 
 
 def sharded_forward(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, *,
                     data_axes=("data",), impl: str = "auto"):
-    """``forward`` over placed parameters: (logits (B, S, V) float32, aux 0).
-    The logits are gathered over 'model' for the caller; the train step
-    never gathers them (:func:`block_loss`)."""
-    check_dense(cfg)
+    """``forward`` over placed parameters: (logits (B, S, V) float32, aux
+    float32: :func:`moe_aux`, 0 without MoE layers). The logits are
+    gathered over 'model' for the caller; the train step never gathers
+    them (:func:`block_loss`)."""
+    check_supported(cfg)
     n, size = _data_blocks(mesh, data_axes, batch)
 
     def one(d):
         r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
         part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
         x, n_patches = _inputs(r, params, part, "forward")
-        x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                       remat=False)
-        return model_gather([blk for blk, _ in _head(r, params, x)], -1)[:, n_patches:]
+        x, stats = _run_stack(r, params, x,
+                              _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                              remat=False)
+        logits = model_gather([blk for blk, _ in _head(r, params, x)], -1)[:, n_patches:]
+        return logits, stats, x.shape[0] * x.shape[1]
 
     outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one)
-    home = outs[0].device
-    return torch.cat([o.to(home) for o in outs]), torch.zeros((), dtype=torch.float32,
-                                                               device=home)
+    home = outs[0][0].device
+    logits = torch.cat([o.to(home) for o, _, _ in outs])
+    if outs[0][1] is None:
+        return logits, torch.zeros((), dtype=torch.float32, device=home)
+    return logits, moe_aux(cfg, [st for _, st, _ in outs], outs[0][2])[0].to(home)
 
 
 # ============================================================ inference ==
@@ -698,7 +879,7 @@ def sharded_init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, mesh: Dev
     """The decode cache placed in :func:`~repro_torch.launch.sharding.cache_pspecs`'
     layout (sanitized), zeros made block by block; K/V must come out split
     over 'model' along the sequence."""
-    check_dense(cfg)
+    check_supported(cfg)
     shapes = init_cache(cfg, batch_size, max_seq, device="meta")
     specs = cache_specs(shapes, mesh, data_axes)
     cache = tree_map(lambda t, s: placed_zeros(t.shape, t.dtype, s, mesh, device), shapes,
@@ -718,7 +899,7 @@ def sharded_prefill(params, cfg: ArchConfig, batch: dict, max_seq: int, mesh: De
                     data_axes=("data",), impl: str = "auto"):
     """``prefill`` over placed parameters: (last logits (B, 1, V) float32,
     the cache placed in ``cache_pspecs``' layout, written)."""
-    check_dense(cfg)
+    check_supported(cfg)
     n, size = _data_blocks(mesh, data_axes, batch)
     on_meta = next(iter(params["embed"]["table"].blocks.values())).is_meta
     cache = sharded_init_cache(cfg, n * size, max_seq, mesh, data_axes=data_axes,
@@ -728,8 +909,9 @@ def sharded_prefill(params, cfg: ArchConfig, batch: dict, max_seq: int, mesh: De
         r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
         part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
         x, _ = _inputs(r, params, part, "prefill")
-        x = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                       remat=False, caches=_row_view(cache, r))
+        x, _stats = _run_stack(r, params, x,
+                               _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                               remat=False, caches=_row_view(cache, r))
         blocks = _head(r, params, x[:, -1:])
         return model_gather([blk for blk, _ in blocks], -1)
 
@@ -757,7 +939,7 @@ def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh:
     ``cache_pspecs``' layout: (logits (B, 1, V) float32, cache), the new
     token's K/V written in place into the position that owns ``pos`` (an
     int, or a (B,) tensor per sequence)."""
-    check_dense(cfg)
+    check_supported(cfg)
     n, size = _data_blocks(mesh, data_axes, {"tokens": tokens})
 
     def one(d):
@@ -771,11 +953,11 @@ def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh:
         rope = _rope(cfg, pos_b[:, None])
         caches = _groups(_row_view(cache, r), cfg.n_groups)
         for g, gp in enumerate(_groups(params["blocks"], cfg.n_groups)):
-            for i, _spec in enumerate(cfg.layer_specs()):
+            for i, spec in enumerate(cfg.layer_specs()):
                 p = _layer_params(gp[f"l{i}"])
                 h = apply_norm(p["ln1"], x, cfg.norm_eps)
                 x = x + _decode_attention(r, p["attn"], h, caches[g][f"l{i}"], pos_b, rope)
-                x = x + _mlp(r, p["ffn"], apply_norm(p["ln2"], x, cfg.norm_eps))
+                x = x + _ffn(r, spec, p, apply_norm(p["ln2"], x, cfg.norm_eps))[0]
         blocks = _head(r, params, x)
         return model_gather([blk for blk, _ in blocks], -1)
 

@@ -98,19 +98,15 @@ def model_gather(parts, dim: int) -> torch.Tensor:
     return _on_backward(out, "reduce-scatter", tensor_bytes(parts[0]))
 
 
-def reduce_scatter(parts, dim: int | None, n: int) -> list:
-    """Reduce-scatter over the data axes (ZeRO-1): the parts summed in
-    float32 in position order, then split into ``n`` equal slices along
-    ``dim`` (views of the sum), slice i for data position i. Where the
-    moment has no split dimension (``dim`` None) every data position keeps
-    the whole sum, an all-reduce."""
-    home = parts[0].device
+def reduce_scatter(total: torch.Tensor, dim: int | None, n: int) -> list:
+    """Reduce-scatter over the data axes (ZeRO-1) of ``total``, the data
+    positions' parts already summed (as the backward passes made them):
+    ``n`` equal slices along ``dim`` (views of the sum), slice i for data
+    position i. Where the moment has no split dimension (``dim`` None)
+    every data position keeps the whole sum, an all-reduce."""
     with one_pass() as moves:
-        total = parts[0].to(torch.float32)
-        for part in parts[1:]:
-            total = total + part.to(device=home, dtype=torch.float32)
         out = [total] if dim is None else list(torch.chunk(total, n, dim=dim))
-        moves(parts[0], out[0])
+        moves(total, out[0])
     tally("all-reduce" if dim is None else "reduce-scatter", tensor_bytes(out[0]))
     return out
 

@@ -15,12 +15,17 @@ CPU.
 * Tracing one representative position (and one step of a Mamba scan
   without gradients) gives the counts of tracing them all, exactly.
 * The LM cells (``dryrun.count_cell``) at tiny shapes: the manual MoE's
-  and jamba's train and prefill steps, and a manual-MoE decode step,
-  counted on CPU tensors and on meta tensors with representatives equal
-  exactly; a manual-MoE decode cell holds and runs one position's block.
+  (now expert-parallel) and jamba's (replicated) train and prefill steps,
+  and a manual-MoE decode step, counted on CPU tensors and on meta tensors
+  with representatives equal exactly; a manual-MoE decode cell holds and
+  runs one position's block.
 * The tensor-parallel cells (the dense stack at train_4k, prefill_32k,
-  decode_32k) at tiny shapes, counted on CPU tensors and on meta tensors
-  with representatives: equal exactly.
+  decode_32k) and the expert-parallel ones (the moe family's, gspmd's
+  whole-batch aux and both expert splits) at tiny shapes, counted on CPU
+  tensors and on meta tensors with representatives: equal exactly. The
+  moe family's six cells on both production meshes: expert_parallel,
+  argument bytes pinned, every one fitting a card; the other families'
+  cells and every long_500k stay replicated, their bytes pinned.
 * granite-3-2b x decode_32k beside the reference's dry run in a subprocess
   (``param_count``, ``step_kind``, ``n_devices``; the argument bytes equal,
   the flops within 0.8-1.25x), and a smoke config's tensor-parallel train
@@ -236,11 +241,16 @@ def _count_cpu_and_meta(arch_name, shape_name):
 
 def test_a_manual_moe_decode_cell_runs_one_positions_block():
     """arctic's smoke config with 16 experts at decode_32k (B 128) over
-    (data 4, model 2) and (data 2, model 2) meta grids: a position holds
-    and runs B / |data| sequences. Its argument bytes are the bf16 weights
-    with the experts halved, one token and the position of each of its
-    sequences, and their caches; its MoE is one block a layer, whose sum
-    over the expert blocks is one all-reduce of the block's activations."""
+    (data 4, model 2) and (data 2, model 2) meta grids, in the
+    expert-parallel layout: a position holds and runs B / |data| sequences
+    over its row of 'model' positions. Its argument bytes are the bf16
+    weights, its cache, its tokens and the position under the sanitized
+    specs (8 experts a position). Per layer the step all-reduces the
+    decode attention's partial softmax sums and its out projection's, the
+    experts' partial outputs and the dense residual MLP's (and the
+    embedding's once), and gathers q, k, v (and the last logits once):
+    activations of the block's rows, so twice the rows move twice the
+    payload."""
     arch = _manual("arctic-480b")
     rows, payload = {}, {}
     for data in (4, 2):
@@ -249,14 +259,53 @@ def test_a_manual_moe_decode_cell_runs_one_positions_block():
         block = 128 // data
         bf16 = dataclasses.replace(arch, param_dtype="bfloat16")
         params = TM.meta_params(bf16)
-        experts = sum(tensor_bytes(params["blocks"][g]["moe"][n])
-                      for g in params["blocks"] for n in ("gate", "up", "down"))
+        cache = TM.init_cache(bf16, 128, 32768, device="meta")
+        tokens = torch.empty((128, 1), dtype=torch.int32, device="meta")
+        want = (SH.position_bytes(params, SHD.param_specs(params, mesh), mesh)
+                + SH.position_bytes(cache, SHD.cache_specs(cache, mesh, ("data",)), mesh)
+                + SH.position_bytes(tokens, SH.sanitize_specs(
+                    tokens, SH.P(("data",), None), mesh), mesh) + 4)
+        moe = params["blocks"]["l0"]["moe"]
+        placed = SHD.place(moe, SHD.param_specs(params, mesh)["blocks"]["l0"]["moe"], mesh)
+        assert placed["gate"].blocks[(0,)].shape[1] == 8
+        assert meta["layout_name"] == "expert_parallel" and meta["moe_impl"] == "manual"
+        assert meta["experts"] == "whole experts, 8 a position"
+        assert meta["rows_per_position"] == block
+        assert meta["argument_size_in_bytes"] == want
+        assert h["collective_counts"]["all-reduce"] == 1 + 4 * arch.n_layers
+        assert h["collective_counts"]["all-gather"] == 1 + 3 * arch.n_layers
+        rows[data], payload[data] = meta["rows_per_position"], h["collective_bytes"]
+    assert rows == {4: 32, 2: 64}
+    assert all(payload[2][k] == 2 * payload[4][k] for k in payload[4])
+
+
+def test_a_replicated_manual_moe_decode_cell_runs_one_positions_block():
+    """jamba's smoke config with 16 experts at decode_32k (B 128), which
+    stays in the replicated layout, over (data 4, model 2) and (data 2,
+    model 2) meta grids: a position holds and runs B / |data| sequences.
+    Its argument bytes are the bf16 weights with the experts halved, one
+    token and the position of each of its sequences, and their caches; its
+    MoE is one block a MoE layer, whose sum over the expert blocks is one
+    all-reduce of the block's activations."""
+    arch = _manual("jamba-1.5-large-398b")
+    moe_layers = arch.n_layers // arch.moe_every
+    rows, payload = {}, {}
+    for data in (4, 2):
+        mesh = make_mesh((data, 2), ("data", "model"), ["meta"] * (2 * data))
+        h, meta = dryrun.count_cell("jamba-1.5-large-398b", "decode_32k", False, mesh=mesh,
+                                    arch=arch)
+        block = 128 // data
+        bf16 = dataclasses.replace(arch, param_dtype="bfloat16")
+        params = TM.meta_params(bf16)
+        experts = sum(tensor_bytes(layer["moe"][n]) for layer in params["blocks"].values()
+                      if "moe" in layer for n in ("gate", "up", "down"))
         cache = TM.init_cache(bf16, block, 32768, device="meta")
         want = (sum(tensor_bytes(t) for t in TM.tree_leaves(params)) - experts // 2
                 + 4 * block + 4 + sum(tensor_bytes(t) for t in TM.tree_leaves(cache)))
+        assert meta["layout_name"] == "replicated" and meta["moe_impl"] == "manual"
         assert meta["rows_per_position"] == block
         assert meta["argument_size_in_bytes"] == want
-        assert h["collective_counts"]["all-reduce"] == arch.n_layers
+        assert h["collective_counts"]["all-reduce"] == moe_layers == 4
         rows[data], payload[data] = meta["rows_per_position"], h["collective_bytes"]["all-reduce"]
     assert rows == {4: 32, 2: 64} and payload[2] == 2 * payload[4]
 
@@ -314,19 +363,45 @@ def test_smoke_train_cell_on_a_small_meta_mesh():
 
 
 def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
-    """count_cell at train_4k with the smoke granite-moe-3b-a800m (the MoE
-    stays in the replicated layout) over the same (data 4, model 2) meta
-    mesh: a position holds 256 / 4 rows and the whole model, the gradient
-    sum is one all-reduce of each leaf's bytes (uncompressed f32), three
-    data shards are represented by the first, and the artifact's fields
-    are filled."""
+    """count_cell at train_4k with the smoke rwkv6-7b (RWKV stays in the
+    replicated layout) over the same (data 4, model 2) meta mesh: a
+    position holds 256 / 4 rows and the whole model, the gradient sum is
+    one all-reduce of each leaf's bytes (uncompressed f32), three data
+    shards are represented by the first, and the artifact's fields are
+    filled."""
     mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
-    cfg = get_smoke("granite-moe-3b-a800m")
-    h, meta = dryrun.count_cell("granite-moe-3b-a800m", "train_4k", False, mesh=mesh, arch=cfg)
+    cfg = get_smoke("rwkv6-7b")
+    h, meta = dryrun.count_cell("rwkv6-7b", "train_4k", False, mesh=mesh, arch=cfg)
     leaves = TM.tree_leaves(TM.meta_params(cfg))
     assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
     assert meta["layout_name"] == "replicated" and meta["layout"] == dryrun.LAYOUTS[
         "replicated"]
+    assert meta["param_count"] == sum(t.numel() for t in leaves)
+    assert h["collective_bytes"]["all-reduce"] == sum(4 * t.numel() for t in leaves)
+    assert h["collective_counts"]["all-reduce"] == len(leaves)
+    assert h["collective_counts"]["reduce-scatter"] == h["collective_counts"]["all-gather"] == 0
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
+    assert meta["represented_positions"] == 3
+
+
+def test_smoke_replicated_moe_train_cell_on_a_small_meta_mesh(monkeypatch):
+    """count_cell at train_4k (its 256 sequences cut to 128 tokens: the
+    Mamba scans' length moves none of the pins) with the smoke
+    jamba-1.5-large-398b (an MoE every second layer; jamba stays in the
+    replicated layout) over the same (data 4, model 2) meta mesh: a
+    position holds 256 / 4 rows and the whole model, the gradient sum is
+    one all-reduce of each leaf's bytes (uncompressed f32), three data
+    shards are represented by the first, and the artifact's fields are
+    filled."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k", ShapeSpec("train_4k", "train", 128, 256))
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = get_smoke("jamba-1.5-large-398b")
+    h, meta = dryrun.count_cell("jamba-1.5-large-398b", "train_4k", False, mesh=mesh, arch=cfg)
+    leaves = TM.tree_leaves(TM.meta_params(cfg))
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "replicated" and meta["layout"] == dryrun.LAYOUTS[
+        "replicated"]
+    assert meta["moe_impl"] == "gspmd"
     assert meta["param_count"] == sum(t.numel() for t in leaves)
     assert h["collective_bytes"]["all-reduce"] == sum(4 * t.numel() for t in leaves)
     assert h["collective_counts"]["all-reduce"] == len(leaves)
@@ -361,6 +436,127 @@ def test_tensor_parallel_meta_counts_equal_the_counts_on_real_tensors(monkeypatc
                     meta["argument_size_in_bytes"]))
     assert got[0] == got[1]
     assert got[0][0] > 0 and got[0][2]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("experts, data, shape_name", [
+    (4, 2, "train_4k"), (6, 2, "train_4k"), (6, 2, "prefill_32k"), (4, 2, "decode_32k"),
+    (6, 1, "decode_32k")])
+def test_expert_parallel_meta_counts_equal_the_counts_on_real_tensors(monkeypatch, experts,
+                                                                      data, shape_name):
+    """The expert-parallel layout with the gspmd MoE (granite-moe's smoke
+    config; 4 experts split whole over 'model' 2, 6 over 4 positions split
+    the expert FFN width) at a tiny shape over a (data, model) grid, on CPU
+    tensors and on meta tensors with representatives: flops, bytes,
+    payloads and argument bytes equal exactly. The train step's aux needs
+    every block's routing, so its data blocks all run."""
+    monkeypatch.setitem(dryrun.SHAPES, shape_name, TINY[shape_name])
+    cfg = dataclasses.replace(get_smoke("granite-moe-3b-a800m"), n_experts=experts)
+    model = 2 if experts == 4 else 4
+    got = []
+    for device in ("cpu", "meta"):
+        mesh = make_mesh((data, model), ("data", "model"), [device] * (data * model))
+        h, meta = dryrun.count_cell("granite-moe-3b-a800m", shape_name, False, mesh=mesh,
+                                    arch=cfg, device=device)
+        assert meta["layout_name"] == "expert_parallel" and meta["moe_impl"] == "gspmd"
+        assert meta["experts"].startswith("whole" if experts == 4 else "the expert FFN width")
+        got.append((h["flops"], h["bytes"], h["collective_bytes"], h["collective_counts"],
+                    meta["argument_size_in_bytes"]))
+    assert got[0] == got[1]
+    assert got[0][0] > 0 and got[0][2]["all-reduce"] > 0
+
+
+#: the moe family's cells: (argument bytes a position on 16x16, on 2x16x16),
+#: the reference's arguments under its sanitized specs
+EXPERT_PARALLEL_BYTES = {
+    ("granite-moe-3b-a800m", "train_4k"): (958_479_112, 904_997_256),
+    ("granite-moe-3b-a800m", "prefill_32k"): (426_019_840, 425_888_768),
+    ("granite-moe-3b-a800m", "decode_32k"): (1_499_499_556, 962_628_628),
+    ("arctic-480b", "train_4k"): (60_608_372_836, 60_608_110_692),
+    ("arctic-480b", "prefill_32k"): (60_558_837_760, 60_558_706_688),
+    ("arctic-480b", "decode_32k"): (62_907_385_892, 61_732_980_756)}
+
+
+@pytest.mark.parametrize("cell", list(EXPERT_PARALLEL_BYTES), ids="/".join)
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_moe_cells_run_the_expert_parallel_layout(cell, multi_pod):
+    """granite-moe's and arctic's train_4k, prefill_32k and decode_32k on
+    both production meshes (the step built on meta, not counted): the
+    expert_parallel layout, its argument bytes the reference's arguments
+    under the sanitized specs, every one fitting a card (arctic fitted in no
+    cell replicated); granite-moe's 40 experts split the FFN width over 16,
+    arctic's 128 are whole, 8 a position; arctic's train cell runs
+    Adafactor, granite-moe's AdamW, as the reference's pick_optimizer."""
+    arch_name, shape_name = cell
+    meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
+    assert meta["layout_name"] == "expert_parallel"
+    assert meta["layout"] == dryrun.LAYOUTS["expert_parallel"]
+    assert meta["argument_size_in_bytes"] == EXPERT_PARALLEL_BYTES[cell][multi_pod]
+    assert meta["fits_one_card"]
+    if shape_name == "train_4k":
+        assert meta["optimizer"] == ("adafactor" if arch_name == "arctic-480b" else "adamw")
+    assert meta["experts"] == ("whole experts, 8 a position" if arch_name == "arctic-480b"
+                               else "the expert FFN width: gate/up columns, down output "
+                                    "columns")
+    assert meta["moe_impl"] == ("manual" if arch_name == "arctic-480b" else "gspmd")
+
+
+def test_granite_moe_decode_artifact_is_expert_parallel(tmp_path):
+    """granite-moe-3b-a800m x decode_32k through the dry run's command line:
+    the artifact's layout is expert_parallel, its argument bytes
+    1,499,499,556 equal position_bytes of the bf16 weights, the cache, the
+    tokens and the position under the sanitized specs, and it fits a
+    card."""
+    assert dryrun.main(["--arch", "granite-moe-3b-a800m", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    got = json.loads((tmp_path / "granite-moe-3b-a800m__decode_32k__16_16.json").read_text())
+    arch = dataclasses.replace(dryrun.get_arch("granite-moe-3b-a800m"), param_dtype="bfloat16")
+    params = TM.meta_params(arch)
+    mesh = make_mesh((16, 16), ("data", "model"), ["meta"] * 256)
+    cache = TM.init_cache(arch, 128, 32768, device="meta")
+    tokens = torch.empty((128, 1), dtype=torch.int32, device="meta")
+    want = (SH.position_bytes(params, SHD.param_specs(params, mesh), mesh)
+            + SH.position_bytes(cache, SHD.cache_specs(cache, mesh, ("data",)), mesh)
+            + SH.position_bytes(tokens, SH.sanitize_specs(tokens, SH.P(("data",), None), mesh),
+                                mesh) + 4)
+    assert got["layout_name"] == "expert_parallel" and got["fits_one_card"]
+    assert got["argument_size_in_bytes"] == want == 1_499_499_556
+    assert got["rows_per_position"] == 8 and got["op_analysis"]["flops"] > 0
+
+
+#: the cells that stay replicated (jamba, rwkv6, whisper, every long_500k):
+#: their argument bytes on 16x16 and 2x16x16, as before the moe family's layout
+REPLICATED_BYTES = {
+    ("jamba-1.5-large-398b", "train_4k"): (145_125_118_316, 145_124_856_172),
+    ("jamba-1.5-large-398b", "prefill_32k"): (144_845_357_056, 144_845_225_984),
+    ("jamba-1.5-large-398b", "decode_32k"): (155_086_798_884, 149_965_946_900),
+    ("jamba-1.5-large-398b", "long_500k"): (164_549_971_976, 164_549_971_976),
+    ("rwkv6-7b", "train_4k"): (90_415_087_620, 90_414_825_476),
+    ("rwkv6-7b", "prefill_32k"): (15_069_356_032, 15_069_224_960),
+    ("rwkv6-7b", "decode_32k"): (15_341_723_684, 15_205_408_788),
+    ("rwkv6-7b", "long_500k"): (15_103_172_616, 15_103_172_616),
+    ("whisper-medium", "train_4k"): (10_262_282_244, 10_212_868_100),
+    ("whisper-medium", "prefill_32k"): (1_706_459_136, 1_700_184_064),
+    ("whisper-medium", "decode_32k"): (28_643_360_804, 15_168_634_900),
+    ("starcoder2-3b", "long_500k"): (22_723_252_232, 22_723_252_232),
+    ("granite-3-2b", "long_500k"): (49_575_514_120, 49_575_514_120),
+    ("codeqwen1.5-7b", "long_500k"): (295_601_856_520, 295_601_856_520),
+    ("qwen1.5-4b", "long_500k"): (226_043_827_208, 226_043_827_208),
+    ("arctic-480b", "long_500k"): (165_705_824_264, 165_705_824_264),
+    ("granite-moe-3b-a800m", "long_500k"): (42_194_177_032, 42_194_177_032),
+    ("llava-next-mistral-7b", "long_500k"): (84_288_348_168, 84_288_348_168)}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_the_other_cells_stay_replicated(multi_pod):
+    """jamba's, rwkv6's and whisper's cells and every long_500k keep the
+    replicated layout and its argument bytes on both meshes (whisper's
+    long_500k stays skipped)."""
+    for (arch_name, shape_name), want in REPLICATED_BYTES.items():
+        meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
+        assert meta["layout_name"] == "replicated", (arch_name, shape_name)
+        assert meta["argument_size_in_bytes"] == want[multi_pod], (arch_name, shape_name)
+    meta = dryrun.build_cell("whisper-medium", "long_500k", multi_pod).meta
+    assert "skipped" in meta
 
 
 REF_DRYRUN = ["-m", "repro.launch.dryrun", "--arch", "granite-3-2b", "--shape", "decode_32k"]

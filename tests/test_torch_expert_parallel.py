@@ -371,3 +371,116 @@ def test_manual_prefill_and_decode_match_reference(ref, model):
                                            atol=1e-4, err_msg=f"rows {rows} position {s}")
     with pytest.raises(ValueError, match="set_mesh"):
         TM.forward(tp, cfg, {"tokens": torch.from_numpy(tokens)})
+
+
+def _arctic16(**kw):
+    """arctic's smoke config with 16 experts, the manual MoE (the dense
+    residual MLP beside it)."""
+    return dataclasses.replace(get_smoke("arctic-480b"), n_experts=16, moe_impl="manual", **kw)
+
+
+def _spy_calls(monkeypatch, calls: dict):
+    """Record each moe_apply_manual call's (mesh, x, result) and count the
+    moe_apply calls."""
+    manual, chunked = TMOE.moe_apply_manual, TMOE.moe_apply
+
+    def spy_manual(p, x, **kw):
+        out = manual(p, x, **kw)
+        calls["manual"].append((kw["mesh"], x.detach().clone(),
+                                {k: v.detach().clone() for k, v in p.items()}, kw, out))
+        return out
+
+    def spy_chunked(*a, **kw):
+        calls["chunked"] += 1
+        return chunked(*a, **kw)
+
+    monkeypatch.setattr(TMOE, "moe_apply_manual", spy_manual)
+    monkeypatch.setattr(TMOE, "moe_apply", spy_chunked)
+
+
+def test_shardmap_step_runs_each_shards_moe_over_its_own_slice(monkeypatch):
+    """make_shardmap_train_step over a CPU (pod 2, data 2, model 2) mesh,
+    the batch over ("pod", "data") (4 shards of 2 rows) and
+    moe_dispatch_chunks 4 (which the shard's 2 rows do not divide): every
+    MoE call is moe_apply_manual over the shard's (1, 2) slice of the grid
+    at its own (pod, data) coordinates (never moe_apply), and its kept sets
+    and aux equal, bit for bit, those of moe_apply_manual run on the same
+    rows over that slice. The step equals make_train_step(microbatches=4)
+    (each microbatch's MoE one chunk over a (1, 2) slice) within 1e-6 on
+    the loss and every parameter."""
+    from repro_torch.mesh import position_slice
+    from repro_torch.optim import adamw, constant_lr
+    from repro_torch.train import TrainState, make_shardmap_train_step, make_train_step
+    from repro_torch.utils import tree_flatten
+
+    cfg = _arctic16(moe_dispatch_chunks=4, moe_dp_axes=("pod", "data"))
+    mesh = make_mesh(POD_GRID, POD_AXES, [CPU] * 8)
+    opt = adamw()
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab_size, (8, 8)) for k in ("tokens", "labels")}
+
+    def fresh():
+        params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        return TrainState(params=params, opt_state=opt[0](params),
+                          step=torch.zeros((), dtype=torch.int32))
+
+    calls, routes = {"manual": [], "chunked": 0}, []
+    spy_routes(monkeypatch, routes)
+    _spy_calls(monkeypatch, calls)
+    state, got = make_shardmap_train_step(cfg, opt, constant_lr(1e-3), mesh,
+                                          data_axes=("pod", "data"),
+                                          compress_grads=False)(fresh(), batch)
+    # a layer's MoE runs twice a shard (forward and remat's recompute), and
+    # routes once a call: the slice holds one block of the shard's rows
+    calls_a_shard = 2 * cfg.n_layers
+    assert calls["chunked"] == 0 and len(calls["manual"]) == len(routes) == 4 * calls_a_shard
+    monkeypatch.undo()
+    again: list = []
+    spy_routes(monkeypatch, again)
+    for n, (m, x, p, kw, (out, aux)) in enumerate(calls["manual"]):
+        assert m.devices.shape == (1, 1, 2) and x.shape[0] == 2
+        here = mesh.coords([("pod", "data")], [n // calls_a_shard])
+        ref_out, ref_aux = TMOE.moe_apply_manual(
+            p, x, **dict(kw, mesh=position_slice(mesh, ("pod", "data"), here)))
+        for a, b in zip(routes[n], again[n]):
+            assert torch.equal(a, b)
+        assert torch.equal(ref_aux, aux.detach()) and torch.equal(ref_out, out.detach())
+    monkeypatch.undo()
+    micro = make_train_step(dataclasses.replace(cfg, moe_dispatch_chunks=1), opt,
+                            constant_lr(1e-3), microbatches=4)
+    with set_mesh(position_slice(mesh, ("pod", "data"))):
+        plain, want = micro(fresh(), dict(batch))
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-6)
+    for a, b in zip(tree_flatten(state.params)[0], tree_flatten(plain.params)[0]):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=0, atol=1e-6)
+
+
+def test_shardmap_step_has_no_moe_apply_fallback_on_the_multi_pod_mesh(monkeypatch):
+    """The production multi-pod mesh (2 x 16 x 16) on meta positions, the
+    batch over ("pod", "data"): 256 rows are 8 a shard against the
+    reference's 32 dispatch chunks, where the manual MoE used to fall back
+    to moe_apply. The step's MoE is moe_apply_manual over the shard's
+    (1, 1, 16) slice in every layer, with no fallback (one shard traced,
+    the others represented)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.optim import adamw, constant_lr
+    from repro_torch.train import TrainState, make_shardmap_train_step
+
+    cfg = _arctic16(moe_dispatch_chunks=32, moe_dp_axes=("pod", "data"))
+    mesh = make_production_mesh(multi_pod=True, devices=["meta"] * 512)
+    params = TM.meta_params(cfg)
+    opt = adamw()
+    state = TrainState(params=params, opt_state=opt[0](params),
+                       step=torch.zeros((), dtype=torch.int32))
+    calls = {"manual": [], "chunked": 0}
+    _spy_calls(monkeypatch, calls)
+    toks = torch.empty((256, 8), dtype=torch.long, device="meta")
+    step = make_shardmap_train_step(cfg, opt, constant_lr(1e-3), mesh, data_axes=("pod", "data"),
+                                    compress_grads=False, impl="torch")
+    with OpCounter(mesh, represent=True) as counter:
+        step(state, {"tokens": toks, "labels": toks})
+    assert calls["chunked"] == 0 and len(calls["manual"]) == 2 * cfg.n_layers  # and remat's
+    assert all(m.devices.shape == (1, 1, 16) and x.shape[0] == 8
+               for m, x, *_ in calls["manual"])
+    assert counter.represented == 31

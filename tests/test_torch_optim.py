@@ -18,6 +18,7 @@ from repro.train.losses import IGNORE as J_IGNORE
 from repro.train.losses import cross_entropy as j_cross_entropy
 from repro_torch import optim
 from repro_torch.data import SyntheticTokenStream
+from repro_torch.optim.adafactor import Leaf
 from repro_torch.train import IGNORE, cross_entropy
 from repro_torch.utils import tree_flatten, tree_map
 
@@ -81,6 +82,71 @@ def test_optimizer_updates_and_states_match_over_five_steps(name):
         jp = jax.tree.map(lambda p, u: p + u, jp, jup)
         tp = tree_map(lambda p, u: p + u, tp, up)
         close_trees(tp, jp)
+
+
+class _Halves(Leaf):
+    """A leaf as two blocks along its dimension ``dim``, as a step that
+    splits the parameter hands it to Adafactor: the blocks' partial sums
+    added where a mean runs over ``dim``; a factor that does not have
+    ``dim`` is read whole by both blocks and written by the first."""
+
+    def __init__(self, g, p, vr, vc, dim):
+        super().__init__(g, p, vr, vc)
+        self.dim = dim % p.dim()
+        self.out = torch.empty_like(p)
+        dims = list(range(p.dim()))
+        factored = p.dim() >= 2
+        self.factor_dims = (dims[:-1] if factored else dims,
+                            dims[:-2] + dims[-1:] if factored else [])
+
+    def each(self, fn):
+        return [fn(0), fn(1)]
+
+    def add(self, parts, dim):
+        if dim is None or dim % len(self.shape) == self.dim:
+            return [parts[0] + parts[1]] * 2
+        return parts
+
+    def grad(self, i):
+        return self.g.chunk(2, self.dim)[i].to(torch.float32, copy=True)
+
+    def factors(self, i):
+        out = []
+        for v, dims in zip((self.vr, self.vc), self.factor_dims):
+            split = self.dim in dims
+            out.append((v.chunk(2, dims.index(self.dim))[i] if split else v, split or i == 0))
+        (vr, own_r), (vc, own_c) = out
+        return vr, vc, own_r, own_c
+
+    def param(self, i):
+        return self.p.chunk(2, self.dim)[i]
+
+    def apply(self, i, u):
+        self.out.chunk(2, self.dim)[i].copy_(u.to(self.p.dtype))
+
+
+@pytest.mark.parametrize("shape, dim", [((3, 6, 8), -1), ((3, 6, 8), -2), ((4, 6, 8), 0),
+                                        ((8,), 0)])
+def test_adafactor_over_split_leaves_equals_the_whole_update(shape, dim):
+    """Adafactor's one copy of its arithmetic (``adafactor.leaf_update``)
+    over a parameter in two blocks along its last, second-to-last or
+    leading dimension (or a vector's), the means over the split dimension
+    taken as the blocks' partial sums: three steps of updates and factors
+    within 1e-6 of the whole parameter's."""
+    rng = np.random.default_rng(4)
+    init, update = optim.adafactor(weight_decay=0.05)
+    p = torch.tensor(rng.standard_normal(shape).astype(np.float32))
+    whole, split = init({"w": p}), init({"w": p})
+    for step in range(3):
+        g = torch.tensor((rng.standard_normal(shape) * 10.0 ** (step - 1)).astype(np.float32))
+        lr = torch.tensor(1e-3 * (step + 1))
+        want, whole = update({"w": g}, whole, {"w": p}, lr)
+        leaf = _Halves(g, p, split.vr["w"], split.vc["w"], dim)
+        got, split = update(None, split, None, lr, leaves=[leaf])
+        assert got is None and int(split.step) == int(whole.step) == step + 1
+        close(leaf.out, want["w"].numpy())
+        close(split.vr["w"], whole.vr["w"].numpy())
+        close(split.vc["w"], whole.vc["w"].numpy())
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e3])

@@ -25,6 +25,7 @@ norm sums in another order). The payloads of a step are checked by hand on
 one tiny layer, and the counter's per-position attribution of the backward
 pass (every position's totals equal where the heads divide).
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -285,6 +286,52 @@ def test_zero1_alone_is_the_microbatched_step(S):
         np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(), rtol=0, atol=1e-6)
 
 
+def test_sharded_step_adds_each_groups_gradients_as_its_backward_ends(monkeypatch):
+    """The sharded step reads a stacked block as one leaf a layer group: in
+    each data block's backward every leaf's gradient is added into the sum
+    once, the layer groups' last group first and each group's before the
+    group below it has any (so one group's gradients are alive at a time),
+    and the parameters after two steps are those of the same step whose
+    sums were taken at the end (make_train_step with 2 microbatches),
+    within 1e-6."""
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), n_layers=4)
+    opt = adamw()
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    placed = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
+                                              step=torch.zeros((), dtype=torch.int32)),
+                                   cpu_mesh((2, 2)))
+    b = TrainState(params=params, opt_state=opt[0](params), step=torch.zeros((), dtype=torch.int32))
+    blocks = []
+    accumulating = loop._accumulating
+
+    @contextlib.contextmanager
+    def spy(flat, slots, acc):
+        seen = []
+        blocks.append((seen, len(slots)))
+        handles = [t.register_hook(lambda g, s=s: seen.append(s)) for t, s in zip(flat, slots)]
+        with accumulating(flat, slots, acc):
+            yield
+        for h in handles:
+            h.remove()
+
+    monkeypatch.setattr(loop, "_accumulating", spy)
+    sharded = make_sharded_train_step(cfg, opt, warmup_cosine(*LR), cpu_mesh((2, 2)))
+    micro = make_train_step(cfg, opt, warmup_cosine(*LR), microbatches=2)
+    for s in range(2):
+        placed, _ = sharded(placed, train_batch(cfg, s))
+        b, _ = micro(b, train_batch(cfg, s))
+    assert len(blocks) == 4
+    for seen, n_slots in blocks:
+        assert sorted(seen) == sorted(set(seen)) and len(seen) == n_slots
+        groups = [g for _, g in seen if g is not None]
+        assert groups == sorted(groups, reverse=True) and set(groups) == {0, 1, 2, 3}
+    back = SHD.unplace_train_state(placed)
+    for x, y in zip(tree_flatten(back.params)[0], tree_flatten(b.params)[0]):
+        np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(), rtol=0, atol=1e-6)
+
+
 def _count_step(cfg, grid, device="meta"):
     mesh = make_mesh(grid, ("data", "model"), [device] * (grid[0] * grid[1]))
     params = (TM.meta_params(cfg) if device == "meta" else
@@ -372,10 +419,12 @@ def test_sharded_step_counts_on_meta_equal_the_cpu_counts(arch):
 
 
 def test_sharded_entry_points_refuse_what_they_do_not_split():
+    """RWKV and the hybrid stack (Mamba mixers, jamba's MoE) are refused;
+    the moe family runs (tests/test_torch_expert_sharding.py)."""
     mesh = cpu_mesh((1, 2))
-    moe = get_smoke("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="dense stack"):
-        make_sharded_train_step(moe, adamw(), warmup_cosine(*LR), mesh)
+    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
+        with pytest.raises(NotImplementedError, match="dense stack"):
+            make_sharded_train_step(get_smoke(arch), adamw(), warmup_cosine(*LR), mesh)
     cfg = get_smoke("granite-3-2b")
     params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
