@@ -222,16 +222,17 @@ Phases, in order; any failure exits nonzero:
  16. dryrun  — the dry runs (repro_torch.launch.dryrun_ann, dryrun) held to
                the card: launch.op_analysis counts the distributed build
                covariance and both query pipelines at 2^22 x 128 f32 over a
-               (4, 4) grid of the card, and two decode_32k steps at one
+               (4, 4) grid of the card, and four decode_32k steps at one
                position's block (8 sequences, a 32,768 cache, bf16
-               weights), one a layout: granite-3-2b's in the tensor-parallel
+               weights): granite-3-2b's in the tensor-parallel
                layout (the sharded decode step over the position's row of
                16 'model' positions, each its sixteenth of the weights and
                of the cache's sequence), granite-moe-3b-a800m's in the
                expert-parallel layout (its 40 experts' FFN width split over
-               16) and rwkv6-7b's in the replicated layout (the whole model
-               at the position), on the card and on meta tensors of the
-               same shapes
+               16), rwkv6-7b's in the tensor-parallel layout (its 64
+               heads split, 4 a position, the WKV state over the heads) and
+               whisper-medium's in the replicated layout (the whole model
+               at the position), on the card and on meta tensors of the same shapes
                by the same code, the plain path on both sides: flops, bytes,
                payloads and argument bytes equal exactly; then the dry runs
                in child processes at once (dryrun_ann at n = 10^9 on both
@@ -277,7 +278,30 @@ Phases, in order; any failure exits nonzero:
                layer a data block a position with heads a prefill and two a
                train step; each new flash shape's first call held against
                the plain version;
- 19. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 19. ssm_parallel — RWKV6 and the hybrid Mamba stack over grids of views
+               of the card (repro_torch.models.sharded's time mix over
+               whole heads, channel mix and Mamba mixer over its inner
+               channels): rwkv6-7b's bf16 weights at full width and depth,
+               the forward and the prefill of 2 x 512 (the chunked WKV) and
+               8 decode steps over (2, 4) and (1, 16) against one device's
+               f32-compute and bf16 runs (float32 within 1e-3, top-1 >= 99
+               %; the bf16 forward's top-1 with the f32 run at least one
+               device's less 3 binomial standard deviations, mean distance
+               at most 1.1x one device's; the first decode step's WKV states
+               within 1e-3 of their largest entries); its sharded train step at 8 of
+               32 layers over (2, 4) (AdamW, ZeRO-1) beside make_train_step's,
+               the first step's payloads equal to the meta count; the f32
+               held check at 4 layers; jamba-1.5-large-398b at the families
+               phase's cut (8 layers, 4 experts, bf16) over (2, 4) (one whole
+               expert a position, the manual MoE, the KV heads gathered): the
+               phase-18 gates with the routing pinned to one device's, the
+               first decode step's Mamba states of the layers before the
+               first MoE layer after a 64-token prompt, one Mamba layer's ms
+               sharded and on one device; one Adafactor train step of the
+               same jamba cut over (2, 4) at 4 x 64 tokens and its peak
+               memory; each new flash shape's first
+               call held against the plain version;
+ 20. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -304,7 +328,9 @@ forward under either MoE implementation; dryrun: none; tensor_parallel:
 flash_attention exactly twice a layer a position a step in the sharded
 steps, once a layer a prefill position, none in decode; expert_parallel:
 flash_attention exactly once a layer a data block a position with heads a
-prefill, twice a step in the sharded steps, none in decode), l2dist exactly once a
+prefill, twice a step in the sharded steps, none in decode; ssm_parallel:
+none for rwkv6-7b, once jamba's attention layer a data block a position
+with heads a prefill, twice a step), l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
@@ -388,6 +414,12 @@ PATHS = {
     "expert_parallel_train": ("flash_attention",),
     "expert_parallel_held": ("flash_attention",),
     "expert_parallel_arctic": ("flash_attention",),
+    "ssm_parallel_rwkv": (),
+    "ssm_parallel_rwkv_train": (),
+    "ssm_parallel_rwkv_held": (),
+    "ssm_parallel_jamba": ("flash_attention",),
+    "ssm_parallel_jamba_single": ("flash_attention",),
+    "ssm_parallel_jamba_train": ("flash_attention",),
 }
 
 
@@ -4290,15 +4322,17 @@ def phase_parallel(torch) -> dict:
 #: (4, 4) grid of the card, the billion-scale query config; granite-3-2b's
 #: decode_32k step at one position's block of 8 sequences in the
 #: tensor-parallel layout, granite-moe-3b-a800m's in the expert-parallel
-#: one, rwkv6-7b's in the replicated one), then the dry runs themselves in
-#: child processes, on meta tensors
+#: one, rwkv6-7b's in the tensor-parallel one, whisper-medium's in the
+#: replicated one), then the dry runs themselves in child processes, on meta
+#: tensors
 DRY_N = 1 << 22
 DRY_GRID = (4, 4)
 DRY_ANN_JOBS = (("build_cov", "gather"), ("query", "gather"), ("query", "masked_full"))
 #: (arch, shape, the layout launch.dryrun must give the cell)
 DRY_CELLS = (("granite-3-2b", "decode_32k", "tensor_parallel"),
              ("granite-moe-3b-a800m", "decode_32k", "expert_parallel"),
-             ("rwkv6-7b", "decode_32k", "replicated"))
+             ("rwkv6-7b", "decode_32k", "tensor_parallel"),
+             ("whisper-medium", "decode_32k", "replicated"))
 DRY_CHILDREN = tuple(
     [("repro_torch.launch.dryrun_ann", (*mp, "--rerank", r))
      for mp in ((), ("--multi-pod",)) for r in ("gather", "masked_full")]
@@ -4387,7 +4421,7 @@ def dry_decode_identity(torch) -> dict:
         check(a["layout"] == b["layout"] == layout,
               f"dryrun: {arch} x {shape} ran the {a['layout']} layout, not {layout}")
         check(a["rows"] == 8 and a["flops"] > 0, f"dryrun: {arch} x {shape} ran {a['rows']} rows")
-        rows[layout] = got
+        rows[arch] = got
     return rows
 
 
@@ -4590,15 +4624,29 @@ def tp_train(torch) -> dict:
 
 
 def tp_held(torch) -> dict:
-    """The sharded step against make_train_step at full width, TP_HELD_LAYERS
-    layers, float32 compute, TP_HELD_STEPS steps from one seeded state on
-    the same batches: loss and grad norm within TP_METRIC_RTOL relative,
-    every parameter within TP_PARAM_RTOL of its norm (its distance from the
-    plain step's, relative to its update, printed); the f32 training flash
-    shape held against the plain version."""
+    """granite-3-2b at full width, TP_HELD_LAYERS layers, float32, over
+    TP_GRID against make_train_step (held_check)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TP_HELD_LAYERS,
+                              compute_dtype="float32")
+    print(f"tensor parallel: cut: the held check at {TP_HELD_LAYERS} of 40 layers, float32",
+          flush=True)
+    return held_check(torch, cfg, TP_GRID, TP_HELD_STEPS, "tensor_parallel_held",
+                      "tensor parallel held")
+
+
+def held_check(torch, cfg, grid, steps: int, path: str, label: str) -> dict:
+    """The sharded step against make_train_step at ``cfg``'s width and depth
+    in float32 compute over ``grid``, ``steps`` AdamW steps from one seeded
+    state on the same batches: loss and grad norm within TP_METRIC_RTOL
+    relative, every parameter within TP_PARAM_RTOL of its norm (its
+    distance from the plain step's, relative to its update, printed);
+    exactly two flash launches an attention layer a step a data block a
+    position with heads (one device: a step), and the training flash shape,
+    where there is one, held against the plain version."""
     from repro_torch.data.tokens import SyntheticTokenStream
     from repro_torch.kernels import ops
     from repro_torch.models import sharded as SHD
@@ -4606,61 +4654,55 @@ def tp_held(torch) -> dict:
     from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
     from repro_torch.utils import tree_flatten
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TP_HELD_LAYERS,
-                              compute_dtype="float32")
-    print(f"tensor parallel: cut: the held check at {TP_HELD_LAYERS} of 40 layers, float32",
-          flush=True)
-    mesh = tp_mesh()
+    mesh = ep_mesh(grid)
     opt, lr = adamw(), warmup_cosine(3e-4, 2, 10)
     stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=1)
     state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
     start = [p.detach().clone() for p in tree_flatten(state.params)[0]]
     placed = SHD.place_train_state(state, mesh)
     sharded, plain = make_sharded_train_step(cfg, opt, lr, mesh), make_train_step(cfg, opt, lr)
-    metrics, seen = [], {}
+    flash = 2 * attention_layers(cfg) * steps
+    metrics, want, seen = [], [], {}
 
     def run_sharded():
         nonlocal placed
-        for s in range(TP_HELD_STEPS):
+        for s in range(steps):
             placed, m = sharded(placed, stream.batch(s))
             metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
 
-    restore = capture_shapes(ops, seen)
-    try:
-        _, l_sharded = run_path(torch, "tensor_parallel_held", run_sharded, expect={
-            "flash_attention": 2 * cfg.n_layers * math.prod(TP_GRID) * TP_HELD_STEPS})
-    finally:
-        restore()
-    want = []
-
     def run_plain():
         nonlocal state
-        for s in range(TP_HELD_STEPS):
+        for s in range(steps):
             state, m = plain(state, stream.batch(s))
             want.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
 
-    _, l_plain = run_path(torch, "tensor_parallel_held", run_plain,
-                          expect={"flash_attention": 2 * cfg.n_layers * TP_HELD_STEPS})
+    restore = capture_shapes(ops, seen)
+    try:
+        _, l_sharded = run_path(torch, path, run_sharded, expect={
+            "flash_attention": flash * grid[0] * ep_active(cfg, grid[1])})
+    finally:
+        restore()
+    _, l_plain = run_path(torch, path, run_plain, expect={"flash_attention": flash})
     for a, b in zip(metrics, want):
         for key in ("loss", "grad_norm", "lr"):
             check(abs(a[key] - b[key]) <= TP_METRIC_RTOL * abs(b[key]),
-                  f"tensor parallel held: {key} {a[key]} sharded against {b[key]}")
+                  f"{label}: {key} {a[key]} sharded against {b[key]}")
     back = SHD.unplace_train_state(placed)
     worst_norm = worst_update = 0.0
     for p, q, p0 in zip(tree_flatten(back.params)[0], tree_flatten(state.params)[0], start):
         d = float((p - q.detach()).norm())
         worst_norm = max(worst_norm, d / max(float(q.detach().norm()), 1e-30))
         worst_update = max(worst_update, d / max(float((q.detach() - p0).norm()), 1e-30))
-    check(worst_norm <= TP_PARAM_RTOL, f"tensor parallel held: a parameter {worst_norm} of "
-                                       "its norm from make_train_step's")
+    check(worst_norm <= TP_PARAM_RTOL, f"{label}: a parameter {worst_norm} of its norm from "
+                                       "make_train_step's")
     del back, placed, state, start
     torch.cuda.empty_cache()
-    check(len(seen) == 1, f"tensor parallel held: flash shapes {sorted(seen)}")
-    flash_rows = fam_flash_shapes(torch, seen, "tensor parallel held")
-    row = dict(layers=TP_HELD_LAYERS, steps=TP_HELD_STEPS, sharded=metrics, single=want,
-               worst_param_vs_norm=worst_norm, worst_param_vs_update=worst_update,
-               flash=flash_rows)
-    print(f"tensor parallel held: {json.dumps(row)}", flush=True)
+    row = dict(layers=cfg.n_layers, grid=list(grid), steps=steps, sharded=metrics, single=want,
+               worst_param_vs_norm=worst_norm, worst_param_vs_update=worst_update)
+    if flash:
+        check(len(seen) == 1, f"{label}: flash shapes {sorted(seen)}")
+        row["flash"] = fam_flash_shapes(torch, seen, label)
+    print(f"{label}: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}", flush=True)
     row["launches"] = [l_sharded, l_plain]
     return row
 
@@ -4819,14 +4861,30 @@ EP_ARCTIC_BATCH = (4, 128)
 #: positions. Two bf16 runs of these random-weight models part on near-ties
 #: of the logits (0.947-0.965 between sharded and one device, PR 28), so
 #: the lm phase's absolute 95 % does not measure the sharding; each run's
-#: agreement with the same truth does
-EP_BF16_TOP1_SLACK = 0.01
+#: agreement with the same truth does. The slack is this many standard
+#: deviations of the difference of two shares of N positions near the one
+#: device's share p (top1_slack: 3 sqrt(2 p (1 - p) / N)), so that a sound
+#: run passes whatever the seed and the size
+EP_BF16_TOP1_SIGMAS = 3
 #: float32 compute: the least share of the routing decisions (a token's
 #: top-k and kept set, call by call) that a sharded run makes as one
 #: device's run does, each with its own routing. A near-tie flips a token's
 #: experts on rounding alone and moves that token's later layers; a fault in
 #: the capacity, the slot order or the dispatch chunk moves most tokens
 EP_ROUTED_ALIKE = 0.99
+
+
+def top1_slack(p: float, n: int) -> float:
+    """How far a bf16 run's top-1 share with the f32 run over ``n``
+    positions may fall below one device's share ``p``: EP_BF16_TOP1_SIGMAS
+    binomial standard deviations of the difference of two such shares."""
+    return EP_BF16_TOP1_SIGMAS * math.sqrt(2 * p * (1 - p) / n)
+
+
+def moe_layers(cfg) -> int:
+    """The MoE sub-layers of the stack (every layer for the moe family, every
+    second one for jamba)."""
+    return cfg.n_groups * sum(spec["ffn"] in ("moe", "moe_dense") for spec in cfg.layer_specs())
 
 
 def ep_active(cfg, n: int) -> int:
@@ -4847,23 +4905,27 @@ def ep_timed(torch, fn):
     return res, start.elapsed_time(end)
 
 
-def ep_generate(torch, prefill, decode, tokens, n: int, steps: int):
+def ep_generate(torch, prefill, decode, tokens, n: int, steps: int, snap=None):
     """The last prompt position's logits and each teacher-forced decode
     step's, stacked (steps + 1, B, V), with the prefill's and the median
-    decode step's ms."""
+    decode step's ms, and ``snap(cache)`` taken after the first decode step
+    (None without ``snap``)."""
     (logits, cache), prefill_ms = ep_timed(torch, lambda: prefill({"tokens": tokens[:, :n]}))
-    out, step_ms = [logits[:, 0]], []
+    out, step_ms, first = [logits[:, 0]], [], None
     for t in range(n, n + steps):
         (logits, cache), ms = ep_timed(torch, lambda: decode(cache, tokens[:, t:t + 1], t))
         out.append(logits[:, 0])
         step_ms.append(ms)
-    return torch.stack(out), prefill_ms, sorted(step_ms)[len(step_ms) // 2]
+        if snap is not None and t == n:
+            first = snap(cache)
+    return torch.stack(out), prefill_ms, sorted(step_ms)[len(step_ms) // 2], first
 
 
 def ep_gates(torch, label: str, got, want: dict, key: str) -> dict:
     """``got`` against the one-device runs of ``key`` (the same routing):
     top-1 agreement with the f32-compute run and with the bf16 run, and
-    mean |logits - f32| beside the one-device bf16 run's."""
+    mean |logits - f32| beside the one-device bf16 run's; the top-1 slack
+    (top1_slack) at one device's share over ``got``'s positions."""
     bf16, f32 = want[key], want[key + "_f32"]
     check(bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(bf16.shape),
           f"{label}: logits {tuple(got.shape)}")
@@ -4871,14 +4933,16 @@ def ep_gates(torch, label: str, got, want: dict, key: str) -> dict:
     def top1(a, b):
         return float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
-    return {"top1_vs_f32": {"sharded": top1(got, f32), "single": top1(bf16, f32)},
+    single = top1(bf16, f32)
+    return {"top1_vs_f32": {"sharded": top1(got, f32), "single": single,
+                            "slack": top1_slack(single, f32.numel() // f32.shape[-1])},
             "top1_vs_single": top1(got, bf16),
             "mean_abs_vs_f32": {"sharded": float((got - f32).abs().mean()),
                                 "single": float((bf16 - f32).abs().mean())}}
 
 
 def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, label: str,
-                 want: dict) -> dict:
+                 want: dict, path: str = "expert_parallel_prefill") -> dict:
     """sharded_forward of the prompt, and sharded_prefill with ``steps``
     sharded decode steps, of the bf16 weights ``params`` over ``grid``,
     against ``want`` (ep_single: one device's bf16 runs and its f32-compute
@@ -4891,14 +4955,14 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
     at most LM_BF16_MEAN_SLACK times the one device's bf16 run's (the lm
     phase's distance gate); the forward's top-1 agreement with the truth
     over the rows x n positions at least the one device's bf16 run's less
-    EP_BF16_TOP1_SLACK (agreement with the one-device bf16 run, and prefill
+    top1_slack (agreement with the one-device bf16 run, and prefill
     and decode's top-1 over rows x (steps + 1) positions, reported). float32
     compute against one device's on its routing: within LM_F32_TOL, top-1
     >= LM_F32_TOP1. The float32 forward unpinned, each with its own
     routing: at least EP_ROUTED_ALIKE of the routing decisions alike (its
     logits' distance and top-1, and the first MoE layer's share, reported).
     Exactly one flash launch a layer a data block a position with heads a
-    forward and a prefill."""
+    forward and a prefill. Each run is a run of ``path``."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -4907,10 +4971,11 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
 
     mesh = ep_mesh(grid)
     placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
-    split = SHD._expert_split(SHD._Row(cfg, mesh, {"data": 0}, "auto"),
-                              SHD._groups(placed["blocks"], cfg.n_groups)[0]["l0"]["moe"])
+    split = SHD._expert_split(SHD._Row(cfg, mesh, {"data": 0}, "auto"), next(
+        layer["moe"] for layer in SHD._groups(placed["blocks"], cfg.n_groups)[0].values()
+        if "moe" in layer))
     seen: dict = {}
-    flash = cfg.n_layers * grid[0] * ep_active(cfg, grid[1])
+    flash = attention_layers(cfg) * grid[0] * ep_active(cfg, grid[1])
     # the cache's sequence splits over 'model' only where it divides
     max_seq = -(-(n + steps) // grid[1]) * grid[1]
     prompt = {"tokens": want["tokens"][:, :n]}
@@ -4926,7 +4991,7 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
 
     restore = capture_shapes(ops, seen)
     try:
-        (fwd, forward_ms), _, l_fwd = ep_pinned(torch, "expert_parallel_prefill", None,
+        (fwd, forward_ms), _, l_fwd = ep_pinned(torch, path, None,
                                                 forward(cfg), flash)
     finally:
         restore()
@@ -4935,15 +5000,15 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
         "top1_vs_single": unpinned["top1_vs_single"], "mean_abs_vs_f32": {
             "sharded": float((fwd - want["fwd_f32_own"]).abs().mean()),
             "single": float((want["fwd"] - want["fwd_f32_own"]).abs().mean())}})
-    (fwd, _), alike, l_pin = ep_pinned(torch, "expert_parallel_prefill", want["routes"],
+    (fwd, _), alike, l_pin = ep_pinned(torch, path, want["routes"],
                                        forward(cfg), flash)
     row["forward"] = dict(ep_gates(torch, label, fwd, want, "fwd"), routed_alike=alike)
-    (got, prefill_ms, step_ms), alike, l_gen = ep_pinned(
-        torch, "expert_parallel_prefill", want["routes_gen"], generate, flash)
+    (got, prefill_ms, step_ms, _), alike, l_gen = ep_pinned(
+        torch, path, want["routes_gen"], generate, flash)
     row["generate"] = dict(ep_gates(torch, label, got, want, "gen"), routed_alike=alike)
     del fwd, got
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
-    (f32, _), alike, l_f32 = ep_pinned(torch, "expert_parallel_prefill", want["routes"],
+    (f32, _), alike, l_f32 = ep_pinned(torch, path, want["routes"],
                                        forward(c32), flash)
     row["f32"] = {"max_abs_err": float((f32 - want["fwd_f32"]).abs().max()),
                   "top1": float((f32.argmax(-1) == want["fwd_f32"].argmax(-1)).float().mean()),
@@ -4953,12 +5018,12 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
     routes, probs = [], []
     unroute = routing_spy(MOE, routes, probs_seen=probs)
     try:
-        (own, _), _, l_own = ep_pinned(torch, "expert_parallel_prefill", None, forward(c32),
+        (own, _), _, l_own = ep_pinned(torch, path, None, forward(c32),
                                        flash)
     finally:
         unroute()
     alike = ep_alike(list(zip(probs, routes)), want["routes_f32_own"])
-    per = len(alike) // cfg.n_layers  # route calls a MoE layer: one a data block
+    per = len(alike) // moe_layers(cfg)  # route calls a MoE layer: one a data block
     ref = want["fwd_f32_own"]
     row["f32_unpinned"] = {
         "routed_alike": sum(alike) / len(alike), "routed_alike_min": min(alike),
@@ -4972,7 +5037,7 @@ def ep_inference(torch, cfg, params, grid, rows_n: int, n: int, steps: int, labe
                flash_per_prefill=flash)
     print(f"{label}: {json.dumps(row)}", flush=True)
     top1 = row["forward"]["top1_vs_f32"]
-    check(top1["sharded"] >= top1["single"] - EP_BF16_TOP1_SLACK,
+    check(top1["sharded"] >= top1["single"] - top1["slack"],
           f"{label}: bf16 top-1 agreement with f32 {top1}")
     check(f32_close and row["f32"]["top1"] >= LM_F32_TOP1, f"{label}: float32 {row['f32']}")
     check(row["f32_unpinned"]["routed_alike"] >= EP_ROUTED_ALIKE,
@@ -5011,7 +5076,8 @@ def ep_mesh(grid):
     return make_mesh(grid, ("data", "model"))
 
 
-def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int) -> dict:
+def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int,
+              path: str = "expert_parallel_single") -> dict:
     """The one-device runs the sharded ones are held to, with ``n_dp``
     dispatch chunks (a data block each): forward of the prompt, then
     prefill and decode_step, in bf16, their routing recorded (``routes``,
@@ -5019,7 +5085,7 @@ def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int) -> dict
     f32 compute with the routing pinned to the bf16 runs' (``fwd_f32``,
     ``gen_f32``: the truth the bf16 runs are measured against), and the f32
     forward with its own routing (``fwd_f32_own``), recorded
-    (``routes_f32_own``)."""
+    (``routes_f32_own``). Each run is a run of ``path``."""
     import dataclasses
 
     from repro_torch.models import model as M
@@ -5037,7 +5103,7 @@ def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int) -> dict
         routes, probs = [], []
         unroute = routing_spy(MOE, routes, probs_seen=probs)
         try:
-            res, _, l_run = ep_pinned(torch, "expert_parallel_single", None, fn, cfg.n_layers)
+            res, _, l_run = ep_pinned(torch, path, None, fn, attention_layers(cfg))
         finally:
             unroute()
         out[key] = list(zip(probs, routes))
@@ -5048,11 +5114,11 @@ def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int) -> dict
     bf16, f32 = (dataclasses.replace(chunked, compute_dtype=d) for d in ("bfloat16", "float32"))
     forward, generate = runs(bf16)
     out["fwd"], out["forward_ms"] = recorded("routes", forward)
-    out["gen"], out["prefill_ms"], out["step_ms"] = recorded("routes_gen", generate)
+    out["gen"], out["prefill_ms"], out["step_ms"], _ = recorded("routes_gen", generate)
     forward, generate = runs(f32)
     for key, routes, fn in (("fwd_f32", out["routes"], forward),
                             ("gen_f32", out["routes_gen"], generate)):
-        res, _, l_run = ep_pinned(torch, "expert_parallel_single", routes, fn, cfg.n_layers)
+        res, _, l_run = ep_pinned(torch, path, routes, fn, attention_layers(cfg))
         out[key] = res[0]
         launches.append(l_run)
     out["fwd_f32_own"] = recorded("routes_f32_own", forward)[0]
@@ -5428,6 +5494,421 @@ def phase_expert_parallel(torch) -> dict:
     return rows
 
 
+#: the ssm_parallel phase: RWKV6 and the hybrid Mamba stack over 'model' on
+#: grids of views of the card (repro_torch.models.sharded's time mix over
+#: whole heads, channel mix, and Mamba mixer over its inner channels).
+#: rwkv6-7b at full width and depth in bf16 weights over each grid
+SSM_RWKV = "rwkv6-7b"
+SSM_GRIDS = ((2, 4), (1, 16))
+SSM_PREFILL = (2, 512)  # rows x prompt: a multiple of rwkv_chunk (the chunked WKV)
+SSM_DECODE = 8
+#: its train step over (2, 4) with AdamW and ZeRO-1: 8 of 32 layers (the f32
+#: state with AdamW's moments is 27 GB at 8 layers, twice that while the
+#: placement copies it; at 16 layers the copy would not fit)
+SSM_TRAIN_GRID = (2, 4)
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 8, 2
+SSM_TRAIN_BATCH = (8, 128)
+SSM_HELD_LAYERS, SSM_HELD_STEPS = 4, 2
+#: jamba-1.5-large-398b at the families phase's cut (one group of 8 layers, 4
+#: of 16 experts, bf16) over (2, 4): one whole expert a position, the manual
+#: MoE; its Adafactor train step (batch SSM_JAMBA_BATCH) at the same cut, the
+#: largest that fits beside its placed state (30.3 GiB placed on an H100
+#: 80GB, 73.3 GiB at its peak with 4 x 128 tokens). The Mamba layers' host
+#: time grows with the tokens a sequence (each position's scan launches its
+#: steps one by one), so the train step takes 64 tokens and the first decode
+#: step's states follow a prompt of SSM_JAMBA_STATE_PROMPT, to keep the
+#: phase near 150 s
+SSM_JAMBA = "jamba-1.5-large-398b"
+SSM_JAMBA_CUT = dict(n_layers=8, n_experts=4)
+SSM_JAMBA_GRID = (2, 4)
+SSM_JAMBA_PREFILL = (2, 512)
+SSM_JAMBA_DECODE = 8
+SSM_JAMBA_BATCH = (4, 64)
+SSM_JAMBA_STATE_PROMPT = 64
+#: the first decode step's recurrent states (the WKV state; Mamba's h and
+#: conv window) against one device's, float32: within this share of each
+#: layer's largest entry (FAM_WKV_TOL)
+SSM_STATE_TOL = FAM_WKV_TOL
+
+
+def ssm_state_err(got: dict, want: dict) -> float:
+    """The largest distance between two snapshots' states, each layer group's
+    relative to its largest entry (one device's)."""
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        for i in range(w.shape[0]):
+            scale = max(float(w[i].abs().max()), 1e-30)
+            worst = max(worst, float((g[i] - w[i]).abs().max()) / scale)
+    return worst
+
+
+def ssm_gates(torch, label: str, got: dict, want: dict, err_state: float) -> dict:
+    """The sharded runs against one device's on the same weights, each of
+    ``got`` and ``want`` holding the forward of the prompt (``fwd``: every
+    position) and the prefill's and decode steps' logits (``gen``) in
+    float32 (``_f32``) and bf16 compute: float32 within LM_F32_TOL with
+    top-1 >= LM_F32_TOP1; bf16, the one device's f32 run as the truth: the
+    forward's top-1 share at least one device's less top1_slack, mean
+    |logits - f32| at most LM_BF16_MEAN_SLACK times one device's for the
+    forward and for prefill and decode; the first decode step's states
+    within SSM_STATE_TOL."""
+    row = {"first_step_state_rel_err": err_state}
+    for key in ("fwd", "gen"):
+        f32, one = got[key + "_f32"], want[key + "_f32"]
+        check(bool(torch.isfinite(f32).all()) and tuple(f32.shape) == tuple(one.shape),
+              f"{label}: {key} f32 logits {tuple(f32.shape)}")
+        row[key] = {"f32": {"max_abs_err": float((f32 - one).abs().max()),
+                            "top1": float((f32.argmax(-1) == one.argmax(-1)).float().mean())},
+                    "bf16": ep_gates(torch, label, got[key], want, key)}
+        check(torch.allclose(f32, one, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+              and row[key]["f32"]["top1"] >= LM_F32_TOP1, f"{label}: {key} float32 {row[key]}")
+        mean = row[key]["bf16"]["mean_abs_vs_f32"]
+        check(mean["sharded"] <= LM_BF16_MEAN_SLACK * mean["single"],
+              f"{label}: {key} bf16 {row[key]['bf16']}")
+    t1 = row["fwd"]["bf16"]["top1_vs_f32"]
+    check(t1["sharded"] >= t1["single"] - t1["slack"], f"{label}: forward bf16 top-1 {t1}")
+    check(err_state <= SSM_STATE_TOL, f"{label}: the first decode step's states {err_state} of "
+                                      "their largest entries from one device's")
+    return row
+
+
+def ssm_rwkv_inference(torch) -> dict:
+    """rwkv6-7b's bf16 weights at full width and depth (32 layers, 64 heads
+    of 64, ~15 GB): the forward of the prompt SSM_PREFILL (the chunked
+    WKV), its prefill and SSM_DECODE decode steps on one device in float32
+    and bf16 compute, then over each of SSM_GRIDS (the 64 heads split, 16
+    and 4 a position) held to them (ssm_gates: the first decode step's WKV
+    state of every layer too); forward, prefill and decode-step ms, peak
+    memory. No flash: no attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+
+    cfg = dataclasses.replace(get_arch(SSM_RWKV), param_dtype="bfloat16")
+    rows_n, n = SSM_PREFILL
+    check(n % cfg.rwkv_chunk == 0, "ssm parallel rwkv: the prefill takes the sequential WKV")
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (rows_n, n + SSM_DECODE), generator=g,
+                           device="cuda")
+    max_seq = n + SSM_DECODE
+    layers = [f"l{i}" for i in range(len(cfg.layer_specs()))]
+    prompt = {"tokens": tokens[:, :n]}
+    want, single, launches = {}, {}, []
+
+    def runs(forward, prefill, decode, snap):
+        (fwd, fwd_ms) = ep_timed(torch, lambda: forward(prompt)[0])
+        gen, pre_ms, step_ms, first = ep_generate(torch, prefill, decode, tokens, n,
+                                                  SSM_DECODE, snap)
+        return fwd, gen, dict(forward_ms=fwd_ms, prefill_ms=pre_ms, decode_step_ms=step_ms,
+                              state=first)
+
+    for dtype, tag in (("float32", "_f32"), ("bfloat16", "")):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        with torch.no_grad():
+            (want["fwd" + tag], want["gen" + tag], single[dtype]), l_one = run_path(
+                torch, "ssm_parallel_rwkv", lambda: runs(
+                    lambda b: M.forward(params, c, b), lambda b: M.prefill(params, c, b, max_seq),
+                    lambda ca, tok, t: M.decode_step(params, c, ca, tok, t),
+                    lambda ca: {k: ca[k]["wkv"].clone() for k in layers}),
+                expect={"flash_attention": 0})
+        launches.append(l_one)
+    out = {}
+    for grid in SSM_GRIDS:
+        mesh = ep_mesh(grid)
+        torch.cuda.reset_peak_memory_stats()
+        placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+        got, ms = {}, {}
+        for dtype, tag in (("float32", "_f32"), ("bfloat16", "")):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            with torch.no_grad():
+                (got["fwd" + tag], got["gen" + tag], ms[dtype]), l_tp = run_path(
+                    torch, "ssm_parallel_rwkv", lambda: runs(
+                        lambda b: SHD.sharded_forward(placed, c, b, mesh),
+                        lambda b: SHD.sharded_prefill(placed, c, b, max_seq, mesh),
+                        lambda ca, tok, t: SHD.sharded_decode_step(placed, c, ca, tok, t, mesh),
+                        lambda ca: SHD.unplace({k: ca[k]["wkv"] for k in layers})),
+                    expect={"flash_attention": 0})
+            launches.append(l_tp)
+        err = ssm_state_err(ms["float32"]["state"], single["float32"]["state"])
+        label = f"ssm parallel {SSM_RWKV} {grid[0]}x{grid[1]}"
+        row = ssm_gates(torch, label, got, want, err)
+        row.update(grid=list(grid), heads_a_position=cfg.n_heads // grid[1],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   **{f"{k}_{d}": ms[d][k] for d in ms
+                      for k in ("forward_ms", "prefill_ms", "decode_step_ms")},
+                   **{f"{k}_{d}_single": single[d][k] for d in single
+                      for k in ("forward_ms", "prefill_ms", "decode_step_ms")})
+        print(f"{label}: forward and prefill {rows_n} x {n}, {SSM_DECODE} decode steps: "
+              f"{json.dumps(row)}", flush=True)
+        out[f"{grid[0]}x{grid[1]}"] = row
+        del placed, got, ms
+        torch.cuda.empty_cache()
+    del params, want, single
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def ssm_rwkv_train(torch) -> dict:
+    """make_sharded_train_step at rwkv6-7b's full width, SSM_TRAIN_LAYERS
+    layers, over SSM_TRAIN_GRID (AdamW, ZeRO-1 over 'data'; batch
+    SSM_TRAIN_BATCH, f32 parameters, bf16 compute, remat, the chunked WKV):
+    SSM_TRAIN_STEPS steps timed, the first step's payloads tallied on the
+    card and equal to the same step's meta count, peak memory;
+    make_train_step at the same depth beside it. No flash."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+
+    cfg = dataclasses.replace(get_arch(SSM_RWKV), n_layers=SSM_TRAIN_LAYERS)
+    print(f"ssm parallel: cut: the rwkv6 train step at {SSM_TRAIN_LAYERS} of 32 layers",
+          flush=True)
+    mesh = ep_mesh(SSM_TRAIN_GRID)
+    opt, lr = adamw(), warmup_cosine(3e-4, 20, SSM_TRAIN_STEPS + 1)
+    stream = SyntheticTokenStream(cfg.vocab_size, SSM_TRAIN_BATCH[1], SSM_TRAIN_BATCH[0], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    placed = SHD.place_train_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    place_s = time.perf_counter() - t0
+    step = make_sharded_train_step(cfg, opt, lr, mesh)
+    payload = {}
+    placed, rows, l_tp = ep_train_steps(torch, step, placed, stream, SSM_TRAIN_STEPS, mesh,
+                                        "ssm_parallel_rwkv_train", 0, {}, payload)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_payload = ep_meta_payloads(torch, cfg, opt, lr, stream.batch(0), SSM_TRAIN_GRID)
+    meta_s = time.perf_counter() - t0
+    check(meta_payload == payload, f"ssm parallel rwkv train: the card's payloads {payload} "
+                                   f"against the meta count's {meta_payload}")
+    torch.cuda.reset_peak_memory_stats()
+    state, single_rows, l_single = par_train_run(
+        torch, cfg, make_train_step(cfg, opt, lr), stream, "ssm_parallel_rwkv_train", 0,
+        SSM_TRAIN_STEPS)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, layers=cfg.n_layers, grid=list(SSM_TRAIN_GRID),
+               steps=SSM_TRAIN_STEPS, batch=list(SSM_TRAIN_BATCH), sharded=rows,
+               single_device=single_rows, place_s=place_s,
+               step_ms_sharded=par_steady_ms(rows), step_ms_single=par_steady_ms(single_rows),
+               payload_first_step=payload, meta_count_s=meta_s, peak_gib=peak,
+               peak_gib_single=single_peak)
+    print(f"ssm parallel rwkv train: {json.dumps(row)}", flush=True)
+    row["launches"] = [l_tp, l_single]
+    return row
+
+
+def ssm_rwkv_held(torch) -> dict:
+    """rwkv6-7b at full width, SSM_HELD_LAYERS layers, float32, over
+    SSM_TRAIN_GRID against make_train_step (held_check)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(SSM_RWKV), n_layers=SSM_HELD_LAYERS,
+                              compute_dtype="float32")
+    print(f"ssm parallel: cut: the rwkv6 held check at {SSM_HELD_LAYERS} of 32 layers, float32",
+          flush=True)
+    return held_check(torch, cfg, SSM_TRAIN_GRID, SSM_HELD_STEPS, "ssm_parallel_rwkv_held",
+                      "ssm parallel rwkv held")
+
+
+def ssm_mamba_layer_ms(torch, cfg, params, grid) -> dict:
+    """One Mamba layer (group 0's l0) over 1 x SSM_JAMBA_PREFILL[1] tokens in
+    bf16: sharded over ``grid``'s row of 'model' positions beside one
+    device's mamba_seq on the same input, CUDA events."""
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.models import ssm as S
+
+    mesh = ep_mesh(grid)
+    p0 = M._at(params["blocks"], 0)["l0"]["mamba"]
+    placed = SHD.place({"mamba": p0}, SHD.param_specs({"mamba": p0}, mesh), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, SSM_JAMBA_PREFILL[1], cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.cdtype)
+    row = SHD._Row(cfg, mesh, {"data": 0}, "auto")
+    with torch.no_grad():
+        sharded_ms = timed(torch, lambda: SHD._mamba(row, placed["mamba"], x), 2)
+        single_ms = timed(torch, lambda: S.mamba_seq(
+            p0, x, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+            expand=cfg.mamba_expand), 2)
+    del placed
+    return {"tokens": SSM_JAMBA_PREFILL[1], "sharded_ms": sharded_ms,
+            "single_ms": single_ms, "positions": grid[1]}
+
+
+def ssm_jamba(torch) -> dict:
+    """jamba-1.5-large-398b at full width cut to one group of 8 layers and 4
+    experts (bf16, ~33 GB), the manual MoE over SSM_JAMBA_GRID: the
+    one-device bf16 and f32-compute runs first, then the sharded forward,
+    prefill SSM_JAMBA_PREFILL and SSM_JAMBA_DECODE decode steps held to them
+    (ep_inference: the routing pinned to one device's, the phase-18 gates;
+    exactly one flash launch the attention layer a data block a position
+    with heads; each new flash shape's first call held against the plain
+    version); the first decode step's Mamba states (h and the conv window)
+    of l0 and l1, which no MoE layer reaches, after a prompt of
+    SSM_JAMBA_STATE_PROMPT, against one device's in float32 (the flash
+    shapes of those prefills held against the plain version too); one
+    Mamba layer's ms sharded and on one device."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+
+    cfg = fam_cut(get_arch(SSM_JAMBA), **SSM_JAMBA_CUT)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rows_n, n = SSM_JAMBA_PREFILL
+    grid = SSM_JAMBA_GRID
+    g = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (rows_n, n + SSM_JAMBA_DECODE), generator=g,
+                           device="cuda")
+    want = ep_single(torch, cfg, params, grid[0], tokens, n, SSM_JAMBA_DECODE,
+                     "ssm_parallel_jamba_single")
+    launches = want.pop("launches")
+    manual = dataclasses.replace(cfg, moe_impl="manual")
+    label = f"ssm parallel {SSM_JAMBA} {grid[0]}x{grid[1]}"
+    row = ep_inference(torch, manual, params, grid, rows_n, n, SSM_JAMBA_DECODE, label, want,
+                       "ssm_parallel_jamba")
+    launches += row.pop("launches")
+    check(row["experts"] == "experts", f"{label}: split {row['experts']}")
+    del want
+    # the first decode step's states of the layers before the first MoE layer
+    c32 = dataclasses.replace(manual, compute_dtype="float32")
+    mesh = ep_mesh(grid)
+    placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+    n_state = SSM_JAMBA_STATE_PROMPT
+    max_seq = -(-(n_state + 1) // grid[1]) * grid[1]
+    early = ("l0", "l1")
+    flash = attention_layers(cfg)
+
+    def states(prefill, decode, snap):
+        return ep_generate(torch, prefill, decode, tokens, n_state, 1, snap)[3]
+
+    chunked = dataclasses.replace(c32, moe_impl="gspmd", moe_dispatch_chunks=grid[0])
+    seen: dict = {}
+    restore = capture_shapes(ops, seen)
+    try:
+        with torch.no_grad():
+            one, l_one = run_path(torch, "ssm_parallel_jamba_single", lambda: states(
+                lambda b: M.prefill(params, chunked, b, max_seq),
+                lambda ca, tok, t: M.decode_step(params, chunked, ca, tok, t),
+                lambda ca: {f"{k}/{s}": ca[k][s].clone() for k in early for s in ("h", "conv")}),
+                expect={"flash_attention": flash})
+            mine, l_tp = run_path(torch, "ssm_parallel_jamba", lambda: states(
+                lambda b: SHD.sharded_prefill(placed, c32, b, max_seq, mesh),
+                lambda ca, tok, t: SHD.sharded_decode_step(placed, c32, ca, tok, t, mesh),
+                lambda ca: {f"{k}/{s}": v for k in early for s, v in SHD.unplace(
+                    {s: ca[k][s] for s in ("h", "conv")}).items()}),
+                expect={"flash_attention": flash * grid[0] * ep_active(cfg, grid[1])})
+    finally:
+        restore()
+    launches += [l_one, l_tp]
+    row["flash_states"] = fam_flash_shapes(torch, seen, f"{label} states")
+    err = ssm_state_err(mine, one)
+    check(err <= SSM_STATE_TOL, f"{label}: the first decode step's Mamba states {err} of "
+                                "their largest entries from one device's")
+    del placed, one, mine
+    torch.cuda.empty_cache()
+    row["first_step_state_rel_err"] = err
+    row["mamba_layer"] = ssm_mamba_layer_ms(torch, cfg, params, grid)
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: first decode step's Mamba states {err:.3e} of their largest; one Mamba "
+          f"layer {json.dumps(row['mamba_layer'])}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    row["launches"] = launches
+    return row
+
+
+def ssm_jamba_train(torch) -> dict:
+    """One Adafactor step of make_sharded_train_step at jamba's full width
+    and SSM_JAMBA_CUT over SSM_JAMBA_GRID (one whole expert a position, the
+    manual MoE; batch SSM_JAMBA_BATCH, bf16 weights and compute, remat):
+    its ms, loss, grad norm and aux, exactly two flash launches a data
+    block a position with heads (forward and recompute), peak memory; the
+    step's flash shape held against the plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adafactor, warmup_cosine
+    from repro_torch.train import TrainState, make_sharded_train_step
+
+    grid, (rows_n, seq) = SSM_JAMBA_GRID, SSM_JAMBA_BATCH
+    cfg = fam_cut(get_arch(SSM_JAMBA), **SSM_JAMBA_CUT, moe_impl="manual")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    count = sum(t.numel() for t in M.tree_leaves(params))
+    mesh = ep_mesh(grid)
+    opt, lr = adafactor(), warmup_cosine(3e-4, 2, 10)
+    placed = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
+                                              step=torch.zeros((), dtype=torch.int32)), mesh)
+    del params
+    torch.cuda.empty_cache()
+    placed_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    stream = SyntheticTokenStream(cfg.vocab_size, seq, rows_n, seed=3)
+    step = make_sharded_train_step(cfg, opt, lr, mesh)
+    flash = (1 + cfg.remat) * attention_layers(cfg) * grid[0] * ep_active(cfg, grid[1])
+    seen = {}
+    placed, rows, l_train = ep_train_steps(torch, step, placed, stream, 1, mesh,
+                                           "ssm_parallel_jamba_train", flash, seen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, layers=cfg.n_layers, experts=cfg.n_experts, params=count,
+               grid=list(grid), batch=[rows_n, seq], train=rows, placed_gib=placed_gib,
+               peak_gib=peak, flash_per_step=flash,
+               flash=fam_flash_shapes(torch, seen, "ssm parallel jamba train"))
+    print(f"ssm parallel jamba train: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}",
+          flush=True)
+    row["launches"] = [l_train]
+    return row
+
+
+def phase_ssm_parallel(torch) -> dict:
+    """Phase 19: RWKV6 and the hybrid Mamba stack over 'model' on grids of
+    views of the card: rwkv6-7b's bf16 prefill and decode at full width and
+    depth over (2, 4) and (1, 16), its sharded train step (8 layers, AdamW,
+    ZeRO-1) beside make_train_step with the payloads held to the meta
+    count, the f32 held check at 4 layers; jamba at the families phase's
+    cut over (2, 4) (Mamba, attention and the manual MoE together) and its
+    Adafactor train step; each model freed before the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "ssm parallel: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("rwkv", ssm_rwkv_inference), ("rwkv_train", ssm_rwkv_train),
+                     ("rwkv_held", ssm_rwkv_held), ("jamba", ssm_jamba),
+                     ("jamba_train", ssm_jamba_train)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib_phase"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"ssm parallel {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib_phase']:.2f} GiB", flush=True)
+    rows["launches"] = [c for r in ("rwkv", "rwkv_train", "rwkv_held", "jamba", "jamba_train")
+                        for c in rows[r]["launches"]]
+    return rows
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -5545,8 +6026,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 18. the moe family's expert parallelism over 'model'
     ep = phase("expert_parallel", phase_expert_parallel, torch)
+    torch.cuda.empty_cache()
+    # 19. RWKV6 and the hybrid Mamba stack over 'model'
+    ssm = phase("ssm_parallel", phase_ssm_parallel, torch)
 
-    # 19. summary: each kernel's launches over every path run above
+    # 20. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -5557,7 +6041,7 @@ def main(argv=None) -> int:
                    *(run["launches"] for run in serve.values()), *lm["launches"],
                    baselines["launches"], *train["launches"], *families["launches"],
                    *parallel["launches"], dry["launches"], *tp["launches"],
-                   *ep["launches"]):
+                   *ep["launches"], *ssm["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -5578,7 +6062,7 @@ def main(argv=None) -> int:
                                "train": train, "families": families,
                                "parallel": parallel, "dryrun": dry,
                                "tensor_parallel": tp, "expert_parallel": ep,
-                               "phase_seconds": phase_seconds},
+                               "ssm_parallel": ssm, "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

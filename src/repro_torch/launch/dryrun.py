@@ -7,11 +7,13 @@ position holds, written to a JSON artifact.
         [--multi-pod] [--out artifacts/torch_dryrun]
     python -m repro_torch.launch.dryrun --all [--multi-pod]   # every cell
 
-Nothing is allocated and nothing runs on a card. Two layouts, which each
+Nothing is allocated and nothing runs on a card. Three layouts, which each
 artifact names (``layout_name``, and ``layout`` states it):
 
   tensor_parallel  the dense decoder stack (starcoder2-3b, granite-3-2b,
            codeqwen1.5-7b, qwen1.5-4b, llava-next-mistral-7b's text stack)
+           and rwkv6-7b, and ``expert_parallel`` the moe family
+           (granite-moe-3b-a800m, arctic-480b) and jamba-1.5-large-398b,
            at train_4k, prefill_32k and decode_32k: the parameters split
            by :mod:`repro_torch.launch.sharding`'s rule table over 'model'
            (Megatron tensor parallelism), AdamW's moments also over the data
@@ -46,9 +48,10 @@ Prefill and decode have no position loop of their own: they run one
 position's block, placed at data index 0. Each step's walks trace one
 representative position of each class of equal ones
 (``represented_positions`` counts the others; see
-:func:`repro_torch.mesh.walk`), and without gradients a Mamba scan traces
-its first step (``represented_steps``, :func:`repro_torch.mesh.scan`). A
-kernel's work is counted as its plain version's.
+:func:`repro_torch.mesh.walk`), and a Mamba scan traces its first step
+(with gradients, also each signature's backward once;
+``represented_steps``, :func:`repro_torch.mesh.scan`). A kernel's work is
+counted as its plain version's.
 """
 from __future__ import annotations
 
@@ -101,7 +104,12 @@ LAYOUTS = {
         "attends over its block of the sequence for every head and merges by log-sum-exp); "
         "row-parallel partial sums added in float32 and cast once; where the heads do not "
         "divide |model|, whole heads gathered before the attention core and the output "
-        "gathered again for wo; kernels counted as their plain versions"),
+        "gathered again for wo; RWKV6's time mix over whole heads (wr/wk/wv/wg column "
+        "blocks, u over its heads, each position's columns of the decay from its slice of "
+        "w0 and w_lora_b, the WKV over its heads, ln_x's sum of squares all-reduced over "
+        "'model' before each position scales its block, wo row blocks) and its channel mix "
+        "(wk columns, wv rows, r's column blocks gathered), the WKV state split over the "
+        "heads and the token shifts replicated; kernels counted as their plain versions"),
 }
 LAYOUTS["expert_parallel"] = (
     "the tensor_parallel layout for the attention, a dense residual MLP, the embedding and "
@@ -116,12 +124,17 @@ LAYOUTS["expert_parallel"] = (
     "token counts and router probability sums all-reduced over the data axes) or the mean "
     "of the blocks' for 'manual'; Adafactor's factored moments split as their parameter "
     "(vr without its last entry, vc without its second-to-last; no ZeRO-1), its row, "
-    "column and RMS means' partial sums all-reduced over 'model'; kernels counted as their "
-    "plain versions")
-#: the cells the tensor-parallel layout covers (the dense stack's) and the
-#: expert-parallel one (the moe family's)
-TP_FAMILIES = ("dense", "vlm")
-EP_FAMILIES = ("moe",)
+    "column and RMS means' partial sums all-reduced over 'model'; the hybrid stack's Mamba "
+    "mixers over their inner channels (in_proj's contiguous column blocks re-split to each "
+    "position's x and z channels by an all-to-all, the causal conv and the selective scan "
+    "local, x_proj's row-parallel partial sums all-reduced so that every position has the "
+    "whole dt, B and C, dt_proj columns, out_proj rows; the conv window and h split over "
+    "the inner channels); kernels counted as their plain versions")
+#: the cells the tensor-parallel layout covers (the dense stack's and
+#: RWKV6's) and the expert-parallel one (the moe family's and the hybrid
+#: Mamba stack's)
+TP_FAMILIES = ("dense", "vlm", "ssm")
+EP_FAMILIES = ("moe", "hybrid")
 TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
@@ -288,8 +301,9 @@ def _built(run, mesh, dp, meta: dict, arg_bytes: int, block: int) -> Cell:
 
 def cell_layout(arch, shape) -> str:
     """The cell's layout: ``tensor_parallel`` for the dense stack and
-    ``expert_parallel`` for the moe family at train_4k, prefill_32k and
-    decode_32k; else ``replicated``."""
+    RWKV6, ``expert_parallel`` for the moe family and the hybrid Mamba
+    stack (jamba), at train_4k, prefill_32k and decode_32k; else
+    ``replicated``."""
     if shape.name in TP_SHAPES and arch.family in TP_FAMILIES:
         return "tensor_parallel"
     if shape.name in TP_SHAPES and arch.family in EP_FAMILIES:

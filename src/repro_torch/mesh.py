@@ -517,14 +517,15 @@ def scan(core, n: int, carry, seqs=(), consts=()):
     Under a counter whose ``represent`` is set, on ``meta`` tensors (no
     values, so every step's ops repeat while the carry keeps its shape),
     one step is traced and the others are given its counts: without
-    gradients step 0 runs and the rest reuse its result; with gradients
-    each step is one node of :class:`_RepresentedStep`, whose forward and
-    backward are traced once for each signature (which gradients flow)
-    and replayed for the other steps, while the slicing of ``seqs``, the
-    chain of carries and the accumulation of the gradients over the steps
-    stay autograd's own, step by step. ``core`` must not branch on
-    anything but its inputs' shapes. Otherwise every step runs as
-    written."""
+    gradients step 0 runs and the rest reuse its result; with gradients the
+    whole loop is one node of :class:`_RepresentedScan`, whose forward
+    traces step 0 and whose backward traces each step's backward once for
+    each signature (which gradients flow) and replays it for the other
+    steps, and counts what autograd does around the steps of the written
+    loop: each step's slice of a sequence handed its gradient
+    (``select_backward``) and the steps' gradients of each sequence and
+    each constant added up one by one. ``core`` must not branch on anything
+    but its inputs' shapes. Otherwise every step runs as written."""
     counter = _COUNTER.get()
     if counter is None or not counter.represent or n < 2 or not carry.is_meta:
         ys = []
@@ -533,25 +534,28 @@ def scan(core, n: int, carry, seqs=(), consts=()):
             ys.append(y)
         return ys, carry
     if torch.is_grad_enabled():
-        state = {"core": core, "counter": counter, "forward": None, "backward": {}}
-        ys = []
-        for t in range(n):
-            y, carry = _RepresentedStep.apply(state, *[x[:, t] for x in seqs], carry, *consts)
-            ys.append(y)
+        state = {"core": core, "counter": counter, "n": n, "k": len(seqs)}
+        outs = _RepresentedScan.apply(state, *seqs, carry, *consts)
         counter.represented_steps += n - 1
-        return ys, carry
+        return list(outs[:n]), outs[n]
     (y, after), recorder = _traced(counter, lambda: core(*[x[:, 0] for x in seqs], carry,
                                                           *consts))
     if (after.shape, after.dtype) != (carry.shape, carry.dtype):
         raise ValueError("scan: the carry changed its shape, so the steps are not equal")
-    for _ in range(n - 1):
-        _replay(counter, recorder)
+    _replay(counter, recorder, n - 1)
     counter.represented_steps += n - 1
     return [y] * n, after
 
 
-def _replay(counter, recorder: dict) -> None:
+def _replay(counter, recorder: dict, times: int = 1) -> None:
+    """The entries of ``recorder`` counted ``times`` more times."""
+    if times <= 0:
+        return
     for key, entry in list(recorder.items()):
+        if times > 1:
+            entry = {"flops": entry["flops"] * times, "bytes": entry["bytes"] * times,
+                     **{k: {kind: v * times for kind, v in entry[k].items()}
+                        for k in ("collective_bytes", "collective_counts")}}
         counter.replay(key, entry)
 
 
@@ -576,50 +580,104 @@ def _spec_of(t):
     return None if t is None else (tuple(t.shape), t.dtype)
 
 
-class _RepresentedStep(torch.autograd.Function):
-    """One step of :func:`scan` under gradients on meta tensors: the first
-    forward and the first backward of each signature are traced (the
-    backward as the step's own vector-Jacobian product, its forward
-    recomputed uncounted), every other call replays their counts and
-    returns empty meta tensors of their shapes."""
+class _RepresentedScan(torch.autograd.Function):
+    """:func:`scan` under gradients on meta tensors as one node: the forward
+    traces step 0 and replays its counts for the others, returning empty
+    meta tensors of its outputs' shapes; the backward walks the steps from
+    the last, tracing each signature's backward once (the step's own
+    vector-Jacobian product, its forward recomputed uncounted) and
+    replaying it for the other steps, then counts, for each sequence and
+    constant that takes a gradient, what autograd runs around the written
+    loop's steps: a ``select_backward`` of each step's gradient of a
+    sequence's slice, and the additions that sum the steps' gradients of an
+    input one by one."""
 
     @staticmethod
     def forward(ctx, state, *tensors):
         ctx.state = state
         ctx.save_for_backward(*tensors)
         ctx.set_materialize_grads(False)
-        counter = state["counter"]
-        if state["forward"] is None:
-            outs, rec = _traced(counter, lambda: state["core"](*tensors))
-            state["forward"] = (rec, [_spec_of(o) for o in outs])
-            return tuple(outs)
-        rec, specs = state["forward"]
-        _replay(counter, rec)
-        return tuple(_empty_like_spec(s) for s in specs)
+        counter, n, k = state["counter"], state["n"], state["k"]
+        seqs, carry, consts = tensors[:k], tensors[k], tensors[k + 1:]
+        (y, after), rec = _traced(counter, lambda: state["core"](*[x[:, 0] for x in seqs],
+                                                                  carry, *consts))
+        if (after.shape, after.dtype) != (carry.shape, carry.dtype):
+            raise ValueError("scan: the carry changed its shape, so the steps are not equal")
+        _replay(counter, rec, n - 1)
+        # the other steps' outputs: views of one empty tensor (free)
+        rest = torch.empty((n - 1, *y.shape), dtype=y.dtype, device="meta").unbind(0)
+        return (y, *rest, _empty_like_spec(_spec_of(after)))
 
     @staticmethod
     def backward(ctx, *grads):
         state = ctx.state
-        counter = state["counter"]
+        counter, n, k = state["counter"], state["n"], state["k"]
+        tensors = ctx.saved_tensors
+        seqs, carry, consts = tensors[:k], tensors[k], tensors[k + 1:]
         needs = ctx.needs_input_grad[1:]
-        key = (tuple(g is not None for g in grads), needs)
-        if key not in state["backward"]:
-            inputs = ctx.saved_tensors
+        # the carry into step t > 0 is step t - 1's output: it takes a
+        # gradient where any input does
+        chain = any(needs)
+        traced: dict = {}  # signature -> (counts, gradient specs, steps)
+        got = [0] * len(tensors)  # the steps that gave each input a gradient
+        # the gradient handed back to step t's carry output: the caller's for
+        # the last step, the next step's carry input's before it (a spec
+        # stands for a tensor, which only step 0's is made for)
+        g_carry = _spec_of(grads[n])
+        for t in range(n - 1, -1, -1):
+            step_needs = (*needs[:k], needs[k] if t == 0 else chain, *needs[k + 1:])
+            if grads[t] is None and g_carry is None:
+                continue
+            key = (grads[t] is not None, g_carry is not None, step_needs)
+            if key not in traced:
+                pair = (grads[t], grads[n] if t == n - 1 else _empty_like_spec(g_carry))
+                ins = [x[:, t] for x in seqs] + [carry] + list(consts)
+                gins, rec = _traced(counter, lambda: _step_vjp(state, counter, ins, step_needs,
+                                                               pair))
+                traced[key] = [rec, [_spec_of(g) for g in gins], 0]
+            else:
+                traced[key][2] += 1
+            specs = traced[key][1]
+            for i, sp in enumerate(specs):
+                got[i] += sp is not None
+            g_carry = specs[k]
+        for rec, _, more in traced.values():
+            _replay(counter, rec, more)
+        out = []
+        for i, x in enumerate(tensors):
+            if i == k:
+                out.append(_empty_like_spec(g_carry) if needs[k] else None)
+                continue
+            if not needs[i] or not got[i]:
+                out.append(None)
+                continue
+            if i < k:  # each step's slice gradient placed into the sequence's shape
+                grad = torch.empty((x.shape[0], *x.shape[2:]), dtype=x.dtype, device="meta")
+                _repeat(counter, got[i], lambda: torch.ops.aten.select_backward(
+                    grad, list(x.shape), 1, 0))
+            total = torch.empty(x.shape, dtype=x.dtype, device="meta")
+            _repeat(counter, got[i] - 1, lambda: total + total)
+            out.append(total)
+        return (None, *out)
 
-            def vjp():
-                with torch.enable_grad():
-                    ins = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
-                    with counter.suspended():
-                        outs = state["core"](*ins)
-                    wrt = [i for i in ins if i.requires_grad]
-                    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-                    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                                   [g for _, g in pairs], allow_unused=True))
-                    return [next(got) if need else None for need in needs]
 
-            gins, rec = _traced(counter, vjp)
-            state["backward"][key] = (rec, [_spec_of(g) for g in gins])
-            return (None, *gins)
-        rec, specs = state["backward"][key]
-        _replay(counter, rec)
-        return (None, *[_empty_like_spec(s) for s in specs])
+def _step_vjp(state, counter, ins, needs, grads):
+    """One step's vector-Jacobian product with respect to the inputs that
+    ``needs`` marks, its forward recomputed uncounted."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need) for t, need in zip(ins, needs)]
+        with counter.suspended():
+            outs = state["core"](*ins)
+        wrt = [i for i in ins if i.requires_grad]
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True))
+        return [next(got) if need else None for need in needs]
+
+
+def _repeat(counter, times: int, fn) -> None:
+    """``fn``'s counts ``times`` times: traced once, replayed for the rest."""
+    if times <= 0:
+        return
+    _, rec = _traced(counter, fn)
+    _replay(counter, rec, times - 1)

@@ -1,5 +1,6 @@
-"""Tensor parallelism over 'model' for the dense decoder stack and the moe
-family (expert parallelism over the same axis): the port's
+"""Tensor parallelism over 'model' for the dense decoder stack, the moe
+family (expert parallelism over the same axis), RWKV6 and the hybrid
+Mamba stack: the port's
 counterpart of what GSPMD makes of ``repro.models.model``'s ``forward``,
 ``prefill`` and ``decode_step`` under ``repro.launch.sharding``'s specs
 (:mod:`repro_torch.launch.sharding`).
@@ -48,6 +49,21 @@ position, as Megatron splits a layer:
               position computes its columns of the down product and combines
               them by the gates, and the (T, D) output is gathered. A
               dense residual MLP (arctic's) is the Megatron MLP above.
+  RWKV6       the time mix over whole heads: the token-shift mixes and the
+              decay LoRA's first product replicated, wr/wk/wv/wg column
+              blocks, each position's columns of the decay from its slice
+              of the replicated w0 and w_lora_b (whose gradients are then
+              all-gathered: ``replicated_slice``), the WKV over its heads
+              (u a row block), ln_x's RMS over the whole d_model from the
+              positions' float32 sums of squares (``model_sum``), wo row
+              blocks. The channel mix: wk columns, wv rows, r's column
+              blocks gathered.
+  Mamba       in_proj's contiguous column blocks re-split to each
+              position's x and z channels (an all-to-all), the causal conv
+              and the selective scan over the position's inner channels,
+              x_proj's and out_proj's row-block products in float32 summed
+              through ``model_sum`` (every position then has the whole
+              dt_low, B and C), dt_proj column blocks.
 
 A row-parallel partial sum is added in float32 and cast once. Prefill
 writes its cache in :func:`repro_torch.launch.sharding.cache_pspecs`'
@@ -63,10 +79,16 @@ over the data axes first), ``"manual"`` the mean over the blocks of each
 block's product, as the reference's two MoE paths do; the train step adds
 it once for the batch.
 
+Prefill also writes the recurrent states in ``cache_pspecs``' layout: the
+WKV state over the heads, Mamba's conv window and h over the inner
+channels, the token shifts replicated; decode reads and updates them in
+place.
+
 The dense stack (attention mixers and dense MLPs, RoPE or none, an
-optional vlm patch prefix; full attention) and the moe family's attention
-stack run here; the RWKV, Mamba, hybrid, enc-dec and TaCo layouts raise
-``NotImplementedError``.
+optional vlm patch prefix; full attention), the moe family's attention
+stack, RWKV6 (the channel mix as its FFN) and the hybrid stack (Mamba and
+attention mixers, dense or MoE FFNs) run here; the enc-dec and TaCo
+layouts raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -99,6 +121,7 @@ from repro_torch.mesh import (
 )
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import apply_norm, apply_rope, dense, gelu, rope_angles, silu
 from repro_torch.models.model import ArchConfig, _frontend, init_cache, map_tree
 from repro_torch.models.sharding_utils import (
@@ -106,7 +129,9 @@ from repro_torch.models.sharding_utils import (
     model_copy,
     model_gather,
     model_max,
+    model_all_to_all,
     model_sum,
+    replicated_slice,
 )
 from repro_torch.train.losses import IGNORE
 from repro_torch.utils import tree_flatten, tree_map
@@ -236,14 +261,15 @@ def cache_specs(cache, mesh: DeviceMesh, data_axes):
 # ======================================================= the positions ===
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError unless ``cfg`` is a stack this module
-    splits: the dense stack or the moe family, attention mixers only."""
-    moe_ok = not cfg.n_experts or cfg.family == "moe"
-    if (cfg.mixer != "attn" or not moe_ok or cfg.encoder_layers
+    splits: attention, RWKV6 or hybrid (Mamba and attention) mixers with
+    dense MLPs, the channel mix or the MoE, full attention, no encoder."""
+    moe_ok = not cfg.n_experts or cfg.family in ("moe", "hybrid")
+    if (cfg.mixer not in ("attn", "rwkv", "hybrid") or not moe_ok or cfg.encoder_layers
             or cfg.frontend not in (None, "vlm") or cfg.attention_kind != "full"):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism covers the dense stack (attention and dense "
-            "MLPs, full attention) and the moe family's experts; the RWKV, Mamba, hybrid, "
-            "enc-dec and TaCo layouts are not ported")
+            "MLPs, full attention), the moe family's experts, RWKV6 and the hybrid "
+            "Mamba stack; the enc-dec and TaCo layouts are not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -486,22 +512,12 @@ def _attention(r: _Row, p: dict, h, rope, cache=None):
     y = _row_sum(partials, _bias(wo, h.dtype), h.dtype)
     if cache is not None:
         if plan.kv_local:
-            kf = _all_to_all([o[1] for o in outs])
-            vf = _all_to_all([o[2] for o in outs])
+            # an all-to-all to the sequence split, each position sending a
+            # sequence block of its heads to each other
+            kf = model_all_to_all([o[1] for o in outs], 2)
+            vf = model_all_to_all([o[2] for o in outs], 2)
         _write_prompt(r, cache, kf, vf)
     return y
-
-
-def _all_to_all(parts):
-    """The positions' head blocks (B, S, kv/n, hd) as the whole (B, S, kv,
-    hd): an all-to-all to the sequence split, each position sending a
-    sequence block of its heads to each other."""
-    home = parts[0].device
-    tally("all-to-all", tensor_bytes(parts[0]))
-    with one_pass() as moves:
-        out = torch.cat([p.to(home) for p in parts], dim=2)
-        moves(parts[0], out)
-    return out
 
 
 def _write_prompt(r: _Row, cache: dict, k, v):
@@ -676,11 +692,14 @@ def moe_aux(cfg: ArchConfig, stats: list, tokens: int, n_blocks: int | None = No
     return aux, terms
 
 
-def _ffn(r: _Row, spec: dict, p: dict, h):
+def _ffn(r: _Row, spec: dict, p: dict, h, prev=None):
     """The sub-layer's FFN over h: (y, the MoE's routing statistics or
-    None)."""
+    None). The channel mix reads ``prev``, h one token earlier (the
+    sequence shifted, or the cached token in decode)."""
     if spec["ffn"] == "mlp":
         return _mlp(r, p["ffn"], h), None
+    if spec["ffn"] == "channel_mix":
+        return _channel_mix(r, p["ffn"], h, S._shift(h) if prev is None else prev), None
     if spec["ffn"] not in ("moe", "moe_dense"):
         raise NotImplementedError(f"a {spec['ffn']} FFN")
     y, stats = _moe(r, p["moe"], h)
@@ -689,12 +708,269 @@ def _ffn(r: _Row, spec: dict, p: dict, h):
     return y, stats
 
 
+# --------------------------------------------------------------- RWKV6 ---
+def _whole(p: dict, names, what: str) -> dict:
+    """The replicated leaves ``names`` of ``p`` as tensors (their one block);
+    NotImplementedError where one is split."""
+    out = {}
+    for name in names:
+        for pl in tree_flatten(p[name])[0]:
+            if _kind(pl) != "whole":
+                raise NotImplementedError(f"{what} {name}: a split {pl.spec} where the layer "
+                                          "reads it replicated")
+        out[name] = map_tree(lambda pl: pl.at({}), p[name])
+    return out
+
+
+def _rwkv_split(r: _Row, p: dict) -> None:
+    """Raise NotImplementedError unless the time mix is split over whole
+    heads: wr/wk/wv/wg column blocks, wo row blocks, u over its heads (the
+    sanitized specs move u onto head_dim where the heads do not divide
+    |model|, and a split inside a head is not ported)."""
+    for name in ("wr", "wk", "wv", "wg"):
+        _check(r, p[name], "column", name)
+    _check(r, p["wo"], "row", "wo")
+    if r.n > 1 and _kind(p["u"]) != "row":
+        heads = r.cfg.d_model // r.cfg.rwkv_head_dim
+        raise NotImplementedError(
+            f"rwkv: u split {p['u'].spec}: {heads} heads over {r.n} 'model' positions split "
+            "inside a head; the time mix splits whole heads only")
+
+
+def _rwkv(r: _Row, p: dict, h, cache=None, step: bool = False):
+    """RWKV6's time mix of one data block's normed h (B, S, D) over 'model'
+    (``step``: one token, S = 1, from the cached state). The token-shift
+    mixes and the decay LoRA's first product (replicated) once, outside
+    the positions; each position projects its column blocks of r, k, v, g,
+    forms its columns of the decay w (its columns of w_lora_b and w0, no
+    communication) and runs the WKV over its H / |model| heads (chunked
+    where S divides by ``rwkv_chunk``, else sequential, as the reference
+    picks). ln_x is an RMS norm over the whole d_model while y is split by
+    heads: the positions' float32 sums of squares go through ``model_sum``
+    before each scales its block. ``wo``'s row blocks' partial sums through
+    ``model_sum``. With ``cache`` the x_prev (replicated) and each
+    position's WKV state are written (prefill) or read and updated
+    (step)."""
+    cfg = r.cfg
+    b, s, d = h.shape
+    hd = cfg.rwkv_head_dim
+    _rwkv_split(r, p)
+    rep = _whole(p, ("mu", "w_lora_a"), "rwkv")
+    x_prev = cache["x_prev"].at({})[:, None].to(h.dtype) if step else S._shift(h)
+    mixes = [h + (x_prev.to(h.device) - h) * rep["mu"][i].to(h.dtype) for i in range(5)]
+    lora = torch.tanh(mixes[3] @ rep["w_lora_a"].to(h.dtype))
+    chunked = not step and bool(cfg.rwkv_chunk) and s % cfg.rwkv_chunk == 0
+    names = ("wr", "wk", "wv", "wg")
+    ins = [model_copy(t) for t in (mixes[0], mixes[1], mixes[2], mixes[4], lora)]
+    w0, lora_b = _whole(p, ("w0", "w_lora_b"), "rwkv").values()
+    if cache is not None and not step:
+        cache["x_prev"].at({}).copy_(h[:, -1])
+
+    def own(m):
+        """Position m's blocks: the projections', u, and its columns of the
+        replicated w0 and w_lora_b."""
+        return ([p[n]["w"].at(r.at(m)) for n in names] + [p["u"].at(r.at(m))]
+                + [replicated_slice(w0, -1, m, r.n), replicated_slice(lora_b, -1, m, r.n)])
+
+    def heads(m, xr, xk, xv, xg, lo):
+        dev = r.dev(m)
+        *ws, u, w0_m, lb_m = own(m)
+        rr, kk, vv, gg = (t.to(dev) @ w.to(h.dtype) for t, w in zip((xr, xk, xv, xg), ws))
+        dd = lo.to(dev) @ lb_m.to(h.dtype)
+        lw = -torch.exp(w0_m.to(torch.float32) + dd.to(torch.float32))
+        if step:
+            wkv = cache["wkv"].at(r.at(m))
+            y, new = S._rwkv6_core(*(t.reshape(b, -1, hd).to(torch.float32)
+                                     for t in (rr, kk, vv)),
+                                   torch.exp(lw).reshape(b, -1, hd), u.to(torch.float32), wkv)
+            wkv.copy_(new)
+            y = y.reshape(b, 1, -1)
+        elif chunked:
+            y, new = S.wkv_chunked(rr, kk, vv, lw, u, hd, cfg.rwkv_chunk)
+        else:
+            y, new = S.wkv_sequential(rr, kk, vv, torch.exp(lw), u, hd)
+        if cache is not None and not step:
+            cache["wkv"].at(r.at(m)).copy_(new)
+        y = y.to(h.dtype)
+        yf = y.to(torch.float32)
+        return y, gg, torch.sum(yf * yf, dim=-1, keepdim=True)
+
+    outs = r.walk(heads, lambda m: ins, lambda m: own(m) + (
+        [cache["wkv"].at(r.at(m))] if cache is not None else []))
+    # ln_x's mean square over the whole d_model: an all-reduce of (B, S, 1)
+    mean_sq = model_copy(model_sum([o[2] for o in outs]) / d)
+    scale = _whole(p, ("ln_x",), "rwkv")["ln_x"]["scale"]
+    wo = p["wo"]
+
+    def out(m, y, g, ms):
+        sc = replicated_slice(scale, -1, m, r.n)
+        yn = (y.to(torch.float32) * torch.rsqrt(ms.to(y.device) + 1e-5)
+              * sc.to(torch.float32)).to(y.dtype)
+        return dense({"w": wo["w"].at(r.at(m))}, yn * silu(g))
+
+    parts = r.walk(out, lambda m: (*outs[m][:2], mean_sq),
+                   lambda m: [wo["w"].at(r.at(m)), replicated_slice(scale, -1, m, r.n)])
+    if step:
+        cache["x_prev"].at({}).copy_(h[:, 0])
+    return _row_sum(parts, None, h.dtype)
+
+
+def _channel_mix(r: _Row, p: dict, h, prev):
+    """RWKV6's channel mix of h (B, S, D) over 'model', ``prev`` h one token
+    earlier: the mixes (replicated) once; wk a column block, so relu^2 is
+    local; wv a row block, its partial sums through ``model_sum``. wr
+    (d_model -> d_model) is a column block too: its column blocks of r are
+    gathered (``model_gather``, an all-gather of (B, S, D)) and sigmoid(r)
+    times the summed v is formed once, whole, as the residual stream is."""
+    mu = _whole(p, ("mu",), "channel mix")["mu"]
+    xk = h + (prev.to(h.device) - h) * mu[0].to(h.dtype)
+    xr = h + (prev.to(h.device) - h) * mu[1].to(h.dtype)
+    _check(r, p["wk"], "column", "wk")
+    _check(r, p["wv"], "row", "wv")
+    _check(r, p["wr"], "column", "wr")
+
+    def part(m, xkm, xrm):
+        dev = r.dev(m)
+        k = torch.square(torch.relu(dense({"w": p["wk"]["w"].at(r.at(m))}, xkm.to(dev))))
+        return (dense({"w": p["wv"]["w"].at(r.at(m))}, k),
+                dense({"w": p["wr"]["w"].at(r.at(m))}, xrm.to(dev)))
+
+    ins = (model_copy(xk), model_copy(xr))
+    outs = r.walk(part, lambda m: ins,
+                  lambda m: [p[n]["w"].at(r.at(m)) for n in ("wk", "wv", "wr")])
+    v = model_sum([o[0] for o in outs], dtype=h.dtype)
+    rr = model_gather([o[1] for o in outs], -1)
+    return torch.sigmoid(rr) * v
+
+
+# --------------------------------------------------------------- Mamba ---
+def _mamba_split(r: _Row, p: dict) -> None:
+    """Raise NotImplementedError unless the Mamba mixer is split over its
+    inner channels: in_proj and dt_proj column blocks, x_proj and out_proj
+    row blocks, conv_w/conv_b/d over their channels and a_log over its
+    rows."""
+    _check(r, p["in_proj"], "column", "in_proj")
+    _check(r, p["dt_proj"], "column", "dt_proj")
+    _check(r, p["x_proj"], "row", "x_proj")
+    _check(r, p["out_proj"], "row", "out_proj")
+    for name, want in (("conv_w", "column"), ("conv_b", "column"), ("d", "column"),
+                       ("a_log", "row")):
+        got = _kind(p[name])
+        if got != want and not (got == "whole" and r.n == 1):
+            raise NotImplementedError(f"mamba {name}: a {got} split where the inner "
+                                      f"channels split over {r.n} 'model' positions")
+
+
+def _mamba(r: _Row, p: dict, h, cache=None, step: bool = False):
+    """Mamba's mixer over one data block's normed h (B, S, D) over 'model'
+    (``step``: one token from the cached conv window and h). in_proj's
+    column blocks, re-split to each position's x and z channels; the
+    causal conv and silu local; x_proj a row block, its partial sums
+    through ``model_sum`` so that every position has the whole dt_low, B
+    and C; dt_proj a column block; the selective scan over the position's
+    channels; silu(z) local; out_proj a row block through ``model_sum``.
+    With ``cache``, each position's conv window and h are written
+    (prefill) or read and updated (step)."""
+    cfg = r.cfg
+    b, s, d = h.shape
+    din, dc, ns = cfg.mamba_expand * d, cfg.mamba_d_conv, cfg.mamba_d_state
+    rank = max(1, d // 16)
+    _mamba_split(r, p)
+    dl = din // r.n
+
+    def blk(name, m):
+        return p[name].at(r.at(m)) if isinstance(p[name], Placed) else p[name]["w"].at(r.at(m))
+
+    hc = model_copy(h)
+    # in_proj's column blocks are contiguous, so positions below |model| / 2
+    # hold only x channels and the rest only z channels: an all-to-all gives
+    # each position its x and z channels (its blocks of conv_w, conv_b, d,
+    # a_log and dt_proj), in_proj itself keeping the reference's layout
+    xz = model_all_to_all(r.walk(lambda m, hm: hm.to(r.dev(m)) @ blk("in_proj", m).to(h.dtype),
+                                 lambda m: (hc,), lambda m: [blk("in_proj", m)]), -1)
+
+    def conv(m, xzm):
+        x_m = xzm[..., m * dl:(m + 1) * dl].to(r.dev(m))
+        z_m = xzm[..., din + m * dl:din + (m + 1) * dl].to(r.dev(m))
+        cw, cb = blk("conv_w", m), blk("conv_b", m)
+        if step:
+            window = torch.cat([cache["conv"].at(r.at(m)).to(x_m.dtype), x_m], dim=1)
+            xi = S.conv_step(window, cw, cb, h.dtype)[:, None]
+            cache["conv"].at(r.at(m)).copy_(window[:, 1:])
+        else:
+            xi, xpad = S.causal_conv(x_m, cw, cb, dc)
+            if cache is not None:
+                cache["conv"].at(r.at(m)).copy_(xpad[:, s:s + dc - 1])
+        return xi, z_m, dense({"w": blk("x_proj", m)}, xi)
+
+    outs = r.walk(conv, lambda m: (xz,), lambda m: [blk(n, m) for n in (
+        "conv_w", "conv_b", "x_proj")] + ([cache["conv"].at(r.at(m))] if cache is not None
+                                         else []))
+    proj = model_copy(model_sum([o[2] for o in outs], dtype=h.dtype))
+
+    def scan(m, xi, z, pm):
+        dev = r.dev(m)
+        dt, b_mat, c_mat = S.ssm_split(pm.to(dev), {"w": p["dt_proj"]["w"].at(r.at(m)),
+                                                    "b": p["dt_proj"]["b"].at(r.at(m))},
+                                       rank, ns)
+        a_log, dd = blk("a_log", m), blk("d", m)
+        if step:
+            hm = cache["h"].at(r.at(m))
+            y, new = S._mamba_step_core({"a_log": a_log, "d": dd}, xi[:, 0], dt[:, 0],
+                                        b_mat[:, 0], c_mat[:, 0], hm)
+            hm.copy_(new)
+            y = y[:, None]
+        else:
+            y, new = S.selective_scan(xi, dt, b_mat, c_mat, a_log, dd)
+            if cache is not None:
+                cache["h"].at(r.at(m)).copy_(new)
+        return dense({"w": p["out_proj"]["w"].at(r.at(m))}, y.to(h.dtype) * silu(z))
+
+    parts = r.walk(scan, lambda m: (*outs[m][:2], proj), lambda m: [
+        p["dt_proj"]["w"].at(r.at(m)), p["dt_proj"]["b"].at(r.at(m)), blk("a_log", m),
+        blk("d", m), p["out_proj"]["w"].at(r.at(m))] + (
+        [cache["h"].at(r.at(m))] if cache is not None else []))
+    return _row_sum(parts, None, h.dtype)
+
+
 # ---------------------------------------------------------- the stack ---
 def _sublayer(r: _Row, spec: dict, p: dict, x, rope, cache=None):
+    """One sub-layer over a sequence, its mixer by ``spec["mixer"]`` as the
+    reference's ``_apply_sublayer_seq``; with ``cache`` (prefill) each
+    mixer's decode state is written in ``cache_pspecs``' layout."""
     cfg = r.cfg
-    x = x + _attention(r, p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), rope, cache)
-    y, stats = _ffn(r, spec, p, apply_norm(p["ln2"], x, cfg.norm_eps))
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec["mixer"] == "attn":
+        x = x + _attention(r, p["attn"], h, rope, cache)
+    elif spec["mixer"] == "mamba":
+        x = x + _mamba(r, p["mamba"], h, cache)
+    else:
+        x = x + _rwkv(r, p["rwkv"], h, cache)
+    h = apply_norm(p["ln2"], x, cfg.norm_eps)
+    if cache is not None and spec["ffn"] == "channel_mix":
+        cache["cm_prev"].at({}).copy_(h[:, -1])
+    y, stats = _ffn(r, spec, p, h)
     return x + y, stats
+
+
+def _step_sublayer(r: _Row, spec: dict, p: dict, x, cache: dict, pos_b, rope):
+    """One sub-layer over one new token x (B, 1, D), its cache updated in
+    place."""
+    cfg = r.cfg
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec["mixer"] == "attn":
+        x = x + _decode_attention(r, p["attn"], h, cache, pos_b, rope)
+    elif spec["mixer"] == "mamba":
+        x = x + _mamba(r, p["mamba"], h, cache, step=True)
+    else:
+        x = x + _rwkv(r, p["rwkv"], h, cache, step=True)
+    h = apply_norm(p["ln2"], x, cfg.norm_eps)
+    if spec["ffn"] != "channel_mix":
+        return x + _ffn(r, spec, p, h)[0]
+    prev = cache["cm_prev"].at({})
+    y = _ffn(r, spec, p, h, prev[:, None])[0]
+    prev.copy_(h[:, 0])
+    return x + y
 
 
 def _replicated(tree):
@@ -877,15 +1153,17 @@ def sharded_forward(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, *,
 def sharded_init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, mesh: DeviceMesh, *,
                        data_axes=("data",), device=None) -> dict:
     """The decode cache placed in :func:`~repro_torch.launch.sharding.cache_pspecs`'
-    layout (sanitized), zeros made block by block; K/V must come out split
-    over 'model' along the sequence."""
+    layout (sanitized), zeros made block by block; an attention layer's K/V
+    must come out split over 'model' along the sequence (Mamba's conv and h
+    split over the inner channels, RWKV's WKV state over the heads, the
+    token shifts replicated)."""
     check_supported(cfg)
     shapes = init_cache(cfg, batch_size, max_seq, device="meta")
     specs = cache_specs(shapes, mesh, data_axes)
     cache = tree_map(lambda t, s: placed_zeros(t.shape, t.dtype, s, mesh, device), shapes,
                      specs)
     for c in cache.values():
-        for name in ("k", "v"):
+        for name in ("k", "v") if "k" in c else ():
             seq = entry_axes(c[name].spec[2])
             if MODEL not in seq or any(mesh.shape[a] > 1 for a in seq if a != MODEL):
                 raise NotImplementedError(
@@ -926,8 +1204,10 @@ def _row_view(cache, r: _Row):
     """The cache tree with each :class:`Placed` cut to the row's blocks
     (keys over 'model' only), so the group views index one row."""
     def cut(pl: Placed) -> Placed:
-        blocks = {(m,): pl.at(r.at(m)) for m in range(r.n)}
         spec = tuple(MODEL if MODEL in entry_axes(e) else None for e in pl.spec)
+        if MODEL not in spec:  # replicated over 'model' (RWKV's token shifts)
+            return Placed(spec, pl.shape, pl.dtype, pl.mesh, {(): pl.at(r.at(0))})
+        blocks = {(m,): pl.at(r.at(m)) for m in range(r.n)}
         return Placed(spec, pl.shape, pl.dtype, pl.mesh, blocks)
 
     return tree_map(cut, cache)
@@ -954,10 +1234,8 @@ def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh:
         caches = _groups(_row_view(cache, r), cfg.n_groups)
         for g, gp in enumerate(_groups(params["blocks"], cfg.n_groups)):
             for i, spec in enumerate(cfg.layer_specs()):
-                p = _layer_params(gp[f"l{i}"])
-                h = apply_norm(p["ln1"], x, cfg.norm_eps)
-                x = x + _decode_attention(r, p["attn"], h, caches[g][f"l{i}"], pos_b, rope)
-                x = x + _ffn(r, spec, p, apply_norm(p["ln2"], x, cfg.norm_eps))[0]
+                x = _step_sublayer(r, spec, _layer_params(gp[f"l{i}"]), x, caches[g][f"l{i}"],
+                                   pos_b, rope)
         blocks = _head(r, params, x)
         return model_gather([blk for blk, _ in blocks], -1)
 

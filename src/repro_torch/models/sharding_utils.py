@@ -60,6 +60,15 @@ def model_copy(x) -> torch.Tensor:
     return _on_backward(x, "all-reduce", tensor_bytes(x))
 
 
+def replicated_slice(x, dim: int, m: int, n: int) -> torch.Tensor:
+    """Position m's n-th of a replicated tensor along ``dim`` (a view), for
+    work each position does on its own part of a replicated parameter;
+    each position makes the gradient of its slice only, so the backward
+    all-gathers the whole gradient (the payload: all of x)."""
+    size = x.shape[dim] // n
+    return _on_backward(x.narrow(dim, m * size, size), "all-gather", tensor_bytes(x))
+
+
 def model_sum(parts, dtype: torch.dtype | None = None) -> torch.Tensor:
     """All-reduce over 'model': the parts added in float32 in position order
     and cast once to ``dtype`` (default the first part's), so that a
@@ -96,6 +105,20 @@ def model_gather(parts, dim: int) -> torch.Tensor:
         moves(parts[0], out)
     tally("all-gather", tensor_bytes(out))
     return _on_backward(out, "reduce-scatter", tensor_bytes(parts[0]))
+
+
+def model_all_to_all(parts, dim: int) -> torch.Tensor:
+    """All-to-all over 'model': the positions' blocks concatenated along
+    ``dim`` in position order, for each position to cut the part it runs
+    on (the payload: the block one position sends and receives); its
+    gradient is the reverse all-to-all."""
+    home = parts[0].device
+    nbytes = tensor_bytes(parts[0])
+    tally("all-to-all", nbytes)
+    with one_pass() as moves:
+        out = torch.cat([p.to(home) for p in parts], dim=dim)
+        moves(parts[0], out)
+    return _on_backward(out, "all-to-all", nbytes)
 
 
 def reduce_scatter(total: torch.Tensor, dim: int | None, n: int) -> list:

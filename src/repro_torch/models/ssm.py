@@ -66,25 +66,33 @@ def _rwkv6_core(r, k, v, w, u, state):
     return y, new_state
 
 
-def rwkv6_time_mix_seq(p, x: torch.Tensor, head_dim: int, return_state: bool = False):
-    """x (B, S, D) -> (B, S, D), the recurrence one step at a time. With
-    return_state, also returns the decode state (x_prev (B,D), wkv
-    (B,H,hd,hd) float32)."""
-    b, s, d = x.shape
+def wkv_sequential(r, k, v, w, u, head_dim: int):
+    """The WKV recurrence one step at a time over heads of ``head_dim``: r,
+    k, v (B, S, H·hd), the decay w (B, S, H·hd) float32, the bonus u (H,
+    hd). Returns (y (B, S, H·hd) float32, the final state (B, H, hd, hd)
+    float32)."""
+    b, s, d = r.shape
     h = d // head_dim
-    r, k, v, w, g = _rwkv6_rkvwg(p, x, _shift(x))
     rh = r.reshape(b, s, h, head_dim).to(torch.float32)
     kh = k.reshape(b, s, h, head_dim).to(torch.float32)
     vh = v.reshape(b, s, h, head_dim).to(torch.float32)
     wh = w.reshape(b, s, h, head_dim)
-    u = p["u"].to(torch.float32)
-    state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=x.device)
+    u = u.to(torch.float32)
+    state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=r.device)
     ys = []
     for t in range(s):
         y, state = _rwkv6_core(rh[:, t], kh[:, t], vh[:, t], wh[:, t], u, state)
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
-    out = dense(p["wo"], apply_norm(p["ln_x"], y) * silu(g))
+    return torch.stack(ys, dim=1).reshape(b, s, d), state
+
+
+def rwkv6_time_mix_seq(p, x: torch.Tensor, head_dim: int, return_state: bool = False):
+    """x (B, S, D) -> (B, S, D), the recurrence one step at a time. With
+    return_state, also returns the decode state (x_prev (B,D), wkv
+    (B,H,hd,hd) float32)."""
+    r, k, v, w, g = _rwkv6_rkvwg(p, x, _shift(x))
+    y, state = wkv_sequential(r, k, v, w, p["u"], head_dim)
+    out = dense(p["wo"], apply_norm(p["ln_x"], y.to(x.dtype)) * silu(g))
     if return_state:
         return out, (x[:, -1], state)
     return out
@@ -131,11 +139,23 @@ def rwkv6_time_mix_seq_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 6
     32); faster-forgetting channels have their (e^-30-scale) tails
     approximated. The sequential path (``rwkv_chunk = 0``) is exact in every
     regime."""
-    b, s, d = x.shape
+    r, k, v, lw, g = _rwkv6_rklg(p, x, _shift(x))
+    y, state = wkv_chunked(r, k, v, lw, p["u"], head_dim, chunk)
+    out = dense(p["wo"], apply_norm(p["ln_x"], y.to(x.dtype)) * silu(g))
+    if return_state:
+        return out, (x[:, -1], state)
+    return out
+
+
+def wkv_chunked(r, k, v, lw, u, head_dim: int, chunk: int):
+    """The chunked WKV of :func:`rwkv6_time_mix_seq_chunked` over heads of
+    ``head_dim``: r, k, v (B, S, H·hd), the log-decay lw (B, S, H·hd)
+    float32, the bonus u (H, hd). Returns (y (B, S, H·hd) float32, the
+    final state (B, H, hd, hd) float32)."""
+    b, s, d = r.shape
     h = d // head_dim
     assert s % chunk == 0, (s, chunk)
     nc = s // chunk
-    r, k, v, lw, g = _rwkv6_rklg(p, x, _shift(x))
 
     def heads(t):  # (B, S, D) -> (B, nc, C, H, hd)
         return t.reshape(b, nc, chunk, h, head_dim)
@@ -144,7 +164,7 @@ def rwkv6_time_mix_seq_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 6
     kh = heads(k).to(torch.float32)
     vh = heads(v).to(torch.float32)
     lwh = heads(lw)
-    u = p["u"].to(torch.float32)  # (H, hd)
+    u = u.to(torch.float32)  # (H, hd)
 
     cum = torch.cumsum(lwh, dim=2)  # inclusive per-chunk cumulative log-decay
     cum_prev = cum - lwh  # cum_{t-1} (0 at chunk start)
@@ -154,7 +174,7 @@ def rwkv6_time_mix_seq_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 6
 
     # intra-chunk: scores[t, tau] = sum_i r[t,i] k[tau,i] exp(cum[t-1]-cum[tau])
     scores = torch.einsum("bnthi,bnchi->bnhtc", r_t, k_t)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device), -1)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), -1)
     scores = torch.where(tri, scores, 0.0)
     diag = torch.einsum("bnthi,hi,bnthi->bnth", rh, u, kh)  # bonus term
     y = torch.einsum("bnhtc,bnchj->bnthj", scores, vh) + diag[..., None] * vh
@@ -162,27 +182,27 @@ def rwkv6_time_mix_seq_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 6
     # cross-chunk: the (B, H, hd_k, hd_v) state, one chunk at a time
     decay_chunk = torch.exp(cum[:, :, -1])  # (B, nc, H, hd)
     kv_chunk = torch.einsum("bnthi,bnthj->bnhij", k_end, vh)
-    state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=r.device)
     y_cross = []
     for n in range(nc):
         y_cross.append(torch.einsum("bthi,bhij->bthj", r_t[:, n], state))
         state = decay_chunk[:, n, ..., None] * state + kv_chunk[:, n]
     y = y + torch.stack(y_cross, dim=1)  # (B, nc, C, H, hd)
-    y = y.reshape(b, s, d).to(x.dtype)
-    out = dense(p["wo"], apply_norm(p["ln_x"], y) * silu(g))
-    if return_state:
-        return out, (x[:, -1], state)
-    return out
+    return y.reshape(b, s, d), state
 
 
 # ================================================================ Mamba ===
 def _mamba_ssm_params(p, x, dt_rank: int, d_state: int):
     """x (..., din) -> (dt (...,din), B (...,N), C (...,N)), float32."""
-    proj = dense(p["x_proj"], x)
-    dt_low = proj[..., :dt_rank]
+    return ssm_split(dense(p["x_proj"], x), p["dt_proj"], dt_rank, d_state)
+
+
+def ssm_split(proj, dt_proj, dt_rank: int, d_state: int):
+    """x_proj's output (..., dt_rank + 2N) -> (dt (..., C) through
+    ``dt_proj``'s C columns, B (..., N), C (..., N)), float32."""
     b_mat = proj[..., dt_rank: dt_rank + d_state].to(torch.float32)
     c_mat = proj[..., dt_rank + d_state:].to(torch.float32)
-    dt = softplus(dense(p["dt_proj"], dt_low).to(torch.float32))
+    dt = softplus(dense(dt_proj, proj[..., :dt_rank]).to(torch.float32))
     return dt, b_mat, c_mat
 
 
@@ -205,24 +225,46 @@ def mamba_seq(p, x: torch.Tensor, *, d_state: int = 16, d_conv: int = 4,
     din = expand * d
     dt_rank = dt_rank or max(1, d // 16)
     xz = dense(p["in_proj"], x)
-    xraw, z = xz[..., :din], xz[..., din:]
-    # causal depthwise conv over time, summed in the reference's order
-    xpad = torch.nn.functional.pad(xraw, (0, 0, d_conv - 1, 0))
-    conv = 0
-    for i in range(d_conv):
-        conv = conv + xpad[:, i:i + s] * p["conv_w"][i].to(x.dtype)
-    xi = silu(conv + p["conv_b"].to(x.dtype))
+    xi, xpad = causal_conv(xz[..., :din], p["conv_w"], p["conv_b"], d_conv)
     dt, b_mat, c_mat = _mamba_ssm_params(p, xi, dt_rank, d_state)
-
-    h = torch.zeros((b, din, d_state), dtype=torch.float32, device=x.device)
-    ys, h = scan(lambda xt, dtt, bt, ct, hh, a_log, dd: _mamba_step_core(
-        {"a_log": a_log, "d": dd}, xt, dtt, bt, ct, hh), s, h, (xi, dt, b_mat, c_mat),
-        (p["a_log"], p["d"]))
-    y = torch.stack(ys, dim=1).to(x.dtype) * silu(z)
-    out = dense(p["out_proj"], y)
+    y, h = selective_scan(xi, dt, b_mat, c_mat, p["a_log"], p["d"])
+    out = dense(p["out_proj"], y.to(x.dtype) * silu(xz[..., din:]))
     if return_state:
         return out, (xpad[:, s:s + d_conv - 1], h)  # the last d_conv-1 raw inputs
     return out
+
+
+def causal_conv(xraw, conv_w, conv_b, d_conv: int):
+    """Mamba's causal depthwise conv over time of xraw (B, S, C) (conv_w (d_conv,
+    C), conv_b (C)), summed in the reference's order, and its silu: (xi,
+    xraw padded with d_conv - 1 zeros in front)."""
+    s = xraw.shape[1]
+    xpad = torch.nn.functional.pad(xraw, (0, 0, d_conv - 1, 0))
+    conv = 0
+    for i in range(d_conv):
+        conv = conv + xpad[:, i:i + s] * conv_w[i].to(xraw.dtype)
+    return silu(conv + conv_b.to(xraw.dtype)), xpad
+
+
+def conv_step(window, conv_w, conv_b, dtype):
+    """The causal conv's one new output over the window (B, d_conv, C) of
+    the last d_conv raw inputs, in float32, and its silu cast to ``dtype``:
+    (B, C)."""
+    conv = torch.einsum("bcd,cd->bd", window.to(torch.float32), conv_w.to(torch.float32))
+    return silu(conv + conv_b.to(torch.float32)).to(dtype)
+
+
+def selective_scan(xi, dt, b_mat, c_mat, a_log, d):
+    """The sequential selective scan (:func:`repro_torch.mesh.scan`, a plain
+    loop unless a dry run's counter represents its steps) over xi, dt (B,
+    S, C) and b_mat, c_mat (B, S, N), with a_log (C, N) and d (C): (y (B,
+    S, C) float32, the final h (B, C, N) float32)."""
+    b, _, c = xi.shape
+    h = torch.zeros((b, c, b_mat.shape[-1]), dtype=torch.float32, device=xi.device)
+    ys, h = scan(lambda xt, dtt, bt, ct, hh, a, dd: _mamba_step_core(
+        {"a_log": a, "d": dd}, xt, dtt, bt, ct, hh), xi.shape[1], h, (xi, dt, b_mat, c_mat),
+        (a_log, d))
+    return torch.stack(ys, dim=1), h
 
 
 def mamba_step(p, xt: torch.Tensor, state, *, d_state: int = 16, d_conv: int = 4,
@@ -236,9 +278,7 @@ def mamba_step(p, xt: torch.Tensor, state, *, d_state: int = 16, d_conv: int = 4
     xz = dense(p["in_proj"], xt)
     xi, z = xz[..., :din], xz[..., din:]
     window = torch.cat([conv_buf, xi[:, None, :]], dim=1)  # (B, d_conv, din)
-    conv = torch.einsum("bcd,cd->bd", window.to(torch.float32),
-                        p["conv_w"].to(torch.float32)) + p["conv_b"].to(torch.float32)
-    xc = silu(conv).to(xt.dtype)
+    xc = conv_step(window, p["conv_w"], p["conv_b"], xt.dtype)
     dt, b_mat, c_mat = _mamba_ssm_params(p, xc, dt_rank, d_state)
     y, h = _mamba_step_core(p, xc, dt, b_mat, c_mat, h)
     y = y.to(xt.dtype) * silu(z)

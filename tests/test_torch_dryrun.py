@@ -15,17 +15,24 @@ CPU.
 * Tracing one representative position (and one step of a Mamba scan
   without gradients) gives the counts of tracing them all, exactly.
 * The LM cells (``dryrun.count_cell``) at tiny shapes: the manual MoE's
-  (now expert-parallel) and jamba's (replicated) train and prefill steps,
-  and a manual-MoE decode step, counted on CPU tensors and on meta tensors
-  with representatives equal exactly; a manual-MoE decode cell holds and
-  runs one position's block.
+  and jamba's (both expert-parallel) train and prefill steps, and a
+  manual-MoE decode step, counted on CPU tensors and on meta tensors with
+  representatives equal exactly; a manual-MoE decode cell holds and runs
+  one position's block, in the expert-parallel layout and (the moe
+  family's layout choice narrowed to granite-moe and arctic) in the
+  replicated one.
 * The tensor-parallel cells (the dense stack at train_4k, prefill_32k,
   decode_32k) and the expert-parallel ones (the moe family's, gspmd's
   whole-batch aux and both expert splits) at tiny shapes, counted on CPU
   tensors and on meta tensors with representatives: equal exactly. The
-  moe family's six cells on both production meshes: expert_parallel,
-  argument bytes pinned, every one fitting a card; the other families'
-  cells and every long_500k stay replicated, their bytes pinned.
+  moe family's six cells and rwkv6's and jamba's (rwkv6 tensor-parallel,
+  jamba expert-parallel) on both production meshes: argument bytes
+  pinned, every one fitting a card; whisper's cells and every long_500k
+  stay replicated, their bytes pinned. Smoke train cells on a small meta
+  mesh, their payloads pinned: the dense stack's and rwkv6's
+  tensor-parallel ones, jamba's expert-parallel one, and the replicated
+  layout's on whisper (and on jamba with the moe family's layout choice
+  narrowed to the moe family, for the replicated MoE).
 * granite-3-2b x decode_32k beside the reference's dry run in a subprocess
   (``param_count``, ``step_kind``, ``n_devices``; the argument bytes equal,
   the flops within 0.8-1.25x), and a smoke config's tensor-parallel train
@@ -51,6 +58,7 @@ from repro_torch.mesh import (
     entry_axes,
     make_mesh,
     position,
+    scan,
     set_mesh,
     tally,
     tensor_bytes,
@@ -190,6 +198,31 @@ def test_a_representative_position_counts_as_tracing_them_all():
     assert full["collective_bytes"]["all-reduce"] > 0
 
 
+@pytest.mark.parametrize("final_carry", [False, True])
+def test_a_represented_scan_counts_as_the_written_loop(final_carry):
+    """mesh.scan under gradients, one node on meta with representatives,
+    against the loop as written (meta without representatives, and CPU
+    tensors): the same flops and bytes, whether the loss reads only the
+    steps' outputs or also the final carry (its gradient entering at the
+    last step)."""
+    def core(x, h, a):
+        h = h * torch.exp(a) + x
+        return h.sum(-1), h
+
+    got = []
+    for device, represent in (("cpu", False), ("meta", False), ("meta", True)):
+        mesh = make_mesh((1,), ("data",), [device])
+        xs = torch.ones((2, 7, 5), device=device, requires_grad=True)
+        a = torch.ones((5,), device=device, requires_grad=True)
+        with OpCounter(mesh, represent=represent) as c:
+            ys, h = scan(core, 7, torch.zeros((2, 5), device=device), (xs,), (a,))
+            loss = torch.stack(ys, 1).sum() + (h.sum() if final_carry else 0)
+            torch.autograd.grad(loss, [xs, a])
+        got.append((c.analysis()["flops"], c.analysis()["bytes"], c.represented_steps))
+    assert got[0][:2] == got[1][:2] == got[2][:2] and got[0][1] > 0
+    assert got[1][2] == 0 and got[2][2] == 6
+
+
 #: tiny stand-ins for the cells' shapes: the same kinds, 4 sequences of 16
 TINY = {"train_4k": ShapeSpec("train_4k", "train", 16, 4),
         "prefill_32k": ShapeSpec("prefill_32k", "prefill", 16, 4),
@@ -205,7 +238,7 @@ def _manual(arch_name):
 @pytest.mark.parametrize("arch_name, shape_name", [
     ("granite-moe-3b-a800m", "train_4k"), ("granite-moe-3b-a800m", "prefill_32k"),
     ("jamba-1.5-large-398b", "train_4k"), ("jamba-1.5-large-398b", "prefill_32k"),
-    ("arctic-480b", "decode_32k")])
+    ("jamba-1.5-large-398b", "decode_32k"), ("arctic-480b", "decode_32k")])
 def test_lm_meta_counts_equal_the_counts_on_real_tensors(monkeypatch, arch_name, shape_name):
     """count_cell at a tiny shape over a (data 2, model 2) grid, on CPU
     tensors (seeded weights, zero inputs; every position and scan step
@@ -279,14 +312,18 @@ def test_a_manual_moe_decode_cell_runs_one_positions_block():
     assert all(payload[2][k] == 2 * payload[4][k] for k in payload[4])
 
 
-def test_a_replicated_manual_moe_decode_cell_runs_one_positions_block():
-    """jamba's smoke config with 16 experts at decode_32k (B 128), which
-    stays in the replicated layout, over (data 4, model 2) and (data 2,
-    model 2) meta grids: a position holds and runs B / |data| sequences.
-    Its argument bytes are the bf16 weights with the experts halved, one
-    token and the position of each of its sequences, and their caches; its
-    MoE is one block a MoE layer, whose sum over the expert blocks is one
+def test_a_replicated_manual_moe_decode_cell_runs_one_positions_block(monkeypatch):
+    """jamba's smoke config with 16 experts at decode_32k (B 128) in the
+    replicated layout (jamba's cells are expert-parallel now, so the
+    layout choice is narrowed to the moe family, EP_FAMILIES, for this
+    test: no production LM cell runs the replicated manual MoE at
+    decode_32k any more), over (data 4, model 2) and (data 2, model 2)
+    meta grids: a position holds and runs B / |data| sequences. Its
+    argument bytes are the bf16 weights with the experts halved, one token
+    and the position of each of its sequences, and their caches; its MoE
+    is one block a MoE layer, whose sum over the expert blocks is one
     all-reduce of the block's activations."""
+    monkeypatch.setattr(dryrun, "EP_FAMILIES", ("moe",))
     arch = _manual("jamba-1.5-large-398b")
     moe_layers = arch.n_layers // arch.moe_every
     rows, payload = {}, {}
@@ -363,15 +400,15 @@ def test_smoke_train_cell_on_a_small_meta_mesh():
 
 
 def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
-    """count_cell at train_4k with the smoke rwkv6-7b (RWKV stays in the
-    replicated layout) over the same (data 4, model 2) meta mesh: a
-    position holds 256 / 4 rows and the whole model, the gradient sum is
-    one all-reduce of each leaf's bytes (uncompressed f32), three data
-    shards are represented by the first, and the artifact's fields are
-    filled."""
+    """count_cell at train_4k with the smoke whisper-medium (the enc-dec
+    stack stays in the replicated layout) over the same (data 4, model 2)
+    meta mesh: a position holds 256 / 4 rows and the whole model, the
+    gradient sum is one all-reduce of each leaf's bytes (uncompressed f32),
+    three data shards are represented by the first, and the artifact's
+    fields are filled."""
     mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
-    cfg = get_smoke("rwkv6-7b")
-    h, meta = dryrun.count_cell("rwkv6-7b", "train_4k", False, mesh=mesh, arch=cfg)
+    cfg = get_smoke("whisper-medium")
+    h, meta = dryrun.count_cell("whisper-medium", "train_4k", False, mesh=mesh, arch=cfg)
     leaves = TM.tree_leaves(TM.meta_params(cfg))
     assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
     assert meta["layout_name"] == "replicated" and meta["layout"] == dryrun.LAYOUTS[
@@ -387,12 +424,14 @@ def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
 def test_smoke_replicated_moe_train_cell_on_a_small_meta_mesh(monkeypatch):
     """count_cell at train_4k (its 256 sequences cut to 128 tokens: the
     Mamba scans' length moves none of the pins) with the smoke
-    jamba-1.5-large-398b (an MoE every second layer; jamba stays in the
-    replicated layout) over the same (data 4, model 2) meta mesh: a
-    position holds 256 / 4 rows and the whole model, the gradient sum is
-    one all-reduce of each leaf's bytes (uncompressed f32), three data
-    shards are represented by the first, and the artifact's fields are
-    filled."""
+    jamba-1.5-large-398b (an MoE every second layer) in the replicated
+    layout (every MoE train cell is expert-parallel now, so the layout
+    choice is narrowed to the moe family, EP_FAMILIES, for this test) over
+    the same (data 4, model 2) meta mesh: a position holds 256 / 4 rows
+    and the whole model, the gradient sum is one all-reduce of each leaf's
+    bytes (uncompressed f32), three data shards are represented by the
+    first, and the artifact's fields are filled."""
+    monkeypatch.setattr(dryrun, "EP_FAMILIES", ("moe",))
     monkeypatch.setitem(dryrun.SHAPES, "train_4k", ShapeSpec("train_4k", "train", 128, 256))
     mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
     cfg = get_smoke("jamba-1.5-large-398b")
@@ -410,14 +449,105 @@ def test_smoke_replicated_moe_train_cell_on_a_small_meta_mesh(monkeypatch):
     assert meta["represented_positions"] == 3
 
 
+def _sharded_blocks(params, mesh) -> tuple[list, int]:
+    """(the leaves, the bytes of one position's 'model' blocks of them)."""
+    leaves = tree_flatten(params)[0]
+    specs = SHD.param_specs(params, mesh)
+    return leaves, sum(tensor_bytes(t) // (mesh.shape["model"] if "model" in [
+        a for e in sp for a in entry_axes(e)] else 1) for t, sp in zip(
+        leaves, tree_flatten(specs)[0]))
+
+
+def test_smoke_tensor_parallel_rwkv_train_cell_on_a_small_meta_mesh():
+    """count_cell at train_4k with the smoke rwkv6-7b (4 heads of 16, 2
+    layers) over a (data 4, model 2) meta mesh, the tensor-parallel layout:
+    a position runs 256 / 4 rows (4096 tokens, the chunked WKV) over its
+    two heads. Per position: a reduce-scatter of each leaf's gradient into
+    its ZeRO-1 slice and an all-gather of the updated slices (as the dense
+    stack's); each layer's channel mix gathers r's column blocks (forward
+    and remat's recompute; its backward a reduce-scatter) and its
+    backward all-gathers the gradients of the replicated leaves a position
+    reads a slice of (w0, w_lora_b, ln_x's scale); the all-reduces over the
+    block's activations (64 x 4096 x 64 float32; the LoRA's rank is 64 as
+    well): the embedding's sum, each layer's ln_x mean square (a row of 64 x
+    4096), wo's and the channel mix's v sums twice (forward and recompute),
+    the gradients of the five inputs of the time mix's positions and of
+    the mean square, and of the channel mix's two; the head's, the loss's
+    max and sums, and the global norm's 4 bytes."""
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = get_smoke("rwkv6-7b")
+    h, meta = dryrun.count_cell("rwkv6-7b", "train_4k", False, mesh=mesh, arch=cfg)
+    params = TM.meta_params(cfg)
+    leaves, blocks = _sharded_blocks(params, mesh)
+    layers, d = cfg.n_layers, cfg.d_model
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "tensor_parallel" and meta["layout"] == dryrun.LAYOUTS[
+        "tensor_parallel"]
+    assert meta["heads"] == "heads split" and meta["optimizer"] == "adamw"
+    assert meta["param_count"] == sum(t.numel() for t in leaves)
+    act, row = 64 * 4096 * d * 4, 64 * 4096 * 4
+    assert h["collective_counts"]["reduce-scatter"] == len(leaves) + layers
+    assert h["collective_bytes"]["reduce-scatter"] == blocks // 4 + layers * act // 2
+    assert h["collective_counts"]["all-gather"] == len(leaves) + 5 * layers
+    assert h["collective_bytes"]["all-gather"] == blocks + layers * (
+        2 * act + (d + 64 * d + d) * 4)
+    assert h["collective_counts"]["all-reduce"] == 1 + 14 * layers + 1 + 2 + 1
+    assert h["collective_bytes"]["all-reduce"] == (
+        (1 + 11 * layers + 1) * act + (3 * layers + 3) * row + 4)
+    assert h["collective_counts"]["all-to-all"] == 0
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
+
+
+def test_smoke_expert_parallel_jamba_train_cell_on_a_small_meta_mesh(monkeypatch):
+    """count_cell at train_4k (its 256 sequences cut to 128 tokens, as the
+    replicated twin's) with the smoke jamba-1.5-large-398b (4 experts, so
+    gspmd; 7 Mamba layers, one attention layer with 2 KV heads, 4 MoE
+    layers) over the same (data 4, model 2) meta mesh, the expert-parallel
+    layout: a position runs 64 rows over its half of the heads (2 KV heads
+    over 2: none gathered), the inner channels and the experts (2 whole).
+    Per position: each leaf's gradient reduce-scattered into its ZeRO-1
+    slice and the slices all-gathered, but for each Mamba layer's conv_b,
+    d and dt_proj's bias ((1, 128), split over 'model': no free dimension
+    divides by 4, so their gradients are all-reduced whole and nothing is
+    gathered); each Mamba layer's x/z re-split, an all-to-all of a
+    position's block of in_proj's product (64 x 128 x 128 float32) in the
+    forward, remat's recompute and the backward."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k", ShapeSpec("train_4k", "train", 128, 256))
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = get_smoke("jamba-1.5-large-398b")
+    h, meta = dryrun.count_cell("jamba-1.5-large-398b", "train_4k", False, mesh=mesh, arch=cfg)
+    params = TM.meta_params(cfg)
+    leaves, blocks = _sharded_blocks(params, mesh)
+    mamba = sum(s["mixer"] == "mamba" for s in cfg.layer_specs()) * cfg.n_groups
+    din = cfg.mamba_expand * cfg.d_model
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "expert_parallel" and meta["layout"] == dryrun.LAYOUTS[
+        "expert_parallel"]
+    assert meta["moe_impl"] == "gspmd" and meta["experts"] == "whole experts, 2 a position"
+    assert meta["heads"] == "heads split" and meta["optimizer"] == "adamw"
+    assert meta["param_count"] == sum(t.numel() for t in leaves)
+    whole = 3 * mamba  # conv_b, d, dt_proj's bias: 64 float32 a position each
+    assert h["collective_counts"]["reduce-scatter"] == len(leaves) - whole
+    assert h["collective_bytes"]["reduce-scatter"] == (blocks - whole * 64 * 4) // 4
+    assert h["collective_counts"]["all-gather"] == len(leaves) - whole
+    assert h["collective_bytes"]["all-gather"] == blocks - whole * 64 * 4
+    assert h["collective_counts"]["all-to-all"] == 3 * mamba == 21
+    assert h["collective_bytes"]["all-to-all"] == 3 * mamba * 64 * 128 * (2 * din // 2) * 4
+    assert h["collective_counts"]["all-reduce"] > 0
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
+
+
 @pytest.mark.parametrize("arch_name, shape_name, data", [
     ("granite-3-2b", "train_4k", 2), ("granite-3-2b", "decode_32k", 2),
     ("llava-next-mistral-7b", "prefill_32k", 2), ("starcoder2-3b", "decode_32k", 2),
-    ("granite-3-2b", "prefill_32k", 4)])
+    ("granite-3-2b", "prefill_32k", 4), ("rwkv6-7b", "train_4k", 2),
+    ("rwkv6-7b", "prefill_32k", 2), ("rwkv6-7b", "decode_32k", 2)])
 def test_tensor_parallel_meta_counts_equal_the_counts_on_real_tensors(monkeypatch, arch_name,
                                                                       shape_name, data):
     """The tensor-parallel layout's sharded train step, prefill and decode
-    step at a tiny shape (4 sequences) over a (data, model 2) grid, on CPU
+    step (the dense stack's, and rwkv6's: the WKV over its heads, the
+    channel mix, the recurrent states) at a tiny shape (4 sequences) over a
+    (data, model 2) grid, on CPU
     tensors (every position traced) and on meta tensors (representatives):
     flops, bytes, payloads and argument bytes equal exactly. At data 4 a
     position prefills one sequence, whose cache the rule table splits as
@@ -523,16 +653,11 @@ def test_granite_moe_decode_artifact_is_expert_parallel(tmp_path):
     assert got["rows_per_position"] == 8 and got["op_analysis"]["flops"] > 0
 
 
-#: the cells that stay replicated (jamba, rwkv6, whisper, every long_500k):
-#: their argument bytes on 16x16 and 2x16x16, as before the moe family's layout
+#: the cells that stay replicated (whisper, every long_500k): their
+#: argument bytes on 16x16 and 2x16x16, as before the moe family's layout
+#: (rwkv6's and jamba's other cells: SSM_PARALLEL_BYTES)
 REPLICATED_BYTES = {
-    ("jamba-1.5-large-398b", "train_4k"): (145_125_118_316, 145_124_856_172),
-    ("jamba-1.5-large-398b", "prefill_32k"): (144_845_357_056, 144_845_225_984),
-    ("jamba-1.5-large-398b", "decode_32k"): (155_086_798_884, 149_965_946_900),
     ("jamba-1.5-large-398b", "long_500k"): (164_549_971_976, 164_549_971_976),
-    ("rwkv6-7b", "train_4k"): (90_415_087_620, 90_414_825_476),
-    ("rwkv6-7b", "prefill_32k"): (15_069_356_032, 15_069_224_960),
-    ("rwkv6-7b", "decode_32k"): (15_341_723_684, 15_205_408_788),
     ("rwkv6-7b", "long_500k"): (15_103_172_616, 15_103_172_616),
     ("whisper-medium", "train_4k"): (10_262_282_244, 10_212_868_100),
     ("whisper-medium", "prefill_32k"): (1_706_459_136, 1_700_184_064),
@@ -546,11 +671,49 @@ REPLICATED_BYTES = {
     ("llava-next-mistral-7b", "long_500k"): (84_288_348_168, 84_288_348_168)}
 
 
+#: rwkv6's and jamba's cells at train_4k, prefill_32k and decode_32k: (argument
+#: bytes a position on 16x16, on 2x16x16), the reference's arguments under its
+#: sanitized specs; replicated they were 90.4 GB (rwkv6's train_4k) and
+#: 144.8-155.1 GB (jamba's three), and fitted no card
+SSM_PARALLEL_BYTES = {
+    ("rwkv6-7b", "train_4k"): (2_196_494_344, 2_074_233_864),
+    ("rwkv6-7b", "prefill_32k"): (976_248_832, 976_117_760),
+    ("rwkv6-7b", "decode_32k"): (996_958_244, 986_472_468),
+    ("jamba-1.5-large-398b", "train_4k"): (49_862_298_480, 49_862_036_336),
+    ("jamba-1.5-large-398b", "prefill_32k"): (49_832_790_016, 49_832_658_944),
+    ("jamba-1.5-large-398b", "decode_32k"): (50_472_634_404, 50_152_581_140)}
+
+
+@pytest.mark.parametrize("cell", list(SSM_PARALLEL_BYTES), ids="/".join)
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_rwkv_and_jamba_cells_run_the_sharded_layouts(cell, multi_pod):
+    """rwkv6's and jamba's train_4k, prefill_32k and decode_32k on both
+    production meshes (the step built on meta, not counted): rwkv6 in the
+    tensor_parallel layout (its 64 heads split, 4 a position), jamba in the
+    expert_parallel one (its 16 experts whole, 1 a position, the manual
+    MoE; its 8 KV heads gathered over 16 positions); the argument bytes the
+    reference's arguments under the sanitized specs, every one fitting a
+    card; the train cells' optimizers the reference's pick_optimizer's
+    (AdamW for rwkv6, Adafactor for jamba)."""
+    arch_name, shape_name = cell
+    meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
+    rwkv = arch_name == "rwkv6-7b"
+    layout = "tensor_parallel" if rwkv else "expert_parallel"
+    assert meta["layout_name"] == layout and meta["layout"] == dryrun.LAYOUTS[layout]
+    assert meta["argument_size_in_bytes"] == SSM_PARALLEL_BYTES[cell][multi_pod]
+    assert meta["fits_one_card"]
+    assert meta["heads"] == ("heads split" if rwkv else "query heads split, K/V gathered")
+    if shape_name == "train_4k":
+        assert meta["optimizer"] == ("adamw" if rwkv else "adafactor")
+    if not rwkv:
+        assert meta["experts"] == "whole experts, 1 a position" and meta["moe_impl"] == "manual"
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_the_other_cells_stay_replicated(multi_pod):
-    """jamba's, rwkv6's and whisper's cells and every long_500k keep the
-    replicated layout and its argument bytes on both meshes (whisper's
-    long_500k stays skipped)."""
+    """whisper's cells and every long_500k (rwkv6's and jamba's among them)
+    keep the replicated layout and its argument bytes on both meshes
+    (whisper's long_500k stays skipped)."""
     for (arch_name, shape_name), want in REPLICATED_BYTES.items():
         meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
         assert meta["layout_name"] == "replicated", (arch_name, shape_name)

@@ -419,12 +419,15 @@ def test_sharded_step_counts_on_meta_equal_the_cpu_counts(arch):
 
 
 def test_sharded_entry_points_refuse_what_they_do_not_split():
-    """RWKV and the hybrid stack (Mamba mixers, jamba's MoE) are refused;
-    the moe family runs (tests/test_torch_expert_sharding.py)."""
+    """The enc-dec stack (whisper's encoder and cross-attention) and TaCo
+    retrieval attention are refused; the moe family, RWKV6 and the hybrid
+    Mamba stack run (tests/test_torch_expert_sharding.py,
+    tests/test_torch_ssm_sharding.py)."""
     mesh = cpu_mesh((1, 2))
-    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
+    for cfg in (get_smoke("whisper-medium"),
+                dataclasses.replace(get_smoke("granite-3-2b"), attention_kind="taco")):
         with pytest.raises(NotImplementedError, match="dense stack"):
-            make_sharded_train_step(get_smoke(arch), adamw(), warmup_cosine(*LR), mesh)
+            make_sharded_train_step(cfg, adamw(), warmup_cosine(*LR), mesh)
     cfg = get_smoke("granite-3-2b")
     params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
