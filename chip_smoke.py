@@ -222,7 +222,7 @@ Phases, in order; any failure exits nonzero:
  16. dryrun  — the dry runs (repro_torch.launch.dryrun_ann, dryrun) held to
                the card: launch.op_analysis counts the distributed build
                covariance and both query pipelines at 2^22 x 128 f32 over a
-               (4, 4) grid of the card, and four decode_32k steps at one
+               (4, 4) grid of the card, four decode_32k steps at one
                position's block (8 sequences, a 32,768 cache, bf16
                weights): granite-3-2b's in the tensor-parallel
                layout (the sharded decode step over the position's row of
@@ -231,8 +231,11 @@ Phases, in order; any failure exits nonzero:
                expert-parallel layout (its 40 experts' FFN width split over
                16), rwkv6-7b's in the tensor-parallel layout (its 64
                heads split, 4 a position, the WKV state over the heads) and
-               whisper-medium's in the replicated layout (the whole model
-               at the position), on the card and on meta tensors of the same shapes
+               whisper-medium's in the tensor-parallel layout (its cross
+               cache along head_dim), and granite-3-2b's long_500k TaCo
+               decode step context-parallel (one row over all 256
+               positions of the 16 x 16 mesh, each its block of 2,048 of
+               the 524,288 slots), on the card and on meta tensors of the same shapes
                by the same code, the plain path on both sides: flops, bytes,
                payloads and argument bytes equal exactly; then the dry runs
                in child processes at once (dryrun_ann at n = 10^9 on both
@@ -261,7 +264,8 @@ Phases, in order; any failure exits nonzero:
                shape's first call held against the plain version;
  18. expert_parallel — the moe family over grids of views of the card
                (repro_torch.models.sharded's MoE sub-layer): granite-moe-
-               3b-a800m's bf16 weights at full width and depth, prefill of
+               3b-a800m's bf16 weights at full width, 16 of 32 layers (the
+               script's time since phase 20), prefill of
                2 x 1024 and 8 decode steps over (data 1, model 16) (the
                expert FFN width split) and (2, 4) (whole experts, 10 a
                position) against one device's bf16 and f32-compute runs
@@ -281,7 +285,8 @@ Phases, in order; any failure exits nonzero:
  19. ssm_parallel — RWKV6 and the hybrid Mamba stack over grids of views
                of the card (repro_torch.models.sharded's time mix over
                whole heads, channel mix and Mamba mixer over its inner
-               channels): rwkv6-7b's bf16 weights at full width and depth,
+               channels): rwkv6-7b's bf16 weights at full width, 16 of 32
+               layers (the script's time since phase 20),
                the forward and the prefill of 2 x 512 (the chunked WKV) and
                8 decode steps over (2, 4) and (1, 16) against one device's
                f32-compute and bf16 runs (float32 within 1e-3, top-1 >= 99
@@ -301,7 +306,34 @@ Phases, in order; any failure exits nonzero:
                same jamba cut over (2, 4) at 4 x 64 tokens and its peak
                memory; each new flash shape's first
                call held against the plain version;
- 20. summary — the card's nvidia-smi line, one JSON line with every kernel's
+ 20. enc_dec_context_parallel — whisper-medium's encoder-decoder over
+               'model' and TaCo decode context-parallel, on grids of views
+               of the card (repro_torch.models.sharded's encoder, cross-
+               attention and context-parallel TaCo step): whisper-medium's
+               bf16 weights at full width and depth (24 + 24 layers),
+               prefill of 8 x 256 tokens over 1500 seeded frames and 16
+               decode steps over (2, 4) (the cross cache along the frames)
+               and (1, 16) (along head_dim) against one device's float32
+               (within 1e-3, top-1 >= 99 %) and bf16 runs (the lm phase's
+               top-1 and distance gates, with phases 18-19's binomial top-1
+               slack); its sharded train step at full
+               depth over (2, 4) (AdamW, ZeRO-1, 8 x 128 tokens) beside
+               make_train_step's, the first step's payloads equal to the
+               meta count; the f32 held check at 4 + 4 layers (its K
+               biases, whose true gradient is zero, held to 2 lr x steps);
+               granite-3-2b at full width and depth with TaCo attention
+               (C = 1024, 128 recent slots), one row: prefill of 32,704
+               tokens into a 32,768-slot cache on one device, the cache
+               placed context-parallel over (2, 4) and (1, 16) (4,096 and
+               2,048 slots a position), 16 decode steps against one
+               device's TaCo decode pinned to the sharded run's slots
+               (float32 within 1e-3, top-1 >= 99 %; bf16 the lm phase's
+               gates), >= 99 % of each retrieved slot set shared with the
+               one one device selects on its own (the share of equal sets
+               printed),
+               at least half of the positions holding a selected slot, a
+               decode step's ms beside one device's;
+ 21. summary — the card's nvidia-smi line, one JSON line with every kernel's
                numbers, and the final {"ok": true, ...} line.
 
 Each path's kernels must be launched in its own run: the launch counts are
@@ -330,7 +362,10 @@ steps, once a layer a prefill position, none in decode; expert_parallel:
 flash_attention exactly once a layer a data block a position with heads a
 prefill, twice a step in the sharded steps, none in decode; ssm_parallel:
 none for rwkv6-7b, once jamba's attention layer a data block a position
-with heads a prefill, twice a step), l2dist exactly once a
+with heads a prefill, twice a step; enc_dec_context_parallel: once an
+encoder, decoder and cross layer a data block a position with heads a
+prefill, twice a step in the sharded steps, none in decode, once a layer
+in the TaCo prefill on one device), l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
@@ -420,6 +455,14 @@ PATHS = {
     "ssm_parallel_jamba": ("flash_attention",),
     "ssm_parallel_jamba_single": ("flash_attention",),
     "ssm_parallel_jamba_train": ("flash_attention",),
+    "enc_dec_single": ("flash_attention",),
+    "enc_dec_single_decode": (),
+    "enc_dec_prefill": ("flash_attention",),
+    "enc_dec_prefill_decode": (),
+    "enc_dec_train": ("flash_attention",),
+    "enc_dec_held": ("flash_attention",),
+    "context_parallel_prefill": ("flash_attention",),
+    "context_parallel_decode": (),
 }
 
 
@@ -4328,11 +4371,13 @@ def phase_parallel(torch) -> dict:
 DRY_N = 1 << 22
 DRY_GRID = (4, 4)
 DRY_ANN_JOBS = (("build_cov", "gather"), ("query", "gather"), ("query", "masked_full"))
-#: (arch, shape, the layout launch.dryrun must give the cell)
-DRY_CELLS = (("granite-3-2b", "decode_32k", "tensor_parallel"),
-             ("granite-moe-3b-a800m", "decode_32k", "expert_parallel"),
-             ("rwkv6-7b", "decode_32k", "tensor_parallel"),
-             ("whisper-medium", "decode_32k", "replicated"))
+#: (arch, shape, the layout launch.dryrun must give the cell, the rows a
+#: position runs)
+DRY_CELLS = (("granite-3-2b", "decode_32k", "tensor_parallel", 8),
+             ("granite-moe-3b-a800m", "decode_32k", "expert_parallel", 8),
+             ("rwkv6-7b", "decode_32k", "tensor_parallel", 8),
+             ("whisper-medium", "decode_32k", "tensor_parallel", 8),
+             ("granite-3-2b", "long_500k", "tensor_parallel", 1))
 DRY_CHILDREN = tuple(
     [("repro_torch.launch.dryrun_ann", (*mp, "--rerank", r))
      for mp in ((), ("--multi-pod",)) for r in ("gather", "masked_full")]
@@ -4389,15 +4434,17 @@ def dry_ann_identity(torch) -> dict:
 
 
 def dry_decode_identity(torch) -> dict:
-    """Each of DRY_CELLS' decode_32k steps at one position's block (8
-    sequences, a 32,768 cache, bf16 weights) through launch.dryrun.count_cell
-    on the card (seeded weights, zero inputs) and on meta, in the layout the
-    dry run gives it: every count equal."""
+    """Each of DRY_CELLS' decode steps through launch.dryrun.count_cell on
+    the card (seeded bf16 weights, zero inputs) and on meta, in the layout
+    the dry run gives it: the decode_32k cells at one position's block (8
+    sequences, a 32,768 cache), the long_500k one context-parallel (the one
+    row over all 256 positions, each its block of 2,048 of the 524,288
+    slots): every count equal."""
     from repro_torch.launch import dryrun
 
     card = torch.device("cuda", torch.cuda.current_device())
     rows = {}
-    for arch, shape, layout in DRY_CELLS:
+    for arch, shape, layout, rows_n in DRY_CELLS:
         got = {}
         torch.cuda.reset_peak_memory_stats()
         for device in (card, torch.device("meta")):
@@ -4420,8 +4467,9 @@ def dry_decode_identity(torch) -> dict:
         check(same, f"dryrun: {arch} x {shape} counted on the card differs from meta")
         check(a["layout"] == b["layout"] == layout,
               f"dryrun: {arch} x {shape} ran the {a['layout']} layout, not {layout}")
-        check(a["rows"] == 8 and a["flops"] > 0, f"dryrun: {arch} x {shape} ran {a['rows']} rows")
-        rows[arch] = got
+        check(a["rows"] == rows_n and a["flops"] > 0,
+              f"dryrun: {arch} x {shape} ran {a['rows']} rows")
+        rows[f"{arch} x {shape}"] = got
     return rows
 
 
@@ -4490,6 +4538,10 @@ TP_DECODE = 16
 #: the held check against make_train_step, float32: loss and grad norm
 #: relative, and each parameter's distance relative to its norm
 TP_METRIC_RTOL, TP_PARAM_RTOL = 1e-4, 1e-5
+#: the held check's peak learning rate, and the bound (in lr x steps) on a
+#: leaf whose true gradient is zero (whisper's K biases: a bias on the keys
+#: adds one constant to a query's scores, which the softmax cancels)
+HELD_LR, HELD_NOISE_LRS = 3e-4, 2
 
 
 def tp_mesh():
@@ -4638,25 +4690,30 @@ def tp_held(torch) -> dict:
                       "tensor parallel held")
 
 
-def held_check(torch, cfg, grid, steps: int, path: str, label: str) -> dict:
+def held_check(torch, cfg, grid, steps: int, path: str, label: str, stream=None,
+               shapes: int = 1, noise: tuple = ()) -> dict:
     """The sharded step against make_train_step at ``cfg``'s width and depth
     in float32 compute over ``grid``, ``steps`` AdamW steps from one seeded
-    state on the same batches: loss and grad norm within TP_METRIC_RTOL
-    relative, every parameter within TP_PARAM_RTOL of its norm (its
-    distance from the plain step's, relative to its update, printed);
-    exactly two flash launches an attention layer a step a data block a
-    position with heads (one device: a step), and the training flash shape,
-    where there is one, held against the plain version."""
+    state on the same batches (``stream``'s, default 8 x 128 synthetic
+    tokens): loss and grad norm within TP_METRIC_RTOL relative, every
+    parameter within TP_PARAM_RTOL of its norm (its distance from the plain
+    step's, relative to its update, printed); exactly two flash launches an
+    attention layer a step a data block a position with heads (one device:
+    a step), and the training flash shapes, where there are (``shapes`` of
+    them), held against the plain version. The leaves whose key path ends
+    with one of ``noise`` have a zero true gradient (rounding noise, which
+    AdamW turns into steps of up to lr): they are held to
+    HELD_NOISE_LRS x lr x steps, absolute, instead."""
     from repro_torch.data.tokens import SyntheticTokenStream
     from repro_torch.kernels import ops
     from repro_torch.models import sharded as SHD
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
-    from repro_torch.utils import tree_flatten
+    from repro_torch.utils import tree_flatten, tree_flatten_with_paths
 
     mesh = ep_mesh(grid)
-    opt, lr = adamw(), warmup_cosine(3e-4, 2, 10)
-    stream = SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=1)
+    opt, lr = adamw(), warmup_cosine(HELD_LR, 2, 10)
+    stream = stream or SyntheticTokenStream(cfg.vocab_size, 128, 8, seed=1)
     state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
     start = [p.detach().clone() for p in tree_flatten(state.params)[0]]
     placed = SHD.place_train_state(state, mesh)
@@ -4688,19 +4745,31 @@ def held_check(torch, cfg, grid, steps: int, path: str, label: str) -> dict:
             check(abs(a[key] - b[key]) <= TP_METRIC_RTOL * abs(b[key]),
                   f"{label}: {key} {a[key]} sharded against {b[key]}")
     back = SHD.unplace_train_state(placed)
-    worst_norm = worst_update = 0.0
-    for p, q, p0 in zip(tree_flatten(back.params)[0], tree_flatten(state.params)[0], start):
+    paths, leaves, _ = tree_flatten_with_paths(back.params)
+    worst_norm = worst_update = worst_noise = 0.0
+    worst_leaf = None
+    for key, p, q, p0 in zip(paths, leaves, tree_flatten(state.params)[0], start):
+        if noise and key.endswith(noise):
+            worst_noise = max(worst_noise, float((p - q.detach()).abs().max()))
+            continue
         d = float((p - q.detach()).norm())
-        worst_norm = max(worst_norm, d / max(float(q.detach().norm()), 1e-30))
+        rel = d / max(float(q.detach().norm()), 1e-30)
+        if rel > worst_norm:
+            worst_norm, worst_leaf = rel, key
         worst_update = max(worst_update, d / max(float((q.detach() - p0).norm()), 1e-30))
     check(worst_norm <= TP_PARAM_RTOL, f"{label}: a parameter {worst_norm} of its norm from "
-                                       "make_train_step's")
+                                       f"make_train_step's ({worst_leaf})")
+    check(worst_noise <= HELD_NOISE_LRS * HELD_LR * steps,
+          f"{label}: a zero-gradient leaf {worst_noise} from make_train_step's")
     del back, placed, state, start
     torch.cuda.empty_cache()
     row = dict(layers=cfg.n_layers, grid=list(grid), steps=steps, sharded=metrics, single=want,
-               worst_param_vs_norm=worst_norm, worst_param_vs_update=worst_update)
+               worst_param_vs_norm=worst_norm, worst_leaf=worst_leaf,
+               worst_param_vs_update=worst_update)
+    if noise:
+        row["worst_zero_gradient_leaf_abs"] = worst_noise
     if flash:
-        check(len(seen) == 1, f"{label}: flash shapes {sorted(seen)}")
+        check(len(seen) == shapes, f"{label}: flash shapes {sorted(seen)}")
         row["flash"] = fam_flash_shapes(torch, seen, label)
     print(f"{label}: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}", flush=True)
     row["launches"] = [l_sharded, l_plain]
@@ -4841,7 +4910,10 @@ def phase_tensor_parallel(torch) -> dict:
 #: split the expert FFN width, over (2, 4) whole experts (10 a position)
 EP_ARCH = "granite-moe-3b-a800m"
 EP_GRIDS = ((1, 16), (2, 4))
-EP_PREFILL = (2, 1024)  # rows x prompt of the bf16 prefills, full depth
+#: the layers of granite-moe's inference runs: 16 of 32, cut since phase 20
+#: joined the script (the runs are host-bound, their time linear in depth)
+EP_INFER_LAYERS = 16
+EP_PREFILL = (2, 1024)  # rows x prompt of the bf16 prefills
 EP_DECODE = 8
 #: the train step over (2, 4): 16 of 32 layers (the f32 state of all 32,
 #: 54 GB, and its placement would not leave room for the gradients)
@@ -5128,15 +5200,18 @@ def ep_single(torch, cfg, params, n_dp: int, tokens, n: int, steps: int,
 
 
 def ep_granite_inference(torch) -> dict:
-    """granite-moe-3b-a800m's bf16 weights at full width and depth (32
-    layers, 6.75 GB), prefill EP_PREFILL and EP_DECODE decode steps over
-    each of EP_GRIDS against one device in the same call."""
+    """granite-moe-3b-a800m's bf16 weights at full width, EP_INFER_LAYERS
+    of 32 layers, prefill EP_PREFILL and EP_DECODE decode steps over each
+    of EP_GRIDS against one device in the same call."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_arch(EP_ARCH), param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_arch(EP_ARCH), param_dtype="bfloat16",
+                              n_layers=EP_INFER_LAYERS)
+    print(f"expert parallel: cut: the inference runs at {EP_INFER_LAYERS} of 32 layers",
+          flush=True)
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     rows_n, n = EP_PREFILL
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -5175,8 +5250,8 @@ def ep_meta_payloads(torch, cfg, opt, lr, batch, grid) -> dict:
     state = SHD.place_train_state(TrainState(params=params, opt_state=opt[0](params),
                                              step=torch.zeros((), dtype=torch.int32)), mesh)
     step = make_sharded_train_step(cfg, opt, lr, mesh, impl="torch")
-    meta_batch = {k: torch.empty(v.shape, dtype=torch.long, device="meta")
-                  for k, v in batch.items()}
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.float32 if k == "frames" else torch.long,
+                                 device="meta") for k, v in batch.items()}
     with OpCounter(mesh, represent=True) as counter:
         step(state, meta_batch)
     h = counter.analysis()
@@ -5500,6 +5575,9 @@ def phase_expert_parallel(torch) -> dict:
 #: rwkv6-7b at full width and depth in bf16 weights over each grid
 SSM_RWKV = "rwkv6-7b"
 SSM_GRIDS = ((2, 4), (1, 16))
+#: the layers of rwkv6's inference runs: 16 of 32, cut since phase 20
+#: joined the script (host-bound, linear in depth)
+SSM_INFER_LAYERS = 16
 SSM_PREFILL = (2, 512)  # rows x prompt: a multiple of rwkv_chunk (the chunked WKV)
 SSM_DECODE = 8
 #: its train step over (2, 4) with AdamW and ZeRO-1: 8 of 32 layers (the f32
@@ -5574,8 +5652,8 @@ def ssm_gates(torch, label: str, got: dict, want: dict, err_state: float) -> dic
 
 
 def ssm_rwkv_inference(torch) -> dict:
-    """rwkv6-7b's bf16 weights at full width and depth (32 layers, 64 heads
-    of 64, ~15 GB): the forward of the prompt SSM_PREFILL (the chunked
+    """rwkv6-7b's bf16 weights at full width, SSM_INFER_LAYERS of 32 layers
+    (64 heads of 64): the forward of the prompt SSM_PREFILL (the chunked
     WKV), its prefill and SSM_DECODE decode steps on one device in float32
     and bf16 compute, then over each of SSM_GRIDS (the 64 heads split, 16
     and 4 a position) held to them (ssm_gates: the first decode step's WKV
@@ -5587,7 +5665,10 @@ def ssm_rwkv_inference(torch) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models import sharded as SHD
 
-    cfg = dataclasses.replace(get_arch(SSM_RWKV), param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_arch(SSM_RWKV), param_dtype="bfloat16",
+                              n_layers=SSM_INFER_LAYERS)
+    print(f"ssm parallel: cut: the rwkv6 inference runs at {SSM_INFER_LAYERS} of 32 layers",
+          flush=True)
     rows_n, n = SSM_PREFILL
     check(n % cfg.rwkv_chunk == 0, "ssm parallel rwkv: the prefill takes the sequential WKV")
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -5909,6 +5990,462 @@ def phase_ssm_parallel(torch) -> dict:
     return rows
 
 
+#: the enc-dec and context-parallel phase: whisper-medium over 'model' on
+#: grids of views of the card, its cross cache along the frames where
+#: |model| divides the 1500 frames ((2, 4)) and along head_dim where it does
+#: not ((1, 16)); granite-3-2b's TaCo decode of one row over every position
+#: of a grid, its K/V sequence over the data axes and 'model'
+ED_ARCH = "whisper-medium"
+ED_GRIDS = ((2, 4), (1, 16))
+ED_PREFILL = (8, 256)  # rows x decoder prompt, over the 1500 frames
+ED_DECODE = 16
+ED_FRAMES_SCALE = 0.1  # the seeded stub frames' scale, as the families phase draws them
+#: its train step over (2, 4) with AdamW and ZeRO-1 at full depth, f32
+#: parameters, bf16 compute, remat
+ED_TRAIN_GRID = (2, 4)
+ED_TRAIN_STEPS = 2
+ED_TRAIN_BATCH = (8, 128)
+ED_HELD_LAYERS, ED_HELD_STEPS = 4, 2  # 4 encoder + 4 decoder layers, float32
+CP_ARCH = "granite-3-2b"
+CP_GRIDS = ((2, 4), (1, 16))
+CP_PROMPT, CP_SLOTS = 32704, 32768
+CP_DECODE = 16
+#: the share of the positions that must hold a selected slot, on average
+#: over the TaCo layers and steps
+CP_HOLDING = 0.5
+#: the share of each retrieved slot set (C slots a layer, step and head) the
+#: sharded float32 run must share with one device's
+CP_SLOT_OVERLAP = 0.99
+
+
+class ED_Stream:
+    """A token stream whose batches carry seeded stub frames (rows, frames,
+    d_model) float32, ED_FRAMES_SCALE, for an audio config."""
+
+    def __init__(self, cfg, rows: int, seq: int, seed: int):
+        import numpy as np
+
+        from repro_torch.data.tokens import SyntheticTokenStream
+
+        self.np, self.cfg, self.seed = np, cfg, seed
+        self.tokens = SyntheticTokenStream(cfg.vocab_size, seq, rows, seed=seed)
+
+    def batch(self, step: int) -> dict:
+        out = self.tokens.batch(step)
+        rng = self.np.random.default_rng(1000 * self.seed + step)
+        out["frames"] = (rng.standard_normal((out["tokens"].shape[0], self.cfg.frontend_len,
+                                              self.cfg.d_model)) * ED_FRAMES_SCALE).astype(
+            self.np.float32)
+        return out
+
+
+def ed_generate(torch, prefill, decode, batch: dict, n: int, steps: int, path: str,
+                prefill_flash: int, seen: dict | None = None):
+    """Prefill of ``batch`` (its first n tokens and its frames) as one path
+    run with exactly ``prefill_flash`` flash launches (with ``seen``, the
+    first call of each flash shape captured), then ``steps``
+    teacher-forced decode steps as another with none: (the last prompt
+    position's logits and each step's, stacked (steps + 1, B, V); the
+    cache; prefill ms; the median decode-step ms; the launches)."""
+    from repro_torch.kernels import ops
+
+    tokens = batch["tokens"]
+    restore = capture_shapes(ops, seen) if seen is not None else lambda: None
+    try:
+        ((logits, cache), pre_ms), l_pre = run_path(
+            torch, path, lambda: ep_timed(torch, lambda: prefill(
+                {"tokens": tokens[:, :n], "frames": batch["frames"]})),
+            expect={"flash_attention": prefill_flash})
+    finally:
+        restore()
+    out, step_ms = [logits[:, 0]], []
+
+    def run():
+        nonlocal cache
+        for t in range(n, n + steps):
+            (lg, cache), ms = ep_timed(torch, lambda: decode(cache, tokens[:, t:t + 1], t))
+            out.append(lg[:, 0])
+            step_ms.append(ms)
+
+    _, l_dec = run_path(torch, path + "_decode", run, expect={"flash_attention": 0})
+    return (torch.stack(out), cache, pre_ms, sorted(step_ms)[len(step_ms) // 2],
+            [l_pre, l_dec])
+
+
+def ed_gates(torch, label: str, got: dict, want: dict) -> dict:
+    """The sharded runs' logits against one device's: float32 within
+    LM_F32_TOL with top-1 >= LM_F32_TOP1; bf16, the lm phase's top-1 and
+    distance gates as phases 18 and 19 hold them (ep_gates): the top-1
+    share with one device's f32 run at least one device's bf16 share less
+    top1_slack, and mean |logits - one device's f32 logits| at most
+    LM_BF16_MEAN_SLACK times one device's bf16 run's."""
+    f32, one = got["float32"], want["float32"]
+    check(bool(torch.isfinite(f32).all()) and tuple(f32.shape) == tuple(one.shape),
+          f"{label}: f32 logits {tuple(f32.shape)}")
+    row = {"f32": {"max_abs_err": float((f32 - one).abs().max()),
+                   "top1": float((f32.argmax(-1) == one.argmax(-1)).float().mean())}}
+    check(torch.allclose(f32, one, rtol=LM_F32_TOL, atol=LM_F32_TOL)
+          and row["f32"]["top1"] >= LM_F32_TOP1, f"{label}: float32 {row['f32']}")
+    row["bf16"] = ep_gates(torch, label, got["bfloat16"],
+                           {"gen": want["bfloat16"], "gen_f32": one}, "gen")
+    t1, mean = row["bf16"]["top1_vs_f32"], row["bf16"]["mean_abs_vs_f32"]
+    check(t1["sharded"] >= t1["single"] - t1["slack"]
+          and mean["sharded"] <= LM_BF16_MEAN_SLACK * mean["single"], f"{label}: bf16 "
+                                                                       f"{row['bf16']}")
+    return row
+
+
+def ed_inference(torch) -> dict:
+    """whisper-medium's bf16 weights at full width and depth (24 + 24
+    layers): prefill of ED_PREFILL tokens over 1500 seeded frames and
+    ED_DECODE teacher-forced decode steps on one device in float32 and bf16
+    compute, then over each of ED_GRIDS held to them (ed_gates); the cross
+    cache placed along the frames over (2, 4) and along head_dim over (1,
+    16); exactly one flash launch an encoder, decoder and cross layer a
+    data block a position with heads a prefill and none in decode; each new
+    flash shape's first call held against the plain version; prefill and
+    decode-step ms beside one device's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.mesh import P
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+
+    cfg = dataclasses.replace(get_arch(ED_ARCH), param_dtype="bfloat16")
+    rows_n, n = ED_PREFILL
+    max_seq = n + ED_DECODE
+    params, count = fam_params(torch, cfg, "enc dec")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows_n, max_seq), generator=g,
+                                     device="cuda"),
+             "frames": torch.randn((rows_n, cfg.frontend_len, cfg.d_model), generator=g,
+                                   device="cuda") * ED_FRAMES_SCALE}
+    layers = attention_layers(cfg)
+    want, single, launches = {}, {}, []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        with torch.no_grad():
+            want[dtype], _, pre_ms, step_ms, ls = ed_generate(
+                torch, lambda b: M.prefill(params, c, b, max_seq),
+                lambda ca, tok, t: M.decode_step(params, c, ca, tok, t), batch, n, ED_DECODE,
+                "enc_dec_single", layers)
+        single[dtype] = dict(prefill_ms=pre_ms, decode_step_ms=step_ms)
+        launches += ls
+    out, flash_rows = {}, []
+    for grid in ED_GRIDS:
+        mesh = ep_mesh(grid)
+        torch.cuda.reset_peak_memory_stats()
+        placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+        along = "frames" if cfg.frontend_len % grid[1] == 0 else "head_dim"
+        label = f"enc dec {ED_ARCH} {grid[0]}x{grid[1]}"
+        got, ms = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            seen = {}
+            with torch.no_grad():
+                got[dtype], cache, pre_ms, step_ms, ls = ed_generate(
+                    torch, lambda b: SHD.sharded_prefill(placed, c, b, max_seq, mesh),
+                    lambda ca, tok, t: SHD.sharded_decode_step(placed, c, ca, tok, t, mesh),
+                    batch, n, ED_DECODE, "enc_dec_prefill",
+                    layers * grid[0] * ep_active(cfg, grid[1]), seen)
+            spec = cache["l0"]["cross_k"].spec
+            check(spec == (P(None, "data", "model", None, None) if along == "frames" else
+                           P(None, "data", None, None, "model")),
+                  f"{label}: the cross cache placed {spec}, not along the {along}")
+            ms[dtype] = dict(prefill_ms=pre_ms, decode_step_ms=step_ms)
+            launches += ls
+            del cache
+            check(len(seen) == 3, f"{label} {dtype}: flash shapes {sorted(seen)}")
+            flash_rows += fam_flash_shapes(torch, seen, f"{label} {dtype}")
+            del seen
+        row = ed_gates(torch, label, got, want)
+        row.update(grid=list(grid), cross_cache_along=along,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   **{f"{k}_{d}": ms[d][k] for d in ms for k in ("prefill_ms", "decode_step_ms")},
+                   **{f"{k}_{d}_single": single[d][k] for d in single
+                      for k in ("prefill_ms", "decode_step_ms")})
+        print(f"{label}: prefill {rows_n} x {n} over {cfg.frontend_len} frames, {ED_DECODE} "
+              f"decode steps: {json.dumps(row)}", flush=True)
+        out[f"{grid[0]}x{grid[1]}"] = row
+        del placed, got
+        torch.cuda.empty_cache()
+    del params, want
+    torch.cuda.empty_cache()
+    out.update(params=count, flash=flash_rows, launches=launches)
+    return out
+
+
+def ed_train(torch) -> dict:
+    """make_sharded_train_step at whisper-medium's full width and depth
+    over ED_TRAIN_GRID (AdamW, ZeRO-1 over 'data'; batch ED_TRAIN_BATCH
+    over 1500 frames, f32 parameters, bf16 compute, remat): ED_TRAIN_STEPS
+    steps timed, exactly two flash launches an encoder, decoder and cross
+    layer a data block a position a step, the first step's payloads tallied
+    on the card and equal to the same step's meta count, peak memory;
+    make_train_step beside it; each new flash shape's first call held
+    against the plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import sharded as SHD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_sharded_train_step, make_train_step, train_state_init
+
+    cfg = get_arch(ED_ARCH)
+    check(cfg.remat and cfg.compute_dtype == "bfloat16", "enc dec: the config moved")
+    mesh = ep_mesh(ED_TRAIN_GRID)
+    opt, lr = adamw(), warmup_cosine(3e-4, 20, ED_TRAIN_STEPS + 1)
+    stream = ED_Stream(cfg, *ED_TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt[0])
+    placed = SHD.place_train_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    place_s = time.perf_counter() - t0
+    step = make_sharded_train_step(cfg, opt, lr, mesh)
+    flash = 2 * attention_layers(cfg) * ED_TRAIN_GRID[0] * ep_active(cfg, ED_TRAIN_GRID[1])
+    payload, seen = {}, {}
+    placed, rows, l_tp = ep_train_steps(torch, step, placed, stream, ED_TRAIN_STEPS, mesh,
+                                        "enc_dec_train", flash, seen, payload)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_payload = ep_meta_payloads(torch, cfg, opt, lr, stream.batch(0), ED_TRAIN_GRID)
+    meta_s = time.perf_counter() - t0
+    check(meta_payload == payload, f"enc dec train: the card's payloads {payload} against the "
+                                   f"meta count's {meta_payload}")
+    check(len(seen) == 3, f"enc dec train: flash shapes {sorted(seen)}")
+    flash_rows = fam_flash_shapes(torch, seen, "enc dec train")
+    del seen
+    torch.cuda.reset_peak_memory_stats()
+    state, single_rows, l_single = par_train_run(
+        torch, cfg, make_train_step(cfg, opt, lr), stream, "enc_dec_train",
+        2 * attention_layers(cfg) * ED_TRAIN_STEPS, ED_TRAIN_STEPS)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, grid=list(ED_TRAIN_GRID), steps=ED_TRAIN_STEPS,
+               batch=list(ED_TRAIN_BATCH), frames=cfg.frontend_len, sharded=rows,
+               single_device=single_rows, place_s=place_s,
+               step_ms_sharded=par_steady_ms(rows), step_ms_single=par_steady_ms(single_rows),
+               flash_per_step=flash, payload_first_step=payload, meta_count_s=meta_s,
+               peak_gib=peak, peak_gib_single=single_peak, flash=flash_rows)
+    print(f"enc dec train: {json.dumps({k: v for k, v in row.items() if k != 'flash'})}",
+          flush=True)
+    row["launches"] = [l_tp, l_single]
+    return row
+
+
+def ed_held(torch) -> dict:
+    """whisper-medium at full width, ED_HELD_LAYERS encoder and decoder
+    layers, float32, over ED_TRAIN_GRID against make_train_step (held_check,
+    batches with seeded frames)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(ED_ARCH), n_layers=ED_HELD_LAYERS,
+                              encoder_layers=ED_HELD_LAYERS, compute_dtype="float32")
+    print(f"enc dec: cut: the held check at {ED_HELD_LAYERS} + {ED_HELD_LAYERS} of 24 + 24 "
+          "layers, float32", flush=True)
+    return held_check(torch, cfg, ED_TRAIN_GRID, ED_HELD_STEPS, "enc_dec_held", "enc dec held",
+                      stream=ED_Stream(cfg, 8, 128, seed=1), shapes=3,
+                      noise=("['wk']['b']",))
+
+
+def cp_selections(TA, seen: dict):
+    """Wrap taco_attention.select_slots so that each call's own selection
+    lands under ``seen["run"]``; while ``seen["replay"]`` holds a list of
+    selections, each call returns the next of them instead (a one-device
+    run pinned to the sharded run's slots, as routing_spy pins the MoE's
+    routing). Returns a function that puts the original back."""
+    import torch
+
+    real = TA.select_slots
+
+    def spy(q, state, pos, rc, s_max):
+        out = real(q, state, pos, rc, s_max)
+        seen.setdefault(seen["run"], []).append(out[0])
+        if seen.get("replay"):
+            top = seen["replay"].pop(0).to(out[0].device)
+            return top, (torch.arange(s_max, device=top.device) <= pos)[top]
+        return out
+
+    TA.select_slots = spy
+    return lambda: setattr(TA, "select_slots", real)
+
+
+def cp_compare(torch, mine: list, theirs: list, size: int, positions: int) -> dict:
+    """Two runs' retrieved slot sets (one (B, Kv, G, C) tensor a TaCo layer
+    and step each): the share of sets equal, the share of each set's slots
+    the other holds too, and the share of the ``positions`` blocks of
+    ``size`` slots that hold a selected slot (mean and least over the
+    calls)."""
+    a = torch.stack([s.sort(-1).values for s in mine]).flatten(0, -2)
+    b = torch.stack([s.sort(-1).values for s in theirs]).flatten(0, -2)
+    at = torch.searchsorted(b, a).clamp_max(b.shape[-1] - 1)
+    holding = [len(torch.unique(s // size)) / positions for s in mine]
+    return dict(slot_sets_equal=float((a == b).all(-1).float().mean()),
+                slots_shared=float((b.gather(-1, at) == a).float().mean()),
+                positions_holding_mean=sum(holding) / len(holding),
+                positions_holding_min=min(holding))
+
+
+def cp_inference(torch) -> dict:
+    """granite-3-2b at full width and depth with TaCo retrieval attention
+    (the default RetrievalConfig), one row: prefill of CP_PROMPT tokens into
+    a CP_SLOTS-slot cache on one device in float32 and bf16 compute, the
+    cache placed context-parallel (the K/V sequence over ('data', 'model'):
+    4,096 slots a position over (2, 4), 2,048 over (1, 16)) and CP_DECODE
+    teacher-forced TaCo decode steps sharded; then one device's decode from
+    the same cache with its slot selection pinned to the sharded run's
+    (cp_selections: the two runs' queries differ by rounding, and a
+    near-tie at rank C selects another slot). float32 within LM_F32_TOL
+    with top-1 >= LM_F32_TOP1 against the pinned run; each retrieved slot
+    set against the one the pinned run selects on its own: at least
+    CP_SLOT_OVERLAP of its slots shared (the share of sets equal printed);
+    bf16, the lm phase's top-1 and distance gates (ed_gates) against the
+    pinned runs; at least CP_HOLDING of the positions holding a selected
+    slot; decode-step ms beside one device's (its first pinned run: the
+    pinned run also makes its own selection)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import sharded as SHD
+    from repro_torch.models import taco_attention as TA
+
+    cfg = dataclasses.replace(get_arch(CP_ARCH), attention_kind="taco")
+    rc = cfg.retrieval
+    params, count = fam_params(torch, cfg, "context parallel")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (1, CP_PROMPT + CP_DECODE), generator=g,
+                           device="cuda")
+    first, single, caches, launches = {}, {}, {}, []
+    seen = {"run": None}
+    restore = cp_selections(TA, seen)
+
+    def one_device(c, replay):
+        """One device's decode from a copy of the prefilled cache pinned to
+        ``replay``'s slots: (logits, median step ms, its own selections)."""
+        dtype = c.compute_dtype
+        cache = M.map_tree(lambda t: t.clone(), caches[dtype])
+        seen["run"], seen["replay"] = "one", list(replay)
+        with torch.no_grad():
+            (gen, ms), l_dec = run_path(
+                torch, "context_parallel_decode", lambda: cp_decode(
+                    torch, lambda ca, tok, t: M.decode_step(params, c, ca, tok, t), cache,
+                    tokens, first[dtype]), expect={"flash_attention": 0})
+        check(not seen["replay"], "context parallel: the pinned run left selections unused")
+        launches.append(l_dec)
+        return gen, ms, seen.pop("one")
+
+    try:
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            with torch.no_grad():
+                ((first[dtype], caches[dtype]), pre_ms), l_pre = run_path(
+                    torch, "context_parallel_prefill", lambda: ep_timed(torch, lambda: M.prefill(
+                        params, c, {"tokens": tokens[:, :CP_PROMPT]}, CP_SLOTS)),
+                    expect={"flash_attention": c.n_layers})
+            launches.append(l_pre)
+            single[dtype] = dict(prefill_ms=pre_ms)
+        out = {}
+        for grid in CP_GRIDS:
+            mesh = ep_mesh(grid)
+            positions = grid[0] * grid[1]
+            size = CP_SLOTS // positions
+            torch.cuda.reset_peak_memory_stats()
+            placed = SHD.place(params, SHD.param_specs(params, mesh), mesh)
+            label = f"context parallel {CP_ARCH} {grid[0]}x{grid[1]}"
+            got, want, ms, row = {}, {}, {}, {}
+            for dtype in ("float32", "bfloat16"):
+                c = dataclasses.replace(cfg, compute_dtype=dtype)
+                cache = SHD.place(caches[dtype], SHD.cache_specs(caches[dtype], mesh, ("data",)),
+                                  mesh)
+                k = cache["l0"]["k"]
+                check(k.spec[2] == ("data", "model") and len(k.blocks) == positions,
+                      f"{label}: the K/V placed {k.spec} in {len(k.blocks)} blocks")
+                seen["run"], seen["replay"] = "sharded", None
+                with torch.no_grad():
+                    (got[dtype], ms[dtype]), l_dec = run_path(
+                        torch, "context_parallel_decode", lambda: cp_decode(
+                            torch, lambda ca, tok, t: SHD.sharded_decode_step(
+                                placed, c, ca, tok, t, mesh), cache, tokens, first[dtype]),
+                        expect={"flash_attention": 0})
+                launches.append(l_dec)
+                del cache
+                mine = seen.pop("sharded")
+                want[dtype], one_ms, own = one_device(c, replay=mine)
+                single[dtype].setdefault("decode_step_ms", one_ms)
+                check(len(mine) == len(own) == c.n_layers * CP_DECODE
+                      and mine[0].shape[-1] == rc.n_retrieve,
+                      f"{label}: {len(mine)} slot selections of {tuple(mine[0].shape)}")
+                row[dtype] = cp_compare(torch, mine, own, size, positions)
+                check(row[dtype]["positions_holding_mean"] >= CP_HOLDING,
+                      f"{label} {dtype}: positions holding a selected slot {row[dtype]}")
+                if dtype == "float32":
+                    check(row[dtype]["slots_shared"] >= CP_SLOT_OVERLAP,
+                          f"{label}: the retrieved slots against one device's {row[dtype]}")
+                del mine, own
+            row.update(ed_gates(torch, label, got, want), grid=list(grid),
+                       slots_a_position=size,
+                       decode_step_ms_float32=ms["float32"],
+                       decode_step_ms_bfloat16=ms["bfloat16"],
+                       decode_step_ms_float32_single=single["float32"]["decode_step_ms"],
+                       decode_step_ms_bfloat16_single=single["bfloat16"]["decode_step_ms"],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            print(f"{label}: one row, {CP_PROMPT} prompt tokens prefilled on one device into "
+                  f"{CP_SLOTS} slots, {CP_DECODE} TaCo decode steps (C = {rc.n_retrieve}, "
+                  f"{rc.recent_window} recent): {json.dumps(row)}", flush=True)
+            out[f"{grid[0]}x{grid[1]}"] = row
+            del placed, got, want
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    del params, caches
+    torch.cuda.empty_cache()
+    out.update(params=count, prefill_ms_single={d: single[d]["prefill_ms"] for d in single},
+               retrieval=dataclasses.asdict(rc), launches=launches)
+    return out
+
+
+def cp_decode(torch, decode, cache, tokens, first):
+    """CP_DECODE teacher-forced decode steps from ``cache`` after the
+    CP_PROMPT-token prompt: (``first``, the prefill's last logits, and each
+    step's, stacked (steps + 1, 1, V); the median step ms)."""
+    out, step_ms = [first[:, 0]], []
+    for t in range(CP_PROMPT, CP_PROMPT + CP_DECODE):
+        (lg, cache), ms = ep_timed(torch, lambda: decode(cache, tokens[:, t:t + 1], t))
+        out.append(lg[:, 0])
+        step_ms.append(ms)
+    return torch.stack(out), sorted(step_ms)[len(step_ms) // 2]
+
+
+def phase_enc_dec_context_parallel(torch) -> dict:
+    """Phase 20: whisper-medium's encoder-decoder over 'model' (prefill and
+    decode over (2, 4) and (1, 16), the train step over (2, 4) beside
+    make_train_step, the f32 held check at 4 + 4 layers) and granite-3-2b's
+    context-parallel TaCo decode of one row over (2, 4) and (1, 16); each
+    model freed before the next."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "enc dec: TF32 matmuls are on")
+    rows = {}
+    for name, fn in (("whisper", ed_inference), ("whisper_train", ed_train),
+                     ("whisper_held", ed_held), ("taco", cp_inference)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows[name] = fn(torch)
+        torch.cuda.empty_cache()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        rows[name]["peak_gib_phase"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"enc dec context parallel {name}: {rows[name]['seconds']:.2f} s, peak "
+              f"{rows[name]['peak_gib_phase']:.2f} GiB", flush=True)
+    rows["launches"] = [c for r in ("whisper", "whisper_train", "whisper_held", "taco")
+                        for c in rows[r]["launches"]]
+    return rows
+
+
 def brute_force_top10(torch, corpus, queries):
     from repro_torch.utils import pairwise_sq_dists
 
@@ -6029,8 +6566,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 19. RWKV6 and the hybrid Mamba stack over 'model'
     ssm = phase("ssm_parallel", phase_ssm_parallel, torch)
+    torch.cuda.empty_cache()
+    # 20. whisper's encoder-decoder over 'model', TaCo decode context-parallel
+    cp = phase("enc_dec_context_parallel", phase_enc_dec_context_parallel, torch)
 
-    # 20. summary: each kernel's launches over every path run above
+    # 21. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
                    gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
@@ -6041,7 +6581,7 @@ def main(argv=None) -> int:
                    *(run["launches"] for run in serve.values()), *lm["launches"],
                    baselines["launches"], *train["launches"], *families["launches"],
                    *parallel["launches"], dry["launches"], *tp["launches"],
-                   *ep["launches"], *ssm["launches"]):
+                   *ep["launches"], *ssm["launches"], *cp["launches"]):
         for name, count in counts.items():
             launches[name] += count
     rows = []
@@ -6062,7 +6602,8 @@ def main(argv=None) -> int:
                                "train": train, "families": families,
                                "parallel": parallel, "dryrun": dry,
                                "tensor_parallel": tp, "expert_parallel": ep,
-                               "ssm_parallel": ssm, "phase_seconds": phase_seconds},
+                               "ssm_parallel": ssm, "enc_dec_context_parallel": cp,
+                               "phase_seconds": phase_seconds},
                               indent=1))
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

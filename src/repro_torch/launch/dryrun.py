@@ -11,10 +11,11 @@ Nothing is allocated and nothing runs on a card. Three layouts, which each
 artifact names (``layout_name``, and ``layout`` states it):
 
   tensor_parallel  the dense decoder stack (starcoder2-3b, granite-3-2b,
-           codeqwen1.5-7b, qwen1.5-4b, llava-next-mistral-7b's text stack)
-           and rwkv6-7b, and ``expert_parallel`` the moe family
-           (granite-moe-3b-a800m, arctic-480b) and jamba-1.5-large-398b,
-           at train_4k, prefill_32k and decode_32k: the parameters split
+           codeqwen1.5-7b, qwen1.5-4b, llava-next-mistral-7b's text stack),
+           rwkv6-7b and whisper-medium's encoder-decoder, and
+           ``expert_parallel`` the moe family (granite-moe-3b-a800m,
+           arctic-480b) and jamba-1.5-large-398b, at every shape (whisper's
+           long_500k is skipped, as the reference skips it): the parameters split
            by :mod:`repro_torch.launch.sharding`'s rule table over 'model'
            (Megatron tensor parallelism), AdamW's moments also over the data
            axes (ZeRO-1), the decode cache over 'model' along the sequence;
@@ -27,9 +28,14 @@ artifact names (``layout_name``, and ``layout`` states it):
   prefill  ``sharded_prefill`` of one position's block of rows over its
            row of 'model' positions, without gradients;
   decode   ``sharded_decode_step`` of one position's block of rows on its
-           cache, over its row of 'model' positions, without gradients.
+           cache, over its row of 'model' positions, without gradients;
+           long_500k's one row over every position, its K/V sequence split
+           over the data axes and 'model' (context parallelism: each
+           position's block of 2,048 or 1,024 slots, the TaCo slot
+           selection over the whole sequence repeated at every position,
+           the partial softmax sums merged over all of them).
 
-  replicated  every other cell: a position holds its block of the batch,
+  replicated  no production cell (kept for tests): a position holds its block of the batch,
            B / |dp| rows over the data axes (the whole batch where it does
            not divide, as the reference replicates it), with the whole
            model; the exception is the manual MoE's experts, split over
@@ -109,7 +115,31 @@ LAYOUTS = {
         "w0 and w_lora_b, the WKV over its heads, ln_x's sum of squares all-reduced over "
         "'model' before each position scales its block, wo row blocks) and its channel mix "
         "(wk columns, wv rows, r's column blocks gathered), the WKV state split over the "
-        "heads and the token shifts replicated; kernels counted as their plain versions"),
+        "heads and the token shifts replicated; whisper's encoder layers split as the "
+        "decoder's (non-causal), its output replicated over 'model' (the gradient summed), "
+        "cross-attention's wq columns over the decoder's h and wk/wv columns over the "
+        "encoder's output, wo row blocks; kernels counted as their plain versions"),
+}
+#: what a cell's ``layout`` text adds where its cache is not split along the
+#: sequence over 'model' alone
+CACHE_LAYOUTS = {
+    "cross_frames": (
+        "; the cross cache split over 'model' along the encoder's frames (prefill writes it "
+        "by an all-to-all from the head split; decode merges the positions' partial softmax "
+        "sums over their frames by log-sum-exp)"),
+    "cross_head_dim": (
+        "; the cross cache split over 'model' along head_dim, where |model| does not divide "
+        "the encoder's frames (prefill writes it by an all-to-all from the head split; "
+        "decode sums the positions' partial q.k over their head_dim slices in float32 into "
+        "the whole scores, takes the softmax once and gathers each position's head_dim "
+        "slice of probs.v)"),
+    "context_parallel": (
+        "; context parallelism: the one row's K/V sequence split over the data axes and "
+        "'model', every position serving the row (the projections over 'model' once for all "
+        "data positions; TaCo's mean, basis and centroids gathered whole, its cells "
+        "replicated and the slot selection over the whole sequence done at every position; "
+        "each position attends over the selected slots in its block, one holding none "
+        "adding nothing, and the partial softmax sums merged over all positions)"),
 }
 LAYOUTS["expert_parallel"] = (
     "the tensor_parallel layout for the attention, a dense residual MLP, the embedding and "
@@ -130,12 +160,12 @@ LAYOUTS["expert_parallel"] = (
     "local, x_proj's row-parallel partial sums all-reduced so that every position has the "
     "whole dt, B and C, dt_proj columns, out_proj rows; the conv window and h split over "
     "the inner channels); kernels counted as their plain versions")
-#: the cells the tensor-parallel layout covers (the dense stack's and
-#: RWKV6's) and the expert-parallel one (the moe family's and the hybrid
-#: Mamba stack's)
-TP_FAMILIES = ("dense", "vlm", "ssm")
+#: the cells the tensor-parallel layout covers (the dense stack's, RWKV6's
+#: and the enc-dec stack's) and the expert-parallel one (the moe family's
+#: and the hybrid Mamba stack's)
+TP_FAMILIES = ("dense", "vlm", "ssm", "audio")
 EP_FAMILIES = ("moe", "hybrid")
-TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 def pick_optimizer(arch):
@@ -245,6 +275,9 @@ def build_cell(arch_name: str, shape_name: str, multi_pod: bool, *, mesh=None, a
     }
     if layout != "replicated":
         meta["heads"] = SHD.HeadPlan(ep, arch.n_heads, arch.n_kv_heads).describe()
+        cache = cache_layout(arch, shape, mesh, dp)
+        if cache:
+            meta["layout"] += CACHE_LAYOUTS[cache]
         if arch.n_experts:
             meta["experts"] = (f"whole experts, {arch.n_experts // ep} a position"
                                if arch.n_experts % ep == 0 else
@@ -300,15 +333,29 @@ def _built(run, mesh, dp, meta: dict, arg_bytes: int, block: int) -> Cell:
 
 
 def cell_layout(arch, shape) -> str:
-    """The cell's layout: ``tensor_parallel`` for the dense stack and
-    RWKV6, ``expert_parallel`` for the moe family and the hybrid Mamba
-    stack (jamba), at train_4k, prefill_32k and decode_32k; else
-    ``replicated``."""
+    """The cell's layout: ``tensor_parallel`` for the dense stack, RWKV6
+    and the enc-dec stack, ``expert_parallel`` for the moe family and the
+    hybrid Mamba stack (jamba), at every shape; ``replicated`` for none of
+    the registry's cells (tests narrow these tables to reach it)."""
     if shape.name in TP_SHAPES and arch.family in TP_FAMILIES:
         return "tensor_parallel"
     if shape.name in TP_SHAPES and arch.family in EP_FAMILIES:
         return "expert_parallel"
     return "replicated"
+
+
+def cache_layout(arch, shape, mesh: DeviceMesh, dp) -> str | None:
+    """Which of :data:`CACHE_LAYOUTS` a tensor- or expert-parallel cell's
+    cache has (None: K/V along the sequence over 'model' alone, or no
+    cache): a one-row decode the data positions cannot split is context
+    parallel; an enc-dec config's cross cache is split along the frames
+    where |model| divides them, else along head_dim."""
+    if shape.kind == "decode" and shape.global_batch < axis_size(mesh, dp):
+        return "context_parallel"
+    if arch.encoder_layers and shape.kind != "train":
+        return ("cross_frames" if (arch.frontend_len or 1500) % axis_size(mesh, "model") == 0
+                else "cross_head_dim")
+    return None
 
 
 def _tensor_parallel_step(arch, shape, params, mesh: DeviceMesh, dp, device, meta: dict):
@@ -352,6 +399,10 @@ def _tensor_parallel_step(arch, shape, params, mesh: DeviceMesh, dp, device, met
                                 impl="torch")
         return run, arg_bytes, block
     meta["step_kind"] = "serve_step"
+    if shape.global_batch < n_dp:
+        # a one-row batch: every position serves it, its K/V over the data
+        # axes and 'model' (context parallelism)
+        row, block = mesh, shape.global_batch
     cspecs = SH.sanitize_specs(inputs["cache"], SH.cache_pspecs(inputs["cache"], dp), mesh)
     tspec = SH.sanitize_specs(inputs["tokens"], P(dp, None), mesh)
     arg_bytes = (SH.position_bytes(params, pspecs, mesh)
@@ -361,7 +412,8 @@ def _tensor_parallel_step(arch, shape, params, mesh: DeviceMesh, dp, device, met
     cache = SHD.sharded_init_cache(arch, block, shape.seq_len, row, data_axes=dp,
                                    device="meta" if torch.device(device).type == "meta"
                                    else None)
-    specs = {"tokens": _placed(specs["tokens"], device)}
+    specs = {"tokens": _placed(input_specs(arch, shape, batch_override=block)["tokens"],
+                               device)}
 
     def run():
         SHD.sharded_decode_step(placed, arch, cache, specs["tokens"], shape.seq_len - 1, row,

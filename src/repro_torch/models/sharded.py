@@ -1,6 +1,7 @@
 """Tensor parallelism over 'model' for the dense decoder stack, the moe
-family (expert parallelism over the same axis), RWKV6 and the hybrid
-Mamba stack: the port's
+family (expert parallelism over the same axis), RWKV6, the hybrid Mamba
+stack and whisper's encoder-decoder, and context-parallel decode of a
+one-row batch (TaCo retrieval attention among it): the port's
 counterpart of what GSPMD makes of ``repro.models.model``'s ``forward``,
 ``prefill`` and ``decode_step`` under ``repro.launch.sharding``'s specs
 (:mod:`repro_torch.launch.sharding`).
@@ -58,6 +59,16 @@ position, as Megatron splits a layer:
               positions' float32 sums of squares (``model_sum``), wo row
               blocks. The channel mix: wk columns, wv rows, r's column
               blocks gathered.
+  encoder     whisper's: the frames plus the learned positions and the
+              final norm once a data block (replicated, as the residual
+              stream), each layer's non-causal self-attention and MLP
+              split as the decoder's; its output replicated over the
+              positions (``model_copy``: its gradient is the positions'
+              sum).
+  cross-attn  ``wq`` column blocks of the decoder's h, ``wk``/``wv`` column
+              blocks of the encoder's output, each position's heads through
+              :func:`repro_torch.models.attention.cross_attention` (the
+              flash kernel, non-causal), ``wo`` row blocks.
   Mamba       in_proj's contiguous column blocks re-split to each
               position's x and z channels (an all-to-all), the causal conv
               and the selective scan over the position's inner channels,
@@ -84,11 +95,31 @@ WKV state over the heads, Mamba's conv window and h over the inner
 channels, the token shifts replicated; decode reads and updates them in
 place.
 
+Prefill writes whisper's cross cache as the sanitized specs place it:
+along the encoder's frames where |model| divides them, else along head_dim
+(an all-to-all from the head split either way). Decode reads it as placed:
+along the frames, each position's partial softmax sums over its frames
+merged by ``lse_combine``; along head_dim, each position's q·kᵀ over its
+slice for every head, summed in float32 (``model_sum``) into the whole
+scores, the softmax once, each position's slice of probs·v gathered.
+
+Context parallelism: a decode step's one-row batch that the data positions
+cannot split (long_500k's B = 1) runs as one block served by every
+position, its K/V sequence split over the data axes and 'model' (the first
+axis the major one); the projections run once over 'model' for all data
+positions, and the attention over each position's block of the sequence,
+the partial softmax sums merged over all of them. A TaCo layer
+(:func:`_taco_attention`) gathers the state's mean, basis and centroids
+whole, updates the replicated cells, selects the slots once over the whole
+sequence (:func:`repro_torch.models.taco_attention.select_slots`), and each
+position attends over the selected slots in its block.
+
 The dense stack (attention mixers and dense MLPs, RoPE or none, an
-optional vlm patch prefix; full attention), the moe family's attention
-stack, RWKV6 (the channel mix as its FFN) and the hybrid stack (Mamba and
-attention mixers, dense or MoE FFNs) run here; the enc-dec and TaCo
-layouts raise ``NotImplementedError``.
+optional vlm patch prefix), the moe family's attention stack, RWKV6 (the
+channel mix as its FFN), the hybrid stack (Mamba and attention mixers,
+dense or MoE FFNs) and whisper's encoder-decoder run here with full
+attention, and with TaCo attention in a decode step; anything else raises
+``NotImplementedError`` (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -96,6 +127,7 @@ import dataclasses
 import functools
 import itertools
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
@@ -122,8 +154,9 @@ from repro_torch.mesh import (
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.models import taco_attention as TA
 from repro_torch.models.layers import apply_norm, apply_rope, dense, gelu, rope_angles, silu
-from repro_torch.models.model import ArchConfig, _frontend, init_cache, map_tree
+from repro_torch.models.model import _ENC_SPEC, ArchConfig, _frontend, init_cache, map_tree
 from repro_torch.models.sharding_utils import (
     lse_combine,
     model_copy,
@@ -259,17 +292,32 @@ def cache_specs(cache, mesh: DeviceMesh, data_axes):
 
 
 # ======================================================= the positions ===
-def check_supported(cfg: ArchConfig) -> None:
+def check_supported(cfg: ArchConfig, *, decode: bool = False) -> None:
     """Raise NotImplementedError unless ``cfg`` is a stack this module
     splits: attention, RWKV6 or hybrid (Mamba and attention) mixers with
-    dense MLPs, the channel mix or the MoE, full attention, no encoder."""
+    dense MLPs, the channel mix or the MoE, or whisper's encoder-decoder
+    (an attention stack with an audio frontend); full attention, or TaCo
+    retrieval attention for a decode step (``decode``) of a decoder-only
+    stack."""
     moe_ok = not cfg.n_experts or cfg.family in ("moe", "hybrid")
-    if (cfg.mixer not in ("attn", "rwkv", "hybrid") or not moe_ok or cfg.encoder_layers
-            or cfg.frontend not in (None, "vlm") or cfg.attention_kind != "full"):
+    enc_dec = bool(cfg.encoder_layers)
+    met = []
+    if cfg.mixer not in ("attn", "rwkv", "hybrid") or not moe_ok:
+        met.append(f"mixer {cfg.mixer!r} with {cfg.n_experts} experts in family {cfg.family!r}")
+    if enc_dec and (cfg.frontend != "audio" or cfg.mixer != "attn" or cfg.n_experts):
+        met.append(f"an encoder with frontend {cfg.frontend!r}")
+    if cfg.frontend not in (None, "vlm") and not (enc_dec and cfg.frontend == "audio"):
+        met.append(f"frontend {cfg.frontend!r} without an encoder")
+    if cfg.attention_kind == "taco" and (not decode or enc_dec):
+        met.append("TaCo attention " + ("with an encoder" if enc_dec else
+                                        "outside a decode step (its prefill runs on one device)"))
+    elif cfg.attention_kind not in ("full", "taco"):
+        met.append(f"attention_kind {cfg.attention_kind!r}")
+    if met:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism covers the dense stack (attention and dense "
-            "MLPs, full attention), the moe family's experts, RWKV6 and the hybrid "
-            "Mamba stack; the enc-dec and TaCo layouts are not ported")
+            f"{cfg.name}: {'; '.join(met)}: tensor parallelism covers the dense stack, the "
+            "moe family's experts, RWKV6, the hybrid Mamba stack and whisper's "
+            "encoder-decoder with full attention, and TaCo attention in a decode step")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -416,24 +464,29 @@ def _embed(r: _Row, table: Placed, ids):
 
 
 # ---------------------------------------------------------- attention ---
-def _qkv_columns(r: _Row, p: dict, h):
-    """Each position's column products (q, k, v) of the normed h."""
+def _qkv_columns(r: _Row, p: dict, h, hkv=None):
+    """Each position's column products (q of the normed h, k and v of
+    ``hkv``: h itself, or the encoder's output for cross-attention)."""
     for name in ("wq", "wk", "wv"):
         _check(r, p[name], "column", name)
     leaves = [p[n][k] for n in ("wq", "wk", "wv") for k in ("w", "b") if k in p[n]]
 
-    def cols(m, hm):
+    def cols(m, hm, km=None):
         lp = r.local({n: p[n] for n in ("wq", "wk", "wv")}, m)
-        return tuple(dense(lp[n], hm.to(r.dev(m))) for n in ("wq", "wk", "wv"))
+        dev = r.dev(m)
+        km = hm if km is None else km
+        return (dense(lp["wq"], hm.to(dev)), dense(lp["wk"], km.to(dev)),
+                dense(lp["wv"], km.to(dev)))
 
-    h = model_copy(h)
-    return r.walk(cols, lambda m: (h,), lambda m: [pl.at(r.at(m)) for pl in leaves])
+    ins = (model_copy(h),) if hkv is None else (model_copy(h), model_copy(hkv))
+    return r.walk(cols, lambda m: ins, lambda m: [pl.at(r.at(m)) for pl in leaves])
 
 
-def _heads(r: _Row, cols, rope, b: int, s: int):
+def _heads(r: _Row, cols, rope, b: int, s: int, t: int):
     """The heads gathered over 'model' where a position's column blocks are
-    not whole heads: (q, k, v), q and k with RoPE, each None where the
-    positions' own blocks serve (:class:`HeadPlan`)."""
+    not whole heads: (q (B, S, H, hd), k, v (B, T, Kv, hd)), q and k with
+    RoPE, each None where the positions' own blocks serve
+    (:class:`HeadPlan`)."""
     cfg, plan = r.cfg, r.plan
     hd = cfg.hd
     qf = kf = vf = None
@@ -442,16 +495,19 @@ def _heads(r: _Row, cols, rope, b: int, s: int):
         if rope is not None:
             qf = apply_rope(qf, *rope)
     if not plan.kv_local:
-        kf = model_gather([c[1] for c in cols], -1).reshape(b, s, cfg.n_kv_heads, hd)
-        vf = model_gather([c[2] for c in cols], -1).reshape(b, s, cfg.n_kv_heads, hd)
+        kf = model_gather([c[1] for c in cols], -1).reshape(b, t, cfg.n_kv_heads, hd)
+        vf = model_gather([c[2] for c in cols], -1).reshape(b, t, cfg.n_kv_heads, hd)
         if rope is not None:
             kf = apply_rope(kf, *rope)
     return qf, kf, vf
 
 
-def _core(r: _Row, m: int, cols, qf, kf, vf, rope, b: int, s: int, causal_chunk: int):
-    """Position m's attention core over its query heads: (out (B, S, n·hd),
-    its RoPE'd k and its v where the KV heads are its own)."""
+def _core(r: _Row, m: int, cols, qf, kf, vf, rope, b: int, s: int, t: int, q_chunk: int,
+          kind: str):
+    """Position m's attention core over its query heads (``kind``: 'causal'
+    or 'full' self-attention of S = T tokens, or 'cross' over T others):
+    (out (B, S, n·hd), its RoPE'd k and its v where the KV heads are its
+    own)."""
     cfg, plan = r.cfg, r.plan
     hd, g = cfg.hd, plan.group
     h0, h1 = plan.q_range(m)
@@ -463,8 +519,8 @@ def _core(r: _Row, m: int, cols, qf, kf, vf, rope, b: int, s: int, causal_chunk:
     else:
         q = qf[:, :, h0:h1]
     if plan.kv_local:
-        k_own = cols[1].reshape(b, s, cfg.n_kv_heads // r.n, hd)
-        v_own = cols[2].reshape(b, s, cfg.n_kv_heads // r.n, hd)
+        k_own = cols[1].reshape(b, t, cfg.n_kv_heads // r.n, hd)
+        v_own = cols[2].reshape(b, t, cfg.n_kv_heads // r.n, hd)
         if rope is not None:
             k_own = apply_rope(k_own, *rope)
         k, v = k_own, v_own
@@ -472,26 +528,35 @@ def _core(r: _Row, m: int, cols, qf, kf, vf, rope, b: int, s: int, causal_chunk:
         k, v = _kv_heads(kf, h0, h1, g), _kv_heads(vf, h0, h1, g)
     if h1 <= h0:
         return q.reshape(b, s, 0), k_own, v_own
-    out = A.self_attention(q, k, v, causal=True, q_chunk=causal_chunk, impl=r.impl)
+    if kind == "cross":
+        out = A.cross_attention(q, k, v, impl=r.impl)
+    else:
+        out = A.self_attention(q, k, v, causal=kind == "causal", q_chunk=q_chunk, impl=r.impl)
     return out.reshape(b, s, (h1 - h0) * hd), k_own, v_own
 
 
-def _attention(r: _Row, p: dict, h, rope, cache=None):
-    """Causal self-attention of one data block's normed h (B, S, D) over
-    'model'; with ``cache`` (this group's K/V :class:`Placed` blocks of the
-    row) the RoPE'd K/V are written in its sequence split. Returns the
-    sub-layer's output (B, S, D)."""
+def _attention(r: _Row, p: dict, h, rope, cache=None, *, causal: bool = True, xkv=None):
+    """Self-attention of one data block's normed h (B, S, D) over 'model'
+    (causal, or not: the encoder's), or with ``xkv`` (B, T, D), the
+    encoder's output, cross-attention over it; with ``cache`` (this group's
+    :class:`Placed` blocks of the row) the RoPE'd K/V are written in its
+    sequence split (cross-attention's into ``cross_k``/``cross_v`` in
+    their split, :func:`_write_cross`). Returns the sub-layer's output
+    (B, S, D)."""
     cfg, plan = r.cfg, r.plan
     b, s = h.shape[:2]
+    t = s if xkv is None else xkv.shape[1]
+    kind = "cross" if xkv is not None else "causal" if causal else "full"
     _check(r, p["wo"], "row", "wo")
     qc = cfg.attn_q_chunk or (2048 if s >= 8192 else 0)
     qc = qc if s > qc else 0
-    cols = _qkv_columns(r, p, h)
-    qf, kf, vf = _heads(r, cols, rope, b, s)
+    cols = _qkv_columns(r, p, h, xkv)
+    qf, kf, vf = _heads(r, cols, rope, b, s, t)
     wo = p["wo"]
 
     def core(m, q_m, k_m, v_m, qf_m, kf_m, vf_m):
-        out, k_own, v_own = _core(r, m, (q_m, k_m, v_m), qf_m, kf_m, vf_m, rope, b, s, qc)
+        out, k_own, v_own = _core(r, m, (q_m, k_m, v_m), qf_m, kf_m, vf_m, rope, b, s, t, qc,
+                                  kind)
         if not plan.q_local:
             return out, k_own, v_own
         return dense({"w": wo["w"].at(r.at(m))}, out), k_own, v_own
@@ -516,7 +581,7 @@ def _attention(r: _Row, p: dict, h, rope, cache=None):
             # sequence block of its heads to each other
             kf = model_all_to_all([o[1] for o in outs], 2)
             vf = model_all_to_all([o[2] for o in outs], 2)
-        _write_prompt(r, cache, kf, vf)
+        (_write_prompt if xkv is None else _write_cross)(r, cache, kf, vf)
     return y
 
 
@@ -537,6 +602,35 @@ def _write_prompt(r: _Row, cache: dict, k, v):
 
     even = len({max(0, z - a) for a, z in map(window, range(r.n))}) == 1
     r.walk(lambda m: write(m), lambda m: (), lambda m: [cache["k"].at(r.at(m))], even=even)
+
+
+def _cross_dim(pl: Placed) -> int | None:
+    """Which dimension of a cross cache leaf (a row's group view, (B, T, kv,
+    hd)) is split over 'model': 1 (the encoder's frames) or 3 (head_dim,
+    where the sanitized specs moved the split because |model| does not
+    divide T), None where it is whole; any other split raises
+    NotImplementedError."""
+    split = [i for i, e in enumerate(pl.spec) if MODEL in entry_axes(e)]
+    if any(e is not None and MODEL not in entry_axes(e) for e in pl.spec) or split not in (
+            [], [1], [3]):
+        raise NotImplementedError(f"a cross cache split {pl.spec}: the port reads one split "
+                                  "along the frames or along head_dim")
+    return split[0] if split else None
+
+
+def _write_cross(r: _Row, cache: dict, k, v):
+    """Write the encoder's k, v (B, T, kv, hd) whole into the row's cross
+    cache, each position its block along the frames or along head_dim."""
+    for name in ("cross_k", "cross_v"):
+        _cross_dim(cache[name])
+
+    def write(m):
+        for name, src in (("cross_k", k), ("cross_v", v)):
+            pl = cache[name]
+            dst = pl.at(r.at(m))
+            dst.copy_(block(src, pl.spec, pl.mesh, {MODEL: m}).to(dst.device, dst.dtype))
+
+    r.walk(lambda m: write(m), lambda m: (), lambda m: [cache["cross_k"].at(r.at(m))])
 
 
 # ---------------------------------------------------------------- MLP ---
@@ -934,14 +1028,20 @@ def _mamba(r: _Row, p: dict, h, cache=None, step: bool = False):
 
 
 # ---------------------------------------------------------- the stack ---
-def _sublayer(r: _Row, spec: dict, p: dict, x, rope, cache=None):
+def _sublayer(r: _Row, spec: dict, p: dict, x, rope, cache=None, *, causal: bool = True,
+              enc=None):
     """One sub-layer over a sequence, its mixer by ``spec["mixer"]`` as the
-    reference's ``_apply_sublayer_seq``; with ``cache`` (prefill) each
-    mixer's decode state is written in ``cache_pspecs``' layout."""
+    reference's ``_apply_sublayer_seq`` (with the encoder's output ``enc``
+    an attention sub-layer's cross-attention follows its self-attention);
+    with ``cache`` (prefill) each mixer's decode state is written in
+    ``cache_pspecs``' layout."""
     cfg = r.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     if spec["mixer"] == "attn":
-        x = x + _attention(r, p["attn"], h, rope, cache)
+        x = x + _attention(r, p["attn"], h, rope, cache, causal=causal)
+        if enc is not None and "cross" in p:
+            h = apply_norm(p["ln_x"], x, cfg.norm_eps)
+            x = x + _attention(r, p["cross"], h, None, cache, xkv=enc)
     elif spec["mixer"] == "mamba":
         x = x + _mamba(r, p["mamba"], h, cache)
     else:
@@ -953,13 +1053,18 @@ def _sublayer(r: _Row, spec: dict, p: dict, x, rope, cache=None):
     return x + y, stats
 
 
-def _step_sublayer(r: _Row, spec: dict, p: dict, x, cache: dict, pos_b, rope):
+def _step_sublayer(r: _Row, spec: dict, p: dict, x, cache: dict, pos_b, rope, pos):
     """One sub-layer over one new token x (B, 1, D), its cache updated in
-    place."""
+    place (``pos`` the scalar position a TaCo layer takes)."""
     cfg = r.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     if spec["mixer"] == "attn":
-        x = x + _decode_attention(r, p["attn"], h, cache, pos_b, rope)
+        if cfg.attention_kind == "taco" and "taco" in cache:
+            x = x + _taco_attention(r, p["attn"], h, cache, pos_b, rope, pos)
+        else:
+            x = x + _decode_attention(r, p["attn"], h, cache, pos_b, rope)
+        if "cross" in p and "cross_k" in cache:
+            x = x + _decode_cross(r, p["cross"], apply_norm(p["ln_x"], x, cfg.norm_eps), cache)
     elif spec["mixer"] == "mamba":
         x = x + _mamba(r, p["mamba"], h, cache, step=True)
     else:
@@ -987,50 +1092,83 @@ def _layer_params(gp: dict) -> dict:
     return out
 
 
-def _group(r: _Row, specs, gp, x, rope, caches=None):
-    """The group's sub-layers over x: (x, its MoE layers' routing
-    statistics (n, 2, E), or None without MoE layers)."""
+def _group(r: _Row, specs, gp, x, enc=None, *, rope, caches=None, causal: bool = True):
+    """The group's sub-layers over x (cross-attending ``enc``): (x, its MoE
+    layers' routing statistics (n, 2, E), or None without MoE layers)."""
     stats = []
     for i, spec in enumerate(specs):
         x, st = _sublayer(r, spec, _layer_params(gp[f"l{i}"]), x, rope,
-                          None if caches is None else caches[f"l{i}"])
+                          None if caches is None else caches[f"l{i}"], causal=causal, enc=enc)
         if st is not None:
             stats.append(st)
     return x, torch.stack(stats) if stats else None
 
 
-def _run_stack(r: _Row, params, x, rope, *, remat: bool, caches=None):
-    """(x, the MoE layers' routing statistics (L, 2, E), or None)."""
-    cfg = r.cfg
-    specs = cfg.layer_specs()
-    groups = _groups(params["blocks"], cfg.n_groups)
-    cgroups = None if caches is None else _groups(caches, cfg.n_groups)
+def _stack(r: _Row, blocks, n: int, specs, x, rope, *, remat: bool, caches=None,
+           causal: bool = True, enc=None):
+    """The ``n`` stacked groups of ``blocks`` over x: (x, the MoE layers'
+    routing statistics (L, 2, E), or None)."""
+    groups = _groups(blocks, n)
+    cgroups = None if caches is None else _groups(caches, n)
     stats = []
     for g, gp in enumerate(groups):
-        c = None if cgroups is None else cgroups[g]
+        run = functools.partial(_group, r, specs, gp, rope=rope,
+                                caches=None if cgroups is None else cgroups[g], causal=causal)
         if remat:
             # the whole group is recomputed, as at every position alone (an
             # early stop would end at the last position's last saved input)
             with set_checkpoint_early_stop(False):
-                x, st = checkpoint(functools.partial(_group, r, specs, gp, rope=rope, caches=c),
-                                   x, use_reentrant=False, context_fn=recompute_context)
+                x, st = checkpoint(run, x, enc, use_reentrant=False,
+                                   context_fn=recompute_context)
         else:
-            x, st = _group(r, specs, gp, x, rope, c)
+            x, st = run(x, enc)
         if st is not None:
             stats.append(st)
     return x, torch.cat(stats) if stats else None
 
 
-def _inputs(r: _Row, params, batch: dict, what: str):
-    """(x, n_patches): the block's embeddings behind a vlm's patches."""
+def _run_stack(r: _Row, params, x, rope, *, remat: bool, caches=None, enc=None):
+    """The decoder stack: (x, the MoE layers' routing statistics (L, 2, E),
+    or None)."""
+    cfg = r.cfg
+    return _stack(r, params["blocks"], cfg.n_groups, cfg.layer_specs(), x, rope, remat=remat,
+                  caches=caches, enc=enc)
+
+
+def _encode(r: _Row, params, frames, remat: bool):
+    """whisper's encoder over one data block's frame embeddings (B, T, D):
+    the learned positions added and the final norm taken once, outside the
+    positions (replicated, as the residual stream is); each layer's
+    non-causal self-attention and MLP split over 'model' as the decoder's.
+    The output is replicated over the positions, each position's
+    cross-attention reading it (:func:`model_copy`: its gradient is the sum
+    over the positions)."""
+    cfg = r.cfg
+    enc = params["encoder"]
+    pos = enc["pos"].at({})
+    x = (frames.to(r.home, cfg.cdtype)
+         + pos[None, :frames.shape[1]].to(r.home, cfg.cdtype))
+    x, _ = _stack(r, enc["blocks"], cfg.encoder_layers, [_ENC_SPEC], x, None, remat=remat,
+                  causal=False)
+    return apply_norm(_replicated(enc["norm"]), x, cfg.norm_eps)
+
+
+def _inputs(r: _Row, params, batch: dict, what: str, remat: bool = False):
+    """(x, n_patches, enc): the block's embeddings behind a vlm's patches,
+    with the learned decoder positions where the config has them, and the
+    audio encoder's output (or None)."""
     cfg = r.cfg
     x = _embed(r, params["embed"]["table"], batch["tokens"]).to(cfg.cdtype)
-    patches = _frontend(cfg, batch, what)
-    n_patches = 0
-    if patches is not None:
-        n_patches = patches.shape[1]
-        x = torch.cat([patches.to(x.device, cfg.cdtype), x], dim=1)
-    return x, n_patches
+    inputs = _frontend(cfg, batch, what)
+    n_patches, enc = 0, None
+    if cfg.frontend == "audio":
+        enc = _encode(r, params, inputs, remat)
+    elif inputs is not None:
+        n_patches = inputs.shape[1]
+        x = torch.cat([inputs.to(x.device, cfg.cdtype), x], dim=1)
+    if not cfg.use_rope and "dec_pos" in params:
+        x = x + params["dec_pos"].at({})[None, :x.shape[1]].to(x.device, cfg.cdtype)
+    return x, n_patches, enc
 
 
 def _rope(cfg: ArchConfig, positions):
@@ -1093,31 +1231,55 @@ def _vocab_parallel_cross_entropy(r: _Row, blocks, labels, denom, z_loss: float 
     return loss
 
 
-def _data_blocks(mesh: DeviceMesh, data_axes, batch: dict) -> tuple[int, int]:
+def _data_blocks(mesh: DeviceMesh, data_axes, batch: dict, cache=None):
+    """(blocks, rows a block, the data coordinates of block d). A decode
+    step's one-row batch (``cache`` given) that the data positions cannot
+    split is one block that all of them serve, its coordinates {} (the
+    reference's sanitized spec replicates a (1, 1) token tensor), where the
+    cache allows it (:func:`_one_row_cache`)."""
     n = axis_size(mesh, tuple(data_axes))
     rows = next(iter(batch.values())).shape[0]
-    if rows % n:
-        raise ValueError(f"a batch of {rows} rows does not split over {n} data positions")
-    return n, rows // n
+    if rows % n == 0:
+        return n, rows // n, lambda d: _row_coords(mesh, data_axes, d)
+    if rows == 1 and cache is not None and _one_row_cache(cache, data_axes):
+        return 1, 1, lambda d: {}
+    raise ValueError(f"a batch of {rows} rows does not split over {n} data positions")
 
 
 def _row_coords(mesh, data_axes, d: int) -> dict:
     return mesh.coords([tuple(data_axes)], [d])
 
 
+def _one_row_cache(cache, data_axes) -> bool:
+    """Whether a placed cache serves one row from every data position:
+    each attention layer's K/V sequence split over the data axes and
+    'model' (context parallelism, the first axis the major one), and no
+    leaf's batch split over a data axis (the TaCo state's mean, basis and
+    centroids have no batch)."""
+    for c in cache.values():
+        for name, pl in c.items():
+            if name in ("k", "v") and entry_axes(pl.spec[2]) != (*data_axes, MODEL):
+                return False
+            leaves = ([c[name].cells, c[name].cell_sizes] if name == "taco" else [pl])
+            if any(a in data_axes for leaf in leaves for a in entry_axes(leaf.spec[1])):
+                return False
+    return True
+
+
 def block_loss(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, row: dict, denom, *,
                impl: str = "auto"):
     """One data block's share of the train loss (its rows of ``batch``,
-    {'tokens', 'labels'}, and a vlm's 'patch_embeds'), with its row of
-    'model' positions at ``row``: (a vocab-parallel cross entropy over the
-    head's column blocks, divided by ``denom``; the MoE layers' routing
-    statistics (L, 2, E) for :func:`moe_aux`, or None)."""
+    {'tokens', 'labels'}, a vlm's 'patch_embeds' and an audio config's
+    'frames'), with its row of 'model' positions at ``row``: (a
+    vocab-parallel cross entropy over the head's column blocks, divided by
+    ``denom``; the MoE layers' routing statistics (L, 2, E) for
+    :func:`moe_aux`, or None)."""
     check_supported(cfg)
     r = _Row(cfg, mesh, row, impl)
-    x, n_patches = _inputs(r, params, batch, "forward")
-    x, stats = _run_stack(r, params, x,
-                          _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                          remat=cfg.remat and torch.is_grad_enabled())
+    remat = cfg.remat and torch.is_grad_enabled()
+    x, n_patches, enc = _inputs(r, params, batch, "forward", remat)
+    x, stats = _run_stack(r, params, x, _rope(cfg, torch.arange(x.shape[1], device=x.device)),
+                          remat=remat, enc=enc)
     blocks = [(blk[:, n_patches:], lo) for blk, lo in _head(r, params, x)]
     return _vocab_parallel_cross_entropy(r, blocks, batch["labels"].to(x.device), denom), stats
 
@@ -1129,19 +1291,19 @@ def sharded_forward(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, *,
     gathered over 'model' for the caller; the train step never gathers
     them (:func:`block_loss`)."""
     check_supported(cfg)
-    n, size = _data_blocks(mesh, data_axes, batch)
+    n, size, rows = _data_blocks(mesh, data_axes, batch)
 
     def one(d):
-        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
+        r = _Row(cfg, mesh, rows(d), impl)
         part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
-        x, n_patches = _inputs(r, params, part, "forward")
+        x, n_patches, enc = _inputs(r, params, part, "forward")
         x, stats = _run_stack(r, params, x,
                               _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                              remat=False)
+                              remat=False, enc=enc)
         logits = model_gather([blk for blk, _ in _head(r, params, x)], -1)[:, n_patches:]
         return logits, stats, x.shape[0] * x.shape[1]
 
-    outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one)
+    outs = walk(n, rows, one)
     home = outs[0][0].device
     logits = torch.cat([o.to(home) for o, _, _ in outs])
     if outs[0][1] is None:
@@ -1151,58 +1313,69 @@ def sharded_forward(params, cfg: ArchConfig, batch: dict, mesh: DeviceMesh, *,
 
 # ============================================================ inference ==
 def sharded_init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, mesh: DeviceMesh, *,
-                       data_axes=("data",), device=None) -> dict:
+                       data_axes=("data",), device=None, enc_len: int = 0) -> dict:
     """The decode cache placed in :func:`~repro_torch.launch.sharding.cache_pspecs`'
-    layout (sanitized), zeros made block by block; an attention layer's K/V
-    must come out split over 'model' along the sequence (Mamba's conv and h
-    split over the inner channels, RWKV's WKV state over the heads, the
-    token shifts replicated)."""
-    check_supported(cfg)
-    shapes = init_cache(cfg, batch_size, max_seq, device="meta")
+    layout (sanitized), zeros made block by block (``enc_len``: an enc-dec
+    config's encoder frames, default its ``frontend_len``). An attention
+    layer's K/V must come out split along the sequence over 'model' or, for
+    a one-row batch the data positions do not split, over the data axes and
+    'model' (context parallelism); the cross cache is read along the frames
+    or along head_dim (:func:`_cross_dim`) (Mamba's conv and h split over the inner channels,
+    RWKV's WKV state over the heads, the token shifts and the TaCo state's
+    cells replicated, its mean, basis and centroids as the default rule
+    splits them)."""
+    check_supported(cfg, decode=True)
+    shapes = init_cache(cfg, batch_size, max_seq, enc_len=enc_len, device="meta")
     specs = cache_specs(shapes, mesh, data_axes)
     cache = tree_map(lambda t, s: placed_zeros(t.shape, t.dtype, s, mesh, device), shapes,
                      specs)
+    one_row = batch_size == 1 and axis_size(mesh, tuple(data_axes)) > 1
     for c in cache.values():
         for name in ("k", "v") if "k" in c else ():
             seq = entry_axes(c[name].spec[2])
-            if MODEL not in seq or any(mesh.shape[a] > 1 for a in seq if a != MODEL):
+            sequence = MODEL in seq and all(mesh.shape[a] == 1 for a in seq if a != MODEL)
+            if not sequence and not (one_row and seq == (*data_axes, MODEL)):
                 raise NotImplementedError(
                     f"a cache split {c[name].spec}: sharded decode splits the sequence over "
-                    "'model' alone (a one-row batch's context parallelism over the data axes "
-                    "is not ported)")
+                    "'model', or a one-row batch's over the data axes and 'model'")
     return cache
 
 
 def sharded_prefill(params, cfg: ArchConfig, batch: dict, max_seq: int, mesh: DeviceMesh, *,
                     data_axes=("data",), impl: str = "auto"):
     """``prefill`` over placed parameters: (last logits (B, 1, V) float32,
-    the cache placed in ``cache_pspecs``' layout, written)."""
+    the cache placed in ``cache_pspecs``' layout, written; an enc-dec
+    config's cross cache along the frames or along head_dim, as the mesh
+    sanitizes it)."""
     check_supported(cfg)
-    n, size = _data_blocks(mesh, data_axes, batch)
+    n, size, rows = _data_blocks(mesh, data_axes, batch)
     on_meta = next(iter(params["embed"]["table"].blocks.values())).is_meta
+    enc_len = batch["frames"].shape[1] if cfg.frontend == "audio" and "frames" in batch else 0
     cache = sharded_init_cache(cfg, n * size, max_seq, mesh, data_axes=data_axes,
-                               device="meta" if on_meta else None)
+                               device="meta" if on_meta else None, enc_len=enc_len)
 
     def one(d):
-        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), impl)
+        r = _Row(cfg, mesh, rows(d), impl)
         part = {k: v[d * size:(d + 1) * size].to(r.home) for k, v in batch.items()}
-        x, _ = _inputs(r, params, part, "prefill")
+        x, _, enc = _inputs(r, params, part, "prefill")
         x, _stats = _run_stack(r, params, x,
                                _rope(cfg, torch.arange(x.shape[1], device=x.device)),
-                               remat=False, caches=_row_view(cache, r))
+                               remat=False, caches=_row_view(cache, r), enc=enc)
         blocks = _head(r, params, x[:, -1:])
         return model_gather([blk for blk, _ in blocks], -1)
 
     with torch.no_grad():
-        outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one,
-                    lambda d: [v[d * size:(d + 1) * size] for v in batch.values()])
+        outs = walk(n, rows, one, lambda d: [v[d * size:(d + 1) * size] for v in batch.values()])
     home = outs[0].device
     return torch.cat([o.to(home) for o in outs]), cache
 
 
 def _row_view(cache, r: _Row):
     """The cache tree with each :class:`Placed` cut to the row's blocks
-    (keys over 'model' only), so the group views index one row."""
+    (keys over 'model' only), so the group views index one row. Left
+    whole: a one-row batch's K/V (context parallelism: their blocks over
+    the data axes and 'model') and the TaCo state's mean, basis and
+    centroids (gathered where a step reads them)."""
     def cut(pl: Placed) -> Placed:
         spec = tuple(MODEL if MODEL in entry_axes(e) else None for e in pl.spec)
         if MODEL not in spec:  # replicated over 'model' (RWKV's token shifts)
@@ -1210,7 +1383,19 @@ def _row_view(cache, r: _Row):
         blocks = {(m,): pl.at(r.at(m)) for m in range(r.n)}
         return Placed(spec, pl.shape, pl.dtype, pl.mesh, blocks)
 
-    return tree_map(cut, cache)
+    def layer(c: dict) -> dict:
+        out = {}
+        for name, leaf in c.items():
+            if name == "taco":
+                out[name] = dataclasses.replace(leaf, cells=cut(leaf.cells),
+                                                cell_sizes=cut(leaf.cell_sizes))
+            elif name in ("k", "v") and not r.row:
+                out[name] = leaf
+            else:
+                out[name] = cut(leaf)
+        return out
+
+    return {name: layer(c) for name, c in cache.items()}
 
 
 def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh: DeviceMesh, *,
@@ -1218,59 +1403,115 @@ def sharded_decode_step(params, cfg: ArchConfig, cache: dict, tokens, pos, mesh:
     """``decode_step`` over placed parameters and a cache in
     ``cache_pspecs``' layout: (logits (B, 1, V) float32, cache), the new
     token's K/V written in place into the position that owns ``pos`` (an
-    int, or a (B,) tensor per sequence)."""
-    check_supported(cfg)
-    n, size = _data_blocks(mesh, data_axes, {"tokens": tokens})
+    int, or a (B,) tensor per sequence; one scalar for TaCo attention, as
+    on one device). A one-row batch whose K/V sequence is split over the
+    data axes and 'model' runs as one block over every position
+    (:func:`_data_blocks`): its projections over 'model' once for all data
+    positions, its attention over each position's block of the
+    sequence."""
+    check_supported(cfg, decode=True)
+    n, size, rows = _data_blocks(mesh, data_axes, {"tokens": tokens}, cache)
+    if cfg.attention_kind == "taco":
+        if (pos.dim() if torch.is_tensor(pos) else np.ndim(pos)) > 0:
+            raise ValueError("TaCo decode takes one scalar pos for the whole batch, as on one "
+                             "device")
+        pos = int(pos)
 
     def one(d):
-        r = _Row(cfg, mesh, _row_coords(mesh, data_axes, d), "torch")
+        r = _Row(cfg, mesh, rows(d), "torch")
         toks = tokens[d * size:(d + 1) * size].to(r.home)
         pos_b = torch.as_tensor(pos, dtype=torch.long, device=r.home)
         if pos_b.dim():
             pos_b = pos_b[d * size:(d + 1) * size]
         pos_b = pos_b.expand(size)
         x = _embed(r, params["embed"]["table"], toks).to(cfg.cdtype)
+        if not cfg.use_rope and "dec_pos" in params:
+            x = x + params["dec_pos"].at({})[pos_b.to(x.device)][:, None].to(cfg.cdtype)
         rope = _rope(cfg, pos_b[:, None])
         caches = _groups(_row_view(cache, r), cfg.n_groups)
         for g, gp in enumerate(_groups(params["blocks"], cfg.n_groups)):
             for i, spec in enumerate(cfg.layer_specs()):
                 x = _step_sublayer(r, spec, _layer_params(gp[f"l{i}"]), x, caches[g][f"l{i}"],
-                                   pos_b, rope)
+                                   pos_b, rope, pos)
         blocks = _head(r, params, x)
         return model_gather([blk for blk, _ in blocks], -1)
 
     with torch.no_grad():
-        outs = walk(n, lambda d: _row_coords(mesh, data_axes, d), one,
-                    lambda d: [tokens[d * size:(d + 1) * size]])
+        outs = walk(n, rows, one, lambda d: [tokens[d * size:(d + 1) * size]])
     home = outs[0].device
     return torch.cat([o.to(home) for o in outs]), cache
+
+
+def _seq_blocks(r: _Row, pl: Placed) -> list:
+    """The blocks of a K/V leaf (a group view of the row's cache, (B, S,
+    kv, hd)) in sequence order: [(the owning position's coordinates, the
+    block's first slot, the block's key)], the sequence split over 'model'
+    or, for a one-row batch, over the data axes and 'model'."""
+    out = []
+    for key in pl.keys():
+        coords = pl.coords(key)
+        start = block_slices(pl.shape, pl.spec, pl.mesh, coords)[1].start
+        out.append(({**r.row, **coords}, start, key))
+    return sorted(out, key=lambda e: e[1])
+
+
+def _decode_qkv(r: _Row, p: dict, h, rope):
+    """The new token's q (B, 1, H, hd), k and v (B, 1, Kv, hd): the column
+    blocks gathered over 'model', q and k with RoPE."""
+    cfg = r.cfg
+    b = h.shape[0]
+    cols = _qkv_columns(r, p, h)
+    q = model_gather([c[0] for c in cols], -1).reshape(b, 1, cfg.n_heads, cfg.hd)
+    k = model_gather([c[1] for c in cols], -1).reshape(b, 1, cfg.n_kv_heads, cfg.hd)
+    v = model_gather([c[2] for c in cols], -1).reshape(b, 1, cfg.n_kv_heads, cfg.hd)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    return q, k, v
+
+
+def _write_token(ck, cv, k, v, pos_b, start: int):
+    """The new token's k, v (B, 1, Kv, hd) written at ``pos_b`` into a
+    sequence block starting at ``start``: a masked write at every block
+    (each position does the same work; the one that owns ``pos_b`` keeps
+    it)."""
+    size = ck.shape[1]
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    local = pos_b.to(ck.device) - start
+    here = (local >= 0) & (local < size)
+    slot = local.clamp(0, size - 1)
+    for dst, new in ((ck, k), (cv, v)):
+        dst[rows, slot] = torch.where(here[:, None, None], new[:, 0].to(dst.device, dst.dtype),
+                                      dst[rows, slot])
+
+
+def _out_rows(r: _Row, wo: dict, out, dtype):
+    """``wo``'s row blocks over the whole attention output (B, 1, H·hd):
+    each position's rows of it, the partial sums through ``model_sum``."""
+    rows_per = out.shape[-1] // r.n
+
+    def proj(m, o):
+        return dense({"w": wo["w"].at(r.at(m))}, o[..., m * rows_per:(m + 1) * rows_per])
+
+    partials = r.walk(proj, lambda m: (out,), lambda m: [wo["w"].at(r.at(m))])
+    return _row_sum(partials, _bias(wo, dtype), dtype)
 
 
 def _decode_attention(r: _Row, p: dict, h, cache: dict, pos_b, rope):
     """One new token's attention over the sequence-split cache."""
     cfg = r.cfg
     b = h.shape[0]
-    hd, heads, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    heads, hd = cfg.n_heads, cfg.hd
     _check(r, p["wo"], "row", "wo")
-    cols = _qkv_columns(r, p, h)
-    q = model_gather([c[0] for c in cols], -1).reshape(b, 1, heads, hd)
-    k = model_gather([c[1] for c in cols], -1).reshape(b, 1, kv, hd)
-    v = model_gather([c[2] for c in cols], -1).reshape(b, 1, kv, hd)
-    if rope is not None:
-        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    rows = torch.arange(b, device=h.device)
+    q, k, v = _decode_qkv(r, p, h, rope)
+    blocks = _seq_blocks(r, cache["k"])
 
-    def part(m):
-        ck, cv = cache["k"].at(r.at(m)), cache["v"].at(r.at(m))
+    def part(i):
+        _coords, start, key = blocks[i]
+        ck, cv = cache["k"].blocks[key], cache["v"].blocks[key]
         size = ck.shape[1]
-        local = pos_b.to(ck.device) - m * size
-        here = (local >= 0) & (local < size)
-        slot = local.clamp(0, size - 1)
-        for dst, new in ((ck, k), (cv, v)):
-            dst[rows, slot] = torch.where(here[:, None, None], new[:, 0].to(dst.dtype),
-                                          dst[rows, slot])
+        _write_token(ck, cv, k, v, pos_b, start)
         scores = A.gqa_scores(q.to(ck.device), ck).to(torch.float32)  # (B,Kv,G,1,size)
-        seen = (m * size + torch.arange(size, device=ck.device)[None, :]
+        seen = (start + torch.arange(size, device=ck.device)[None, :]
                 <= pos_b.to(ck.device)[:, None])
         scores = torch.where(seen[:, None, None, None, :], scores, A.NEG_INF)
         mx = scores.amax(-1, keepdim=True)
@@ -1278,16 +1519,136 @@ def _decode_attention(r: _Row, p: dict, h, cache: dict, pos_b, rope):
         num = torch.einsum("bkgst,btkd->bkgsd", e.to(q.dtype), cv)
         return mx, e.sum(-1, keepdim=True), num
 
-    parts = r.walk(lambda m: part(m), lambda m: (),
-                   lambda m: [q, cache["k"].at(r.at(m)), cache["v"].at(r.at(m))])
+    parts = walk(len(blocks), lambda i: blocks[i][0], part,
+                 lambda i: [q, cache["k"].blocks[blocks[i][2]], cache["v"].blocks[blocks[i][2]]])
     out = lse_combine(parts)  # (B, Kv, G, 1, hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, heads * hd).to(h.dtype)
-    rows_per = heads * hd // r.n
-    wo = p["wo"]
+    return _out_rows(r, p["wo"], out, h.dtype)
 
-    def proj(m, o):
-        return dense({"w": wo["w"].at(r.at(m))}, o[..., m * rows_per:(m + 1) * rows_per])
 
-    partials = r.walk(proj, lambda m: (out,), lambda m: [wo["w"].at(r.at(m))])
-    return _row_sum(partials, _bias(wo, h.dtype), h.dtype)
+def _decode_cross(r: _Row, p: dict, h, cache: dict):
+    """One new token's cross-attention (h normed by ``ln_x``) over the
+    row's cross cache as it is placed. Along the frames: each position's
+    partial softmax sums over its frames, merged by ``lse_combine``. Along
+    head_dim: each position's q·kᵀ over its head_dim slice for every head,
+    summed in float32 through ``model_sum`` into the whole scores, the
+    softmax taken once (every position holds the scores), each position's
+    head_dim slice of probs·v gathered. Then ``wo``'s row blocks."""
+    cfg = r.cfg
+    b = h.shape[0]
+    heads, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = heads // kv
+    _check(r, p["wq"], "column", "wq")
+    _check(r, p["wo"], "row", "wo")
+    ck_pl, cv_pl = cache["cross_k"], cache["cross_v"]
+    dim = _cross_dim(ck_pl)
+    hc = model_copy(h)
+    leaves = [p["wq"][k] for k in ("w", "b") if k in p["wq"]]
+    cols = r.walk(lambda m, hm: dense(r.local({"wq": p["wq"]}, m)["wq"], hm.to(r.dev(m))),
+                  lambda m: (hc,), lambda m: [pl.at(r.at(m)) for pl in leaves])
+    q = model_gather(cols, -1).reshape(b, 1, heads, hd)
+    if dim != 3:
+        def part(m, qm):
+            ck, cv = ck_pl.at(r.at(m)), cv_pl.at(r.at(m))
+            scores = A.gqa_scores(qm.to(ck.device), ck).to(torch.float32)  # (B,Kv,G,1,Tm)
+            mx = scores.amax(-1, keepdim=True)
+            e = torch.exp(scores - mx)
+            num = torch.einsum("bkgst,btkd->bkgsd", e.to(qm.dtype), cv)
+            return mx, e.sum(-1, keepdim=True), num
 
+        parts = r.walk(part, lambda m: (q,),
+                       lambda m: [ck_pl.at(r.at(m)), cv_pl.at(r.at(m))])
+        out = lse_combine(parts).permute(0, 3, 1, 2, 4)  # (B, 1, Kv, G, hd)
+    else:
+        width = hd // r.n
+        qg = q.reshape(b, 1, kv, g, hd)
+
+        def scores(m, qm):
+            ck = ck_pl.at(r.at(m))
+            qs = qm[..., m * width:(m + 1) * width].to(ck.device, torch.float32)
+            return torch.einsum("bskgd,btkd->bkgst", qs, ck.to(torch.float32))
+
+        partial = r.walk(scores, lambda m: (qg,), lambda m: [ck_pl.at(r.at(m))])
+        probs = torch.softmax(model_sum(partial) * hd**-0.5, dim=-1).to(q.dtype)
+
+        def values(m, pm):
+            cv = cv_pl.at(r.at(m))
+            return torch.einsum("bkgst,btkd->bskgd", pm.to(cv.device), cv)
+
+        out = model_gather(r.walk(values, lambda m: (probs,), lambda m: [cv_pl.at(r.at(m))]),
+                           -1)  # (B, 1, Kv, G, hd)
+    out = out.reshape(b, 1, heads * hd).to(h.dtype)
+    return _out_rows(r, p["wo"], out, h.dtype)
+
+
+def _gathered(pl: Placed) -> torch.Tensor:
+    """A leaf split over the data axes (the TaCo state's mean, basis and
+    centroids) whole: its blocks gathered once for the step, an
+    all-gather of the whole leaf (nothing moves where it has one
+    block)."""
+    if len(pl.blocks) == 1:
+        return next(iter(pl.blocks.values()))
+    with one_pass() as moves:
+        first = next(iter(pl.blocks.values()))
+        out = torch.empty(pl.shape, dtype=pl.dtype, device=first.device)
+        for key, blk in pl.blocks.items():
+            out[block_slices(pl.shape, pl.spec, pl.mesh, pl.coords(key))] = blk.to(out.device)
+        moves(first, out)
+    tally("all-gather", tensor_bytes(out))
+    return out
+
+
+def _taco_attention(r: _Row, p: dict, h, cache: dict, pos_b, rope, pos: int):
+    """One new token's TaCo retrieval attention over the sequence-split
+    cache (:func:`repro_torch.models.taco_attention.taco_decode_attention`
+    step by step): q, k, v gathered with RoPE at ``pos``; the new K/V
+    written into the owning position; the state's mean, basis and centroids
+    gathered whole; the new key's cells and their counts in the one
+    replicated copy of ``cells`` and ``cell_sizes``; then once, outside the
+    positions, over the whole sequence, the slot selection
+    (:func:`~repro_torch.models.taco_attention.select_slots`). Each
+    position gathers the selected slots that fall in its block and returns
+    (max, sum, numerator) over them; one that holds none returns (NEG_INF,
+    0, 0), which adds nothing to ``lse_combine``. Then ``wo``'s row
+    blocks."""
+    cfg, rc = r.cfg, r.cfg.retrieval
+    b = h.shape[0]
+    heads, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = heads // kv
+    _check(r, p["wo"], "row", "wo")
+    q, k, v = _decode_qkv(r, p, h, rope)
+    st = cache["taco"]
+    state = TA.RetrievalState(mean=_gathered(st.mean), basis=_gathered(st.basis),
+                              centroids=_gathered(st.centroids), cells=st.cells.at(r.at(0)),
+                              cell_sizes=st.cell_sizes.at(r.at(0)))
+    TA.insert_key(state, k, pos, rc)
+    top_idx, sel_valid = TA.select_slots(q, state, pos, rc, cache["k"].shape[1])
+    c = top_idx.shape[-1]
+    blocks = _seq_blocks(r, cache["k"])
+    qg = q.reshape(b, 1, kv, g, hd).permute(0, 2, 3, 1, 4)
+
+    def part(i):
+        _coords, start, key = blocks[i]
+        ck, cv = cache["k"].blocks[key], cache["v"].blocks[key]
+        size, dev = ck.shape[1], ck.device
+        _write_token(ck, cv, k, v, pos_b, start)
+        local = top_idx.to(dev) - start
+        inside = ((local >= 0) & (local < size) & sel_valid.to(dev))[..., None, :]
+        at = local.clamp(0, size - 1)[..., None].expand(b, kv, g, c, hd)
+        gk = torch.gather(ck.transpose(1, 2)[:, :, None].expand(b, kv, g, size, hd), 3, at)
+        gv = torch.gather(cv.transpose(1, 2)[:, :, None].expand(b, kv, g, size, hd), 3, at)
+        # the one-device path's rounding: q in the cache dtype, the products in float32
+        scores = torch.einsum("bkgsd,bkgcd->bkgsc", qg.to(dev, ck.dtype).to(torch.float32),
+                              gk.to(torch.float32)) * (hd**-0.5)
+        scores = torch.where(inside, scores, TA.NEG_INF)
+        mx = scores.amax(-1, keepdim=True)  # NEG_INF where the block holds no selected slot
+        e = torch.where(inside, torch.exp(scores - mx), 0.0)
+        num = torch.einsum("bkgsc,bkgcd->bkgsd", e.to(q.dtype), gv)
+        return mx, e.sum(-1, keepdim=True), num
+
+    parts = walk(len(blocks), lambda i: blocks[i][0], part,
+                 lambda i: [qg, top_idx, cache["k"].blocks[blocks[i][2]],
+                            cache["v"].blocks[blocks[i][2]]])
+    out = lse_combine(parts)  # (B, Kv, G, 1, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, heads * hd).to(h.dtype)
+    return _out_rows(r, p["wo"], out, h.dtype)

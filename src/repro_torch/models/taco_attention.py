@@ -157,6 +157,65 @@ def _top_c(key: torch.Tensor, c: int) -> torch.Tensor:
     return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :c]
 
 
+def insert_key(state: RetrievalState, k: torch.Tensor, pos: int, rcfg: RetrievalConfig):
+    """Index maintenance, a streaming insert: the new key k (B, 1, Kv, hd)
+    assigned to its IMI cell in each subspace, written at ``cells[..., pos]``
+    and counted in ``cell_sizes`` (in place)."""
+    b, _, n_kv, _ = k.shape
+    dev = k.device
+    tk_new = _transform_heads(k.transpose(1, 2), state.mean, state.basis)  # (B,Kv,1,m)
+    views = _subspace_views(tk_new[:, :, 0], rcfg)  # (B, Kv, N_s, 2, sh)
+    d_new = torch.sum(
+        (views[:, :, :, :, None, :] - state.centroids[None]) ** 2, dim=-1
+    )  # (B, Kv, N_s, 2, sqrt_k)
+    a_new = torch.argmin(d_new, dim=-1)  # (B, Kv, N_s, 2)
+    a1n, a2n = a_new[..., 0], a_new[..., 1]
+    state.cells[..., pos] = (a1n * rcfg.sqrt_k + a2n).to(torch.int32)
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    kidx = torch.arange(n_kv, device=dev)[None, :, None]
+    sidx = torch.arange(rcfg.n_subspaces, device=dev)[None, None, :]
+    state.cell_sizes[bidx, kidx, sidx, a1n, a2n] += 1
+
+
+def select_slots(q: torch.Tensor, state: RetrievalState, pos: int, rcfg: RetrievalConfig,
+                 s_max: int):
+    """The query-side TaCo over all ``s_max`` cache slots for q (B, 1, H,
+    hd): (the top C slots (B, Kv, G, C) by (SC, -distance proxy), the
+    recent window forced in, ties to the lower slot; whether each selected
+    slot holds a cached token, slot <= pos (B, Kv, G, C))."""
+    b, _, n_heads, head_dim = q.shape
+    n_kv = state.mean.shape[0]
+    g = n_heads // n_kv
+    dev = q.device
+    # per-subspace centroid distances + activation taus
+    tq = _transform_heads(q.reshape(b, n_kv, g, head_dim), state.mean, state.basis)
+    qviews = _subspace_views(tq, rcfg)  # (B, Kv, G, N_s, 2, sh)
+    dq = torch.sum(
+        (qviews[:, :, :, :, :, None, :] - state.centroids[None, :, None]) ** 2, dim=-1
+    )  # (B, Kv, G, N_s, 2, sqrt_k)
+    d1, d2 = dq[..., 0, :], dq[..., 1, :]  # (B, Kv, G, N_s, sqrt_k)
+    # the reference's f32 product alpha * (pos + 1)
+    alpha_n = float(np.float32(rcfg.alpha) * (np.float32(pos) + np.float32(1.0)))
+    tau, _ = sort_activation(d1, d2, state.cell_sizes[:, :, None], alpha_n)  # (B,Kv,G,N_s)
+
+    # SC-scores + distance-proxy tie-break over all cache slots: one gather
+    # against the flattened (sqrt_k^2,) cell-sum table per (head, subspace)
+    table = (d1[..., :, None] + d2[..., None, :]).flatten(-2)  # (B, Kv, G, N_s, K)
+    cells = state.cells[:, :, None].expand(b, n_kv, g, rcfg.n_subspaces, s_max)
+    sums = torch.gather(table, -1, cells.long())  # (B, Kv, G, N_s, S)
+    sc = torch.sum(sums <= tau[..., None], dim=3).to(torch.float32)  # (B,Kv,G,S)
+    proxy = torch.sum(sums, dim=3)
+    proxy = proxy / (torch.amax(proxy, dim=-1, keepdim=True) + 1.0)
+    key = sc - proxy
+    slot = torch.arange(s_max, device=dev)
+    valid = slot <= pos
+    recent = slot > (pos - rcfg.recent_window)
+    key = torch.where(valid & recent, key + 1e4, key)  # force recency window in
+    key = torch.where(valid, key, NEG_INF)
+    top_idx = _top_c(key, min(rcfg.n_retrieve, s_max))  # (B, Kv, G, C)
+    return top_idx, valid[top_idx]
+
+
 def taco_decode_attention(
     p,
     x_new: torch.Tensor,  # (B, 1, D)
@@ -194,49 +253,8 @@ def taco_decode_attention(
         k = apply_rope(k, cos, sin)
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-
-    # --- index-maintain: assign the new key into IMI cells (streaming insert)
-    tk_new = _transform_heads(k.transpose(1, 2), state.mean, state.basis)  # (B,Kv,1,m)
-    views = _subspace_views(tk_new[:, :, 0], rcfg)  # (B, Kv, N_s, 2, sh)
-    d_new = torch.sum(
-        (views[:, :, :, :, None, :] - state.centroids[None]) ** 2, dim=-1
-    )  # (B, Kv, N_s, 2, sqrt_k)
-    a_new = torch.argmin(d_new, dim=-1)  # (B, Kv, N_s, 2)
-    a1n, a2n = a_new[..., 0], a_new[..., 1]
-    state.cells[..., pos] = (a1n * rcfg.sqrt_k + a2n).to(torch.int32)
-    bidx = torch.arange(b, device=dev)[:, None, None]
-    kidx = torch.arange(n_kv, device=dev)[None, :, None]
-    sidx = torch.arange(rcfg.n_subspaces, device=dev)[None, None, :]
-    state.cell_sizes[bidx, kidx, sidx, a1n, a2n] += 1
-
-    # --- query-side TaCo: per-subspace centroid distances + activation taus
-    tq = _transform_heads(q.reshape(b, n_kv, g, head_dim), state.mean, state.basis)
-    qviews = _subspace_views(tq, rcfg)  # (B, Kv, G, N_s, 2, sh)
-    dq = torch.sum(
-        (qviews[:, :, :, :, :, None, :] - state.centroids[None, :, None]) ** 2, dim=-1
-    )  # (B, Kv, G, N_s, 2, sqrt_k)
-    d1, d2 = dq[..., 0, :], dq[..., 1, :]  # (B, Kv, G, N_s, sqrt_k)
-    # the reference's f32 product alpha * (pos + 1)
-    alpha_n = float(np.float32(rcfg.alpha) * (np.float32(pos) + np.float32(1.0)))
-    tau, _ = sort_activation(d1, d2, state.cell_sizes[:, :, None], alpha_n)  # (B,Kv,G,N_s)
-
-    # --- SC-scores + distance-proxy tie-break over all cache slots: one
-    # gather against the flattened (sqrt_k^2,) cell-sum table per (head,
-    # subspace)
-    table = (d1[..., :, None] + d2[..., None, :]).flatten(-2)  # (B, Kv, G, N_s, K)
-    cells = state.cells[:, :, None].expand(b, n_kv, g, rcfg.n_subspaces, s_max)
-    sums = torch.gather(table, -1, cells.long())  # (B, Kv, G, N_s, S)
-    sc = torch.sum(sums <= tau[..., None], dim=3).to(torch.float32)  # (B,Kv,G,S)
-    proxy = torch.sum(sums, dim=3)
-    proxy = proxy / (torch.amax(proxy, dim=-1, keepdim=True) + 1.0)
-    key = sc - proxy
-    slot = torch.arange(s_max, device=dev)
-    valid = slot <= pos
-    recent = slot > (pos - rcfg.recent_window)
-    key = torch.where(valid & recent, key + 1e4, key)  # force recency window in
-    key = torch.where(valid, key, NEG_INF)
-
-    top_idx = _top_c(key, min(rcfg.n_retrieve, s_max))  # (B, Kv, G, C)
+    insert_key(state, k, pos, rcfg)
+    top_idx, sel_valid = select_slots(q, state, pos, rcfg, s_max)
 
     # --- gather K/V rows and attend exactly over them (payloads in the cache
     # dtype; the scores accumulate in float32)
@@ -251,8 +269,7 @@ def taco_decode_attention(
     # einsum with preferred_element_type=float32
     scores = torch.einsum("bkgsd,bkgcd->bkgsc", qg.to(torch.float32),
                           gk.to(torch.float32)) * (head_dim**-0.5)
-    sel_valid = valid[top_idx][..., None, :]
-    scores = torch.where(sel_valid, scores, NEG_INF)
+    scores = torch.where(sel_valid[..., None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x_new.dtype)
     out = torch.einsum("bkgsc,bkgcd->bkgsd", probs, gv)  # (B,Kv,G,1,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, n_heads * head_dim)

@@ -25,14 +25,15 @@ CPU.
   decode_32k) and the expert-parallel ones (the moe family's, gspmd's
   whole-batch aux and both expert splits) at tiny shapes, counted on CPU
   tensors and on meta tensors with representatives: equal exactly. The
-  moe family's six cells and rwkv6's and jamba's (rwkv6 tensor-parallel,
-  jamba expert-parallel) on both production meshes: argument bytes
-  pinned, every one fitting a card; whisper's cells and every long_500k
-  stay replicated, their bytes pinned. Smoke train cells on a small meta
-  mesh, their payloads pinned: the dense stack's and rwkv6's
-  tensor-parallel ones, jamba's expert-parallel one, and the replicated
-  layout's on whisper (and on jamba with the moe family's layout choice
-  narrowed to the moe family, for the replicated MoE).
+  moe family's six cells, rwkv6's and jamba's (rwkv6 tensor-parallel,
+  jamba expert-parallel), whisper's three (tensor-parallel, the cross
+  cache along the frames or head_dim) and every long_500k (context
+  parallel) on both production meshes: argument bytes pinned, every one
+  fitting a card; no production cell is replicated. Smoke train cells on
+  a small meta mesh, their payloads pinned: the dense stack's, rwkv6's and
+  whisper's tensor-parallel ones, jamba's expert-parallel one, and the
+  replicated layout's on whisper and on jamba (each family's layout choice
+  narrowed for the test).
 * granite-3-2b x decode_32k beside the reference's dry run in a subprocess
   (``param_count``, ``step_kind``, ``n_devices``; the argument bytes equal,
   the flops within 0.8-1.25x), and a smoke config's tensor-parallel train
@@ -399,13 +400,15 @@ def test_smoke_train_cell_on_a_small_meta_mesh():
     assert meta["represented_positions"] == 3 + walks == 156
 
 
-def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
-    """count_cell at train_4k with the smoke whisper-medium (the enc-dec
-    stack stays in the replicated layout) over the same (data 4, model 2)
-    meta mesh: a position holds 256 / 4 rows and the whole model, the
-    gradient sum is one all-reduce of each leaf's bytes (uncompressed f32),
-    three data shards are represented by the first, and the artifact's
-    fields are filled."""
+def test_smoke_replicated_train_cell_on_a_small_meta_mesh(monkeypatch):
+    """count_cell at train_4k with the smoke whisper-medium in the
+    replicated layout (the enc-dec stack is tensor-parallel now, so the
+    layout choice is narrowed to the other families, TP_FAMILIES, for this
+    test) over the same (data 4, model 2) meta mesh: a position holds 256 /
+    4 rows and the whole model, the gradient sum is one all-reduce of each
+    leaf's bytes (uncompressed f32), three data shards are represented by
+    the first, and the artifact's fields are filled."""
+    monkeypatch.setattr(dryrun, "TP_FAMILIES", ("dense", "vlm", "ssm"))
     mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
     cfg = get_smoke("whisper-medium")
     h, meta = dryrun.count_cell("whisper-medium", "train_4k", False, mesh=mesh, arch=cfg)
@@ -419,6 +422,54 @@ def test_smoke_replicated_train_cell_on_a_small_meta_mesh():
     assert h["collective_counts"]["reduce-scatter"] == h["collective_counts"]["all-gather"] == 0
     assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
     assert meta["represented_positions"] == 3
+
+
+def test_smoke_enc_dec_train_cell_on_a_small_meta_mesh():
+    """count_cell at train_4k with the smoke whisper-medium over the (data
+    4, model 2) meta mesh, the tensor-parallel layout: a position runs 256 /
+    4 rows of 4096 tokens over 16 frames. Per position: a reduce-scatter of
+    each leaf's gradient into its ZeRO-1 slice and an all-gather of the
+    updated slices; the all-reduces of tensor parallelism: the embedding's
+    sum; each decoder layer's self-attention, cross-attention and MLP sums
+    twice (forward and remat's recompute) and the gradients of their
+    replicated inputs (the normed h of each, and the encoder's output that
+    cross-attention reads: 4); each encoder layer's attention and MLP sums
+    twice and their inputs' gradients (2); the head's input gradient, the
+    loss's max and its sums, and the global norm's 4 bytes."""
+    mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+    cfg = get_smoke("whisper-medium")
+    h, meta = dryrun.count_cell("whisper-medium", "train_4k", False, mesh=mesh, arch=cfg)
+    params = TM.meta_params(cfg)
+    leaves = tree_flatten(params)[0]
+    specs = SHD.param_specs(params, mesh)
+    state = TrainState(params=params, opt_state=adamw()[0](params),
+                       step=torch.zeros((), dtype=torch.int32))
+    moments = tree_flatten(SH.sanitize_specs(state, SH.train_state_pspecs(
+        state, ("data",), mesh), mesh).opt_state.m)[0]
+    # the biases split over 'model' (qkv's) have no free dimension that
+    # divides by 4: their gradient sum is an all-reduce of their block
+    zero = [any("data" in entry_axes(e) for e in m) for m in moments]
+    sizes = [tensor_bytes(t) // (2 if "model" in s else 1)
+             for t, s in zip(leaves, tree_flatten(specs)[0])]
+    whole = sum(b for b, z in zip(sizes, zero) if not z)
+    assert meta["step_kind"] == "train_step" and meta["rows_per_position"] == 64
+    assert meta["layout_name"] == "tensor_parallel" and meta["layout"] == dryrun.LAYOUTS[
+        "tensor_parallel"]
+    assert meta["optimizer"] == "adamw" and meta["heads"] == "heads split"
+    assert sum(zero) == len(leaves) - 11
+    assert h["collective_counts"]["reduce-scatter"] == sum(zero)
+    assert h["collective_bytes"]["reduce-scatter"] == (sum(sizes) - whole) // 4
+    assert h["collective_counts"]["all-gather"] == sum(zero)
+    assert h["collective_bytes"]["all-gather"] == sum(sizes) - whole
+    dec, enc = cfg.n_layers, cfg.encoder_layers
+    act, row = 64 * 4096 * cfg.d_model * 4, 64 * 4096 * 4
+    frames = 64 * cfg.frontend_len * cfg.d_model * 4
+    assert h["collective_counts"]["all-reduce"] == (1 + 10 * dec + 6 * enc + 1 + 2 + 1
+                                                    + len(leaves) - sum(zero))
+    assert h["collective_bytes"]["all-reduce"] == ((1 + 9 * dec + 1) * act
+                                                   + (dec + 6 * enc) * frames + 3 * row + 4
+                                                   + whole)
+    assert h["flops"] > 0 and h["bytes"] > 0 and meta["fits_one_card"]
 
 
 def test_smoke_replicated_moe_train_cell_on_a_small_meta_mesh(monkeypatch):
@@ -653,24 +704,6 @@ def test_granite_moe_decode_artifact_is_expert_parallel(tmp_path):
     assert got["rows_per_position"] == 8 and got["op_analysis"]["flops"] > 0
 
 
-#: the cells that stay replicated (whisper, every long_500k): their
-#: argument bytes on 16x16 and 2x16x16, as before the moe family's layout
-#: (rwkv6's and jamba's other cells: SSM_PARALLEL_BYTES)
-REPLICATED_BYTES = {
-    ("jamba-1.5-large-398b", "long_500k"): (164_549_971_976, 164_549_971_976),
-    ("rwkv6-7b", "long_500k"): (15_103_172_616, 15_103_172_616),
-    ("whisper-medium", "train_4k"): (10_262_282_244, 10_212_868_100),
-    ("whisper-medium", "prefill_32k"): (1_706_459_136, 1_700_184_064),
-    ("whisper-medium", "decode_32k"): (28_643_360_804, 15_168_634_900),
-    ("starcoder2-3b", "long_500k"): (22_723_252_232, 22_723_252_232),
-    ("granite-3-2b", "long_500k"): (49_575_514_120, 49_575_514_120),
-    ("codeqwen1.5-7b", "long_500k"): (295_601_856_520, 295_601_856_520),
-    ("qwen1.5-4b", "long_500k"): (226_043_827_208, 226_043_827_208),
-    ("arctic-480b", "long_500k"): (165_705_824_264, 165_705_824_264),
-    ("granite-moe-3b-a800m", "long_500k"): (42_194_177_032, 42_194_177_032),
-    ("llava-next-mistral-7b", "long_500k"): (84_288_348_168, 84_288_348_168)}
-
-
 #: rwkv6's and jamba's cells at train_4k, prefill_32k and decode_32k: (argument
 #: bytes a position on 16x16, on 2x16x16), the reference's arguments under its
 #: sanitized specs; replicated they were 90.4 GB (rwkv6's train_4k) and
@@ -709,15 +742,80 @@ def test_rwkv_and_jamba_cells_run_the_sharded_layouts(cell, multi_pod):
         assert meta["experts"] == "whole experts, 1 a position" and meta["moe_impl"] == "manual"
 
 
+#: whisper's cells and every long_500k: (argument bytes a position on 16x16,
+#: on 2x16x16), the reference's arguments under its sanitized specs;
+#: replicated they were 1.7-295.6 GB, and codeqwen's, qwen's, arctic's,
+#: jamba's and llava's long_500k fitted no card
+SHARDED_BYTES = {
+    ("whisper-medium", "train_4k"): (486_840_328, 415_887_368),
+    ("whisper-medium", "prefill_32k"): (184_912_896, 178_637_824),
+    ("whisper-medium", "decode_32k"): (1_856_703_524, 1_014_533_140),
+    ("starcoder2-3b", "long_500k"): (715_305_992, 683_824_712),
+    ("granite-3-2b", "long_500k"): (1_850_319_880, 1_766_349_320),
+    ("codeqwen1.5-7b", "long_500k"): (6_427_968_520, 5_890_688_008),
+    ("qwen1.5-4b", "long_500k"): (4_715_904_008, 4_296_153_608),
+    ("arctic-480b", "long_500k"): (62_035_981_064, 61_889_068_424),
+    ("granite-moe-3b-a800m", "long_500k"): (1_642_241_032, 1_575_064_584),
+    ("rwkv6-7b", "long_500k"): (978_608_136, 978_608_136),
+    ("llava-next-mistral-7b", "long_500k"): (2_256_486_408, 2_122_166_280),
+    ("jamba-1.5-large-398b", "long_500k"): (50_216_947_976, 50_179_170_440)}
+
+
+@pytest.mark.parametrize("cell", list(SHARDED_BYTES), ids="/".join)
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_whisper_and_long_500k_cells_run_the_sharded_layouts(cell, multi_pod):
+    """whisper's train_4k, prefill_32k and decode_32k and every long_500k
+    on both production meshes (the step built on meta, not counted): the
+    family's layout (expert_parallel for the moe family and jamba, else
+    tensor_parallel), its argument bytes pinned, every one fitting a card.
+    whisper's cross cache is split along head_dim (1500 frames over 16)
+    and its layout text says so; a long_500k cell's one row runs on every
+    position, its text names context parallelism, and its argument bytes
+    are position_bytes of the bf16 weights, the cache, the token and the
+    position under the sanitized specs."""
+    arch_name, shape_name = cell
+    meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
+    moe = arch_name in ("arctic-480b", "granite-moe-3b-a800m", "jamba-1.5-large-398b")
+    layout = "expert_parallel" if moe else "tensor_parallel"
+    assert meta["layout_name"] == layout and meta["layout"].startswith(dryrun.LAYOUTS[layout])
+    assert meta["argument_size_in_bytes"] == SHARDED_BYTES[cell][multi_pod]
+    assert meta["fits_one_card"]
+    if arch_name == "whisper-medium":
+        if shape_name == "train_4k":
+            assert meta["optimizer"] == "adamw" and meta["layout"] == dryrun.LAYOUTS[layout]
+        else:
+            assert meta["layout"].endswith(dryrun.CACHE_LAYOUTS["cross_head_dim"])
+        return
+    assert meta["layout"].endswith(dryrun.CACHE_LAYOUTS["context_parallel"])
+    assert meta["rows_per_position"] == 1 and meta["attention_kind"] == (
+        "full" if arch_name == "rwkv6-7b" else "taco")
+    mesh = make_mesh((2, 16, 16) if multi_pod else (16, 16),
+                     ("pod", "data", "model") if multi_pod else ("data", "model"),
+                     ["meta"] * (512 if multi_pod else 256))
+    dp = ("pod", "data") if multi_pod else ("data",)
+    arch = dataclasses.replace(dryrun.resolve_arch_for_shape(dryrun.get_arch(arch_name),
+                                                             dryrun.SHAPES[shape_name]),
+                               param_dtype="bfloat16")
+    params = TM.meta_params(arch)
+    cache = TM.init_cache(arch, 1, 524288, device="meta")
+    want = (SH.position_bytes(params, SHD.param_specs(params, mesh), mesh)
+            + SH.position_bytes(cache, SHD.cache_specs(cache, mesh, dp), mesh) + 4 + 4)
+    assert meta["argument_size_in_bytes"] == want
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_the_other_cells_stay_replicated(multi_pod):
-    """whisper's cells and every long_500k (rwkv6's and jamba's among them)
-    keep the replicated layout and its argument bytes on both meshes
-    (whisper's long_500k stays skipped)."""
-    for (arch_name, shape_name), want in REPLICATED_BYTES.items():
-        meta = dryrun.build_cell(arch_name, shape_name, multi_pod).meta
-        assert meta["layout_name"] == "replicated", (arch_name, shape_name)
-        assert meta["argument_size_in_bytes"] == want[multi_pod], (arch_name, shape_name)
+    """No production cell is left replicated any more: every cell of every
+    arch runs the tensor_parallel or the expert_parallel layout, and
+    whisper's long_500k stays skipped, for the reference's reason."""
+    for arch_name in dryrun.ARCHS:
+        for shape_name, shape in dryrun.SHAPES.items():
+            arch = dryrun.get_arch(arch_name)
+            if dryrun.skip_reason(arch, shape):
+                assert (arch_name, shape_name) == ("whisper-medium", "long_500k")
+                continue
+            layout = dryrun.cell_layout(dryrun.resolve_arch_for_shape(arch, shape), shape)
+            assert layout in ("tensor_parallel", "expert_parallel"), (arch_name, shape_name)
     meta = dryrun.build_cell("whisper-medium", "long_500k", multi_pod).meta
     assert "skipped" in meta
 

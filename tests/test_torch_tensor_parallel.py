@@ -419,12 +419,13 @@ def test_sharded_step_counts_on_meta_equal_the_cpu_counts(arch):
 
 
 def test_sharded_entry_points_refuse_what_they_do_not_split():
-    """The enc-dec stack (whisper's encoder and cross-attention) and TaCo
-    retrieval attention are refused; the moe family, RWKV6 and the hybrid
-    Mamba stack run (tests/test_torch_expert_sharding.py,
-    tests/test_torch_ssm_sharding.py)."""
+    """TaCo retrieval attention outside a decode step, and an enc-dec stack
+    with TaCo attention, are refused by the train step; the moe family,
+    RWKV6, the hybrid Mamba stack, whisper's encoder-decoder and TaCo decode
+    run (tests/test_torch_expert_sharding.py, tests/test_torch_ssm_sharding.py,
+    tests/test_torch_enc_dec_sharding.py, tests/test_torch_context_parallel.py)."""
     mesh = cpu_mesh((1, 2))
-    for cfg in (get_smoke("whisper-medium"),
+    for cfg in (dataclasses.replace(get_smoke("whisper-medium"), attention_kind="taco"),
                 dataclasses.replace(get_smoke("granite-3-2b"), attention_kind="taco")):
         with pytest.raises(NotImplementedError, match="dense stack"):
             make_sharded_train_step(cfg, adamw(), warmup_cosine(*LR), mesh)
