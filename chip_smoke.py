@@ -61,7 +61,8 @@ Phases, in order; any failure exits nonzero:
                an integer-valued IVF build (10^5 x 128, 1024 lists, means
                rounded each update) bit for bit against the plain path; the
                kernels phase also holds kmeans_assign at IVF's shape (10^6 x
-               128 against 1024 centroids) against its plain version;
+               128 against 1024 centroids: the TF32 screen and exact
+               rechecks, rechecks a point printed) against its plain version;
   7. persist — AnnIndex.save of the TaCo and the SuCo index to a temporary
                directory, AnnIndex.load on the card: every array bitwise equal,
                and masked-full and gather ids and dists of one batch bitwise
@@ -389,8 +390,9 @@ from pathlib import Path
 #: 32-bit non-tensor rate.
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
-#: dense bf16 tensor-core FLOP/s (same data sheet)
+#: dense bf16 and TF32 tensor-core FLOP/s (same data sheet)
 BF16_TENSOR_OPS = 989e12
+TF32_TENSOR_OPS = 495e12
 QUERIES = 1000
 SOURCES = {
     "l2dist": ("src/repro_torch/csrc/l2dist.cu", "src/repro/kernels/l2dist.py:61"),
@@ -485,6 +487,29 @@ def card_line() -> str:
 def bound_ms(nbytes: float, ops: float, rate: float = F32_OPS) -> tuple[float, str]:
     tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_device_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    ``kernel``, from torch.profiler's kernel durations over ``reps`` calls
+    of ``fn`` after one warm-up (None where the trace has no such kernel):
+    the kernel alone, without the launch path a CUDA-event window holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+            us = getattr(evt, "self_device_time_total", None)
+            total += us if us is not None else getattr(evt, "self_cuda_time_total", 0)
+            count += evt.count
+    return total / count / 1e3 if count else None
 
 
 def timed(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -594,8 +619,18 @@ def ivf_assign_case(torch, corpus, ints, rng) -> dict:
     the plain version; on the corpus the assignments equal the plain
     version's on >= 99.99 % of the points and every other one is a
     near-tie, the distances allclose. Timed beside the plain version,
-    ``torch.cdist(x, c).min(-1)`` (TF32 off) and the bound."""
-    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain, tiled
+    ``torch.cdist(x, c).min(-1)`` (TF32 off) and three bounds: the CUDA-core
+    operations (``bound_ms``), the TF32 tensor-core products the screen runs
+    (``tensor_bound_ms``) and the bytes. Also kept: the launch's rechecks a
+    point, the tile geometry, and the screen's and pre-pass's device times."""
+    from repro_torch.kernels.kmeans_assign import (
+        TILE_CENTROIDS,
+        TILE_POINTS,
+        kmeans_assign_cuda,
+        kmeans_assign_plain,
+        last_tiled,
+        tiled,
+    )
 
     n, w = corpus.shape
     k = IVF_LISTS
@@ -607,6 +642,9 @@ def ivf_assign_case(torch, corpus, ints, rng) -> dict:
     del x, ga, gd, wa, wd
     c = corpus[torch.as_tensor(rng.choice(n, k, replace=False), device=corpus.device)]
     ga, gd = kmeans_assign_cuda(corpus, c)
+    rechecks = int(last_tiled["rechecks"].item())
+    check(last_tiled["points"] == n and n <= rechecks <= n * k,
+          f"kmeans_assign ivf: {rechecks} rechecks for {n} points")
     wa, wd = kmeans_assign_plain(corpus, c)
     differ = torch.nonzero(ga != wa)[:, 0]
     agree = 1.0 - differ.numel() / n
@@ -619,13 +657,22 @@ def ivf_assign_case(torch, corpus, ints, rng) -> dict:
               "kmeans_assign ivf: a differing assignment is not a near-tie")
     atol = 1e-5 * float((corpus * corpus).sum(1).max() + (c * c).sum(1).max())
     check(torch.allclose(gd, wd, rtol=1e-5, atol=atol), "kmeans_assign ivf: distances")
-    b, by = bound_ms(4 * (n * w + k * w + 2 * n), n * k * (2 * w + 3) + 2 * w * (n + k))
+    nbytes = 4 * (n * w + k * w + 2 * n)
+    b, by = bound_ms(nbytes, n * k * (2 * w + 3) + 2 * w * (n + k))
+    tb, tby = bound_ms(nbytes, 2 * n * k * w, TF32_TENSOR_OPS)
     row = dict(max_abs_err=float((gd - wd).abs().max()), assign_agree=agree,
                differing=int(differ.numel()),
                ms=timed(torch, lambda: kmeans_assign_cuda(corpus, c), 10),
                plain_ms=timed(torch, lambda: kmeans_assign_plain(corpus, c), 3),
-               bound_ms=b, bound_by=by,
+               bound_ms=b, bound_by=by, tensor_bound_ms=tb, tensor_bound_by=tby,
+               bytes_bound_ms=nbytes / HBM_BPS * 1e3,
                library_ms=timed(torch, lambda: torch.cdist(corpus, c).min(dim=-1), 3),
+               rechecks_per_point=rechecks / n, tile_points=TILE_POINTS,
+               tile_centroids=TILE_CENTROIDS,
+               screen_device_ms=kernel_device_ms(
+                   torch, lambda: kmeans_assign_cuda(corpus, c), "screen_kernel", 5),
+               prep_device_ms=kernel_device_ms(
+                   torch, lambda: kmeans_assign_cuda(corpus, c), "prep_kernel", 5),
                shape=f"x ({n}, {w}), c ({k}, {w}), tiled")
     print(f"kernel kmeans_assign ivf: {json.dumps(row)}", flush=True)
     return row
@@ -682,6 +729,8 @@ def engine_buckets(torch, res, timings, floats, collision_case, rerank_case, com
         if b == 64:
             res["l2dist"]["bucket64_ms"] = timed(torch, lambda: l2dist_pairs_cuda(x, slices, y),
                                                  200)
+            res["l2dist"]["bucket64_device_ms"] = kernel_device_ms(
+                torch, lambda: l2dist_pairs_cuda(x, slices, y), "l2dist_pairs_kernel")
             res["schist"]["bucket64_ms"] = timed(
                 torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=b), 10)
             res["schist"]["bucket64_geometry"] = dict(zip(
@@ -795,6 +844,9 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         plain_ms=timed(torch, lambda: l2dist_pairs_plain(x, slices, y), 200),
         bound_ms=b, bound_by=by,
         library_ms=timed(torch, lambda: torch.cdist(xb, y) ** 2, 200),
+        # the kernel alone, by the profiler, beside the CUDA-event ms above
+        device_ms=kernel_device_ms(torch, lambda: l2dist_pairs_cuda(x, slices, y),
+                                   "l2dist_pairs_kernel"),
         shape=f"{pairs} pairs, x ({q}, {2 * sd * n_sub}), half-dim {sd}, sqrt_k {sqrt_k}")
 
     # --------------------------------------------------- kmeans_assign --

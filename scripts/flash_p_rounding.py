@@ -36,7 +36,8 @@ def build_variant(cuda) -> ctypes.CDLL:
     variant = cuda.BUILD_DIR / "flash_attention_single_p.cu"
     variant.write_text(src.replace(LO_LINE, LO_ZERO))
     lib_path = variant.with_suffix(".so")
-    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(lib_path), str(variant)],
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o", str(lib_path),
+                    str(variant)],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib_path))
 

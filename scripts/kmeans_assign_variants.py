@@ -58,9 +58,9 @@ def build_variants(cuda) -> dict:
             text = text.replace(old, new)
         (out_dir / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-             str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o",
+             str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -97,7 +97,7 @@ def main() -> int:
         assign = torch.empty((n_pairs, n), dtype=torch.int32, device=xs.device)
         dmin = torch.empty((n_pairs, n), dtype=torch.float32, device=xs.device)
         rc = fn(cuda.ptr(xs), cuda.ptr(cs), cuda.ptr(assign), cuda.ptr(dmin), n_pairs, n,
-                cs.shape[1], w, cuda.stream(xs.device))
+                cs.shape[1], w, 0.0, 0.0, None, 0, None, cuda.stream(xs.device))
         if rc != 0:
             raise RuntimeError(f"variant: CUDA error {rc}")
         return assign, dmin

@@ -29,23 +29,87 @@
 // single-pair entry point launches the same kernel with P = 1.
 //
 // Past shared memory (k (w + 1) floats above 227 KB, e.g. IVF's k = 1024
-// lists of w = 128: 528 KB) a second kernel takes over. Its block stages
-// the centroids in tiles that fit, one after another in index order, and
-// each thread keeps its point's running (min, argmin) in registers across
-// the tiles with the same strict '<'; the distance is the same arithmetic
-// as above, bit for bit, so a point's answer does not depend on the tile
-// size and the first index still wins a tie. Bound at IVF's shape (n =
-// 10^6, w = 128, k = 1024): the operations, 2 k w + 3 k = 265 kFLOP a point,
-// 265 GFLOP, ~3.96 ms at 67 TFLOP/s (the points are 512 MB, 0.155 ms). One
-// point a thread (its 128 features fill the registers), four centroids'
-// dot products side by side for independent fmaf chains, each centroid row
-// a shared-memory broadcast; rows are staged with a stride of w + 4 (w + 1
-// when w % 4 != 0) floats so that the staging stores do not collide in
-// one bank.
+// lists of w = 128: 528 KB) the tiled path takes over: a TF32 tensor-core
+// screen that decides nothing, and exact rechecks that decide everything.
+// Its answer is, bit for bit, the one-tile kernel's arithmetic above over
+// all k centroids: for point i the first j minimising
+//   d_ij = fmaxf((x2_i + c2_j) - 2 dot_ij, 0)
+// with x2, c2 and dot fmaf chains in feature order. The lexicographic
+// minimum of (d_ij, j) does not depend on the order the work is done in.
+//
+// Bound at IVF's shape (n = 10^6, w = 128, k = 1024): the dot products,
+// 2 n k w = 2.68e11 FLOP, ~0.54 ms at 495 TFLOP/s TF32; the points read
+// once, 512 MB, ~0.155 ms; on the CUDA cores the same work is ~3.96 ms at
+// 67 TFLOP/s (2 k w + 3 k FLOP a point), which is what the screen avoids.
+//
+// Design. A block owns R = 192 points of one pair: three warpgroups of 64
+// rows. It loads its points once into shared memory in the 128-byte-
+// swizzled K-major layout wgmma reads (32 floats a swizzled row, one box
+// per 32 features, zero past w), takes each row's exact x2 chain from the
+// raw values, then centres them in place (x - mu, mu the pair's centroid
+// mean). A pre-pass kernel (prep_kernel) writes, once a launch, each
+// centroid's exact c2 chain and each tile of N = 64 centred centroids
+// c' = c - mu (zero-padded to the box width and to a whole tile) as the
+// very image its ring stage holds, followed by the tile's record: its
+// columns' centred chains c'2 and its largest norm bounds b = |c'| and
+// q = |c|, all in scratch the wrapper allocates. One thread streams the
+// images through a 2-stage ring, one bulk copy a tile; blocks start at
+// different tiles, so that the SMs do not all read the same centroids from
+// L2 at once. Each warpgroup runs wgmma m64n64k8 .tf32 (both operands
+// K-major in shared memory; the tensor core reads the top 19 bits of each
+// f32, i.e. truncates, so the stored f32 tiles need no conversion pass);
+// the warpgroups take the tensor cores in turns (named barriers), so that
+// one's products run while the others' epilogues do. (Two accumulators a
+// warpgroup, to overlap its own epilogue too, made ptxas serialise every
+// wgmma, at 168 registers and at 255.) The epilogue forms the screened
+// distance
+//   e_ij = fmaxf(fl(fl(x'2_i + c'2_j) - 2 S_ij), 0),
+// S_ij the tensor-core product of the centred rows, and a per-(row, tile)
+// bound E_i >= |e_ij - d_ij| (below). Each row keeps U_i, an upper bound
+// on its exact minimum: the least e_ij + E_i seen so far and the exact best
+// found so far. Every column with e_ij <= U_i + E_i joins its warp's queue
+// with its lower bound e_ij - E_i. When the queue fills, and once at the
+// end, the candidates whose lower bound still reaches their row's U_i are
+// rechecked: d_ij from the raw point and centroid rows (global memory, in
+// L2) by the chain above, folded into the row's (d, j)
+// key, a 64-bit shared-memory atomicMin on (float bits, index) (d >= +0,
+// so its bits order as the floats do). A row's exact minimiser j* passes
+// both tests: e_ij* - E_i <= d_ij* <= d_ij <= e_ij + E_i for every j, and
+// U_i only falls; ties at the minimum all pass and the key keeps the first
+// index, in whatever order the rechecks run. The survivors are compacted
+// so that lanes take whole rounds of 32, one a lane (a round costs one
+// chain however many lanes hold one). Each block adds its recheck count to
+// one device counter once.
+//
+// The bound. u = 2^-24; for w <= 128 terms an f32 chain (any order)
+// errs by at most gamma_w = w u / (1 - w u) times its sum of |terms|, and
+// Cauchy-Schwarz bounds sum |x_t c_t| by |x| |c|. With D = |x - c|^2:
+// - exact chain: |d - D| <= (w + 2) u (|x| + |c|)^2 + u D;
+// - screen: TF32 truncation errs by < 2^-10 an operand, so a product by
+//   < 2^-9 + 2^-20; tensor-core accumulation is undocumented and is taken
+//   to err by up to 2^-20 of the running sum of |products| at each of the
+//   w + 1 additions (8 ulps, several times truncation's one), so
+//   |S - x'.c'| <= (2^-9 + 131 2^-20) |x'| |c'| at w = 128;
+// - centring: x' = fl(x - mu) errs by u |x'| a component, which moves
+//   |x' - c'|^2 from D by at most 2 u (|x'| + |c'|)^2 (1 + u); the screen's
+//   own norms and subtraction add (w + 4) u (|x'| + |c'|)^2.
+// So |e - d| <= 2 G a b + EPS ((a + b)^2 + (p + q)^2) with a >= |x'|,
+// b >= |c'|, p >= |x|, q >= |c|, G = 2^-9 + 2^-12 and EPS = 2^-16 >=
+// (w + 16) u (the spare u's cover the window's own float additions, each
+// below u (a + b)^2). The norms are sqrtf of the computed chains times
+// KAPPA = 1 + 2^-16, which covers the chains' (1 - gamma_w)^-1/2 and two
+// roundings. Taking b and q as their tile's largest gives E_i per row and
+// tile. G and EPS live in kernels/kmeans_assign.py (SCREEN_GAMMA,
+// SCREEN_EPS) and come in as arguments; slack in them costs rechecks, never
+// the answer. On data with a large common offset the last term, the exact
+// chain's own rounding, dominates and the window widens: the f32 answer is
+// itself rounding-bound there, and the rechecks decide it as exactly.
+// Inputs are taken finite, with squares that stay normal floats.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
-#include <algorithm>
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and fences
 
 namespace {
 
@@ -174,166 +238,560 @@ assign_pairs_kernel(const float* __restrict__ xs, const float* __restrict__ cs,
   }
 }
 
-// centroids whose dot products a tiled thread runs side by side
-constexpr int kGroup = 4;
 // shared memory a block may hold (H100: 227 KB)
 constexpr int kMaxSmem = 232448;
 
-// The tiled kernel: one point a thread, the k centroids staged tile_k at a
-// time with a row stride of ws floats (see the header).
-template <int MAXW, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-assign_pairs_tiled_kernel(const float* __restrict__ xs, const float* __restrict__ cs,
-                          int* __restrict__ assign, float* __restrict__ dmin, int n,
-                          int k, int w, int ws, int tile_k) {
-  extern __shared__ __align__(16) float smem[];
-  float* c_s = smem;              // (tile_k, ws)
-  float* c2_s = smem + tile_k * ws;  // (tile_k,)
-  const int pair = blockIdx.y;
-  const float* c = cs + static_cast<size_t>(pair) * k * w;
-  const size_t base = static_cast<size_t>(pair) * n;
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = p < n;
-  const float* row = xs + (base + (live ? p : 0)) * w;
-  float xv[MAXW];
-  if (VEC) {
-#pragma unroll
-    for (int t4 = 0; t4 < MAXW / 4; ++t4) {
-      if (4 * t4 < w) {
-        const float4 v = live ? __ldg(reinterpret_cast<const float4*>(row) + t4)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-        xv[4 * t4] = v.x;
-        xv[4 * t4 + 1] = v.y;
-        xv[4 * t4 + 2] = v.z;
-        xv[4 * t4 + 3] = v.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < MAXW; ++t) {
-      if (t < w) xv[t] = live ? __ldg(row + t) : 0.f;
-    }
-  }
-  float x2 = 0.f;
-#pragma unroll
-  for (int t = 0; t < MAXW; ++t) {
-    if (t < w) x2 = fmaf(xv[t], xv[t], x2);
-  }
+// ----------------------------------------------------------- tiled path --
+namespace tiled {
 
-  int best = 0;
-  float best_d = CUDART_INF_F;
-  for (int j0 = 0; j0 < k; j0 += tile_k) {
-    const int kn = min(tile_k, k - j0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int j = threadIdx.x; j < kn; j += kThreads) {
-      const float* src = c + static_cast<size_t>(j0 + j) * w;
-      float* dst = c_s + j * ws;
-      float s = 0.f;
-      if (VEC) {
-#pragma unroll 8
-        for (int t4 = 0; t4 < w / 4; ++t4) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(src) + t4);
-          reinterpret_cast<float4*>(dst)[t4] = v;
-          s = fmaf(v.x, v.x, s);
-          s = fmaf(v.y, v.y, s);
-          s = fmaf(v.z, v.z, s);
-          s = fmaf(v.w, v.w, s);
-        }
-      } else {
-        for (int t = 0; t < w; ++t) {
-          const float v = __ldg(src + t);
-          dst[t] = v;
-          s = fmaf(v, v, s);
-        }
-      }
-      c2_s[j] = s;
-    }
-    __syncthreads();
-    int j = 0;
-    for (; j + kGroup <= kn; j += kGroup) {
-      float dot[kGroup];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) dot[g] = 0.f;
-      if (VEC) {
-#pragma unroll
-        for (int t4 = 0; t4 < MAXW / 4; ++t4) {
-          if (4 * t4 < w) {
-#pragma unroll
-            for (int g = 0; g < kGroup; ++g) {
-              const float4 cv = reinterpret_cast<const float4*>(c_s + (j + g) * ws)[t4];
-              dot[g] = fmaf(xv[4 * t4], cv.x, dot[g]);
-              dot[g] = fmaf(xv[4 * t4 + 1], cv.y, dot[g]);
-              dot[g] = fmaf(xv[4 * t4 + 2], cv.z, dot[g]);
-              dot[g] = fmaf(xv[4 * t4 + 3], cv.w, dot[g]);
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int t = 0; t < MAXW; ++t) {
-          if (t < w) {
-#pragma unroll
-            for (int g = 0; g < kGroup; ++g)
-              dot[g] = fmaf(xv[t], c_s[(j + g) * ws + t], dot[g]);
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {  // in index order: the first index wins
-        const float v = fmaxf((x2 + c2_s[j + g]) - 2.0f * dot[g], 0.0f);
-        if (v < best_d) {
-          best_d = v;
-          best = j0 + j + g;
-        }
-      }
-    }
-    for (; j < kn; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int t = 0; t < MAXW; ++t) {
-        if (t < w) dot = fmaf(xv[t], c_s[j * ws + t], dot);
-      }
-      const float v = fmaxf((x2 + c2_s[j]) - 2.0f * dot, 0.0f);
-      if (v < best_d) {
-        best_d = v;
-        best = j0 + j;
-      }
-    }
-  }
-  if (live) {
-    assign[base + p] = best;
-    dmin[base + p] = best_d;
-  }
+constexpr int WGS = 3;        // warpgroups a block, 64 rows each
+constexpr int R = 64 * WGS;   // points a block
+constexpr int N = 64;         // centroids a tile: wgmma m64n64k8
+constexpr int STAGES = 2;     // centroid tiles in flight
+constexpr int THREADS = 128 * WGS;
+constexpr int PRODUCER = THREADS - 128;  // the last warpgroup's first thread issues the loads
+constexpr int BOX = 32;       // floats a swizzled row (128 bytes): a box of features
+constexpr int ROW = 128;      // bytes a swizzled row
+constexpr int CAP = 256;      // recheck queue entries a warp
+constexpr int MAX_WP = 128;
+constexpr int REC = N + 4;    // floats of a tile's record: c'2 of its N columns, b, q, pad
+constexpr float KAPPA = 1.0f + 1.0f / 65536.0f;
+constexpr unsigned long long START = 0x7f80000000000000ull;  // (+inf, index 0)
+
+// Byte offsets from the 1 KB-aligned base (the 128-byte swizzle repeats
+// every 1 KB): the points, the centroid ring (a stage: the tile, then its
+// record in the next 1 KB), then each row's key, its x2, x'2, |x'| and |x|
+// bounds and its U as last published, the warps' recheck queues
+// (candidates, then their lower bounds), the block's recheck count and the
+// ring's mbarriers.
+struct Layout {
+  int pts, tile, stage, best, rows, queue, count, bars, bytes;
+  __host__ __device__ explicit Layout(int wp)
+      : pts(R * wp * 4), tile(N * wp * 4), stage(tile + 1024), best(pts + STAGES * stage),
+        rows(best + 8 * R),
+        queue(rows + 20 * R), count(queue + 8 * (THREADS / 32) * CAP), bars(count + 8),
+        bytes(bars + 16 * STAGES + 1024) {}
+};
+
+// Byte offset of (row r, feature f) in a box-major tile of `rows` rows:
+// box f / 32, its 16-byte chunk (f % 32) / 4 stored at chunk ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int f, int rows) {
+  return (f / BOX) * rows * ROW + r * ROW + ((((f % BOX) >> 2) ^ (r & 7)) << 4) + ((f & 3) << 2);
 }
 
-template <int MAXW, bool VEC>
-int launch_tiled(const float* xs, const float* cs, int* assign, float* dmin,
-                 int n_pairs, int n, int k, int w, cudaStream_t stream) {
-  auto kernel = assign_pairs_tiled_kernel<MAXW, VEC>;
-  const int ws = VEC ? w + 4 : (w | 1);
-  const int tile_k = std::min(k, kMaxSmem / (4 * (ws + 1)));
-  const size_t smem = static_cast<size_t>(tile_k) * (ws + 1) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// D (64 x 64, f32) [+]= A (64 x 8, shared, K-major) * B (8 x 64, shared,
+// K-major) in TF32; `accumulate` = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Scratch (floats): the centred centroids as the tiles' stage images (P,
+// tiles, N wp + 256): each tile exactly as its ring stage holds it (box-
+// major, 128-byte swizzled), then its record (REC floats: its columns' c'2,
+// its largest |c'| and |c| bounds), so that one bulk copy moves both; then
+// c2 (P, k_pad) and mu (P, wp). The wrapper allocates
+// tiled_scratch_floats(...) of them.
+struct Scratch {
+  float *stages, *c2, *mu;
+  long long floats;
+  Scratch(float* s, int n_pairs, int k_pad, int wp) {
+    const long long p = n_pairs, tiles = k_pad / N;
+    stages = s;
+    c2 = stages + p * tiles * (N * wp + 256);
+    mu = c2 + p * k_pad;
+    floats = (mu + p * wp) - s;
+  }
+};
+
+// One block a (tile of N centroids, pair), one thread a centroid: the
+// pair's mean mu (every block sums it alike, in index order), then the
+// tile's rows staged in shared memory and, from them, each centroid's
+// exact c2 chain, its centred row and c'2, and the tile's largest bounds.
+__global__ void __launch_bounds__(N)
+prep_kernel(const float* __restrict__ cs, Scratch sc, int k, int w, int wp, int k_pad) {
+  __shared__ float mu[MAX_WP];
+  __shared__ float rows[N][MAX_WP + 1];
+  __shared__ float red[2][2];
+  const int pair = blockIdx.y, tile = blockIdx.x, j0 = tile * N;
+  const float* c = cs + static_cast<size_t>(pair) * k * w;
+  for (int f = threadIdx.x; f < wp; f += N) {
+    float m = 0.f;
+    if (f < w) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < k; ++j) s += __ldg(c + static_cast<size_t>(j) * w + f);
+      m = s / static_cast<float>(k);
+    }
+    mu[f] = m;
+    if (tile == 0) sc.mu[pair * wp + f] = m;
+  }
+  for (int idx = threadIdx.x; idx < N * w; idx += N) {
+    const int jj = idx / w, t = idx - jj * w;
+    rows[jj][t] = j0 + jj < k ? __ldg(c + static_cast<size_t>(j0) * w + idx) : 0.f;
+  }
+  __syncthreads();
+  float* out = sc.stages + (static_cast<size_t>(pair) * gridDim.x + tile) * (N * wp + 256);
+  for (int idx = threadIdx.x; idx < N * wp; idx += N) {
+    const int jj = idx / wp, t = idx - jj * wp;
+    out[swz(jj, t, N) / 4] = t < w && j0 + jj < k ? rows[jj][t] - mu[t] : 0.f;
+  }
+  const int jj = threadIdx.x;
+  float c2 = 0.f, cb2 = 0.f;
+  for (int t = 0; t < w; ++t) {
+    const float v = rows[jj][t];
+    c2 = fmaf(v, v, c2);
+    const float vb = j0 + jj < k ? v - mu[t] : 0.f;
+    cb2 = fmaf(vb, vb, cb2);
+  }
+  float* rec = out + N * wp;
+  sc.c2[static_cast<size_t>(pair) * k_pad + j0 + jj] = c2;
+  rec[jj] = cb2;
+  float b = sqrtf(cb2) * KAPPA, q = sqrtf(c2) * KAPPA;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+    q = fmaxf(q, __shfl_xor_sync(0xffffffffu, q, o));
+  }
+  if (jj % 32 == 0) {
+    red[jj / 32][0] = b;
+    red[jj / 32][1] = q;
+  }
+  __syncthreads();
+  if (jj < REC - N) rec[N + jj] = jj == 0 ? fmaxf(red[0][0], red[1][0])
+                                 : jj == 1 ? fmaxf(red[0][1], red[1][1]) : 0.f;
+}
+
+// Named barriers between two warpgroups, one waiting and one arriving
+// (0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// A tile's centred norms c'2 for this thread's 16 columns and its largest
+// |c'| and |c| bounds.
+struct TileVals {
+  float cb2[16];
+  float b, q;
+};
+
+// acc[idx] for an index known only at run time, without moving acc to
+// local memory (candidates are rare).
+__device__ __forceinline__ float pick(const float (&acc)[32], int idx) {
+  float v = acc[0];
+#pragma unroll
+  for (int i = 1; i < 32; ++i) v = idx == i ? acc[i] : v;
+  return v;
+}
+
+// The screen and the rechecks (see the header). VEC: w % 4 == 0, so rows
+// load as float4. BOXES: wp / 32, so that the k-steps (4 a box, zero past
+// w) unroll and every wgmma of a tile stays in flight at once.
+template <bool VEC, int BOXES>
+__global__ void __launch_bounds__(THREADS, 1)
+screen_kernel(const float* __restrict__ xs,
+              const float* __restrict__ cs, const Scratch sc, int* __restrict__ assign,
+              float* __restrict__ dmin, unsigned long long* __restrict__ rechecks, int n, int k,
+              int w, int wp, int k_pad, float gamma, float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - smem_u32(smem_raw));
+  const Layout L(wp);
+  uint8_t* xc = sm;  // the points: raw until their x2 chains are taken, then centred
+  const uint32_t ring = base + L.pts;
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(sm + L.best);
+  float* x2s = reinterpret_cast<float*>(sm + L.rows);
+  float* xb2s = x2s + R;
+  float* as = xb2s + R;
+  float* ps = as + R;
+  float* urow = ps + R;
+  uint32_t* queue = reinterpret_cast<uint32_t*>(sm + L.queue);
+  unsigned int* count = reinterpret_cast<unsigned int*>(sm + L.count);
+  const uint32_t full = base + L.bars, empty = full + 8 * STAGES;
+
+  const int tid = threadIdx.x, pair = blockIdx.y, tiles = k_pad / N;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const size_t pbase = static_cast<size_t>(pair) * n;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, THREADS / 32);  // one arrival per warp
+    }
+    *count = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the block's points, zero past w and past n: every load of a thread
+  // first (so they are in flight together), then the stores; first raw,
+  // for each row's exact x2 chain, then centred in place
+  const float* mu = sc.mu + pair * wp;
+  constexpr int C4 = 8 * BOXES;  // float4 a row
+  constexpr int LOADS = (R * C4 + THREADS - 1) / THREADS;
+  float4 v[LOADS];
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int idx = tid + i * THREADS, r = idx / C4, f = 4 * (idx % C4);
+    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (idx < R * C4 && row0 + r < n && f < w) {
+      const float* src = xs + (pbase + row0 + r) * w + f;
+      if (VEC) {
+        v[i] = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        v[i].x = __ldg(src);
+        if (f + 1 < w) v[i].y = __ldg(src + 1);
+        if (f + 2 < w) v[i].z = __ldg(src + 2);
+        if (f + 3 < w) v[i].w = __ldg(src + 3);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int idx = tid + i * THREADS;
+    if (idx < R * C4) *reinterpret_cast<float4*>(xc + swz(idx / C4, 4 * (idx % C4), R)) = v[i];
+  }
+  __syncthreads();
+  // a row's chain over its zero-padded width: the zeros past w add nothing
+  auto row_chain = [&](int r) {
+    float s2 = 0.f;
+#pragma unroll
+    for (int t4 = 0; t4 < C4; ++t4) {
+      const float4 a = *reinterpret_cast<const float4*>(xc + swz(r, 4 * t4, R));
+      s2 = fmaf(a.x, a.x, s2);
+      s2 = fmaf(a.y, a.y, s2);
+      s2 = fmaf(a.z, a.z, s2);
+      s2 = fmaf(a.w, a.w, s2);
+    }
+    return s2;
+  };
+  if (tid < R) {  // each row's exact x2 chain
+    const float x2 = row_chain(tid);
+    x2s[tid] = x2;
+    ps[tid] = sqrtf(x2) * KAPPA;
+    best[tid] = START;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int idx = tid + i * THREADS, r = idx / C4, f = 4 * (idx % C4);
+    if (idx < R * C4) {
+      float4 vb = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < n) {  // zero past w, where mu is zero too
+        vb.x = f < w ? v[i].x - mu[f] : 0.f;
+        vb.y = f + 1 < w ? v[i].y - mu[f + 1] : 0.f;
+        vb.z = f + 2 < w ? v[i].z - mu[f + 2] : 0.f;
+        vb.w = f + 3 < w ? v[i].w - mu[f + 3] : 0.f;
+      }
+      *reinterpret_cast<float4*>(xc + swz(r, f, R)) = vb;
+    }
+  }
+  fence_proxy_async();  // the centred tile is wgmma's A operand
+  __syncthreads();
+  if (tid < R) {  // and its centred x'2
+    const float xb2 = row_chain(tid);
+    xb2s[tid] = xb2;
+    as[tid] = sqrtf(xb2) * KAPPA;
+  }
+  __syncthreads();
+
+  // Blocks walk the tiles from different starts, so that the card's SMs
+  // read different centroids from L2 at a time, not all the same ones (the
+  // key, and so the answer, does not depend on the order).
+  const int start = blockIdx.x % tiles;
+  auto rotated = [&](int t) { return t + start < tiles ? t + start : t + start - tiles; };
+
+  // one thread streams the centred centroid tiles, one bulk copy a tile
+  // and its record: the block's t-th into stage t % STAGES once every warp
+  // has released the one before it there
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES;
+    if (t >= STAGES) mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+    mbar_expect_tx(full + 8 * s, L.tile + REC * 4);
+    bulk_load(ring + s * L.stage,
+              sc.stages + (static_cast<size_t>(pair) * tiles + rotated(t)) * (N * wp + 256),
+              L.tile + REC * 4, full + 8 * s);
+  };
+  if (tid == PRODUCER)
+    for (int t = 0; t < min(STAGES, tiles); ++t) load_tile(t);
+
+  // ---- warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  // accumulator layout: this thread holds rows r0 and r0 + 8, columns
+  // 8 i + cq + {0, 1} (element 4 i + 2 h + e is row r0 + 8 h, column
+  // 8 i + cq + e)
+  const int wg = tid / 128, lane = tid % 32;
+  const int cq = 2 * (lane % 4);
+  const int r0 = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;  // rows r0 and r0 + 8
+  bool live[2];
+  float xb2[2], a[2], p[2], U[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    live[h] = row0 + r0 + 8 * h < n;
+    xb2[h] = xb2s[r0 + 8 * h];
+    a[h] = as[r0 + 8 * h];
+    p[h] = ps[r0 + 8 * h];
+    U[h] = CUDART_INF_F;
+  }
+  const uint32_t xa = base + 64 * wg * ROW;  // this warpgroup's centred rows
+  uint32_t* myq = queue + (tid / 32) * CAP;        // candidates: j << 8 | row
+  float* mylb = reinterpret_cast<float*>(queue + (THREADS / 32) * CAP) + (tid / 32) * CAP;
+  const float* c2p = sc.c2 + static_cast<size_t>(pair) * k_pad;
+  const float* craw = cs + static_cast<size_t>(pair) * k * w;
+  unsigned int done = 0;  // rechecks this thread ran
+
+  // S = X' C'^T for the block's t-th tile: a k-step moves 32 bytes along
+  // the swizzled row, or to the next box every 4 steps. The tile's record
+  // (its c'2 and bounds) came with it into the stage: read before release.
+  auto issue = [&](int t, float(&acc)[32], TileVals& tv) {
+    const int s = t % STAGES;
+    mbar_wait(full + 8 * s, (t / STAGES) & 1);
+    const uint32_t cb = ring + s * L.stage;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * BOXES; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_tf32(acc, sw128_desc(xa + (kk / 4) * R * ROW + col, 16, 1024),
+                 sw128_desc(cb + (kk / 4) * N * ROW + col, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    const float* rec = reinterpret_cast<const float*>(sm + (cb - base) + L.tile);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 v = *reinterpret_cast<const float2*>(rec + 8 * i + cq);
+      tv.cb2[2 * i] = v.x;
+      tv.cb2[2 * i + 1] = v.y;
+    }
+    tv.b = rec[N];
+    tv.q = rec[N + 1];
+  };
+
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
+    // the last warpgroup takes its turn last: its first thread refills
+    if (tid == PRODUCER && t + STAGES < tiles) load_tile(t + STAGES);
+  };
+
+  // d_ij by the one-tile kernel's chain from the raw rows (global memory,
+  // in L2), folded into row r's key
+  auto recheck = [&](int r, int j) {
+    const float* xi = xs + (pbase + row0 + r) * w;
+    const float* cj = craw + static_cast<size_t>(j) * w;
+    float dot = 0.f;
+    if (VEC) {
+#pragma unroll 16
+      for (int t4 = 0; t4 < w / 4; ++t4) {
+        const float4 xv = __ldg(reinterpret_cast<const float4*>(xi) + t4);
+        const float4 cv = __ldg(reinterpret_cast<const float4*>(cj) + t4);
+        dot = fmaf(xv.x, cv.x, dot);
+        dot = fmaf(xv.y, cv.y, dot);
+        dot = fmaf(xv.z, cv.z, dot);
+        dot = fmaf(xv.w, cv.w, dot);
+      }
+    } else {
+#pragma unroll 8
+      for (int t = 0; t < w; ++t) dot = fmaf(__ldg(xi + t), __ldg(cj + t), dot);
+    }
+    const float d = fmaxf((x2s[r] + __ldg(c2p + j)) - 2.0f * dot, 0.0f);
+    atomicMin(best + r, (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+                            static_cast<unsigned int>(j));
+  };
+
+  // Recheck the queued candidates whose lower bound e_ij - E_i still
+  // reaches their row's bound U (every minimiser does: see the header),
+  // compacted first so that lanes take whole rounds of 32; then lower each
+  // row's bound to its exact best.
+  int pending = 0;  // candidates queued, warp-uniform
+  auto flush = [&]() {
+    if (lane % 4 == 0) {
+      urow[r0] = U[0];
+      urow[r0 + 8] = U[1];
+    }
+    __syncwarp();
+    int kept = 0;
+    for (int b0 = 0; b0 < pending; b0 += 32) {
+      const int q = b0 + lane;
+      const uint32_t item = q < pending ? myq[q] : 0u;
+      const bool keep = q < pending && mylb[q] <= urow[item & 255];
+      const unsigned int ballot = __ballot_sync(0xffffffffu, keep);
+      __syncwarp();
+      if (keep) myq[kept + __popc(ballot & ((1u << lane) - 1u))] = item;
+      kept += __popc(ballot);
+      __syncwarp();
+    }
+    for (int q = lane; q < kept; q += 32) {
+      const uint32_t item = myq[q];
+      recheck(static_cast<int>(item & 255), static_cast<int>(item >> 8));
+      ++done;
+    }
+    __syncwarp();
+    pending = 0;
+    const volatile unsigned long long* vbest = best;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      U[h] = fminf(U[h], __uint_as_float(static_cast<uint32_t>(vbest[r0 + 8 * h] >> 32)));
+  };
+
+  auto epilogue = [&](int t, float(&acc)[32], const TileVals& tv) {
+    const int j0 = rotated(t) * N;
+    const bool ragged = j0 + N > k;  // the last tile's columns past k
+    uint32_t mine = 0;  // bit 4 i + 2 h + e: that element is a candidate
+    float eh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ab = a[h] + tv.b, pq = p[h] + tv.q;
+      eh[h] = fmaf(2.0f * gamma * a[h], tv.b, eps * fmaf(ab, ab, pq * pq));
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = acc[4 * i + 2 * h + e];
+          v = fmaxf(fmaf(-2.0f, v, xb2[h] + tv.cb2[2 * i + e]), 0.0f);
+        }
+      if (ragged) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (j0 + 8 * i + cq + e >= k) acc[4 * i + 2 * h + e] = CUDART_INF_F;
+      }
+      float m[2] = {CUDART_INF_F, CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) m[e] = fminf(m[e], acc[4 * i + 2 * h + e]);
+      m[0] = fminf(m[0], m[1]);
+      m[0] = fminf(m[0], __shfl_xor_sync(0xffffffffu, m[0], 1));
+      m[0] = fminf(m[0], __shfl_xor_sync(0xffffffffu, m[0], 2));
+      U[h] = fminf(U[h], m[0] + eh[h]);
+      const float thr = live[h] ? U[h] + eh[h] : -1.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (acc[4 * i + 2 * h + e] <= thr) mine |= 1u << (4 * i + 2 * h + e);
+    }
+    // queue the candidates with their lower bounds, one a lane a step
+    // (slots by ballot); a queue that would overflow is flushed first
+    for (;;) {
+      const unsigned int ballot = __ballot_sync(0xffffffffu, mine != 0);
+      if (ballot == 0) break;
+      if (pending + __popc(ballot) > CAP) flush();
+      if (mine != 0) {
+        const int idx = __ffs(mine) - 1;
+        mine &= mine - 1;
+        const int h = (idx >> 1) & 1;
+        const int slot = pending + __popc(ballot & ((1u << lane) - 1u));
+        myq[slot] = (static_cast<uint32_t>(j0 + 8 * (idx >> 2) + cq + (idx & 1)) << 8) |
+                    (r0 + 8 * h);
+        mylb[slot] = pick(acc, idx) - (h ? eh[1] : eh[0]);
+      }
+      pending += __popc(ballot);
+      __syncwarp();
+    }
+  };
+
+  // The warpgroups take the tensor cores in turns (named barrier 2 + wg:
+  // each waits on its own and arrives on the next one's), so that one's
+  // products run while the others' epilogues do; free-running warpgroups
+  // measured slower.
+  const int mine_bar = 2 + wg, next_bar = 2 + (wg + 1) % WGS;
+  float acc[32];
+  TileVals tv;
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0 || wg > 0) bar_sync(mine_bar);
+    issue(t, acc, tv);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(t);
+    bar_arrive(next_bar);
+    epilogue(t, acc, tv);
+    __syncwarp();
+  }
+  if (wg == 0) bar_sync(mine_bar);  // the last warpgroup's last arrival
+  flush();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (live[h] && lane % 4 == 0) {
+      const unsigned long long key = best[r0 + 8 * h];
+      assign[pbase + row0 + r0 + 8 * h] = static_cast<int>(key & 0xffffffffu);
+      dmin[pbase + row0 + r0 + 8 * h] = __uint_as_float(static_cast<uint32_t>(key >> 32));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) done += __shfl_xor_sync(0xffffffffu, done, o);
+  if (lane == 0) atomicAdd(count, done);
+  __syncthreads();
+  if (tid == 0) atomicAdd(rechecks, static_cast<unsigned long long>(*count));
+}
+
+template <bool VEC, int BOXES>
+int launch_vec(const float* xs, const float* cs, int* assign, float* dmin, int n_pairs, int n,
+               int k, int w, float gamma, float eps, const Scratch& sc, int wp, int k_pad,
+               unsigned long long* rechecks, cudaStream_t stream) {
+  auto kernel = screen_kernel<VEC, BOXES>;
+  const Layout L(wp);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), n_pairs);
-  kernel<<<grid, kThreads, smem, stream>>>(xs, cs, assign, dmin, n, k, w, ws, tile_k);
+  dim3 grid(static_cast<unsigned>((n + R - 1) / R), n_pairs);
+  kernel<<<grid, THREADS, L.bytes, stream>>>(xs, cs, sc, assign, dmin, rechecks, n, k, w,
+                                             wp, k_pad, gamma, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_tiled_any(const float* xs, const float* cs, int* assign, float* dmin,
-                     int n_pairs, int n, int k, int w, cudaStream_t stream) {
-  if (w % 4 == 0) {
-    if (w <= 16) return launch_tiled<16, true>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-    if (w <= 32) return launch_tiled<32, true>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-    if (w <= 64) return launch_tiled<64, true>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-    return launch_tiled<128, true>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
+template <typename... A>
+int launch_any(bool vec, int boxes, A... a) {
+  if (vec) {
+    switch (boxes) {
+      case 1: return launch_vec<true, 1>(a...);
+      case 2: return launch_vec<true, 2>(a...);
+      case 3: return launch_vec<true, 3>(a...);
+      default: return launch_vec<true, 4>(a...);
+    }
   }
-  if (w <= 16) return launch_tiled<16, false>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-  if (w <= 32) return launch_tiled<32, false>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-  if (w <= 64) return launch_tiled<64, false>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
-  return launch_tiled<128, false>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
+  switch (boxes) {
+    case 1: return launch_vec<false, 1>(a...);
+    case 2: return launch_vec<false, 2>(a...);
+    case 3: return launch_vec<false, 3>(a...);
+    default: return launch_vec<false, 4>(a...);
+  }
 }
+
+int launch(const float* xs, const float* cs, int* assign, float* dmin, int n_pairs, int n, int k,
+           int w, float gamma, float eps, float* scratch, long long scratch_floats,
+           unsigned long long* rechecks, cudaStream_t stream) {
+  const int wp = (w + BOX - 1) / BOX * BOX;
+  const int k_pad = (k + N - 1) / N * N;
+  if (scratch == nullptr || rechecks == nullptr ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch sc(scratch, n_pairs, k_pad, wp);
+  if (sc.floats > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
+  prep_kernel<<<dim3(k_pad / N, n_pairs), N, 0, stream>>>(cs, sc, k, w, wp, k_pad);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_any(w % 4 == 0, wp / BOX, xs, cs, assign, dmin, n_pairs, n, k, w, gamma, eps,
+                    sc, wp, k_pad, rechecks, stream);
+}
+
+}  // namespace tiled
 
 template <int MAXW, bool EXACT, bool VEC>
 int launch(const float* xs, const float* cs, int* assign, float* dmin,
@@ -352,12 +810,14 @@ int launch(const float* xs, const float* cs, int* assign, float* dmin,
 }
 
 int launch_pairs(const float* xs, const float* cs, int* assign, float* dmin,
-                 int n_pairs, int n, int k, int w, cudaStream_t stream) {
+                 int n_pairs, int n, int k, int w, float gamma, float eps, float* scratch,
+                 long long scratch_floats, unsigned long long* rechecks, cudaStream_t stream) {
   if (n <= 0 || n_pairs <= 0) return 0;
   if (k <= 0 || w <= 0 || w > 128 || n_pairs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(k) * (w + 1) * sizeof(float) > kMaxSmem)
-    return launch_tiled_any(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
+    return tiled::launch(xs, cs, assign, dmin, n_pairs, n, k, w, gamma, eps, scratch,
+                         scratch_floats, rechecks, stream);
   if (w % 4 == 0) {
     switch (w) {
       case 4: return launch<4, true, true>(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
@@ -387,18 +847,27 @@ const char* kmeans_assign_error_string(int code) {
 }
 
 // x (n, d), c (k, d) float32; assign (n,) int32, dmin (n,) float32; d <= 128,
-// any k (tiled past shared memory).
-int kmeans_assign_f32(const float* x, const float* c, int* assign,
-                      float* dmin, int n, int k, int d, cudaStream_t stream) {
-  return launch_pairs(x, c, assign, dmin, 1, n, k, d, stream);
+// any k. Past shared memory (the tiled path) gamma and eps are the screen's
+// window constants, scratch holds scratch_floats floats (16-byte aligned;
+// tiled_scratch_floats in kernels/kmeans_assign.py) and *rechecks, zeroed
+// by the caller, gains the launch's recheck count; the one-tile path
+// ignores the four.
+int kmeans_assign_f32(const float* x, const float* c, int* assign, float* dmin, int n, int k,
+                      int d, float gamma, float eps, float* scratch, long long scratch_floats,
+                      unsigned long long* rechecks, cudaStream_t stream) {
+  return launch_pairs(x, c, assign, dmin, 1, n, k, d, gamma, eps, scratch, scratch_floats,
+                      rechecks, stream);
 }
 
 // xs (n_pairs, n, w), cs (n_pairs, k, w) float32, each pair zero-padded to
-// w <= 128; assign (n_pairs, n) int32, dmin (n_pairs, n) float32.
-int kmeans_assign_pairs_f32(const float* xs, const float* cs, int* assign,
-                            float* dmin, int n_pairs, int n, int k, int w,
-                            cudaStream_t stream) {
-  return launch_pairs(xs, cs, assign, dmin, n_pairs, n, k, w, stream);
+// w <= 128; assign (n_pairs, n) int32, dmin (n_pairs, n) float32; the rest
+// as above.
+int kmeans_assign_pairs_f32(const float* xs, const float* cs, int* assign, float* dmin,
+                            int n_pairs, int n, int k, int w, float gamma, float eps,
+                            float* scratch, long long scratch_floats,
+                            unsigned long long* rechecks, cudaStream_t stream) {
+  return launch_pairs(xs, cs, assign, dmin, n_pairs, n, k, w, gamma, eps, scratch,
+                      scratch_floats, rechecks, stream);
 }
 
 }  // extern "C"

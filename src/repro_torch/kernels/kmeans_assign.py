@@ -4,9 +4,12 @@ pairs zero-padded to one width in one launch.
 
 Centroids that fit in one block's shared memory with their norms
 (k (w + 1) floats within :data:`MAX_SMEM`) are staged once a block; past
-that (IVF's 1024 lists of 128 dims) the kernel stages them in tiles and
-carries each point's running minimum across the tiles, bit for bit the same
-answer. :func:`tiled` says which way a shape goes."""
+that (IVF's 1024 lists of 128 dims) the tiled path screens every (point,
+centroid) pair on the tensor cores in TF32 and rechecks, in the exact f32
+arithmetic, every centroid the screen cannot rule out: bit for bit the same
+answer (the window's derivation is in ``csrc/kmeans_assign.cu``).
+:func:`tiled` says which way a shape goes; :data:`last_tiled` holds the last
+tiled launch's recheck count."""
 from __future__ import annotations
 
 import ctypes
@@ -16,13 +19,30 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import kmeans_assign_ref
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_PAIRS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_TILED_ARGS = [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _TILED_ARGS
+_PAIRS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + _TILED_ARGS
 MAX_DIM = 128
 #: shared memory a block may hold (H100: 227 KB)
 MAX_SMEM = 232448
 #: pairs a launch takes (the grid's y extent)
 MAX_PAIRS = 65535
+#: the tiled path's points a block and centroids a tile (``tiled::R``, ``N``)
+TILE_POINTS = 192
+TILE_CENTROIDS = 64
+#: the screen's window: |screened - exact| <= 2 G a b + EPS ((a + b)^2 +
+#: (p + q)^2), a, b the centred rows' norms, p, q the raw ones (derived in
+#: ``csrc/kmeans_assign.cu``); the wrapper passes both to the kernel
+SCREEN_GAMMA = 2.0 ** -9 + 2.0 ** -12
+SCREEN_EPS = 2.0 ** -16
+#: the factor on sqrt of a computed chain that makes it a norm bound (the
+#: kernel's ``tiled::KAPPA``; the CPU emulation reads it here)
+SCREEN_KAPPA = 1.0 + 2.0 ** -16
+#: the last tiled launch: ``rechecks`` (a device int64 tensor of one
+#: element, read it after the launch's stream is done), ``points`` (pairs x
+#: points) and ``centroids`` (k)
+last_tiled: dict = {}
 
 
 def kmeans_assign_plain(x: torch.Tensor, c: torch.Tensor, chunk: int = 65536):
@@ -38,6 +58,29 @@ def tiled(k: int, w: int) -> bool:
     """Whether k centroids of width w go through the tiled kernel: their
     k (w + 1) floats do not fit in one block's shared memory."""
     return k * (w + 1) * 4 > MAX_SMEM
+
+
+def tiled_scratch_floats(n_pairs: int, k: int, w: int) -> int:
+    """Floats of scratch a tiled launch needs: each tile of 64 centred
+    centroids as its shared-memory image plus a 1 KB record (P, k_pad / 64,
+    64 wp + 256), their c2 (P, k_pad) and mu (P, wp), with k_pad = k up to a
+    whole tile and wp = w up to a multiple of 32 (``tiled::Scratch``)."""
+    k_pad = -(-k // TILE_CENTROIDS) * TILE_CENTROIDS
+    wp = -(-w // 32) * 32
+    return n_pairs * ((k_pad // TILE_CENTROIDS) * (TILE_CENTROIDS * wp + 256) + k_pad + wp)
+
+
+def _tiled_args(n_pairs: int, n: int, k: int, w: int, device):
+    """The tiled path's trailing C arguments (null for the one-tile path);
+    a tiled launch gets its scratch and a zeroed recheck counter, kept in
+    :data:`last_tiled`."""
+    if not tiled(k, w):
+        return (0.0, 0.0, None, 0, None)
+    floats = tiled_scratch_floats(n_pairs, k, w)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=device)
+    rechecks = torch.zeros((1,), dtype=torch.int64, device=device)
+    last_tiled.update(rechecks=rechecks, points=n_pairs * n, centroids=k)
+    return (SCREEN_GAMMA, SCREEN_EPS, cuda.ptr(scratch), floats, cuda.ptr(rechecks))
 
 
 def _check(x: torch.Tensor, c: torch.Tensor, name: str = "kmeans_assign") -> None:
@@ -59,7 +102,7 @@ def kmeans_assign_cuda(x: torch.Tensor, c: torch.Tensor):
     dmin = torch.empty((n,), dtype=torch.float32, device=x.device)
     cuda.launch("kmeans_assign", "kmeans_assign_f32", _ARGS, cuda.ptr(x),
                 cuda.ptr(c), cuda.ptr(assign), cuda.ptr(dmin), n, c.shape[0], d,
-                cuda.stream(x.device))
+                *_tiled_args(1, n, c.shape[0], d, x.device), cuda.stream(x.device))
     return assign, dmin
 
 
@@ -105,5 +148,5 @@ def kmeans_assign_pairs_cuda(xs: torch.Tensor, cs: torch.Tensor, dims=None):
     dmin = torch.empty((n_pairs, n), dtype=torch.float32, device=xs.device)
     cuda.launch("kmeans_assign", "kmeans_assign_pairs_f32", _PAIRS_ARGS, cuda.ptr(xs),
                 cuda.ptr(cs), cuda.ptr(assign), cuda.ptr(dmin), n_pairs, n, cs.shape[1], w,
-                cuda.stream(xs.device))
+                *_tiled_args(n_pairs, n, cs.shape[1], w, xs.device), cuda.stream(xs.device))
     return assign, dmin

@@ -170,6 +170,74 @@ def test_kmeans_assign_tiled_kernel(dev, w, side):
     assert torch.equal(td.view(torch.int32), torch.where(last, ld, hd).view(torch.int32))
 
 
+def _one_tile_composition(x, c):
+    """The one-tile kernel's answer over all of c, whatever k: one launch a
+    chunk of centroids that fits in shared memory, merged in chunk order by
+    the same strict '<' (an earlier chunk keeps a tie)."""
+    from repro_torch.kernels.kmeans_assign import MAX_SMEM, kmeans_assign_cuda, tiled
+
+    limit = MAX_SMEM // (4 * (c.shape[1] + 1))
+    best_a = best_d = None
+    for j0 in range(0, c.shape[0], limit):
+        chunk = c[j0:j0 + limit].contiguous()
+        assert not tiled(chunk.shape[0], chunk.shape[1])
+        a, d = kmeans_assign_cuda(x, chunk)
+        if best_d is None:
+            best_a, best_d = a + j0, d
+            continue
+        take = d < best_d
+        best_a, best_d = torch.where(take, a + j0, best_a), torch.where(take, d, best_d)
+    return best_a, best_d
+
+
+#: (w, k) through the tiled path: one past the shared-memory limit at each
+#: width, and IVF's 1024 lists where they are past it
+TILED_SHAPES = [(4, 11623), (13, 4151), (64, 895), (128, 451), (64, 1024), (128, 1024)]
+
+
+@pytest.mark.parametrize("w,k", TILED_SHAPES)
+@pytest.mark.parametrize("data", ["offset", "offset_narrow", "midway", "integer"])
+def test_kmeans_assign_tiled_screen_cases(dev, w, k, data):
+    """The tiled path's TF32 screen on data that strains it: a 10^3 offset a
+    coordinate (spread 10^2, and unit spread, where the exact chain's own
+    rounding widens the window to nearly every centroid), points halfway
+    between two centroids (near-ties on floats), and small integers (exact
+    ties). Floats bit for bit against the one-tile kernel's composition,
+    integers against the plain version; one launch; the launch's recheck
+    count is at least one a point and at most n k."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.kmeans_assign import (
+        kmeans_assign_cuda,
+        kmeans_assign_plain,
+        last_tiled,
+        tiled,
+    )
+
+    assert tiled(k, w)
+    n = 2051
+    rng = np.random.default_rng(w * 31 + k + len(data))
+    if data == "offset":
+        x, c = 1e3 + 100 * rng.standard_normal((n, w)), 1e3 + 100 * rng.standard_normal((k, w))
+    elif data == "offset_narrow":
+        x, c = 1e3 + rng.standard_normal((n, w)), 1e3 + rng.standard_normal((k, w))
+    elif data == "midway":
+        c = rng.standard_normal((k, w))
+        x = (c[rng.integers(0, k, n)] + c[rng.integers(0, k, n)]) / 2
+    else:
+        x, c = rng.integers(-3, 4, (n, w)), rng.integers(-3, 4, (k, w))
+    x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    c = torch.as_tensor(np.asarray(c, np.float32), device=dev)
+    cuda.reset_launch_counts()
+    ga, gd = kmeans_assign_cuda(x, c)
+    assert cuda.launch_counts["kmeans_assign"] == 1
+    rechecks = int(last_tiled["rechecks"].item())
+    assert last_tiled["points"] == n and last_tiled["centroids"] == k
+    assert n <= rechecks <= n * k
+    wa, wd = kmeans_assign_plain(x, c) if data == "integer" else _one_tile_composition(x, c)
+    assert torch.equal(ga, wa)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+
+
 def test_kmeans_assign_pairs_kernel_rejects(dev):
     from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_pairs_cuda
 
