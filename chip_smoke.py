@@ -29,6 +29,24 @@ Phases, in order; any failure exits nonzero:
                100) are also held against their plain versions at every
                bucket the serving engine pads a batch to (1 to 256 queries)
                over the 10^6 points, and timed at the bucket of 64;
+  3b. autotune — the kernel autotuner (repro_torch.kernels.autotune) on
+               the card: schist and masked_rerank searched over their eight
+               (bq, bn) candidates each (about 10 s of budget an op) on the
+               reference's synthetic problem over 10^6 x 128 points, N_s 6,
+               K 1024, at 1000 queries (schist; masked_rerank at k = 100,
+               then k = 10, which owns the entry: the key has no k) and at
+               the engine's bucket of 64 (k = 10); each trial table printed
+               with its launch geometry; every candidate's output bit for
+               bit the default's (the search raises otherwise), the winner's
+               against the plain version; the winners saved with
+               save_cache to a temporary file; after the masked phase, the
+               masked-full batch through searchers warm-loaded from that
+               file (autotune_entries_loaded = the file's entries, the last
+               launches' (bq, bn) the winners, ids and dists bit for bit the
+               untuned searchers', both timed, median of 3), and in the
+               serve phase the launcher's recovery once more with
+               --autotune-cache (MATCH, the entries in its report, its last
+               launches at the bucket-64 winners);
   4. flash   — ops.flash_attention at the attention widths of granite-3-2b
                (32 heads of 64, causal, bf16 and f32) and qwen1.5-4b (20
                heads of 128, causal, bf16 and f32), S = T = 4096, plus a
@@ -409,6 +427,7 @@ SOURCES = {
 PATHS = {
     "build": ("kmeans_assign",),
     "masked": ("l2dist", "schist", "masked_rerank"),
+    "autotune_search": ("l2dist", "schist", "masked_rerank"),
     "gather": ("l2dist", "scscore"),
     "flash": ("flash_attention",),
     "persist": ("l2dist", "schist", "masked_rerank", "scscore"),
@@ -1042,6 +1061,189 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
     return res
 
 
+#: the autotune phase's searches, in order: (op, queries, k). The key has
+#: no k (the reference's format), so masked_rerank's k = 10 search, run
+#: after k = 100, owns the 1000-query bucket's entry.
+TUNE_RUNS = (("schist", QUERIES, 10), ("schist", 64, 10), ("masked_rerank", QUERIES, 100),
+             ("masked_rerank", QUERIES, 10), ("masked_rerank", 64, 10))
+TUNE_BUDGET_S = 10.0
+#: the synthetic problem's shape besides Q and n: (d, N_s, sqrt_k), the main path's
+TUNE_SHAPE = (128, 6, 32)
+
+
+def tune_geometry(op: str, q: int, n: int, k: int, blocks) -> dict:
+    """The launch geometry a (bq, bn) gives at this shape."""
+    from repro_torch.kernels.masked_rerank import rerank_geometry
+    from repro_torch.kernels.schist import schist_chunk, schist_geometry
+
+    d, n_sub, sqrt_k = TUNE_SHAPE
+    if op == "schist":
+        tiles, warps, smem, groups = schist_geometry(q, n_sub, sqrt_k ** 2, blocks)
+        return dict(tiles=tiles, warps=warps, chunk=schist_chunk(warps, blocks),
+                    smem_bytes=smem, tile_groups=groups)
+    return dict(zip(("lanes", "warps", "chunk", "n_chunks", "smem_bytes"),
+                    rerank_geometry(n, k, n_sub, sqrt_k ** 2, d, blocks)))
+
+
+def tune_against_plain(torch, op: str, q: int, n: int, k: int, winner) -> dict:
+    """The winner's output on the search's inputs against the plain
+    version: schist bit for bit; masked_rerank's ids >= 99.9 % equal, the
+    filled slots equal and the dists within the float tolerance (its norm
+    form sums in another order than the plain version's), with the
+    candidates a query that its thresholds pass."""
+    from repro_torch.kernels import autotune, ops
+
+    d, n_sub, sqrt_k = TUNE_SHAPE
+    args, kwargs = autotune.synthetic_problem(op, q, n, d, n_sub, sqrt_k, k, 0, "cuda")
+    if op == "schist":
+        got = ops.schist(*args, impl="kernel", blocks=winner, **kwargs)
+        check(torch.equal(got, ops.schist(*args, impl="torch", **kwargs)),
+              f"autotune: schist q={q} winner {winner} vs plain")
+        return dict(max_abs_err=0.0)
+    bits, cells, thresh = args[:3]
+    hist = ops.schist(bits, cells, n_sub + 1, q=q, impl="kernel")
+    levels = torch.arange(n_sub + 1, device=hist.device)[None, :]
+    candidates = float(torch.where(levels >= thresh[:, None], hist, 0).sum(1).float().mean())
+    gi, gd = ops.masked_rerank(*args, impl="kernel", blocks=winner)
+    wi, wd = ops.masked_rerank(*args, impl="torch")
+    fin = torch.isfinite(wd)
+    data, queries = args[3], args[5]
+    atol = 1e-5 * float((queries * queries).sum(1).max() + (data * data).sum(1).max())
+    agree = float((gi == wi).float().mean())
+    check(torch.equal(fin, torch.isfinite(gd)), f"autotune: masked_rerank q={q} k={k} slots")
+    check(torch.allclose(gd[fin], wd[fin], rtol=1e-5, atol=atol),
+          f"autotune: masked_rerank q={q} k={k} winner {winner} dists vs plain")
+    check(agree >= 0.999, f"autotune: masked_rerank q={q} k={k} ids agree {agree} < 0.999")
+    return dict(max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+                ids_agree=agree, mean_candidates=candidates)
+
+
+def phase_autotune(torch, n: int, cache_path: str) -> dict:
+    """Phase 3b: the autotuner on the card (TUNE_RUNS), every candidate
+    tried within the budget and bit for bit the default (``autotune``
+    raises otherwise), each winner against the plain version; the winners
+    saved to ``cache_path`` and the process's cache emptied, so the phases
+    after this one launch the untuned geometry until a searcher loads it."""
+    from repro_torch.kernels import autotune
+
+    autotune.clear_cache()
+    d, n_sub, sqrt_k = TUNE_SHAPE
+    results = []
+    for op, q, k in TUNE_RUNS:
+        t0 = time.perf_counter()
+        res = autotune.autotune(op, q=q, n=n, d=d, n_sub=n_sub, sqrt_k=sqrt_k, k=k,
+                                budget_s=TUNE_BUDGET_S, impl="kernel", device="cuda")
+        res["search_s"] = time.perf_counter() - t0
+        check(len(res["trials"]) == len(autotune.CANDIDATES[op]),
+              f"autotune {op} q={q} k={k}: {len(res['trials'])} candidates in the budget")
+        for trial in res["trials"]:
+            trial["geometry"] = tune_geometry(op, q, n, k, trial["blocks"])
+        res.update(q=q, n=n, k=k, winner_geometry=tune_geometry(op, q, n, k, res["winner"]),
+                   plain=tune_against_plain(torch, op, q, n, k, tuple(res["winner"])))
+        print(f"autotune {op} q={q} k={k}: {json.dumps(res)}", flush=True)
+        results.append(res)
+    autotune.save_cache(cache_path)
+    cache = json.loads(Path(cache_path).read_text())
+    autotune.clear_cache()
+    print(f"autotune: saved {len(cache)} entries: {json.dumps(cache)}", flush=True)
+    return {"results": results, "cache": cache}
+
+
+def tuned_kernels_on_the_path(torch, index, queries, tuned: dict) -> dict:
+    """Both kernels on the masked-full path's own inputs for this batch
+    (query-aware threshold), at the default and at the tuned (bq, bn) from
+    the synthetic search, timed in turns (default, tuned, tuned, default;
+    CUDA events); the outputs equal bit for bit."""
+    from repro_torch.core import taco
+    from repro_torch.core.selection import query_aware_threshold
+    from repro_torch.kernels.autotune import DEFAULT_BLOCKS
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda
+    from repro_torch.kernels.schist import collision_bits, collision_table, schist_cuda
+
+    sc, cfg = index.sc_index, index.cfg
+    q, levels = queries.shape[0], cfg.n_subspaces + 1
+    d1s, d2s, cells, taus, _ = taco._collision_inputs(sc, queries, cfg)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    cells, data = cells.contiguous(), sc.data.to(torch.float32).contiguous()
+    hist = schist_cuda(bits, cells, levels, q=q)
+    thresh, demand = query_aware_threshold(hist, cfg.beta * sc.n, cfg.n_subspaces)
+    thresh = thresh.to(torch.int32).contiguous()
+    norms = taco.data_norms_of(sc).to(torch.float32).contiguous()
+    calls = {("schist", None): lambda b: schist_cuda(bits, cells, levels, q=q, blocks=b)}
+    for k in (10, 100):
+        calls[("masked_rerank", k)] = (lambda b, k=k: masked_rerank_cuda(
+            bits, cells, thresh, queries, data, norms, k, blocks=b))
+    out = {"mean_candidates": float(demand.float().mean())}
+    for (op, k), call in calls.items():
+        default, best = DEFAULT_BLOCKS[op], tuned[op]
+        got, want = call(best), call(default)
+        same = (torch.equal(got, want) if op == "schist"
+                else torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        check(same, f"autotune: {op} k={k} at the tuned {best} differs from the default")
+        reps = 20 if op == "schist" else 5
+        d1, t1, t2, d2 = (timed(torch, lambda b=b: call(b), reps)
+                          for b in (default, best, best, default))
+        out[op if k is None else f"{op}_k{k}"] = dict(
+            default=list(default), tuned=list(best), default_ms=(d1 + d2) / 2,
+            tuned_ms=(t1 + t2) / 2, turns_ms=[d1, t1, t2, d2])
+    return out
+
+
+def phase_autotune_search(torch, index, queries, masked_runs, cache_path: str,
+                          cache: dict) -> dict:
+    """The masked-full batch (SETTINGS) through searchers warm-loaded from
+    the saved winners, beside untuned searchers in the same call: every
+    tuned searcher loads the file's entries, the tuned run's last launches
+    carry the 1000-query bucket's winners (the untuned run's the defaults),
+    and ids and dists equal the untuned run's and the masked phase's bit
+    for bit."""
+    import numpy as np
+
+    from repro_torch.kernels import autotune, cuda
+
+    n = index.n
+    q_bucket = autotune._bucket(queries.shape[0])
+    backend = queries.device.type
+    want = {op: tuple(cache[f"{op}|{backend}|f32|{q_bucket}|{autotune._bucket(n)}"])
+            for op in autotune.OPS}
+    autotune.clear_cache()
+    cuda.reset_launch_counts()
+    untuned = search_runs(torch, index, queries, SETTINGS)
+    defaults = {op: cuda.launch_blocks[op] for op in autotune.OPS}
+    check(defaults == autotune.DEFAULT_BLOCKS,
+          f"autotune: the untuned searchers launched {defaults}")
+    loaded = []
+
+    def tuned_searcher(view):
+        s = view.searcher("single", autotune_cache=cache_path)
+        loaded.append(s.autotune_entries_loaded)
+        return s
+
+    tuned, launches = run_path(
+        torch, "autotune_search",
+        lambda: search_runs(torch, index, queries, SETTINGS, tuned_searcher),
+        expect={"l2dist": 3 * len(SETTINGS)})
+    got = {op: cuda.launch_blocks[op] for op in autotune.OPS}
+    autotune.clear_cache()
+    check(loaded == [len(cache)] * len(SETTINGS),
+          f"autotune: searchers loaded {loaded} entries, the file has {len(cache)}")
+    check(got == want, f"autotune: the tuned searchers launched {got}, the winners are {want}")
+    kernels = tuned_kernels_on_the_path(torch, index, queries, want)
+    rows = []
+    for setting in SETTINGS:
+        t, u, m = tuned[setting], untuned[setting], masked_runs[setting]
+        for label, other in (("untuned", u), ("masked phase", m)):
+            check(np.array_equal(t["ids"], other["ids"])
+                  and np.array_equal(t["dists"].view(np.uint32), other["dists"].view(np.uint32)),
+                  f"autotune: tuned masked-full {setting} differs from the {label} run")
+        rows.append(dict(k=setting[0], selection=setting[1], tuned_s=t["seconds"],
+                         untuned_s=u["seconds"]))
+    out = {"entries_loaded": loaded, "launch_blocks": {op: list(b) for op, b in got.items()},
+           "searches": rows, "kernels": kernels, "launches": launches}
+    print(f"autotune search: {json.dumps(out)}", flush=True)
+    return out
+
+
 #: (label, BH, KV heads, S, T, hd, causal, dtype): granite-3-2b (32 query
 #: heads of 2048/32 = 64; its 8 KV heads repeated to 32 by the caller, as
 #: the op takes equal BH) and qwen1.5-4b (MHA, 20 heads of 128) at
@@ -1319,14 +1521,16 @@ def build_index(torch, corpus_np, cfg, label: str):
     return index, build_s
 
 
-def search_runs(torch, index, queries, settings) -> dict:
+def search_runs(torch, index, queries, settings, searcher_of=None) -> dict:
     """For each (k, selection): seconds (median of 3 synchronized host-clock
     runs of the whole batch through the facade, which pads it to its
-    bucket and returns numpy), ids, dists, stats and the peak bytes
-    allocated."""
+    bucket and returns numpy, or through ``searcher_of(view)``), ids,
+    dists, stats and the peak bytes allocated."""
     runs = {}
     for k, sel in settings:
         view = index.replace_cfg(selection=sel)
+        if searcher_of is not None:
+            view = searcher_of(view)
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _rep in range(3):
@@ -2647,6 +2851,7 @@ SERVE_WRAPPER = (
     "    runpy.run_module('repro_torch.launch.serve_ann', run_name='__main__', alter_sys=True)\n"
     "finally:\n"
     "    print('launches ' + json.dumps(cuda.launch_counts), flush=True)\n"
+    "    print('blocks ' + json.dumps(cuda.launch_blocks), flush=True)\n"
     "    print('timing ' + json.dumps({'start_s': t1 - float(os.environ['SERVE_T0']),\n"
     "                                  'run_s': time.time() - t1}), flush=True)\n"
 )
@@ -2668,11 +2873,12 @@ def serve_run(root, args, label: str) -> dict:
         print(f"serve {label}: {ln}", flush=True)
     check(proc.returncode == 0, f"serve {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
     launches = json.loads(next(ln for ln in lines if ln.startswith("launches "))[9:])
+    blocks = json.loads(next(ln for ln in lines if ln.startswith("blocks "))[7:])
     timing = json.loads(next(ln for ln in lines if ln.startswith("timing "))[7:])
     for kernel in PATHS["serve"]:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched on the serve path ({label})")
-    return dict(seconds=secs, **served_telemetry(lines, label), launches=launches, **timing,
-                stdout=lines)
+    return dict(seconds=secs, **served_telemetry(lines, label), launches=launches,
+                launch_blocks=blocks, **timing, stdout=lines)
 
 
 def served_telemetry(lines, label: str) -> dict:
@@ -2687,37 +2893,75 @@ def served_telemetry(lines, label: str) -> dict:
                 p50_ms=float(lat.group(1)), p99_ms=float(lat.group(2)), qps=float(lat.group(3)))
 
 
-def phase_serve(torch, root, index) -> dict:
+#: the launcher's corpus in the serve phase
+SERVE_N = 1_000_000
+
+
+def phase_serve(torch, root, index, tune: dict) -> dict:
     """Phase 10: the launcher at full width: an async churned server with a
     durable WAL and recall probes that saves its snapshot, then a restart
-    from it that replays the WAL and verifies recovery bit for bit; then
-    the engine phase's index saved with ``use_kernels`` off (as the default
-    config saves it), which the launcher must serve through the gather
-    path's kernels on the card."""
+    from it that replays the WAL and verifies recovery bit for bit, once as
+    it is and once with ``--autotune-cache`` (``tune``: the autotune
+    phase's file and entries) in batches of 64, whose last launches carry
+    the bucket-64 winners; then the engine phase's index saved with
+    ``use_kernels`` off (as the default config saves it), which the
+    launcher must serve through the gather path's kernels on the card."""
+    import shutil
+
+    from repro_torch.kernels import autotune
+
     with tempfile.TemporaryDirectory() as tmp:
         wal, snap = Path(tmp) / "wal", Path(tmp) / "snap"
-        first = serve_run(root, ["--n", 1_000_000, "--d", 128, "--requests", 1000,
+        first = serve_run(root, ["--n", SERVE_N, "--d", 128, "--requests", 1000,
                                  "--pressure", 64, "--async", "--producers", 4,
                                  "--deadline-ms", 50, "--churn", 256, "--wal-dir", wal,
                                  "--durability", "async", "--recall-probe-every", 50,
                                  "--rerank", "masked_full", "--save-index", snap], "first")
         check(first["served"] == 1000 and "engine swaps" in "\n".join(first["stdout"]),
               f"serve first: served {first['served']}")
+        # the tuned restart recovers the same snapshot and log: the first
+        # restart's compaction moves the log on
+        snap_copy, wal_copy = Path(tmp) / "snap_tuned", Path(tmp) / "wal_tuned"
+        shutil.copytree(snap, snap_copy)
+        shutil.copytree(wal, wal_copy)
         second = serve_run(root, ["--load-index", snap, "--wal-dir", wal, "--verify-recovery",
                                   "--requests", 256], "recovery")
         check(second["served"] == 256
               and any("post-compaction bitwise MATCH" in ln for ln in second["stdout"]),
               "serve recovery: no bitwise MATCH")
+        check({op: second["launch_blocks"][op] for op in autotune.OPS}
+              == {op: list(b) for op, b in autotune.DEFAULT_BLOCKS.items()},
+              f"serve recovery: launched {second['launch_blocks']} without a cache")
+        tuned = serve_run(root, ["--load-index", snap_copy, "--wal-dir", wal_copy,
+                                 "--verify-recovery", "--requests", 256, "--pressure", 64,
+                                 "--autotune-cache", tune["path"]], "recovery tuned")
+        replays = [next(ln for ln in run["stdout"] if "WAL records" in ln).split("replayed ")[1]
+                   for run in (second, tuned)]
+        check(replays[0] == replays[1], f"serve recovery tuned: replayed {replays}")
+        loaded = f"autotune: {len(tune['cache'])} (bq, bn) entries warm-loaded"
+        check(tuned["served"] == 256
+              and any("post-compaction bitwise MATCH" in ln for ln in tuned["stdout"])
+              and any(loaded in ln for ln in tuned["stdout"]),
+              "serve recovery tuned: no bitwise MATCH or no warm-load reported")
+        # the churned base keeps 10^6's bucket (~2,000 rows more); a run cut
+        # by --n tuned another bucket, so the launcher runs the defaults
+        want = {op: tune["cache"].get(f"{op}|cuda|f32|64|{autotune._bucket(SERVE_N)}",
+                                      list(autotune.DEFAULT_BLOCKS[op]))
+                for op in autotune.OPS}
+        check({op: tuned["launch_blocks"][op] for op in autotune.OPS} == want,
+              f"serve recovery tuned: launched {tuned['launch_blocks']}, the winners are {want}")
         plain = Path(tmp) / "plain"
         index.replace_cfg(use_kernels=False, rerank="gather").save(str(plain))
         third = serve_in_process(torch, ["--load-index", str(plain), "--requests", "256",
                                          "--pressure", "64", "--mixed"])
     # a load whose config a kernel's limits refuse is served through the
     # plain path (serve_ann.kernels_on_card): say whether either load was
-    for label, run in (("recovery", second), ("default config", third)):
+    for label, run in (("recovery", second), ("recovery tuned", tuned),
+                       ("default config", third)):
         run["plain_path"] = plain_route(run["stdout"])
         print(f"serve {label}: load through the plain path: {run['plain_path']}", flush=True)
-    return {"first": first, "recovery": second, "default_config": third}
+    return {"first": first, "recovery": second, "recovery_tuned": tuned,
+            "default_config": third}
 
 
 def plain_route(lines) -> str | None:
@@ -6565,9 +6809,14 @@ def main(argv=None) -> int:
         print(f"phase {name}: {phase_seconds[name]:.2f} s", flush=True)
         return out
 
-    # 3. ANN kernels against plain versions, 4. flash attention
+    # 3. ANN kernels against plain versions, 3b. the autotuner, 4. flash attention
     kernels = phase("kernels", phase_kernels, torch, corpus, queries, rng)
     del corpus
+    torch.cuda.empty_cache()
+    tune_dir = tempfile.TemporaryDirectory()
+    tune = phase("autotune", phase_autotune, torch, corpus_np.shape[0],
+                 str(Path(tune_dir.name) / "winners.json"))
+    tune["path"] = str(Path(tune_dir.name) / "winners.json")
     torch.cuda.empty_cache()
     flash = phase("flash", phase_flash, torch)
     flash["ptxas"] = ptxas["flash_attention"]
@@ -6578,6 +6827,8 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = flash["cases"][0]
     # 5. masked-full path, 6. gather path, 7. save / load
     index, masked, masked_runs = phase("masked", phase_masked, torch, corpus_np, queries, gt)
+    tune["search"] = phase("autotune_search", phase_autotune_search, torch, index, queries,
+                           masked_runs, tune["path"], tune["cache"])
     gather, suco = phase("gather", phase_gather, torch, index, corpus_np, queries, gt,
                          masked_runs)
     del masked_runs
@@ -6592,7 +6843,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 10. the same index corpus-sharded over SHARDS views on the card, 11. the launcher
     sharded = phase("sharded", phase_sharded, torch, index, queries_np, queries, gt)
-    serve = phase("serve", phase_serve, torch, root, index)
+    serve = phase("serve", phase_serve, torch, root, index, tune)
+    tune_dir.cleanup()
     del index
     torch.cuda.empty_cache()
     # 12. the LM side at granite-3-2b's full width, once the ANN index is freed
@@ -6625,7 +6877,7 @@ def main(argv=None) -> int:
     # 21. summary: each kernel's launches over every path run above
     launches = {name: 0 for name in SOURCES}
     for counts in (flash["launches"], masked["build_launches"], masked["launches"],
-                   gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
+                   tune["search"]["launches"], gather["launches"], gather["suco_build_launches"], gather["suco_launches"],
                    persist["launches"], *mutable["launches"], *engine["launches"],
                    sharded["launches"], sharded["engine"]["single"]["launches"],
                    sharded["engine"]["sharded"]["launches"],
@@ -6647,7 +6899,8 @@ def main(argv=None) -> int:
     out = root / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
-                               "kernels": kernels, "flash": flash, "masked": masked,
+                               "kernels": kernels, "autotune": tune, "flash": flash,
+                               "masked": masked,
                                "gather": gather, "persist": persist,
                                "mutable": mutable, "engine": engine, "sharded": sharded,
                                "serve": serve, "lm": lm, "baselines": baselines,

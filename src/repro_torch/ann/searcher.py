@@ -29,9 +29,11 @@ the host, so there is no CUDA graph to capture yet), and
 shard views placed once. The function cache counts into the reference's
 metric families (``taco_searcher_compiles_total``,
 ``taco_searcher_fn_cache_hits_total``) on the port's own registry.
-``autotune_cache=`` is kept for the reference's signature and refuses a
-value: the reference's autotune cache holds Pallas ``(bq, bn)`` blocks,
-and no kernel of the port takes its tiles from such a cache.
+``autotune_cache=`` warm-loads a :func:`repro_torch.kernels.autotune.
+save_cache` file (of either package) once, at construction, so the first
+batch launches ``schist`` and ``masked_rerank`` with the tuned (bq, bn);
+``autotune_entries_loaded`` and the gauge
+``taco_searcher_autotune_entries_loaded`` count its entries.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from repro_torch.batching import ANN_BATCH_BUCKETS, bucket_size, pad_rows
 from repro_torch.core import distributed
 from repro_torch.core.config import SCConfig, resolve_rerank
 from repro_torch.core.taco import SCIndex, query_with_stats
+from repro_torch.kernels import autotune
 from repro_torch.obs import metrics as obsm
 
 # Process-wide searcher metric families (repro_torch.obs registry): the
@@ -56,6 +59,10 @@ _M_COMPILES = obsm.counter(
 _M_FN_HITS = obsm.counter(
     "taco_searcher_fn_cache_hits_total",
     "Executable-cache hits (batch reused a compiled query fn)",
+)
+_M_AUTOTUNE = obsm.gauge(
+    "taco_searcher_autotune_entries_loaded",
+    "Autotune (bq, bn) winners warm-loaded at searcher construction",
 )
 
 
@@ -93,13 +100,16 @@ def _padded_on(q, bucket: int, device) -> torch.Tensor:
     return torch.cat([q, q[-1:].expand(bucket - q.shape[0], -1)])
 
 
-def no_autotune_cache(autotune_cache) -> None:
-    """Refuse an ``autotune_cache`` (kept for the reference's signature)."""
-    if autotune_cache is not None:
-        raise NotImplementedError(
-            "autotune_cache is not ported to repro_torch: the reference's cache "
-            "holds Pallas (bq, bn) blocks, and no kernel of the port takes its "
-            "tiles from a cache")
+def warm_load_autotune(autotune_cache: str | None) -> int:
+    """Seed the process-wide (bq, bn) winner cache from a saved file, so the
+    first batch neither searches nor defaults; returns the entries loaded
+    (0 without a file) and sets the gauge. Called once, at construction,
+    before any lock exists."""
+    if autotune_cache is None:
+        return 0
+    loaded = autotune.load_cache(autotune_cache)
+    _M_AUTOTUNE.set(loaded)
+    return loaded
 
 
 def sq_dists_to(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -125,11 +135,10 @@ class Searcher:
     def __init__(self, index: SCIndex, cfg: SCConfig | None = None, *,
                  max_cached_fns: int = 64, buckets=ANN_BATCH_BUCKETS,
                  autotune_cache: str | None = None):
-        no_autotune_cache(autotune_cache)
         self.index = index
         self.cfg = cfg
         self.max_cached_fns = int(max_cached_fns)
-        self.autotune_entries_loaded = 0
+        self.autotune_entries_loaded = warm_load_autotune(autotune_cache)
         self.buckets = tuple(buckets)
         self._fns: OrderedDict = OrderedDict()  # (bucket, k, cfg) -> callable
         self.compile_counts: dict = {}  # same key -> times made

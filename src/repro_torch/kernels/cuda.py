@@ -41,6 +41,9 @@ NVCC_FLAGS = (
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+#: kernel name -> the (bq, bn) tiles of its last launch since the last
+#: :func:`reset_launch_counts`, for the kernels that take them (else None)
+launch_blocks: dict[str, tuple[int, int] | None] = {name: None for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: guards the build, the load and the launch counts (module docstring)
@@ -51,6 +54,7 @@ def reset_launch_counts() -> None:
     with _lock:
         for name in KERNELS:
             launch_counts[name] = 0
+            launch_blocks[name] = None
 
 
 def _nvcc() -> str:
@@ -131,8 +135,9 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def launch(name: str, symbol: str, argtypes, *args) -> None:
-    """Call ``symbol`` of kernel library ``name``; raise on a CUDA error."""
+def launch(name: str, symbol: str, argtypes, *args, blocks=None) -> None:
+    """Call ``symbol`` of kernel library ``name``; raise on a CUDA error.
+    ``blocks`` is the launch's (bq, bn), kept in :data:`launch_blocks`."""
     lib = library(name)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
@@ -143,6 +148,8 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
     with _lock:
         launch_counts[name] += 1
+        if blocks is not None:
+            launch_blocks[name] = blocks
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtypes) -> None:

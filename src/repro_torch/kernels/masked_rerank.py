@@ -23,8 +23,13 @@ _ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 MAX_K = 1024
 MAX_SUBSPACES = 16
 MAX_SMEM = 232448
-#: points per chunk of pass a before the chunk count is capped
+#: points per chunk of pass a before the chunk count is capped (the default bn)
 CHUNK = 4096
+#: (bq, bn) without a tuned entry: 32 queries a block (16 above k = 512),
+#: CHUNK points a chunk
+DEFAULT_BLOCKS = (32, CHUNK)
+#: most chunks of pass a (its grid's y extent)
+MAX_CHUNKS = 65535
 #: cap on partial entries per query (n_chunks * k) that pass b merges
 MAX_PARTIAL = 8192
 #: warps of a block of pass a (its ``__launch_bounds__``)
@@ -79,22 +84,26 @@ def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
     return best_d, best_i
 
 
-def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int):
+def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int, blocks=None):
     """Launch geometry of pass a, as ``csrc/masked_rerank.cu`` lays out
     shared memory: ``(lanes, warps, chunk, n_chunks, smem_bytes)``.
 
-    A block takes ``lanes`` queries (16 above k = 512, so the top-k state
-    fits) and ``chunk`` points; its ``warps`` share one top-k state and each
-    has its own ring. Shared memory: the heaps (k x lanes entries of 8
-    bytes), the rings, |q|^2 and the locks (256 bytes), the collision table
-    (N_s x k2 words) and, where they still fit, the query rows at a stride
-    of d + 4 floats (d + 1 if d % 4). The chunk count is capped so the
-    partial lists hold at most MAX_PARTIAL entries per query."""
+    A block takes ``lanes`` queries and ``chunk`` points. ``blocks = (bq,
+    bn)`` (default :data:`DEFAULT_BLOCKS`) asks for ``bq`` lanes (32, or
+    16 below 32) and chunks of ``bn`` points; lanes are 16 above k = 512
+    whatever is asked, so the top-k state fits. The block's ``warps``
+    share one top-k state and each has its own ring. Shared memory: the
+    heaps (k x lanes entries of 8 bytes), the rings, |q|^2 and the locks
+    (256 bytes), the collision table (N_s x k2 words) and, where they
+    still fit, the query rows at a stride of d + 4 floats (d + 1 if d %
+    4). The chunk count is capped so the partial lists hold at most
+    MAX_PARTIAL entries per query, and at MAX_CHUNKS."""
     if not 0 < k <= MAX_K:
         raise ValueError(f"masked_rerank: the kernel supports 0 < k <= {MAX_K}, got {k}")
     if n_sub > MAX_SUBSPACES:
         raise ValueError(f"masked_rerank: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
-    lanes = 32 if k <= 512 else 16
+    bq, bn = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
+    lanes = 32 if k <= 512 and bq >= 32 else 16
     base = n_sub * k2 * 4 + k * lanes * 8 + 256
     warps = min(WARPS, (MAX_SMEM - base) // RING_BYTES)
     if warps < 1:
@@ -103,7 +112,7 @@ def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int):
     rows = lanes * (d + 4 if d % 4 == 0 else d + 1) * 4
     if smem + rows <= MAX_SMEM:
         smem += rows
-    n_chunks = max(1, min(math.ceil(n / CHUNK), MAX_PARTIAL // k))
+    n_chunks = max(1, min(math.ceil(n / max(bn, 1)), MAX_PARTIAL // k, MAX_CHUNKS))
     chunk = max(1, math.ceil(n / n_chunks))
     return lanes, warps, chunk, n_chunks, smem
 
@@ -122,11 +131,12 @@ def rerank_resident_warps(n: int, k: int, n_sub: int, k2: int, d: int) -> int:
 
 
 def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
-                       exclude=None):
+                       exclude=None, blocks=None):
     """Kernel launch (pass a, then pass b, on the current stream), at
-    :func:`rerank_geometry`'s geometry. ``exclude`` is a
-    :func:`pack_exclusion` bitmap on the card, or None (a null pointer: the
-    kernel reads no bitmap)."""
+    :func:`rerank_geometry`'s geometry for ``blocks = (bq, bn)`` (default
+    :data:`DEFAULT_BLOCKS`; :data:`cuda.launch_blocks` keeps the launch's).
+    ``exclude`` is a :func:`pack_exclusion` bitmap on the card, or None (a
+    null pointer: the kernel reads no bitmap)."""
     cuda.check_cuda(
         "masked_rerank", bits, cells, thresh, queries, data, data_norms,
         *(() if exclude is None else (exclude,)),
@@ -139,7 +149,8 @@ def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
             or data_norms.shape != (n,) or qt != (q + 31) // 32
             or (exclude is not None and exclude.shape != ((n + 31) // 32,))):
         raise ValueError("masked_rerank: input shapes disagree")
-    lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d)
+    blocks = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
+    lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d, blocks)
     part_d = torch.empty((q, n_chunks, k), dtype=torch.float32, device=data.device)
     part_i = torch.empty((q, n_chunks, k), dtype=torch.int32, device=data.device)
     best_d = torch.empty((q, k), dtype=torch.float32, device=data.device)
@@ -149,7 +160,8 @@ def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
         *(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, data_norms)),
         ctypes.c_void_p(None) if exclude is None else cuda.ptr(exclude),
         *(cuda.ptr(t) for t in (part_d, part_i, best_d, best_i)),
-        q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device))
+        q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device),
+        blocks=blocks)
     return best_d, best_i
 
 

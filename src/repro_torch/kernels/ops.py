@@ -8,12 +8,16 @@
   'torch'  — the plain PyTorch version, on whatever device the tensor is.
 
 The kernel wrappers count their launches in
-:data:`repro_torch.kernels.cuda.launch_counts`.
+:data:`repro_torch.kernels.cuda.launch_counts`. ``schist`` and
+``masked_rerank`` take their (bq, bn) tiles from ``blocks=`` or, without
+it, from the autotune cache (:mod:`repro_torch.kernels.autotune`) keyed by
+the call's device type and shape; the plain path ignores them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFunction,
     flash_attention_cuda,
@@ -87,12 +91,18 @@ def kmeans_assign_pairs(xs, cs, dims=None, impl: str = "auto"):
     return kmeans_assign_pairs_cuda(_f32(xs), _f32(cs), dims)
 
 
-def schist(bits, cells, n_levels: int, *, q: int, impl: str = "auto") -> torch.Tensor:
+def schist(bits, cells, n_levels: int, *, q: int, impl: str = "auto",
+           blocks: tuple[int, int] | None = None) -> torch.Tensor:
     """Per-query SC-score histogram (q, n_levels) int32 from the packed
-    collision table ``bits`` and the (N_s, n) cell ids."""
+    collision table ``bits`` and the (N_s, n) cell ids. ``blocks``
+    overrides the kernel's (bq, bn); when None the autotune cache is
+    consulted (keyed f32)."""
     if not _use_kernel(impl, bits):
         return schist_plain(bits, cells, n_levels, q=q)
-    return schist_cuda(bits.contiguous(), cells.contiguous(), n_levels, q=q)
+    if blocks is None:
+        blocks = autotune.get_blocks("schist", "f32", q=q, n=cells.shape[1],
+                                     backend=bits.device.type)
+    return schist_cuda(bits.contiguous(), cells.contiguous(), n_levels, q=q, blocks=blocks)
 
 
 def scscore(bits, cells, *, q: int, impl: str = "auto") -> torch.Tensor:
@@ -104,8 +114,12 @@ def scscore(bits, cells, *, q: int, impl: str = "auto") -> torch.Tensor:
 
 
 def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
-                  impl: str = "auto", precision: str = "f32", exclude=None):
+                  impl: str = "auto", precision: str = "f32", exclude=None,
+                  blocks: tuple[int, int] | None = None):
     """Masked re-rank: ((Q, k) ids int32, (Q, k) exact sq dists f32).
+
+    ``blocks`` overrides the kernel's (bq, bn); when None the autotune
+    cache is consulted (keyed by ``precision``).
 
     ``exclude`` is an exclusion bitmap
     (:func:`repro_torch.kernels.masked_rerank.pack_exclusion`, on the data's
@@ -121,9 +135,13 @@ def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,
     thresh = thresh.to(torch.int32).contiguous()
     norms = _f32(data_norms)
     if _use_kernel(impl, bits):
+        if blocks is None:
+            blocks = autotune.get_blocks("masked_rerank", precision, q=queries.shape[0],
+                                         n=data.shape[0], backend=bits.device.type)
         bd, bi = masked_rerank_cuda(bits.contiguous(), cells.contiguous(), thresh,
                                     q_op, x_op, norms, k,
-                                    None if exclude is None else exclude.contiguous())
+                                    None if exclude is None else exclude.contiguous(),
+                                    blocks=blocks)
     else:
         bd, bi = masked_rerank_plain(bits, cells, thresh, q_op, x_op, norms, k, exclude)
     return finalize_topk(bd, bi, data, queries, k)

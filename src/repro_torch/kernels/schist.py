@@ -20,28 +20,36 @@ from repro_torch.kernels import cuda
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 MAX_SUBSPACES = 16
 MAX_SMEM = 232448
-#: points per work item of the kernel's persistent grid
+#: points per work item of the kernel's persistent grid (the default bn)
 CHUNK = 2048
+#: largest work item a cached bn may ask for (a multiple of every warp step)
+MAX_CHUNK = 1 << 20
+#: (bq, bn) without a tuned entry: up to 8 tiles of 32 queries a block,
+#: CHUNK points a work item
+DEFAULT_BLOCKS = (256, CHUNK)
 #: per-lane count registers (tiles x levels) a block may hold
 MAX_COUNTERS = 64
 #: depth of each warp's cell-id ring (``kStages`` in csrc/schist.cu)
 STAGES = 3
 
 
-def schist_geometry(q: int, n_sub: int, k2: int):
+def schist_geometry(q: int, n_sub: int, k2: int, blocks=None):
     """Launch geometry of the kernel: (tiles T, warps, smem bytes, query
-    tile groups). T is the most tiles (a power of two, at most 8, no more
-    than the batch has) whose tables, count registers, per-block counts and
-    cell-id rings fit; warps shrink from 8 before T does. Raises only where
-    one tile's table does not fit, as the kernel always has."""
+    tile groups). T is the most tiles (a power of two, at most 8 and at
+    most ``bq // 32`` of the optional ``blocks = (bq, bn)``, no more than
+    the batch has) whose tables, count registers, per-block counts and
+    cell-id rings fit; warps shrink from 8 before T does. Without blocks
+    they are :data:`DEFAULT_BLOCKS`. Raises only where one tile's table
+    does not fit, as the kernel always has."""
     if not 1 <= n_sub <= MAX_SUBSPACES:
         raise ValueError(f"schist: 1 to {MAX_SUBSPACES} subspaces, got {n_sub}")
     if (n_sub * k2 + 4 * (n_sub + 1) * 32) * 4 > MAX_SMEM:
         raise ValueError(f"schist: a {n_sub} x {k2} collision table exceeds shared memory")
     qt = (q + 31) // 32
     levels = min(1 << n_sub.bit_length(), MAX_SUBSPACES + 1)  # count registers a tile
+    bq = DEFAULT_BLOCKS[0] if blocks is None else int(blocks[0])
     for tiles in (8, 4, 2, 1):
-        if tiles > 1 and (tiles >= 2 * qt or tiles * levels > MAX_COUNTERS):
+        if tiles > 1 and (32 * tiles > bq or tiles >= 2 * qt or tiles * levels > MAX_COUNTERS):
             continue
         for warps in (8, 4, 2, 1):
             smem = 4 * (n_sub * (k2 + 1) * tiles + tiles * (n_sub + 1) * 32
@@ -49,6 +57,16 @@ def schist_geometry(q: int, n_sub: int, k2: int):
             if smem <= MAX_SMEM:
                 return tiles, warps, smem, -(-qt // tiles)
     raise AssertionError("unreachable: one tile with one warp always fits")
+
+
+def schist_chunk(warps: int, blocks=None) -> int:
+    """Points a work item of the persistent grid: ``bn`` of the optional
+    ``blocks = (bq, bn)`` (default :data:`DEFAULT_BLOCKS`) rounded up to
+    whole warp steps of the block (32 points a warp), at most
+    :data:`MAX_CHUNK`."""
+    bn = DEFAULT_BLOCKS[1] if blocks is None else int(blocks[1])
+    step = 32 * warps
+    return min(max(-(-bn // step), 1) * step, MAX_CHUNK)
 
 
 def collision_table(d1s, d2s, taus) -> torch.Tensor:
@@ -109,8 +127,12 @@ def schist_plain(bits, cells, n_levels: int, *, q: int, block: int = 4096):
     return hist
 
 
-def schist_cuda(bits, cells, n_levels: int, *, q: int) -> torch.Tensor:
-    """Kernel launch: (q, n_levels) int32 histogram; n_levels = N_s + 1."""
+def schist_cuda(bits, cells, n_levels: int, *, q: int, blocks=None) -> torch.Tensor:
+    """Kernel launch: (q, n_levels) int32 histogram; n_levels = N_s + 1.
+    ``blocks = (bq, bn)`` (default :data:`DEFAULT_BLOCKS`) sets the queries
+    a block and the points a work item, as :func:`schist_geometry` and
+    :func:`schist_chunk` clamp them; :data:`cuda.launch_blocks` keeps the
+    launch's."""
     cuda.check_cuda("schist", bits, cells, dtypes=(torch.int32, torch.int32))
     qt, n_sub, k2 = bits.shape
     n = cells.shape[1]
@@ -118,9 +140,10 @@ def schist_cuda(bits, cells, n_levels: int, *, q: int) -> torch.Tensor:
         raise ValueError(
             f"schist: bits {tuple(bits.shape)}, cells {tuple(cells.shape)}, "
             f"n_levels {n_levels}, q {q} disagree")
-    tiles, warps, smem, _groups = schist_geometry(q, n_sub, k2)
+    blocks = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
+    tiles, warps, smem, _groups = schist_geometry(q, n_sub, k2, blocks)
     out = torch.empty((q, n_levels), dtype=torch.int32, device=bits.device)
     cuda.launch("schist", "schist_i32", _ARGS, cuda.ptr(bits), cuda.ptr(cells),
-                cuda.ptr(out), q, n, n_sub, k2, tiles, warps, CHUNK, smem,
-                cuda.stream(bits.device))
+                cuda.ptr(out), q, n, n_sub, k2, tiles, warps, schist_chunk(warps, blocks),
+                smem, cuda.stream(bits.device), blocks=blocks)
     return out

@@ -51,8 +51,11 @@ beta). Combined with ``--churn`` the mutation waves — and their
 policy-triggered compactions, tasks on the shared WorkerPool — run
 concurrently with the producers across live engine swaps.
 
-Not ported, and refused: ``--autotune-cache`` (no kernel of the port
-takes its tiles from a cache).
+Kernel tiles: ``--autotune-cache PATH`` warm-loads (bq, bn) winners for
+``schist`` and ``masked_rerank`` (a ``repro_torch.kernels.autotune``
+``save_cache`` file, or the reference's) once, at engine construction; the
+report then says how many entries were loaded. Tune on the card with
+``python -m repro_torch.kernels.autotune``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve_ann --n 1000000 --d 128 \\
@@ -152,7 +155,9 @@ def main(argv=None):
                          "path, async group-commits on the worker pool "
                          "(default: sync when --wal-dir is given)")
     ap.add_argument("--autotune-cache", default=None, metavar="PATH",
-                    help="kernel autotune winners (not ported: refused)")
+                    help="warm-load kernel autotune winners (a "
+                         "kernels.autotune save_cache JSON) at engine "
+                         "construction")
     ap.add_argument("--verify-recovery", action="store_true",
                     help="after --load-index --wal-dir: compact the "
                          "recovered index and assert bitwise parity with a "
@@ -186,9 +191,6 @@ def main(argv=None):
     if args.churn and args.shards > 1:
         ap.error("--churn serves single-device (sharded delta segments are "
                  "a ROADMAP follow-on)")
-    if args.autotune_cache is not None:
-        ap.error("--autotune-cache is not ported to repro_torch: no kernel of "
-                 "the port takes its tiles from an autotune cache")
     if args.load_index and args.save_index:
         ap.error("--save-index with --load-index would rewrite the same "
                  "index; pick one")
@@ -303,6 +305,7 @@ def main(argv=None):
         default_deadline_s=args.deadline_ms / 1e3 if args.deadline_ms else None,
         max_queue_depth=args.max_queue_depth,
         admission_policy=args.admission,
+        autotune_cache=args.autotune_cache,
     )
     if mutable is None and args.churn:
         # compaction roughly every 4 churn waves; the swap is the point
@@ -517,6 +520,9 @@ def _serve(args, engine, mutable, reqs, results, inserted, churn_rng):
           f"{t['queries_per_sec']:.0f} queries/s")
     print(f"  truncation rate {t['truncation_rate']:.3f}   "
           f"compiles {t['compiles_total']} {t['compiles_per_bucket']}")
+    if "autotune_entries_loaded" in t:
+        print(f"  autotune: {t['autotune_entries_loaded']} (bq, bn) entries "
+              f"warm-loaded from {args.autotune_cache}")
     if args.async_mode:
         print(f"  async: {args.producers} producers   "
               f"queue peak {t['queue_depth_peak']}   "

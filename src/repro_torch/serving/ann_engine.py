@@ -111,8 +111,10 @@ collects every undelivered result as ``{request_id: AnnResult}``.
 ``jax_dispatch_under_lock`` and ``jax_seconds_under_lock``: those come
 from the reference's runtime shim of JAX dispatch, and the port runs no
 JAX. Its lock discipline is checked statically
-(``tests/test_torch_lock_discipline.py``). The autotune cache is not
-ported and raises ``NotImplementedError``.
+(``tests/test_torch_lock_discipline.py``). ``autotune_cache=`` warm-loads
+the kernels' (bq, bn) winners once, at construction, before any lock
+exists; the drain worker only reads them (``telemetry()`` reports
+``autotune_entries_loaded`` when it is non-zero).
 """
 from __future__ import annotations
 
@@ -130,7 +132,7 @@ from repro_torch.ann.searcher import (
     SingleDeviceSearcher,
     _padded_on,
     effective_query_params,
-    no_autotune_cache,
+    warm_load_autotune,
 )
 from repro_torch.core.config import SCConfig
 from repro_torch.core.taco import SCIndex
@@ -498,11 +500,13 @@ class AnnServingEngine:
         autotune_cache: str | None = None,
         tracer: obst.Tracer | None = None,  # None = the process default
     ):
-        no_autotune_cache(autotune_cache)
         self.index = index
         self.cfg = cfg
         self.max_batch = int(max_batch)
-        self.autotune_entries_loaded = 0
+        # Kernel autotune warm-load: seed the process-wide (bq, bn) winner
+        # cache from a prior save_cache file so the first batch never pays
+        # a search. Loaded once, here, before any lock exists.
+        self.autotune_entries_loaded = warm_load_autotune(autotune_cache)
         self.buckets = tuple(b for b in buckets if b <= self.max_batch) or (
             self.max_batch,
         )
@@ -1317,6 +1321,8 @@ class AnnServingEngine:
             mut = out.get("mutable")
             if isinstance(mut, dict) and isinstance(mut.get("wal"), dict):
                 out["wal"] = mut["wal"]
+            if self.autotune_entries_loaded:
+                out["autotune_entries_loaded"] = self.autotune_entries_loaded
             if self.backend.shards > 1:
                 # per-shard candidate demand + truncation, and the size of the
                 # all-gather combine (id/dist pairs moved per query: shards*k).

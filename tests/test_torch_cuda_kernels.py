@@ -443,6 +443,65 @@ def test_masked_rerank_kernel_exclusion(dev, n_sub, q, sqrt_k, n, d, k, share, c
             assert torch.equal(gi[row], bi[row, keep[:k]])
 
 
+@pytest.mark.parametrize("data", ["integer", "float"])
+@pytest.mark.parametrize("k", [10, 100, 600])
+def test_every_autotune_candidate_gives_the_default_output(dev, data, k):
+    """Each (bq, bn) candidate of both ops launches with its tiles
+    (``cuda.launch_blocks``) and gives the default tiles' output bit for
+    bit, on an integer and a float corpus; n spans several chunks of every
+    bn, Q a ragged last tile group."""
+    from repro_torch.kernels import autotune, cuda
+    from repro_torch.kernels.masked_rerank import masked_rerank_cuda
+    from repro_torch.kernels.schist import schist_cuda
+
+    rng = np.random.default_rng(k + len(data))
+    n_sub, q, sqrt_k, n, d = 6, 200, 32, 40000, 32
+    bits, cells = _collision(rng, n_sub, q, sqrt_k, n, dev)
+    if data == "integer":
+        x, qs = _ints(rng, (n, d), dev), _ints(rng, (q, d), dev)
+    else:
+        x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+        qs = torch.as_tensor(rng.standard_normal((q, d)).astype(np.float32), device=dev)
+    thresh = torch.as_tensor(rng.integers(2, n_sub + 1, q), dtype=torch.int32, device=dev)
+    args = (bits, cells, thresh, qs, x, (x * x).sum(1), k)
+    want_h = schist_cuda(bits, cells, n_sub + 1, q=q)
+    want_d, want_i = masked_rerank_cuda(*args)
+    for blocks in autotune.CANDIDATES["schist"]:
+        cuda.reset_launch_counts()
+        got = schist_cuda(bits, cells, n_sub + 1, q=q, blocks=blocks)
+        assert cuda.launch_blocks["schist"] == blocks and cuda.launch_counts["schist"] == 1
+        assert torch.equal(got, want_h), blocks
+    for blocks in autotune.CANDIDATES["masked_rerank"]:
+        cuda.reset_launch_counts()
+        gd, gi = masked_rerank_cuda(*args, blocks=blocks)
+        assert cuda.launch_blocks["masked_rerank"] == blocks
+        assert torch.equal(gi, want_i) and torch.equal(gd, want_d), blocks
+
+
+def test_autotune_on_the_card(dev):
+    """The search on the card: every candidate timed within the budget,
+    the winner installed under the card's key, and the ops launching it."""
+    from repro_torch.kernels import autotune, cuda, ops
+
+    autotune.clear_cache()
+    try:
+        for op in autotune.OPS:
+            res = autotune.autotune(op, q=64, n=20000, d=32, k=10, budget_s=10.0,
+                                    impl="kernel", device="cuda")
+            assert len(res["trials"]) == len(autotune.CANDIDATES[op])
+            assert res["key"][:3] == [op, "cuda", "f32"]
+            assert autotune.get_blocks(op, q=64, n=20000) == tuple(res["winner"])
+        args, kwargs = autotune.synthetic_problem("masked_rerank", 64, 20000, 32, 6, 32, 10, 0,
+                                                  dev)
+        cuda.reset_launch_counts()
+        ops.schist(*args[:2], 7, q=64)
+        ops.masked_rerank(*args)
+        for op in autotune.OPS:
+            assert cuda.launch_blocks[op] == autotune.get_blocks(op, q=64, n=20000)
+    finally:
+        autotune.clear_cache()
+
+
 def test_masked_rerank_resident_warps(dev):
     """The occupancy query answers at the main path's k = 10 and k = 100."""
     from repro_torch.kernels.masked_rerank import rerank_resident_warps

@@ -386,7 +386,7 @@ def test_function_cache_reuse_bound_and_validation(pair):
     assert set(eng.drain(timeout=TIMEOUT)) == {good}
 
 
-def test_engine_rejects_what_is_not_ported_and_stray_arguments(pair):
+def test_engine_rejects_what_is_not_ported_and_stray_arguments(pair, tmp_path):
     with pytest.raises(ValueError):
         AnnServingEngine(pair.port, pair.cfg, shards=4)
     with pytest.raises(ValueError):
@@ -399,10 +399,28 @@ def test_engine_rejects_what_is_not_ported_and_stray_arguments(pair):
     assert_same(AnnServingEngine(pair.port, pair.cfg).search(batch), sharded.search(batch))
     with pytest.raises(ValueError, match="divisible"):
         AnnServingEngine(pair.port, pair.cfg, backend="sharded", shards=3)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        AnnServingEngine(pair.port, pair.cfg, autotune_cache="winners.json")
-    with pytest.raises(NotImplementedError, match="autotune"):
-        AnnIndex(sc_index=pair.port, cfg=pair.cfg).searcher(autotune_cache="winners.json")
+    # an autotune cache warm-loads at construction (a missing file raises)
+    from repro_torch.kernels import autotune
+
+    winners = tmp_path / "winners.json"
+    autotune.clear_cache()
+    autotune.set_blocks("masked_rerank", (16, 8192), q=4, n=pair.port.n, backend="cpu")
+    autotune.save_cache(str(winners))
+    autotune.clear_cache()
+    try:
+        tuned = AnnServingEngine(pair.port, pair.cfg, autotune_cache=str(winners))
+        assert tuned.autotune_entries_loaded == 1
+        assert tuned.telemetry()["autotune_entries_loaded"] == 1
+        searcher = AnnIndex(sc_index=pair.port, cfg=pair.cfg).searcher(
+            autotune_cache=str(winners))
+        assert searcher.autotune_entries_loaded == 1
+        assert autotune.get_blocks("masked_rerank", q=4, n=pair.port.n,
+                                   backend="cpu") == (16, 8192)
+        assert_same(AnnServingEngine(pair.port, pair.cfg).search(batch), tuned.search(batch))
+        with pytest.raises(FileNotFoundError):
+            AnnServingEngine(pair.port, pair.cfg, autotune_cache=str(tmp_path / "none.json"))
+    finally:
+        autotune.clear_cache()
     with pytest.raises(ValueError):
         AnnServingEngine(pair.port, pair.cfg, admission_policy="bogus")
     with pytest.raises(ValueError):

@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.launch.elastic", "repro_torch.configs.shapes",
             "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun_ann",
             "repro_torch.launch.dryrun", "repro_torch.launch.sharding",
-            "repro_torch.models.sharding_utils", "repro_torch.models.sharded"} <= set(mods)
+            "repro_torch.models.sharding_utils", "repro_torch.models.sharded",
+            "repro_torch.kernels.autotune"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

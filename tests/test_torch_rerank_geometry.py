@@ -6,13 +6,30 @@ import math
 
 import pytest
 
+from repro_torch.kernels.autotune import CANDIDATES
 from repro_torch.kernels.masked_rerank import (
+    DEFAULT_BLOCKS,
+    MAX_CHUNKS,
     MAX_PARTIAL,
     MAX_SMEM,
     rerank_geometry,
 )
 
 K2 = 1024
+
+
+def _parent_geometry(n, k, n_sub, k2, d):
+    """``rerank_geometry`` as it was before it took blocks (the untuned
+    main path's launch)."""
+    lanes = 32 if k <= 512 else 16
+    base = n_sub * k2 * 4 + k * lanes * 8 + 256
+    warps = min(8, (MAX_SMEM - base) // 512)
+    smem = base + warps * 512
+    rows = lanes * (d + 4 if d % 4 == 0 else d + 1) * 4
+    if smem + rows <= MAX_SMEM:
+        smem += rows
+    n_chunks = max(1, min(math.ceil(n / 4096), MAX_PARTIAL // k))
+    return lanes, warps, max(1, math.ceil(n / n_chunks)), n_chunks, smem
 
 
 @pytest.mark.parametrize("d", [3, 128])
@@ -29,6 +46,50 @@ def test_rerank_geometry(k, n_sub, d):
         assert n_chunks * k <= MAX_PARTIAL
         assert lanes == (16 if k > 512 else 32)
         assert n_chunks <= 65535
+
+
+@pytest.mark.parametrize("n_sub,k2", [(1, 1024), (6, 1024), (16, 1024), (6, 25), (3, 4096)])
+@pytest.mark.parametrize("k", [1, 10, 32, 100, 512, 513, 1024])
+def test_rerank_geometry_without_blocks_is_the_parents(k, n_sub, k2):
+    """No blocks, or the default ones: the geometry the kernel had before
+    the cache, so the untuned path launches as it did."""
+    for d in (3, 24, 128):
+        for n in (1, 1003, 4096, 65536, 250_000, 10 ** 6):
+            want = _parent_geometry(n, k, n_sub, k2, d)
+            assert rerank_geometry(n, k, n_sub, k2, d) == want
+            assert rerank_geometry(n, k, n_sub, k2, d, DEFAULT_BLOCKS) == want
+
+
+@pytest.mark.parametrize("blocks", CANDIDATES["masked_rerank"])
+@pytest.mark.parametrize("k", [10, 100, 1024])
+def test_rerank_candidates_give_legal_launches(blocks, k):
+    """Every candidate at the main path's shape (N_s 6, K 1024, d 128), its
+    shard of 250,000 points and a small n gives what
+    ``csrc/masked_rerank.cu`` takes: 32 or 16 lanes (16 above k = 512), 1
+    to 8 warps, at most 65,535 chunks covering n, the partial lists within
+    MAX_PARTIAL, pass a's and pass b's shared memory within the card's. The
+    geometry does not depend on the batch (its grid has ceil(Q / lanes)
+    tiles), so every engine bucket launches these."""
+    for n in (1000, 250_000, 10 ** 6):
+        lanes, warps, chunk, n_chunks, smem = rerank_geometry(n, k, 6, K2, 128, blocks)
+        assert lanes == (16 if k > 512 or blocks[0] < 32 else 32)
+        assert 1 <= warps <= 8 and smem <= MAX_SMEM
+        assert 1 <= n_chunks <= MAX_CHUNKS and n_chunks * k <= MAX_PARTIAL
+        assert chunk * n_chunks >= n and chunk * (n_chunks - 1) < n
+        assert k * 24 + n_chunks * 8 <= MAX_SMEM  # pass b's lists
+        # the chunk is bn wherever the partial cap does not bind
+        if math.ceil(n / blocks[1]) <= MAX_PARTIAL // k:
+            assert n_chunks == math.ceil(n / blocks[1])
+
+
+def test_rerank_blocks_clamp():
+    """bq between the two tile widths takes 16 lanes; a tiny bn is capped by
+    the partial lists, a huge one is one chunk."""
+    assert rerank_geometry(10 ** 6, 10, 6, K2, 128, (24, 4096))[0] == 16
+    assert rerank_geometry(10 ** 6, 10, 6, K2, 128, (64, 4096))[0] == 32
+    assert rerank_geometry(10 ** 6, 10, 6, K2, 128, (32, 1))[3] == MAX_PARTIAL // 10
+    assert rerank_geometry(10 ** 6, 1, 6, K2, 128, (32, 1))[3] == MAX_PARTIAL
+    assert rerank_geometry(10 ** 6, 10, 6, K2, 128, (32, 1 << 30))[2:4] == (10 ** 6, 1)
 
 
 def test_rerank_geometry_rows_in_shared_memory():

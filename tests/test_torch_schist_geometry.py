@@ -14,17 +14,39 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.batching import ANN_BATCH_BUCKETS
+from repro_torch.kernels.autotune import CANDIDATES
 from repro_torch.kernels.schist import (
     CHUNK,
+    DEFAULT_BLOCKS,
+    MAX_CHUNK,
+    MAX_COUNTERS,
     MAX_SMEM,
     STAGES,
     collision_bits,
     collision_table,
+    schist_chunk,
     schist_geometry,
     schist_plain,
 )
 
 K2 = 1024
+
+
+def _parent_geometry(q, n_sub, k2):
+    """``schist_geometry`` as it was before it took blocks (the untuned
+    main path's launch)."""
+    qt = (q + 31) // 32
+    levels = min(1 << n_sub.bit_length(), 17)
+    for tiles in (8, 4, 2, 1):
+        if tiles > 1 and (tiles >= 2 * qt or tiles * levels > 64):
+            continue
+        for warps in (8, 4, 2, 1):
+            smem = 4 * (n_sub * (k2 + 1) * tiles + tiles * (n_sub + 1) * 32
+                        + warps * STAGES * n_sub * 32)
+            if smem <= MAX_SMEM:
+                return tiles, warps, smem, -(-qt // tiles)
+    raise AssertionError
 
 
 def _parent_takes(n_sub, k2):
@@ -48,6 +70,54 @@ def test_schist_geometry(q, n_sub, k2):
                         + warps * STAGES * n_sub * 32)
     assert smem <= MAX_SMEM
     assert groups * tiles >= qt and (groups - 1) * tiles < qt
+
+
+@pytest.mark.parametrize("n_sub", [1, 3, 6, 7, 8, 15, 16])
+@pytest.mark.parametrize("k2", [25, 1024, 2048])
+def test_schist_geometry_without_blocks_is_the_parents(n_sub, k2):
+    """No blocks, or the default ones: the geometry and the work item the
+    kernel had before the cache, so the untuned path launches as it did."""
+    for q in (1, 33, 64, 100, 1000, 1024, 1025):
+        want = _parent_geometry(q, n_sub, k2)
+        assert schist_geometry(q, n_sub, k2) == want
+        assert schist_geometry(q, n_sub, k2, DEFAULT_BLOCKS) == want
+        assert schist_chunk(want[1]) == schist_chunk(want[1], DEFAULT_BLOCKS) == CHUNK
+
+
+@pytest.mark.parametrize("blocks", CANDIDATES["schist"])
+@pytest.mark.parametrize("n_sub,k2", [(6, 1024), (16, 2048), (3, 25)])
+def test_schist_candidates_give_legal_launches(blocks, n_sub, k2):
+    """Every candidate at the main path's batch and at every engine bucket
+    gives what ``csrc/schist.cu`` accepts: 1, 2, 4 or 8 tiles, no more than
+    bq asks, that the batch fills and the count registers hold; a chunk of
+    whole warp steps; the shared memory the launch sets."""
+    levels = min(1 << n_sub.bit_length(), 17)
+    for q in sorted({1000, *ANN_BATCH_BUCKETS}):
+        tiles, warps, smem, groups = schist_geometry(q, n_sub, k2, blocks)
+        qt = (q + 31) // 32
+        assert tiles in (1, 2, 4, 8) and 32 * tiles <= max(blocks[0], 32)
+        # the kernel's (tiles, planes) instantiations: T x levels <= 64
+        assert tiles == 1 or (tiles < 2 * qt and tiles * levels <= MAX_COUNTERS)
+        assert warps in (1, 2, 4, 8) and smem <= MAX_SMEM
+        assert groups * tiles >= qt and (groups - 1) * tiles < qt
+        chunk = schist_chunk(warps, blocks)
+        assert chunk % (32 * warps) == 0 and blocks[1] <= chunk < blocks[1] + 32 * warps
+        assert chunk <= MAX_CHUNK
+        # at the main path's batch the candidates' tiles are what they ask for
+        if q >= 1000 and n_sub == 6:
+            assert 32 * tiles == blocks[0]
+
+
+def test_schist_blocks_clamp():
+    """Blocks outside the grid clamp: bq below a tile gives one tile, a bn
+    that is no whole number of warp steps rounds up, a huge one stops at
+    MAX_CHUNK."""
+    assert schist_geometry(1000, 6, K2, (8, 512))[0] == 1
+    assert schist_geometry(1000, 6, K2, (100, 512))[0] == 2
+    assert schist_geometry(1000, 6, K2, (4096, 512))[0] == 8
+    assert schist_chunk(8, (256, 1000)) == 1024
+    assert schist_chunk(8, (256, 1)) == 256
+    assert schist_chunk(4, (256, 1 << 40)) == MAX_CHUNK
 
 
 def test_schist_geometry_main_path():
@@ -84,18 +154,20 @@ def _transpose(words):
     return (np.swapaxes(bits, -1, -2) << np.arange(32, dtype=np.uint64)).sum(-1)
 
 
-def _emulate(bits, cells, q, grid):
-    """The kernel's walk and count, block by block and step by step."""
+def _emulate(bits, cells, q, grid, blocks=None):
+    """The kernel's walk and count, block by block and step by step, at the
+    geometry of ``blocks``."""
     qt, n_sub, k2 = bits.shape
     n = cells.shape[1]
-    tiles, warps, _smem, groups = schist_geometry(q, n_sub, k2)
+    tiles, warps, _smem, groups = schist_geometry(q, n_sub, k2, blocks)
+    chunk = schist_chunk(warps, blocks)
     n_planes = n_sub.bit_length()
     row = k2 + 1
     words = bits.astype(np.uint32).astype(np.uint64)
-    n_chunks = -(-n // CHUNK)
+    n_chunks = -(-n // chunk)
     n_items = n_chunks * groups
     grid = min(grid, n_items)
-    steps = CHUNK // (warps * 32)
+    steps = chunk // (warps * 32)
     out = np.zeros((q, n_sub + 1), np.int64)
     seen = np.zeros((groups, n), np.int64)
     for blk in range(grid):
@@ -108,7 +180,7 @@ def _emulate(bits, cells, q, grid):
                 if g * tiles + t < qt:
                     tab[:, :k2, t] = words[g * tiles + t]
             for warp in range(warps):
-                base = (item % n_chunks) * CHUNK + ((k % steps) * warps + warp) * 32
+                base = (item % n_chunks) * chunk + ((k % steps) * warps + warp) * 32
                 if base >= n:
                     continue
                 p = base + np.arange(32)
@@ -144,12 +216,28 @@ def _emulate(bits, cells, q, grid):
     (3, 37, 5, 5000, 3), (6, 70, 8, 2100, 5), (1, 33, 4, 300, 2), (2, 130, 4, 4200, 7),
 ])
 def test_schist_walk_emulated(n_sub, q, sqrt_k, n, grid):
+    bits, cells = _walk_case(n_sub, q, sqrt_k, n)
+    want = schist_plain(bits, cells, n_sub + 1, q=q)
+    got = _emulate(bits.numpy(), cells.numpy(), q, grid)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _walk_case(n_sub, q, sqrt_k, n):
     rng = np.random.default_rng(n)
     d1s = torch.as_tensor(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
     d2s = torch.as_tensor(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
     taus = torch.as_tensor(rng.uniform(1, 5, (n_sub, q)).astype(np.float32))
     cells = torch.as_tensor(rng.integers(0, sqrt_k * sqrt_k, (n_sub, n)), dtype=torch.int32)
-    bits = collision_bits(collision_table(d1s, d2s, taus))
+    return collision_bits(collision_table(d1s, d2s, taus)), cells
+
+
+@pytest.mark.parametrize("blocks", CANDIDATES["schist"])
+def test_schist_walk_emulated_for_every_candidate(blocks):
+    """Each candidate's tiles and work items still walk every (query tile,
+    point) pair once: 9 query tiles (a ragged last group at 2, 4 and 8
+    tiles a block) and n past one chunk of the largest bn, over 13 blocks."""
+    n_sub, q, sqrt_k, n, grid = 3, 270, 4, 8300, 13
+    bits, cells = _walk_case(n_sub, q, sqrt_k, n)
     want = schist_plain(bits, cells, n_sub + 1, q=q)
-    got = _emulate(bits.numpy(), cells.numpy(), q, grid)
+    got = _emulate(bits.numpy(), cells.numpy(), q, grid, blocks)
     np.testing.assert_array_equal(got, want.numpy())

@@ -6,8 +6,9 @@ request stream bit for bit (sync, ``--async``, ``--mixed
 ``repro`` its ids equal the reference launcher's under the same arguments
 for at least 95 % of the requests (the queries are float, so sums in
 another order may flip a near-tie); ``--shards 2`` serves the
-single-device results through the sharded backend; what is not ported is
-refused."""
+single-device results through the sharded backend; ``--autotune-cache``
+warm-loads a winner table and serves the same results; what is not ported
+is refused."""
 import dataclasses
 
 import numpy as np
@@ -119,6 +120,34 @@ def test_churn_with_wal_then_verify_recovery(tmp_path, capsys):
     assert len(results) == 8
 
 
+def test_autotune_cache_warm_loads_and_serves_the_same_results(tmp_path, capsys):
+    """``--autotune-cache`` loads a saved (bq, bn) table at engine
+    construction and says so in its report; the results equal a run without
+    it bit for bit (the plain path ignores the tiles, and on the card every
+    tile gives the same answer)."""
+    from repro_torch.kernels import autotune
+
+    autotune.clear_cache()
+    autotune.set_blocks("schist", (128, 1024), q=8, n=N, backend="cpu")
+    autotune.set_blocks("masked_rerank", (16, 8192), q=8, n=N, backend="cpu")
+    winners = tmp_path / "winners.json"
+    autotune.save_cache(str(winners))
+    autotune.clear_cache()
+    args = ["--n", N, "--d", D, "--requests", 16, "--pressure", 8, "--rerank", "masked_full"]
+    try:
+        tuned = _run(*args, "--autotune-cache", winners)
+        out = capsys.readouterr().out
+        assert "served 16 requests" in out
+        assert f"autotune: 2 (bq, bn) entries warm-loaded from {winners}" in out
+        assert autotune.get_blocks("schist", q=8, n=N, backend="cpu") == (128, 1024)
+        autotune.clear_cache()
+        plain = _run(*args)
+        assert "autotune:" not in capsys.readouterr().out
+    finally:
+        autotune.clear_cache()
+    _assert_bitwise(tuned, plain)
+
+
 def test_load_of_a_reference_save_equals_the_reference_launcher(tmp_path, capsys):
     rng = np.random.default_rng(3)
     data = rng.integers(-10, 11, (3000, 32)).astype(np.float32)
@@ -205,7 +234,7 @@ def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsy
 
 @pytest.mark.parametrize("args, match", [
     (["--churn", "8", "--shards", "2"], "single-device"),
-    (["--autotune-cache", "winners.json"], "not ported"),
+    (["--verify-recovery"], "needs --load-index and --wal-dir"),
     (["--durability", "sync"], "requires --wal-dir"),
     (["--load-index", "a", "--save-index", "b"], "pick one"),
 ])
