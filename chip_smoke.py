@@ -81,6 +81,29 @@ Phases, in order; any failure exits nonzero:
                kernels phase also holds kmeans_assign at IVF's shape (10^6 x
                128 against 1024 centroids: the TF32 screen and exact
                rechecks, rechecks a point printed) against its plain version;
+  6c. wide  — every shape past the kernels' former limits, at full size:
+               a 960-dim corpus (gmm_dataset(10^6 + 1000, 960), GIST1M's
+               width, split as the main corpus; the exact top-10 on the
+               card): IVF-Flat at 1024 lists (the build's 11 kmeans_assign
+               launches all through the wide tiled path, queries at nprobe
+               16 and 64, one assignment against the plain version: >= 99.9
+               % equal, distances allclose, rechecks a point, timed beside
+               cdist and three bounds; an integer 10^5 x 960 build bit for
+               bit against the plain path); TaCo over all 960 dims (N_s 20,
+               s 48, K 4096: a tile's table 320 KB, past shared memory),
+               masked-full and gather at k = 10 in both selection modes
+               against the plain path (recall@10 within 0.005, ids >= 99.9
+               %), schist, scscore and masked_rerank launched with the table
+               in global memory and held against their plain versions on
+               the path's own batch; the collision kernels at N_s = 127 (K
+               1024, 10^6 points, 1000 queries; bits and cells from the
+               seed), schist and scscore bit for bit, masked_rerank ids >=
+               99.9 %; masked_rerank at k = 1025, 2048 and 8192 on the main
+               index (beta 0.01) in both selections against the plain path,
+               and at k = 8192 with a 1 % tombstone bitmap; each kernel's ms
+               beside its plain version and bound ("wide ..." and "kernel
+               ... wide" lines; the kernels line lists these shapes under
+               each kernel's "shapes");
   7. persist — AnnIndex.save of the TaCo and the SuCo index to a temporary
                directory, AnnIndex.load on the card: every array bitwise equal,
                and masked-full and gather ids and dists of one batch bitwise
@@ -384,7 +407,9 @@ none for rwkv6-7b, once jamba's attention layer a data block a position
 with heads a prefill, twice a step; enc_dec_context_parallel: once an
 encoder, decoder and cross layer a data block a position with heads a
 prefill, twice a step in the sharded steps, none in decode, once a layer
-in the TaCo prefill on one device), l2dist exactly once a
+in the TaCo prefill on one device; wide: kmeans_assign exactly 11 times an
+IVF build and kmeans_iters + 1 times the TaCo build, l2dist exactly once a
+query batch, schist, masked_rerank and scscore on their paths), l2dist exactly once a
 query batch and kmeans_assign exactly kmeans_iters + 1 times a build. Each phase's host
 seconds are printed (``phase ...:`` lines). The full result is also
 written to chiprun_out/chip_smoke.json.
@@ -445,6 +470,11 @@ PATHS = {
     "lm_prefill": ("flash_attention",),
     "lm_taco": ("flash_attention",),
     "ivf_build": ("kmeans_assign",),
+    "wide_ivf_build": ("kmeans_assign",),
+    "wide_build": ("kmeans_assign",),
+    "wide_masked": ("l2dist", "schist", "masked_rerank"),
+    "wide_gather": ("l2dist", "scscore"),
+    "wide_big_k": ("l2dist", "schist", "masked_rerank"),
     "train": ("flash_attention",),
     "train_grads": ("flash_attention",),
     "train_smoke": ("flash_attention",),
@@ -638,10 +668,13 @@ def ivf_assign_case(torch, corpus, ints, rng) -> dict:
     the plain version; on the corpus the assignments equal the plain
     version's on >= 99.99 % of the points and every other one is a
     near-tie, the distances allclose. Timed beside the plain version,
-    ``torch.cdist(x, c).min(-1)`` (TF32 off) and three bounds: the CUDA-core
-    operations (``bound_ms``), the TF32 tensor-core products the screen runs
-    (``tensor_bound_ms``) and the bytes. Also kept: the launch's rechecks a
-    point, the tile geometry, and the screen's and pre-pass's device times."""
+    ``torch.cdist(x, c).min(-1)`` (TF32 off) and its bound: the larger of
+    the bytes and the screen's products at the TF32 tensor-core rate
+    (``bound_ms``; the kernel computes every distance on the tensor cores),
+    beside the same operations at the CUDA-core f32 rate
+    (``cuda_core_bound_ms``, no lower bound for this kernel) and the bytes
+    alone. Also kept: the launch's rechecks a point, the tile geometry, and
+    the screen's and pre-pass's device times."""
     from repro_torch.kernels.kmeans_assign import (
         TILE_CENTROIDS,
         TILE_POINTS,
@@ -677,13 +710,13 @@ def ivf_assign_case(torch, corpus, ints, rng) -> dict:
     atol = 1e-5 * float((corpus * corpus).sum(1).max() + (c * c).sum(1).max())
     check(torch.allclose(gd, wd, rtol=1e-5, atol=atol), "kmeans_assign ivf: distances")
     nbytes = 4 * (n * w + k * w + 2 * n)
-    b, by = bound_ms(nbytes, n * k * (2 * w + 3) + 2 * w * (n + k))
-    tb, tby = bound_ms(nbytes, 2 * n * k * w, TF32_TENSOR_OPS)
+    b, by = bound_ms(nbytes, 2 * n * k * w, TF32_TENSOR_OPS)
+    core_b, _ = bound_ms(nbytes, n * k * (2 * w + 3) + 2 * w * (n + k))
     row = dict(max_abs_err=float((gd - wd).abs().max()), assign_agree=agree,
                differing=int(differ.numel()),
                ms=timed(torch, lambda: kmeans_assign_cuda(corpus, c), 10),
                plain_ms=timed(torch, lambda: kmeans_assign_plain(corpus, c), 3),
-               bound_ms=b, bound_by=by, tensor_bound_ms=tb, tensor_bound_by=tby,
+               bound_ms=b, bound_by=by, cuda_core_bound_ms=core_b,
                bytes_bound_ms=nbytes / HBM_BPS * 1e3,
                library_ms=timed(torch, lambda: torch.cdist(corpus, c).min(dim=-1), 3),
                rechecks_per_point=rechecks / n, tile_points=TILE_POINTS,
@@ -1078,7 +1111,7 @@ def tune_geometry(op: str, q: int, n: int, k: int, blocks) -> dict:
 
     d, n_sub, sqrt_k = TUNE_SHAPE
     if op == "schist":
-        tiles, warps, smem, groups = schist_geometry(q, n_sub, sqrt_k ** 2, blocks)
+        tiles, warps, smem, groups, *_ = schist_geometry(q, n_sub, sqrt_k ** 2, blocks)
         return dict(tiles=tiles, warps=warps, chunk=schist_chunk(warps, blocks),
                     smem_bytes=smem, tile_groups=groups)
     return dict(zip(("lanes", "warps", "chunk", "n_chunks", "smem_bytes"),
@@ -1686,19 +1719,19 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
 IVF_NPROBES = (16, 64)
 
 
-def integer_ivf_check(torch) -> dict:
-    """IVF's k-means over an integer-valued 10^5 x 128 corpus (values in
-    [-20, 20]) at 1024 lists, through the kernel (the tiled path) and
-    through the plain version on the card, from the same draw, each Lloyd
-    update's means rounded to integers so that every distance is exact:
-    centroids, assignments, lists and the ids and distances of
-    ivf_query bit for bit."""
+def integer_ivf_check(torch, d: int = 128, n: int = 100_000, label: str = "baselines") -> dict:
+    """IVF's k-means over an integer-valued n x d corpus (values in
+    [-20, 20]) at 1024 lists, through the kernel (the tiled path; past 128
+    dims the wide one) and through the plain version on the card, from the
+    same draw, each Lloyd update's means rounded to integers so that every
+    distance is exact: centroids, assignments, lists and the ids and
+    distances of ivf_query bit for bit."""
     import numpy as np
 
     from repro_torch.clustering import kmeans_assign, lloyd_step
     from repro_torch.core.ivf import IVFIndex, ivf_lists, ivf_query
 
-    data = torch.as_tensor(np.random.default_rng(8).integers(-20, 21, (100_000, 128))
+    data = torch.as_tensor(np.random.default_rng(8).integers(-20, 21, (n, d))
                            .astype(np.float32), device="cuda")
     queries = data[:100] + 1.0
     init = data[torch.randperm(data.shape[0], generator=torch.Generator().manual_seed(0))
@@ -1713,10 +1746,10 @@ def integer_ivf_check(torch) -> dict:
         index = IVFIndex(centroids=c, lists=ivf_lists(assign, IVF_LISTS), data=data)
         out[impl] = (c, assign, dmin, index.lists, *ivf_query(index, queries, 16, 10))
     same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["torch"]))
-    check(same, "integer IVF build: the kernel path differs from the plain path")
-    row = dict(n=data.shape[0], lists=IVF_LISTS, lmax=int(out["kernel"][3].shape[1]),
+    check(same, f"{label}: integer IVF build: the kernel path differs from the plain path")
+    row = dict(n=data.shape[0], d=d, lists=IVF_LISTS, lmax=int(out["kernel"][3].shape[1]),
                bitwise=True)
-    print(f"baselines: integer IVF build equals the plain path: {json.dumps(row)}", flush=True)
+    print(f"{label}: integer IVF build equals the plain path: {json.dumps(row)}", flush=True)
     return row
 
 
@@ -1788,6 +1821,495 @@ def phase_baselines(torch, corpus_np, queries, gt, gather) -> dict:
     torch.cuda.empty_cache()
     return {"ivf": ivf, "sclinear": sclinear, "integer_ivf": integer_ivf_check(torch),
             "launches": build_launches}
+
+
+#: the wide phase's corpus width: GIST1M's 960 dims (the paper's
+#: "high-dimensional" setting), 10^6 points and 1000 held-out queries
+WIDE_D = 960
+#: TaCo over every dimension of the wide corpus (N_s x s = 20 x 48 = 960),
+#: K = 4096 cells: a 32-query tile's collision table is 20 x 4096 words
+#: (320 KB), past shared memory, and N_s is past the fast kernels' 16
+WIDE_TACO = dict(n_subspaces=20, subspace_dim=48, n_clusters=4096, alpha=0.05, beta=0.005)
+WIDE_SETTINGS = [(10, "query_aware"), (10, "fixed")]
+#: the collision kernels' cases at the reference's most subspaces (N_s + 1
+#: = 128 histogram levels): (N_s, sqrt_k); K = 1024, n and Q the main path's
+WIDE_N_SUB, WIDE_SQRT_K = 127, 32
+#: masked_rerank's k past the 1024 it once took, on the main index, at a
+#: budget (beta) whose candidates fill k = 8192
+WIDE_KS = (1025, 2048, 8192)
+WIDE_KS_BETA = 0.01
+#: the integer 960-dim IVF build's corpus size
+WIDE_INT_N = 100_000
+
+
+def wide_assign_case(torch, corpus, c) -> dict:
+    """kmeans_assign at IVF-Flat's wide shape, the corpus (10^6, 960)
+    against the build's 1024 centroids: the wide tiled path. Assignments
+    against the plain version (>= 99.9 % equal, every other one a
+    near-tie) and distances allclose; timed beside the plain version,
+    ``torch.cdist(x, c).min(-1)`` (TF32 off: the float32 matmul default)
+    and its bound, as in ivf_assign_case: the screen's products at the TF32
+    tensor-core rate or the bytes (``bound_ms``), the CUDA-core f32 figure
+    beside it (``cuda_core_bound_ms``). Also kept: rechecks a point, the
+    launch's runs of row blocks and the device times, a call, of the screen
+    and of the two pre-passes."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.kmeans_assign import (
+        TILE_POINTS,
+        kmeans_assign_cuda,
+        kmeans_assign_plain,
+        last_tiled,
+        wide_run_blocks,
+    )
+
+    n, w = corpus.shape
+    k = c.shape[0]
+    # the launch's runs of row blocks: each runs the points' pre-pass and
+    # the screen once, and the profiler times each such kernel a run
+    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+    run_blocks = wide_run_blocks(1, n, w, sms)
+    blocks = -(-n // TILE_POINTS)
+    runs = -(-blocks // run_blocks)
+
+    def per_call(kernel):
+        ms = kernel_device_ms(torch, lambda: kmeans_assign_cuda(corpus, c), kernel, 3)
+        return None if ms is None else runs * ms
+
+    cuda.reset_launch_counts()
+    ga, gd = kmeans_assign_cuda(corpus, c)
+    check(cuda.launch_layouts["kmeans_assign"] == {"tiled_wide": 1},
+          f"wide kmeans_assign: launched {cuda.launch_layouts['kmeans_assign']}")
+    rechecks = int(last_tiled["rechecks"].item())
+    check(last_tiled["points"] == n and n <= rechecks <= n * k,
+          f"wide kmeans_assign: {rechecks} rechecks for {n} points")
+    wa, wd = kmeans_assign_plain(corpus, c)
+    differ = torch.nonzero(ga != wa)[:, 0]
+    agree = 1.0 - differ.numel() / n
+    check(agree >= 0.999, f"wide kmeans_assign: assignments agree on {agree} < 0.999")
+    if differ.numel():
+        xd = corpus[differ]
+        scale = (xd * xd).sum(1) + (c * c).sum(1).max()
+        picked = ((xd - c[ga[differ].long()]) ** 2).sum(1)
+        check(bool((picked - wd[differ] <= IVF_NEAR_TIE * scale).all()),
+              "wide kmeans_assign: a differing assignment is not a near-tie")
+    atol = 1e-5 * float((corpus * corpus).sum(1).max() + (c * c).sum(1).max())
+    check(torch.allclose(gd, wd, rtol=1e-5, atol=atol), "wide kmeans_assign: distances")
+    nbytes = 4 * (n * w + k * w + 2 * n)
+    b, by = bound_ms(nbytes, 2 * n * k * w, TF32_TENSOR_OPS)
+    core_b, _ = bound_ms(nbytes, n * k * (2 * w + 3) + 2 * w * (n + k))
+    row = dict(max_abs_err=float((gd - wd).abs().max()), assign_agree=agree,
+               differing=int(differ.numel()),
+               ms=timed(torch, lambda: kmeans_assign_cuda(corpus, c), 5),
+               plain_ms=timed(torch, lambda: kmeans_assign_plain(corpus, c), 1),
+               bound_ms=b, bound_by=by, cuda_core_bound_ms=core_b,
+               bytes_bound_ms=nbytes / HBM_BPS * 1e3,
+               library_ms=timed(torch, lambda: torch.cdist(corpus, c).min(dim=-1), 2),
+               rechecks_per_point=rechecks / n,
+               runs=runs, run_blocks=run_blocks,
+               screen_device_ms=per_call("wide::wide_kernel"),
+               points_prep_device_ms=per_call("prep_points_kernel"),
+               centroid_prep_device_ms=kernel_device_ms(
+                   torch, lambda: kmeans_assign_cuda(corpus, c), "prep_wide_kernel", 3),
+               shape=f"x ({n}, {w}), c ({k}, {w}), tiled_wide")
+    print(f"kernel kmeans_assign wide: {json.dumps(row)}", flush=True)
+    return row
+
+
+def wide_ivf(torch, corpus, queries, gt) -> dict:
+    """IVF-Flat over the wide corpus (1024 lists, 10 Lloyd iterations): the
+    build's 11 kmeans_assign launches all through the wide tiled path,
+    queries at nprobe 16 and 64 (QPS median of 3, recall@10 rising), one
+    assignment against the plain version (wide_assign_case) and an
+    integer-valued 960-dim build bit for bit against the plain path."""
+    from repro_torch.core import build_ivf, ivf_query
+    from repro_torch.kernels import cuda
+    from repro_torch.utils import recall_at_k
+
+    q = queries.shape[0]
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build_ivf(corpus, IVF_LISTS, kmeans_iters=10, seed=0)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    (index, build_s), launches = run_path(torch, "wide_ivf_build", build,
+                                          expect={"kmeans_assign": 11})
+    layouts = dict(cuda.launch_layouts["kmeans_assign"])
+    check(layouts == {"tiled_wide": 11}, f"wide ivf build: kmeans_assign launched {layouts}")
+    counts = (index.lists >= 0).sum(1)
+    check(int(counts.sum()) == corpus.shape[0], "wide ivf: the lists do not hold every point")
+    out = dict(build_s=build_s, lists=IVF_LISTS, lmax=int(index.lists.shape[1]),
+               empty_lists=int((counts == 0).sum()), index_bytes=index.index_bytes,
+               layouts=layouts, searches=[], launches=launches)
+    print(f"wide: ivf build {json.dumps({k: v for k, v in out.items() if k != 'searches'})}",
+          flush=True)
+    for nprobe in IVF_NPROBES:
+        ivf_query(index, queries[:8], nprobe, 10)  # warm-up
+        secs, (ids, dists) = _median_s(torch, lambda: ivf_query(index, queries, nprobe, 10))
+        check(tuple(ids.shape) == (q, 10) and bool(torch.isfinite(dists).all()),
+              f"wide ivf nprobe {nprobe}: shape or non-finite distances")
+        row = dict(nprobe=nprobe, k=10, seconds=secs, qps=q / secs,
+                   recall_at_10=recall_at_k(ids, gt, 10))
+        print(f"wide: ivf search {json.dumps(row)}", flush=True)
+        out["searches"].append(row)
+    check(out["searches"][1]["recall_at_10"] > out["searches"][0]["recall_at_10"],
+          "wide ivf: recall does not rise from nprobe 16 to 64")
+    out["assign"] = wide_assign_case(torch, corpus, index.centroids)
+    del index
+    torch.cuda.empty_cache()
+    out["integer"] = integer_ivf_check(torch, WIDE_D, WIDE_INT_N, "wide")
+    return out
+
+
+def wide_kernel_rows(torch, label, bits, cells, data, queries, k, n_sub, k2) -> dict:
+    """schist and scscore bit for bit against their plain versions on these
+    inputs, masked_rerank's ids (>= 99.9 %) and filled distances against
+    its plain version (at ``k``, the query-aware threshold at beta 0.005
+    off the histogram), each launch counted where its table lived; each
+    timed beside its plain version and bound, in rows for the kernels
+    line."""
+    from repro_torch.core.selection import query_aware_threshold
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.masked_rerank import (
+        masked_rerank_cuda,
+        masked_rerank_plain,
+        rerank_geometry,
+    )
+    from repro_torch.kernels.schist import schist_cuda, schist_geometry, schist_plain
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain, scscore_table
+
+    q, n = queries.shape[0], cells.shape[1]
+    d = data.shape[1]
+    nbits = bits.numel() * 4
+    cuda.reset_launch_counts()
+    hist = schist_cuda(bits, cells, n_sub + 1, q=q)
+    sc = scscore_cuda(bits, cells, q=q)
+    layouts = {name: dict(cuda.launch_layouts[name]) for name in ("schist", "scscore")}
+    check(torch.equal(hist, schist_plain(bits, cells, n_sub + 1, q=q)), f"{label}: schist")
+    check(torch.equal(sc, scscore_plain(bits, cells, q=q)), f"{label}: scscore")
+    del sc
+    torch.cuda.empty_cache()
+    rows = {}
+    g = schist_geometry(q, n_sub, k2)
+    b, by = bound_ms(4 * n_sub * n + nbits + 4 * q * (n_sub + 1), q * n * n_sub)
+    rows["schist"] = dict(
+        max_abs_err=0.0, ms=timed(torch, lambda: schist_cuda(bits, cells, n_sub + 1, q=q), 3),
+        plain_ms=timed(torch, lambda: schist_plain(bits, cells, n_sub + 1, q=q), 1),
+        bound_ms=b, bound_by=by, library_ms=None, layout=layouts["schist"],
+        geometry=g._asdict(), shape=f"Q {q}, N_s {n_sub}, K {k2}, n {n}")
+    b, by = bound_ms(4 * q * n + 4 * n_sub * n + nbits, q * n * n_sub)
+    rows["scscore"] = dict(
+        max_abs_err=0.0, ms=timed(torch, lambda: scscore_cuda(bits, cells, q=q), 3),
+        plain_ms=timed(torch, lambda: scscore_plain(bits, cells, q=q), 1),
+        bound_ms=b, bound_by=by, library_ms=None, layout=layouts["scscore"],
+        table=scscore_table(n_sub, k2), shape=f"Q {q}, N_s {n_sub}, K {k2}, n {n}")
+    torch.cuda.empty_cache()
+    thresh, demand = query_aware_threshold(hist, 0.005 * n, n_sub)
+    total = float(demand.sum())
+    norms = (data * data).sum(1)
+    args = (bits, cells, thresh, queries, data, norms)
+    cuda.reset_launch_counts()
+    gd, gi = masked_rerank_cuda(*args, k)
+    layouts["masked_rerank"] = dict(cuda.launch_layouts["masked_rerank"])
+    wd, wi = masked_rerank_plain(*args, k)
+    agree = float((gi == wi).float().mean())
+    fin = torch.isfinite(wd)
+    check(torch.equal(fin, torch.isfinite(gd)), f"{label}: masked_rerank filled slots")
+    atol = 1e-5 * float((queries * queries).sum(1).max() + norms.max())
+    check(torch.allclose(gd[fin], wd[fin], rtol=1e-5, atol=atol),
+          f"{label}: masked_rerank distances")
+    check(agree >= 0.999, f"{label}: masked_rerank ids agree {agree} < 0.999")
+    b, by = bound_ms(
+        4 * n_sub * n + nbits + 4 * q + 4 * q * d + 4 * d * min(n, total) + 4 * n + 8 * q * k,
+        q * n * n_sub + total * (2 * d + 3))
+    rows["masked_rerank"] = dict(
+        max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+        ms=timed(torch, lambda: masked_rerank_cuda(*args, k), 3),
+        plain_ms=timed(torch, lambda: masked_rerank_plain(*args, k), 1),
+        bound_ms=b, bound_by=by, library_ms=None, ids_agree=agree,
+        mean_candidates=total / q, layout=layouts["masked_rerank"],
+        geometry=rerank_geometry(n, k, n_sub, k2, d)._asdict(),
+        shape=f"Q {q}, N_s {n_sub}, K {k2}, n {n}, d {d}, k {k}")
+    for name, row in rows.items():
+        print(f"kernel {name} {label}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+def wide_taco(torch, corpus_np, queries, gt) -> dict:
+    """TaCo over the wide corpus at WIDE_TACO: the build, masked-full and
+    gather at k = 10 under both selections, each against the plain path on
+    the same index (recall@10 within 0.005, ids >= 99.9 %), every collision
+    kernel launched with its table in global memory and l2dist twice a
+    batch (40 pairs, 32 a launch); then the kernels on the path's own batch
+    (wide_kernel_rows)."""
+    from repro_torch.core import taco
+    from repro_torch.core.config import taco_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.l2dist import MAX_PAIRS
+    from repro_torch.kernels.schist import collision_bits, collision_table
+
+    cfg = taco_config(**WIDE_TACO, k=10, rerank="masked_full", use_kernels=True)
+    # l2dist launches a batch: its 2 N_s (subspace, half) pairs, up to
+    # MAX_PAIRS a launch
+    per_batch = -(-2 * cfg.n_subspaces // MAX_PAIRS)
+    (index, build_s), build_launches = run_path(
+        torch, "wide_build", lambda: build_index(torch, corpus_np, cfg, "wide taco"),
+        expect={"kmeans_assign": cfg.kmeans_iters + 1})
+    index.search(queries[:8])  # warm-up: caches the per-index cell ids
+    out = dict(build_s=build_s, index_bytes=index.index_bytes, searches=[],
+               launches=[build_launches])
+    n_runs = len(WIDE_SETTINGS)
+    for rerank, path, kernels in (("masked_full", "wide_masked", ("schist", "masked_rerank")),
+                                  ("gather", "wide_gather", ("scscore",))):
+        view = index.replace_cfg(rerank=rerank)
+        runs, launches = run_path(torch, path,
+                                  lambda: search_runs(torch, view, queries, WIDE_SETTINGS),
+                                  expect={"l2dist": 3 * n_runs * per_batch})
+        layouts = {name: dict(cuda.launch_layouts[name]) for name in kernels}
+        want = {"schist": "table=global", "scscore": "table=global",
+                "masked_rerank": "table=global,heaps=shared"}
+        for name in kernels:
+            check(set(layouts[name]) == {want[name]}, f"{path}: {name} launched {layouts[name]}")
+        out["launches"].append(launches)
+        for (k, sel), run in runs.items():
+            row = against_plain(torch, view, queries, gt, run, k, sel, path)
+            row.update(rerank=rerank, layouts=layouts)
+            print(f"wide: search {json.dumps(row)}", flush=True)
+            out["searches"].append(row)
+        del runs
+    q = torch.as_tensor(queries).cuda()
+    d1s, d2s, cells, taus, _ = taco._collision_inputs(index.sc_index, q, cfg)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    out["kernels"] = wide_kernel_rows(torch, "wide taco", bits, cells, index.sc_index.data, q,
+                                      10, cfg.n_subspaces, cfg.sqrt_k ** 2)
+    del index, bits, cells
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_collisions(torch, data, queries) -> dict:
+    """The collision kernels at N_s = 127 (K = 1024, the main path's n and
+    Q): bits and cells drawn from the seed (activation at alpha 0.05, as
+    the kernels phase draws them), schist and scscore bit for bit and
+    masked_rerank (k = 10, the query-aware threshold at beta 0.005) against
+    their plain versions on the main corpus and queries."""
+    import numpy as np
+
+    from repro_torch.core.activation import activation_taus
+    from repro_torch.kernels.schist import collision_bits, collision_table
+
+    rng = np.random.default_rng(127)
+    n_sub, sqrt_k, n, q = WIDE_N_SUB, WIDE_SQRT_K, data.shape[0], queries.shape[0]
+    cells = torch.as_tensor(rng.integers(0, sqrt_k ** 2, (n_sub, n), dtype=np.int32)).cuda()
+    sizes = torch.stack([torch.bincount(cells[s].long(), minlength=sqrt_k ** 2)
+                         for s in range(n_sub)]).to(torch.int32).reshape(n_sub, sqrt_k, sqrt_k)
+    d1s, d2s = (torch.as_tensor(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32)).cuda()
+                for _ in range(2))
+    taus, _ = activation_taus(d1s, d2s, sizes, 0.05 * n)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    rows = wide_kernel_rows(torch, "n_sub 127", bits, cells, data, queries, 10, n_sub,
+                            sqrt_k ** 2)
+    del cells, bits
+    torch.cuda.empty_cache()
+    return rows
+
+
+def topk_agreement(torch, ids, dists, pids, pdists) -> dict:
+    """Two (Q, k) top-k lists, the kernel's (ids, dists) and the plain
+    version's (pids, pdists): ``ids_same``, the share of positions that
+    hold the same id; ``ids_in_both``, the share of the plain version's ids
+    that the kernel's row holds too; the distance error ``tol``, the larger
+    of the largest position-wise gap between the two sorted distance lists
+    and the largest gap between the two distances of one (query, id) both
+    return; and ``unexplained``, the ids that only one list holds and whose
+    distance lies more than 2 tol inside that row's k-th distance. Two
+    sound top-k lists whose distances differ by at most tol can differ only
+    there: a point one path ranks in and the other out lies within 2 tol
+    of the k-th distance. Computed on the card where there is one."""
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    ids, dists, pids, pdists = (torch.as_tensor(a).to(dev) for a in (ids, dists, pids, pdists))
+    q = ids.shape[0]
+    fin, pfin = torch.isfinite(dists), torch.isfinite(pdists)
+    both = fin & pfin
+    err_sorted = float((dists[both] - pdists[both]).abs().max()) if bool(both.any()) else 0.0
+    span = int(max(int(ids.max()), int(pids.max()))) + 1
+    rows = torch.arange(q, device=dev, dtype=torch.int64)[:, None] * span
+    keys, pkeys = (rows + ids.long())[fin], (rows + pids.long())[pfin]
+    kd, pd = dists[fin], pdists[pfin]
+
+    def find(a, b):
+        """For each key of a: whether b holds it, and where in sorted b."""
+        sb, order = torch.sort(b)
+        pos = torch.searchsorted(sb, a).clamp_max(max(b.numel() - 1, 0))
+        hit = sb[pos] == a if b.numel() else torch.zeros_like(a, dtype=torch.bool)
+        return hit, order[pos]
+
+    hit, at = find(keys, pkeys)
+    common = int(hit.sum())
+    err_common = float((kd[hit] - pd[at[hit]]).abs().max()) if common else 0.0
+    tol = max(err_sorted, err_common)
+    unexplained = 0
+    for own, d, rows_d, f, other in ((keys, kd, dists, fin, pkeys),
+                                     (pkeys, pd, pdists, pfin, keys)):
+        kth = torch.where(f[:, -1], rows_d[:, -1], torch.inf)
+        only = ~find(own, other)[0]
+        unexplained += int((d[only] < kth[own[only] // span] - 2 * tol).sum())
+    return dict(ids_same=float((ids == pids).float().mean()),
+                ids_in_both=common / max(pkeys.numel(), 1), tol=tol,
+                err_sorted=err_sorted, err_common=err_common,
+                fill_equal=bool(torch.equal(fin, pfin)), unexplained=unexplained)
+
+
+def wide_big_k(torch, index, queries, gt) -> dict:
+    """masked_rerank past k = 1024 on the main 10^6 x 128 index (a view at
+    beta WIDE_KS_BETA, whose candidates fill k = 8192): the masked-full
+    batch at each of WIDE_KS under both selections against the plain path
+    (topk_agreement: >= 99.9 % of the plain path's ids in the kernel path's
+    rows, and recall@10 within 0.005; the two paths' centroid distances
+    differ in the last bit, which moves a few cells' activation and so a
+    few candidates of a long list, so no tie test applies there); then the
+    kernel on the batch's own inputs (one collision table; the thresholds
+    of both selections) at each k beside its plain version and bound: the
+    same filled slots, the distance error within the norm form's rounding
+    bound (IVF_NEAR_TIE of |q|^2 + the largest |x|^2), >= 99.9 % of the
+    ids in both and no id in one list only unless within twice the
+    measured error of the k-th distance; and at k = 8192 with a 1 %
+    tombstone bitmap (the same gates, no excluded point returned)."""
+    import numpy as np
+
+    from repro_torch.utils import recall_at_k
+
+    from repro_torch.core import taco
+    from repro_torch.core.selection import fixed_threshold_from_hist, query_aware_threshold
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.masked_rerank import (
+        masked_rerank_cuda,
+        masked_rerank_plain,
+        pack_exclusion,
+        rerank_geometry,
+    )
+    from repro_torch.kernels.schist import collision_bits, collision_table, schist_cuda
+
+    view = index.replace_cfg(beta=WIDE_KS_BETA, rerank="masked_full")
+    settings = [(k, sel) for k in WIDE_KS for sel in ("query_aware", "fixed")]
+    runs, launches = run_path(torch, "wide_big_k",
+                              lambda: search_runs(torch, view, queries, settings),
+                              expect={"l2dist": 3 * len(settings)})
+    out = dict(searches=[], launches=launches,
+               layouts=dict(cuda.launch_layouts["masked_rerank"]))
+    data_norms = taco.data_norms_of(view.sc_index)
+    scale = ((queries * queries).sum(1) + data_norms.max()).cpu().numpy()
+    # the norm form's rounding bound on one distance's two computations
+    rounding = float(IVF_NEAR_TIE * scale.min())
+    for (k, sel), run in runs.items():
+        ids, dists = run["ids"], run["dists"]
+        check(tuple(ids.shape) == (queries.shape[0], k), f"wide big k: ids shape k={k}")
+        check(bool(np.isfinite(dists[:, :10]).all()), f"wide big k: top-10 dists k={k} {sel}")
+        plain = view.replace_cfg(selection=sel, use_kernels=False)
+        pids, pdists, _ = plain.search_with_stats(queries, k=k)
+        row = dict(k=k, selection=sel, seconds=run["seconds"],
+                   qps=queries.shape[0] / run["seconds"], recall_at_10=recall_at_k(ids, gt, 10),
+                   plain_recall_at_10=recall_at_k(pids, gt, 10),
+                   mean_candidate_count=float(run["stats"]["candidate_count"].mean()),
+                   filled=float((ids >= 0).mean()),
+                   **topk_agreement(torch, ids, dists, pids, pdists),
+                   geometry=rerank_geometry(index.n, k, view.cfg.n_subspaces,
+                                            view.cfg.sqrt_k ** 2, index.d)._asdict())
+        print(f"wide: big k search {json.dumps(row)}", flush=True)
+        check(abs(row["recall_at_10"] - row["plain_recall_at_10"]) <= 0.005,
+              f"wide big k: recall k={k} {sel}")
+        check(row["ids_in_both"] >= 0.999,
+              f"wide big k: ids in both {row['ids_in_both']} < 0.999 k={k} {sel}")
+        out["searches"].append(row)
+    del runs
+    cfg, sc_index = view.cfg, view.sc_index
+    d1s, d2s, cells, taus, _ = taco._collision_inputs(sc_index, queries, cfg)
+    bits = collision_bits(collision_table(d1s, d2s, taus))
+    n_sub, n, q = cfg.n_subspaces, sc_index.n, queries.shape[0]
+    hist = schist_cuda(bits, cells, n_sub + 1, q=q)
+    thresholds = {"query_aware": query_aware_threshold(hist, cfg.beta * n, n_sub),
+                  "fixed": fixed_threshold_from_hist(hist, cfg.beta * n, n)}
+    data, norms = sc_index.data, taco.data_norms_of(sc_index)
+    d = data.shape[1]
+    nbits = bits.numel() * 4
+
+    def held(label, gd, gi, wd, wi):
+        agree = topk_agreement(torch, gi, gd, wi, wd)
+        check(agree["fill_equal"] and agree["tol"] <= rounding and agree["unexplained"] == 0
+              and agree["ids_in_both"] >= 0.999, f"wide big k: masked_rerank {label} {agree}")
+        return agree
+
+    out["kernels"] = {}
+    for k in WIDE_KS:
+        for sel, (thresh, demand) in thresholds.items():
+            args = (bits, cells, thresh, queries, data, norms)
+            total = float(demand.sum())
+            gd, gi = masked_rerank_cuda(*args, k)
+            wd, wi = masked_rerank_plain(*args, k)
+            agree = held(f"k={k} {sel}", gd, gi, wd, wi)
+            fin = torch.isfinite(wd)
+            b, by = bound_ms(
+                4 * n_sub * n + nbits + 4 * q + 4 * q * d + 4 * d * min(n, total) + 4 * n
+                + 8 * q * k, q * n * n_sub + total * (2 * d + 3))
+            row = dict(selection=sel,
+                       max_abs_err=float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0,
+                       ms=timed(torch, lambda: masked_rerank_cuda(*args, k), 3),
+                       plain_ms=timed(torch, lambda: masked_rerank_plain(*args, k), 1, 0),
+                       bound_ms=b, bound_by=by, library_ms=None, **agree,
+                       rounding_bound=rounding, mean_candidates=total / q,
+                       geometry=rerank_geometry(n, k, n_sub, cfg.sqrt_k ** 2, d)._asdict(),
+                       shape=f"Q {q}, N_s {n_sub}, n {n}, d {d}, k {k}, {sel}")
+            print(f"kernel masked_rerank k={k} {sel}: {json.dumps(row)}", flush=True)
+            out["kernels"][f"{k} {sel}"] = row
+    excluded = np.random.default_rng(8192).random(n) < 0.01
+    words = pack_exclusion(excluded).cuda()
+    k = WIDE_KS[-1]
+    args = (bits, cells, thresholds["query_aware"][0], queries, data, norms)
+    gd, gi = masked_rerank_cuda(*args, k, words)
+    wd, wi = masked_rerank_plain(*args, k, words)
+    agree = held(f"k={k} exclusion", gd, gi, wd, wi)
+    returned = gi[gi >= 0].cpu().numpy()
+    check(not excluded[returned].any(), f"wide big k: k={k} returned an excluded point")
+    row = out["kernels"][f"{k} query_aware"]
+    row["exclusion"] = dict(excluded=int(excluded.sum()), **agree,
+                            ms=timed(torch, lambda: masked_rerank_cuda(*args, k, words), 3))
+    print(f"wide: big k exclusion {json.dumps(row['exclusion'])}", flush=True)
+    del bits, cells, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide(torch, n: int, index, main_queries, main_gt) -> dict:
+    """Phase 6c: every shape past the kernels' former limits at full size.
+    A 960-dim corpus (gmm_dataset(n + 1000, 960), split as the main corpus
+    is; the exact top-10 on the card): IVF-Flat (wide_ivf) and TaCo over
+    every dimension (wide_taco); then the collision kernels at N_s = 127
+    (wide_collisions, on the main index's corpus and queries) and
+    masked_rerank at k = 1025, 2048, 8192 on the main index (wide_big_k)."""
+    from repro_torch.data import gmm_dataset, make_queries
+
+    t0 = time.perf_counter()
+    full = gmm_dataset(n + QUERIES, WIDE_D, seed=0)
+    corpus_np, queries_np = make_queries(full, QUERIES)
+    del full
+    corpus = torch.as_tensor(corpus_np).cuda()
+    queries = torch.as_tensor(queries_np).cuda()
+    gt = brute_force_top10(torch, corpus, queries)
+    out = dict(data_s=time.perf_counter() - t0, shape=list(corpus_np.shape))
+    print(f"wide: data {corpus_np.shape} in {out['data_s']:.1f} s", flush=True)
+    out["ivf"] = wide_ivf(torch, corpus, queries, gt)
+    del corpus
+    torch.cuda.empty_cache()
+    out["taco"] = wide_taco(torch, corpus_np, queries_np, gt)
+    del corpus_np, queries, gt
+    torch.cuda.empty_cache()
+    out["n_sub_127"] = wide_collisions(torch, index.sc_index.data, main_queries)
+    out["big_k"] = wide_big_k(torch, index, main_queries, main_gt)
+    out["launches"] = [out["ivf"]["launches"], *out["taco"]["launches"],
+                       out["big_k"]["launches"]]
+    return out
 
 
 def save_and_load(torch, index, label: str) -> tuple:
@@ -2954,12 +3476,13 @@ def phase_serve(torch, root, index, tune: dict) -> dict:
         index.replace_cfg(use_kernels=False, rerank="gather").save(str(plain))
         third = serve_in_process(torch, ["--load-index", str(plain), "--requests", "256",
                                          "--pressure", "64", "--mixed"])
-    # a load whose config a kernel's limits refuse is served through the
-    # plain path (serve_ann.kernels_on_card): say whether either load was
+    # no kernel refuses a config, so no load is served through the plain
+    # path (serve_ann.kernels_on_card): the launcher must not say it was
     for label, run in (("recovery", second), ("recovery tuned", tuned),
                        ("default config", third)):
         run["plain_path"] = plain_route(run["stdout"])
         print(f"serve {label}: load through the plain path: {run['plain_path']}", flush=True)
+        check(run["plain_path"] is None, f"serve {label}: served through the plain path")
     return {"first": first, "recovery": second, "recovery_tuned": tuned,
             "default_config": third}
 
@@ -6833,6 +7356,10 @@ def main(argv=None) -> int:
                          masked_runs)
     del masked_runs
     baselines = phase("baselines", phase_baselines, torch, corpus_np, queries, gt, gather)
+    # 6c. every shape past the kernels' former limits: a 960-dim corpus,
+    # N_s = 127, k past 1024
+    wide = phase("wide", phase_wide, torch, args.n, index, queries, gt)
+    torch.cuda.empty_cache()
     persist = phase("persist", phase_persist, torch, index, suco, queries)
     del suco
     torch.cuda.empty_cache()
@@ -6883,11 +7410,21 @@ def main(argv=None) -> int:
                    sharded["engine"]["sharded"]["launches"],
                    sharded["serve"]["launches"], sharded["build"]["launches"],
                    *(run["launches"] for run in serve.values()), *lm["launches"],
-                   baselines["launches"], *train["launches"], *families["launches"],
+                   baselines["launches"], *wide["launches"], *train["launches"],
+                   *families["launches"],
                    *parallel["launches"], dry["launches"], *tp["launches"],
                    *ep["launches"], *ssm["launches"], *cp["launches"]):
         for name, count in counts.items():
             launches[name] += count
+    # the tiled and wide phases' shapes, beside each kernel's main-path one
+    wide_shapes = {
+        "kmeans_assign": [kernels["kmeans_assign"]["ivf"], wide["ivf"]["assign"]],
+        "schist": [wide["taco"]["kernels"]["schist"], wide["n_sub_127"]["schist"]],
+        "scscore": [wide["taco"]["kernels"]["scscore"], wide["n_sub_127"]["scscore"]],
+        "masked_rerank": [wide["taco"]["kernels"]["masked_rerank"],
+                          wide["n_sub_127"]["masked_rerank"], *wide["big_k"]["kernels"].values()],
+    }
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = kernels[name]
@@ -6895,13 +7432,15 @@ def main(argv=None) -> int:
                      "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "shapes": [{key: w[key] for key in keys} for w in wide_shapes.get(name, [])]})
     out = root / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": line, "build_kernels_s": build_kernels_s,
                                "kernels": kernels, "autotune": tune, "flash": flash,
                                "masked": masked,
                                "gather": gather, "persist": persist,
+                               "wide": wide,
                                "mutable": mutable, "engine": engine, "sharded": sharded,
                                "serve": serve, "lm": lm, "baselines": baselines,
                                "train": train, "families": families,

@@ -77,8 +77,10 @@ VARIANTS["phases"] = TIMED
 
 
 def build_variants(cuda) -> dict:
-    """Compile every variant in parallel; return name -> its C entry."""
-    src = (cuda.CSRC / "kmeans_assign.cu").read_text()
+    """Compile every variant in parallel; return name -> its C entry. The
+    substitutions apply to the resident-points tiled path (``tiled::``),
+    the source before the wide path's namespace."""
+    src, sep, wide = (cuda.CSRC / "kmeans_assign.cu").read_text().partition("\nnamespace wide {")
     out_dir = ROOT / "build" / "kmeans_screen_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -88,7 +90,7 @@ def build_variants(cuda) -> dict:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: the kernel source changed near {old[:40]!r}")
             text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
+        (out_dir / f"{name}.cu").write_text(text + sep + wide)
         procs[name] = subprocess.Popen(
             [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o",
              str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
@@ -134,7 +136,7 @@ def main() -> int:
         assign = torch.empty((n,), dtype=torch.int32, device="cuda")
         dmin = torch.empty((n,), dtype=torch.float32, device="cuda")
         rc = fn(cuda.ptr(x), cuda.ptr(c), cuda.ptr(assign), cuda.ptr(dmin), n, k, w,
-                K.SCREEN_GAMMA, K.SCREEN_EPS, cuda.ptr(scratch), floats, cuda.ptr(rechecks),
+                *K.screen_window(w), cuda.ptr(scratch), floats, cuda.ptr(rechecks),
                 cuda.stream(x.device))
         if rc != 0:
             raise RuntimeError(f"variant: CUDA error {rc}")

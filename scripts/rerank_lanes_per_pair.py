@@ -60,7 +60,7 @@ VARIANT_SCORE = """  auto score = [&](int p, int s, bool valid, int m) {
     Entry e = 0;
     if (valid) {
       e = make_entry(fmaxf((qn[s] - 2.0f * dot) + __ldg(norms + p), 0.0f), p);
-      cand = entry_less(e, *reinterpret_cast<volatile Entry*>(heap + s));
+      cand = entry_less(e, *reinterpret_cast<volatile Entry*>(hp(s)));
     }
 """
 CALLS = (("score(pr.x, pr.y, true);", "score(pr.x, pr.y, true, 32);"),
@@ -117,14 +117,15 @@ def main() -> int:
         q, d = queries.shape
         n = data.shape[0]
         _, n_sub, k2 = bits.shape
-        lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d)
+        lanes, warps, chunk, n_chunks, *_ = rerank_geometry(n, k, n_sub, k2, d)
         part = [torch.empty((q, n_chunks, k), dtype=dt, device=data.device)
                 for dt in (torch.float32, torch.int32)]
         best = [torch.empty((q, k), dtype=dt, device=data.device)
                 for dt in (torch.float32, torch.int32)]
         rc = fn(*(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, norms)),
                 ctypes.c_void_p(None), *(cuda.ptr(t) for t in (*part, *best)),
-                q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device))
+                ctypes.c_void_p(None), q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, 1,
+                cuda.stream(data.device))
         if rc != 0:
             raise RuntimeError(f"octet variant: CUDA error {rc}")
         return best

@@ -126,10 +126,10 @@ def main() -> int:
 
     def variant(bits, cells, n_levels, *, q):
         n_sub, k2 = bits.shape[1], bits.shape[2]
-        tiles, warps, smem, _ = S.schist_geometry(q, n_sub, k2)
+        tiles, warps, smem, *_ = S.schist_geometry(q, n_sub, k2)
         out = torch.empty((q, n_levels), dtype=torch.int32, device=bits.device)
         rc = fn(cuda.ptr(bits), cuda.ptr(cells), cuda.ptr(out), q, cells.shape[1], n_sub, k2,
-                tiles, warps, S.CHUNK, smem, cuda.stream(bits.device))
+                tiles, warps, S.CHUNK, smem, 0, 1, cuda.stream(bits.device))
         if rc != 0:
             raise RuntimeError(f"variant: CUDA error {rc}")
         return out

@@ -276,13 +276,33 @@ def data_norms_of(index: SCIndex) -> torch.Tensor:
     return torch.sum(index.data * index.data, dim=1)
 
 
+#: bytes of gathered candidate rows one query chunk of :func:`rerank` may
+#: hold; a batch past it runs in query chunks (the main 10^6 x 128 index's
+#: 1024 bucket at a cap of 20,000 gathers 10.5 GB in one piece; at 960 dims
+#: the same cap would gather 73 GiB)
+RERANK_CHUNK_BYTES = 16 << 30
+
+
 def rerank(data: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tensor,
            valid: torch.Tensor, k: int, data_norms: torch.Tensor | None = None):
     """Exact distances over the candidates and a masked top-k: (ids (Q, k)
     int32, sq_dists (Q, k) f32), id -1 / +inf where fewer than k candidates
     are valid; ties go to the lowest slot. With the precomputed norms the
     distances are ``max(||q||^2 - 2 q.x + ||x||^2, 0)``, without them
-    ``(x - q) . (x - q)``, as in the reference."""
+    ``(x - q) . (x - q)``, as in the reference. A batch whose gathered rows
+    pass :data:`RERANK_CHUNK_BYTES` runs in query chunks that fit it."""
+    per_query = cand_ids.shape[1] * data.shape[1] * 4 * (1 if data_norms is not None else 2)
+    rows = max(1, RERANK_CHUNK_BYTES // max(per_query, 1))
+    if queries.shape[0] <= rows:
+        return _rerank_chunk(data, queries, cand_ids, valid, k, data_norms)
+    parts = [_rerank_chunk(data, queries[lo:lo + rows], cand_ids[lo:lo + rows],
+                           valid[lo:lo + rows], k, data_norms)
+             for lo in range(0, queries.shape[0], rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _rerank_chunk(data, queries, cand_ids, valid, k: int, data_norms):
+    """:func:`rerank` on one query chunk."""
     cand = cand_ids.long()
     if data_norms is None:
         diff = data[cand] - queries[:, None, :]

@@ -6,6 +6,12 @@
 // and so gets that subspace's collision bit for all 32 queries of the tile
 // at once. Adding the N_s words in carry-save form gives SC for the 32
 // queries as kPlanes bit-planes: bit j of plane b is bit b of SC(query j).
+//
+// The fast path (sc_planes) holds up to kMaxSub cell ids in registers and
+// reads the table from shared memory. The wide path (sc_planes_wide) takes
+// any N_s: it reads each cell id as it adds its word, into NP planes (SC <=
+// 2^NP - 1), from a table in shared or in global memory (through the L2),
+// as the host decided for the launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +40,43 @@ __device__ __forceinline__ void sc_planes(const uint32_t* tab, int k2,
         carry = t;
       }
     }
+  }
+}
+
+// Adds one collision word (weight 1) into the NP bit-planes of a per-bit
+// counter: the carry ripples up.
+template <int NP>
+__device__ __forceinline__ void add_planes(uint32_t (&p)[NP], uint32_t carry) {
+#pragma unroll
+  for (int b = 0; b < NP; ++b) {
+    const uint32_t t = p[b] & carry;
+    p[b] ^= carry;
+    carry = t;
+  }
+}
+
+// NP bit-planes for n_sub subspaces: 5 up to 31 (SC <= 31), 7 up to 127,
+// else 32 (any int32 N_s).
+__host__ __device__ constexpr int wide_planes(int n_sub) {
+  return n_sub <= 31 ? 5 : (n_sub <= 127 ? 7 : 32);
+}
+
+// SC planes of point p over the 32 queries of a tile, for any n_sub: the
+// tile's (n_sub, k2) table at `tab` (shared or global memory), the point's
+// cell ids read from the (n_sub, n) `cells` as they are added. An invalid
+// point gets SC = 0 everywhere.
+template <int NP>
+__device__ __forceinline__ void sc_planes_wide(const uint32_t* tab, int k2,
+                                               const int* __restrict__ cells, int n, int p,
+                                               int n_sub, bool valid,
+                                               uint32_t (&planes)[NP]) {
+#pragma unroll
+  for (int b = 0; b < NP; ++b) planes[b] = 0u;
+  if (!valid) return;
+#pragma unroll 4
+  for (int s = 0; s < n_sub; ++s) {
+    const int c = __ldg(cells + static_cast<size_t>(s) * n + p);
+    add_planes<NP>(planes, tab[static_cast<size_t>(s) * k2 + c]);
   }
 }
 

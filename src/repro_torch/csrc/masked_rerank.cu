@@ -64,10 +64,27 @@
 // and never enters a heap; the 32 lanes of a warp read one or two words, a
 // broadcast. A null pointer skips the read. The histogram of pass 1 (schist)
 // still counts excluded points, as the base index does.
-// k <= 1024; above k = 512 the query tile shrinks to 16 lanes so the top-k
-// state fits in shared memory. A block has up to 8 warps, fewer only where
-// their rings would not fit; the query rows stay in global memory where
-// they do not fit either.
+// Any k: up to k = 512 a block takes 32 queries, up to 1024 16, and past
+// that the tile halves (8, 4, 2, 1 lanes) until its heaps fit in shared
+// memory (k = 2048: 8 lanes, 128 KB; k = 8192: 2); past k ~ 28,900 even one
+// heap does not fit, and the heaps live in global memory (scratch the
+// wrapper allocates, one (q, n_chunks, k) list of entries, reached through
+// L1 and L2 with the same locks). A block has up to 8 warps, fewer only
+// where their rings would not fit; the query rows stay in global memory
+// where they do not fit either.
+// Any N_s and any table: the fast kernel (WIDE = false) is the one above,
+// N_s <= 16 cell ids in registers and the table in shared memory. The wide
+// kernel (WIDE = true, NP = 5, 7 or 32 SC planes by N_s) reads each cell id
+// as it adds its word (sc_planes_wide), from the tile's table in shared
+// memory where it fits beside the heaps, else from global memory (through
+// the L2: a 20 x 4096 tile is 320 KB). The host (kernels/masked_rerank.py:
+// rerank_geometry) decides where the table and the heaps live, once a
+// launch. A threshold above N_s passes no point and one below 0 every
+// point, in both kernels. The fast kernel stays for its shapes: the wide
+// one, run there, took 1.4 % longer at k = 100 (PERF.md §6).
+// Pass b merges where there are 2 chunks or more (the geometry keeps their
+// lists within shared memory: n_chunks x k <= 8192 entries); a larger k
+// takes one chunk, whose sorted list pass b copies out.
 #include <math_constants.h>
 
 #include "collision.cuh"
@@ -158,31 +175,52 @@ __host__ __device__ __forceinline__ size_t smem_rows(int lanes, int d) {
   return static_cast<size_t>(lanes) * query_stride(d) * 4;
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
+// NP SC planes; WIDE: the wide kernel (see the header), whose table is in
+// shared memory when table_in and whose heaps are in global memory at
+// gheap when that is not null.
+template <int NP, bool WIDE>
+__global__ void __launch_bounds__(kMaxWarps * 32, WIDE ? 1 : 2) rerank_chunk_kernel(
     const uint32_t* __restrict__ bits, const int* __restrict__ cells,
     const int* __restrict__ thresh, const float* __restrict__ queries,
     const float* __restrict__ data, const float* __restrict__ norms,
     const uint32_t* __restrict__ excl, float* __restrict__ part_d,
-    int* __restrict__ part_i, int q, int n, int d,
-    int n_sub, int k2, int k, int chunk, int n_chunks, int lanes, bool rows_in, bool vec) {
+    int* __restrict__ part_i, Entry* gheap, int q, int n, int d,
+    int n_sub, int k2, int k, int chunk, int n_chunks, int lanes, bool rows_in, bool vec,
+    bool table_in) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qstride = query_stride(d);
-  Entry* heap = reinterpret_cast<Entry*>(dyn);  // (k, lanes), slot-major
-  float* qs = reinterpret_cast<float*>(heap + k * lanes);  // (lanes, qstride) if rows_in
+  const bool heaps_in = !WIDE || gheap == nullptr;
+  Entry* heap = reinterpret_cast<Entry*>(dyn);  // (k, lanes), slot-major, if heaps_in
+  float* qs = reinterpret_cast<float*>(heap + (heaps_in ? k * lanes : 0));  // (lanes, qstride) if rows_in
   int2* ring = reinterpret_cast<int2*>(qs + (rows_in ? lanes * qstride : 0)) + warp * kRing;
   float* qn = reinterpret_cast<float*>(
       reinterpret_cast<int2*>(qs + (rows_in ? lanes * qstride : 0)) + warps * kRing);
   int* locks = reinterpret_cast<int*>(qn + 32);
-  uint32_t* tab = reinterpret_cast<uint32_t*>(locks + 32);  // (n_sub, k2)
+  uint32_t* tab_s = reinterpret_cast<uint32_t*>(locks + 32);  // (n_sub, k2) if staged
   const int q0 = blockIdx.x * lanes;
   const int nq = min(lanes, q - q0);  // queries of this tile
-  const int shift = q0 % 32;  // a 16-lane tile may sit in the upper half
-  const uint32_t* src = bits + static_cast<size_t>(q0 / 32) * n_sub * k2;
-  for (int i = threadIdx.x; i < n_sub * k2; i += blockDim.x) tab[i] = src[i];
-  for (int i = threadIdx.x; i < k * lanes; i += blockDim.x)
-    heap[i] = make_entry(CUDART_INF_F, kEmptyId);
+  const int shift = q0 % 32;  // a tile of fewer than 32 lanes may sit higher in the word
+  const uint32_t* tab = bits + static_cast<size_t>(q0 / 32) * n_sub * k2;
+  if (!WIDE || table_in) {
+    for (int i = threadIdx.x; i < n_sub * k2; i += blockDim.x) tab_s[i] = tab[i];
+    tab = tab_s;
+  }
+  // query s's heap: slot-major in shared memory (stride lanes), or its own
+  // run of k entries of the global scratch
+  const int hstride = heaps_in ? lanes : 1;
+  auto hp = [&](int s) -> Entry* {
+    return heaps_in ? heap + s
+                    : gheap + (static_cast<size_t>(q0 + s) * n_chunks + blockIdx.y) * k;
+  };
+  if (heaps_in) {
+    for (int i = threadIdx.x; i < k * lanes; i += blockDim.x)
+      heap[i] = make_entry(CUDART_INF_F, kEmptyId);
+  } else {
+    for (int i = threadIdx.x; i < k * nq; i += blockDim.x)
+      hp(i / k)[i % k] = make_entry(CUDART_INF_F, kEmptyId);
+  }
   const float* qtile = queries + static_cast<size_t>(q0) * d;
   if (rows_in) {
     for (int i = threadIdx.x; i < nq * d; i += blockDim.x) {
@@ -197,12 +235,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
     qn[lane] = v;
     locks[lane] = 0;
   }
-  // thresholds as bit-planes over the lanes, for a bit-sliced SC >= thresh
-  const bool active = lane < nq;
-  const int th = active ? thresh[q0 + lane] : 0;
-  uint32_t th_planes[kPlanes];
+  // thresholds as bit-planes over the lanes, for a bit-sliced SC >= thresh;
+  // a query whose threshold is above N_s passes no point, one below 0 every
+  // point
+  int th = lane < nq ? thresh[q0 + lane] : 0;
+  const bool active = lane < nq && th <= n_sub;
+  th = active ? max(th, 0) : 0;
+  uint32_t th_planes[NP];
 #pragma unroll
-  for (int b = 0; b < kPlanes; ++b) th_planes[b] = __ballot_sync(kFull, (th >> b) & 1);
+  for (int b = 0; b < NP; ++b) th_planes[b] = __ballot_sync(kFull, (th >> b) & 1);
   const uint32_t act = __ballot_sync(kFull, active);
   __syncthreads();
 
@@ -223,7 +264,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
       e = make_entry(fmaxf((qn[s] - 2.0f * dot) + __ldg(norms + p), 0.0f), p);
       // the root only falls, so a stale read lets through too much, never
       // too little
-      cand = entry_less(e, *reinterpret_cast<volatile Entry*>(heap + s));
+      cand = entry_less(e, *reinterpret_cast<volatile Entry*>(hp(s)));
     }
     while (__any_sync(kFull, cand)) {
       const unsigned peers = __match_any_sync(kFull, cand ? s : -1);
@@ -231,7 +272,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
         while (atomicCAS(locks + s, 0, 1) != 0) {
         }
         __threadfence_block();
-        if (entry_less(e, heap[s])) heap_replace_top(heap + s, k, lanes, e);
+        Entry* h = hp(s);
+        if (entry_less(e, h[0])) heap_replace_top(h, k, hstride, e);
         __threadfence_block();
         atomicExch(locks + s, 0);
         cand = false;
@@ -247,16 +289,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
     // lane = point: which of the tile's queries pass for this lane's point
     const int p = base + lane;
     const bool valid = p < c1;
-    int cell[kMaxSub];
+    uint32_t sc[NP];
+    if constexpr (WIDE) {
+      sc_planes_wide<NP>(tab, k2, cells, n, p, n_sub, valid, sc);
+    } else {
+      int cell[kMaxSub];
 #pragma unroll
-    for (int s = 0; s < kMaxSub; ++s) {
-      if (s < n_sub) cell[s] = valid ? __ldg(cells + static_cast<size_t>(s) * n + p) : 0;
+      for (int s = 0; s < kMaxSub; ++s) {
+        if (s < n_sub) cell[s] = valid ? __ldg(cells + static_cast<size_t>(s) * n + p) : 0;
+      }
+      sc_planes(tab, k2, cell, n_sub, valid, sc);
     }
-    uint32_t sc[kPlanes];
-    sc_planes(tab, k2, cell, n_sub, valid, sc);
     uint32_t gt = 0u, eq = kFull;
 #pragma unroll
-    for (int b = kPlanes - 1; b >= 0; --b) {
+    for (int b = NP - 1; b >= 0; --b) {
       const uint32_t v = sc[b] >> shift;
       gt |= eq & v & ~th_planes[b];
       eq &= ~(v ^ th_planes[b]);
@@ -293,16 +339,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) rerank_chunk_kernel(
   __syncthreads();
   if (threadIdx.x >= nq) return;
   // heapsort: repeatedly move the largest to the end, ascending on the key
-  Entry* h = heap + threadIdx.x;
+  Entry* h = hp(threadIdx.x);
   for (int end = k - 1; end > 0; --end) {
-    const Entry t = h[end * lanes];
-    h[end * lanes] = h[0];
-    heap_replace_top(h, end, lanes, t);
+    const Entry t = h[end * hstride];
+    h[end * hstride] = h[0];
+    heap_replace_top(h, end, hstride, t);
   }
   const size_t off =
       (static_cast<size_t>(q0 + threadIdx.x) * n_chunks + blockIdx.y) * k;
   for (int s = 0; s < k; ++s) {
-    const Entry e = h[s * lanes];
+    const Entry e = h[s * hstride];
     part_d[off + s] = entry_d(e);
     part_i[off + s] = entry_i(e);
   }
@@ -380,6 +426,18 @@ __global__ void merge_chunks_kernel(const float* __restrict__ part_d,
   }
 }
 
+// Pass b for one chunk: its sorted list is the answer (empty slots to -1).
+__global__ void copy_chunk_kernel(const float* __restrict__ part_d,
+                                  const int* __restrict__ part_i, float* __restrict__ out_d,
+                                  int* __restrict__ out_i, size_t total) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    out_d[i] = part_d[i];
+    const int id = part_i[i];
+    out_i[i] = id == kEmptyId ? -1 : id;
+  }
+}
+
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -387,12 +445,26 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 }
 
 // Shared memory of pass a, and whether the query rows are in it; 0 if even
-// the rest does not fit.
-size_t pass_a_smem(int d, int n_sub, int k2, int k, int lanes, int warps, bool* rows_in) {
-  const size_t base = smem_base(k, lanes, warps, n_sub, k2);
+// the rest does not fit. table_in / heaps_in: the table / the heaps there.
+size_t pass_a_smem(int d, int n_sub, int k2, int k, int lanes, int warps, bool table_in,
+                   bool heaps_in, bool* rows_in) {
+  const size_t base = smem_base(heaps_in ? k : 0, lanes, warps, table_in ? n_sub : 0, k2);
   *rows_in = base + smem_rows(lanes, d) <= kMaxSmem;
   if (base > kMaxSmem) return 0;
   return base + (*rows_in ? smem_rows(lanes, d) : 0);
+}
+
+typedef decltype(&rerank_chunk_kernel<kPlanes, false>) PassA;
+
+// The kernel a launch takes: the fast one where N_s <= 16 with the table
+// and the heaps in shared memory, else the wide one with SC planes for N_s.
+PassA pass_a_kernel(int n_sub, bool table_in, bool heaps_in) {
+  if (n_sub <= kMaxSub && table_in && heaps_in) return rerank_chunk_kernel<kPlanes, false>;
+  switch (wide_planes(n_sub)) {
+    case 5: return rerank_chunk_kernel<5, true>;
+    case 7: return rerank_chunk_kernel<7, true>;
+    default: return rerank_chunk_kernel<32, true>;
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -408,34 +480,50 @@ const char* masked_rerank_error_string(int code) {
 // bits (ceil(q/32), n_sub, k2) int32; cells (n_sub, n) int32; thresh (q,)
 // int32; queries (q, d), data (n, d), norms (n,) float32; part_d/part_i
 // (q, n_chunks, k) scratch; out_d/out_i (q, k); excl (ceil(n/32),) words of
-// excluded points, or null. lanes is 32 or 16 queries a block; warps (1..8)
-// a block of pass a, sharing one top-k state.
+// excluded points, or null. lanes (1, 2, 4, 8, 16 or 32) queries a block;
+// warps (1..8) a block of pass a, sharing one top-k state. table_in: the
+// collision table is staged in shared memory, else read from global memory;
+// heap: null keeps the heaps in shared memory, else (q, n_chunks, k) entries
+// of 8 bytes of scratch hold them. All from kernels/masked_rerank.py:
+// rerank_geometry.
 int masked_rerank_f32(const uint32_t* bits, const int* cells,
                       const int* thresh, const float* queries,
                       const float* data, const float* norms,
                       const uint32_t* excl, float* part_d,
-                      int* part_i, float* out_d, int* out_i, int q, int n,
+                      int* part_i, float* out_d, int* out_i, void* heap, int q, int n,
                       int d, int n_sub, int k2, int k, int chunk,
-                      int n_chunks, int lanes, int warps,
+                      int n_chunks, int lanes, int warps, int table_in,
                       cudaStream_t stream) {
-  if (n_sub <= 0 || n_sub > kMaxSub || k <= 0 || k > 1024 || chunk <= 0 ||
-      n_chunks <= 0 || n_chunks > 65535 || (lanes != 32 && lanes != 16) || warps < 1 ||
+  if (n_sub <= 0 || k <= 0 || chunk <= 0 || n_chunks <= 0 || n_chunks > 65535 ||
+      lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || warps < 1 ||
       warps > kMaxWarps || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (q <= 0) return 0;
+  const bool heaps_in = heap == nullptr;
   bool rows_in = false;
-  const size_t smem_a = pass_a_smem(d, n_sub, k2, k, lanes, warps, &rows_in);
+  const size_t smem_a =
+      pass_a_smem(d, n_sub, k2, k, lanes, warps, table_in != 0, heaps_in, &rows_in);
   if (smem_a == 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = d % 4 == 0 && aligned16(data) && (rows_in || aligned16(queries));
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(rerank_chunk_kernel), smem_a);
+  const PassA kernel = pass_a_kernel(n_sub, table_in != 0, heaps_in);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem_a);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid_a((q + lanes - 1) / lanes, n_chunks);
-  rerank_chunk_kernel<<<grid_a, 32 * warps, smem_a, stream>>>(
-      bits, cells, thresh, queries, data, norms, excl, part_d, part_i, q, n, d,
-      n_sub, k2, k, chunk, n_chunks, lanes, rows_in, vec);
+  kernel<<<grid_a, 32 * warps, smem_a, stream>>>(
+      bits, cells, thresh, queries, data, norms, excl, part_d, part_i,
+      static_cast<Entry*>(heap), q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, rows_in, vec,
+      table_in != 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_chunks == 1) {
+    const size_t total = static_cast<size_t>(q) * k;
+    const size_t want = (total + 255) / 256;
+    const unsigned blocks = static_cast<unsigned>(want < 4096 ? want : 4096);
+    copy_chunk_kernel<<<blocks, 256, 0, stream>>>(part_d, part_i, out_d, out_i, total);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem_b = static_cast<size_t>(k) * 24 + static_cast<size_t>(n_chunks) * 8;
+  if (smem_b > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   e = allow_smem(reinterpret_cast<const void*>(merge_chunks_kernel), smem_b);
   if (e != cudaSuccess) return static_cast<int>(e);
   merge_chunks_kernel<<<q, 128, smem_b, stream>>>(part_d, part_i, out_d,
@@ -445,14 +533,16 @@ int masked_rerank_f32(const uint32_t* bits, const int* cells,
 
 // Blocks of pass a that fit on one SM at once, at the launch's geometry.
 int masked_rerank_occupancy(int d, int n_sub, int k2, int k, int lanes, int warps,
-                            int* blocks) {
+                            int table_in, int heaps_in, int* blocks) {
   bool rows_in = false;
-  const size_t smem_a = pass_a_smem(d, n_sub, k2, k, lanes, warps, &rows_in);
+  const size_t smem_a =
+      pass_a_smem(d, n_sub, k2, k, lanes, warps, table_in != 0, heaps_in != 0, &rows_in);
   if (smem_a == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(rerank_chunk_kernel), smem_a);
+  const PassA kernel = pass_a_kernel(n_sub, table_in != 0, heaps_in != 0);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem_a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, rerank_chunk_kernel, 32 * warps, smem_a));
+      blocks, kernel, 32 * warps, smem_a));
 }
 
 }  // extern "C"

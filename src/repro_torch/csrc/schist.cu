@@ -36,6 +36,21 @@
 // - Determinism: when the block leaves a group (and at its end), the warps'
 //   counts are summed in shared memory with integer atomics and added into
 //   the (Q, N_s + 1) output with integer atomicAdd.
+//
+// Wide path (N_s from 17 to 127, the reference's bound, or a tile's table
+// past shared memory, e.g. 20 x 4096 words = 320 KB): schist_wide_kernel<NP>
+// takes one 32-query tile a block (grid: point chunks x tiles). Its table
+// sits in shared memory where it fits beside the counts, else the kernel
+// reads it from global memory, where the L2 holds it; the host decides
+// once a launch. A lane adds its point's words as it reads their cell ids
+// (sc_planes_wide) into NP = 5 or 7 planes, the warp transposes the planes
+// (lane = query), and each lane adds its query's SC for each of the warp's
+// points into the block's (N_s + 1, 32) counts in shared memory with an
+// atomicAdd (lane = column, so a warp's 32 adds fall in 32 banks). Count
+// registers a level, as the fast path keeps, would take up to 128 a lane.
+// At the end the block adds its counts into the output with atomicAdd.
+// Run at the fast path's shapes (N_s 6, K 1024) it takes 2.5-3.9x the fast
+// kernel's time (PERF.md §6), so both stay.
 #include "collision.cuh"
 
 namespace {
@@ -297,6 +312,63 @@ int launch_planes(int n_planes, const uint32_t* bits, const int* cells, int* out
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int NP>
+__global__ void __launch_bounds__(256)
+schist_wide_kernel(const uint32_t* __restrict__ bits, const int* __restrict__ cells,
+                   int* __restrict__ out, int q, int n, int n_sub, int k2, int chunk,
+                   bool table_in) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_levels = n_sub + 1;
+  int* hist = reinterpret_cast<int*>(smem);  // (levels, 32)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warps = blockDim.x / 32;
+  const int tile = blockIdx.y;
+  const uint32_t* tab = bits + static_cast<size_t>(tile) * n_sub * k2;
+  for (int i = tid; i < n_levels * 32; i += blockDim.x) hist[i] = 0;
+  if (table_in) {
+    uint32_t* tab_s = smem + n_levels * 32;  // (n_sub, k2)
+    for (int i = tid; i < n_sub * k2; i += blockDim.x) tab_s[i] = tab[i];
+    tab = tab_s;
+  }
+  __syncthreads();
+  const int p0 = blockIdx.x * chunk;
+  const int p1 = min(n, p0 + chunk);
+  for (int base = p0 + warp * 32; base < p1; base += warps * 32) {
+    const int p = base + lane;
+    uint32_t planes[NP];
+    sc_planes_wide<NP>(tab, k2, cells, n, p, n_sub, p < p1, planes);
+#pragma unroll
+    for (int b = 0; b < NP; ++b) planes[b] = transpose32(planes[b], lane);
+    // lane = query: bit j of planes[b] is bit b of SC(query, base + j)
+    const int pts = min(32, p1 - base);
+    for (int j = 0; j < pts; ++j) {
+      int sc = 0;
+#pragma unroll
+      for (int b = 0; b < NP; ++b) sc |= static_cast<int>((planes[b] >> j) & 1u) << b;
+      atomicAdd(hist + sc * 32 + lane, 1);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n_levels * 32; i += blockDim.x) {
+    const int qg = tile * 32 + i % 32;
+    const int v = hist[i];
+    if (v && qg < q) atomicAdd(out + static_cast<size_t>(qg) * n_levels + i / 32, v);
+  }
+}
+
+template <int NP>
+int launch_wide(const uint32_t* bits, const int* cells, int* out, int q, int n, int n_sub,
+                int k2, int warps, int chunk, int smem, bool table_in, cudaStream_t stream) {
+  auto kernel = schist_wide_kernel<NP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((n + chunk - 1) / chunk, (q + 31) / 32);
+  kernel<<<grid, warps * 32, smem, stream>>>(bits, cells, out, q, n, n_sub, k2, chunk,
+                                             table_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -306,19 +378,29 @@ const char* schist_error_string(int code) {
 }
 
 // bits (ceil(q/32), n_sub, k2) int32; cells (n_sub, n) int32 in [0, k2);
-// out (q, n_sub + 1) int32, zeroed here. n_sub <= 16. tiles (1, 2, 4 or 8),
+// out (q, n_sub + 1) int32, zeroed here. n_sub <= 127. tiles (1, 2, 4 or 8),
 // warps, chunk (a multiple of 32 warps) and smem (bytes: the tables, the
 // block's counts and the rings) come from kernels/schist.py:schist_geometry.
+// wide (0 or 1) takes the wide kernel, with the table in shared memory when
+// table_in (tiles must be 1 there; smem: the counts and the table if in).
 int schist_i32(const uint32_t* bits, const int* cells, int* out, int q, int n,
-               int n_sub, int k2, int tiles, int warps, int chunk, int smem,
-               cudaStream_t stream) {
-  if (n_sub <= 0 || n_sub > kMaxSub || q <= 0 || k2 <= 0 || warps <= 0 ||
-      warps > 8 || chunk <= 0 || chunk % (warps * 32) != 0)
+               int n_sub, int k2, int tiles, int warps, int chunk, int smem, int wide,
+               int table_in, cudaStream_t stream) {
+  if (n_sub <= 0 || n_sub > 127 || q <= 0 || k2 <= 0 || warps <= 0 ||
+      warps > 8 || chunk <= 0 || chunk % (warps * 32) != 0 ||
+      (!wide && (n_sub > kMaxSub || !table_in)) || (wide && tiles != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(
       out, 0, static_cast<size_t>(q) * (n_sub + 1) * sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n <= 0) return 0;
+  if (wide) {
+    if (wide_planes(n_sub) == 5)
+      return launch_wide<5>(bits, cells, out, q, n, n_sub, k2, warps, chunk, smem,
+                            table_in != 0, stream);
+    return launch_wide<7>(bits, cells, out, q, n, n_sub, k2, warps, chunk, smem,
+                          table_in != 0, stream);
+  }
   const int n_planes = 32 - __builtin_clz(static_cast<unsigned>(n_sub));
   switch (tiles) {
     case 1: return launch_planes<1>(n_planes, bits, cells, out, q, n, n_sub, k2, warps, chunk, smem, stream);

@@ -44,6 +44,10 @@ launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 #: kernel name -> the (bq, bn) tiles of its last launch since the last
 #: :func:`reset_launch_counts`, for the kernels that take them (else None)
 launch_blocks: dict[str, tuple[int, int] | None] = {name: None for name in KERNELS}
+#: kernel name -> {layout: launches} since the last :func:`reset_launch_counts`:
+#: where the wrapper put the launch's data (e.g. ``"table=global"`` where a
+#: collision table is read from global memory), for the kernels that say
+launch_layouts: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: guards the build, the load and the launch counts (module docstring)
@@ -55,6 +59,7 @@ def reset_launch_counts() -> None:
         for name in KERNELS:
             launch_counts[name] = 0
             launch_blocks[name] = None
+            launch_layouts[name] = {}
 
 
 def _nvcc() -> str:
@@ -135,9 +140,10 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def launch(name: str, symbol: str, argtypes, *args, blocks=None) -> None:
+def launch(name: str, symbol: str, argtypes, *args, blocks=None, layout: str | None = None) -> None:
     """Call ``symbol`` of kernel library ``name``; raise on a CUDA error.
-    ``blocks`` is the launch's (bq, bn), kept in :data:`launch_blocks`."""
+    ``blocks`` is the launch's (bq, bn), kept in :data:`launch_blocks`;
+    ``layout`` where its data lives, counted in :data:`launch_layouts`."""
     lib = library(name)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
@@ -150,6 +156,8 @@ def launch(name: str, symbol: str, argtypes, *args, blocks=None) -> None:
         launch_counts[name] += 1
         if blocks is not None:
             launch_blocks[name] = blocks
+        if layout is not None:
+            launch_layouts[name][layout] = launch_layouts[name].get(layout, 0) + 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtypes) -> None:

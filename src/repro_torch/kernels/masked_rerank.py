@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,9 +20,7 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.schist import block_sc, unpack_collision_bits
 
-_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-MAX_K = 1024
-MAX_SUBSPACES = 16
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 MAX_SMEM = 232448
 #: points per chunk of pass a before the chunk count is capped (the default bn)
 CHUNK = 4096
@@ -30,7 +29,8 @@ CHUNK = 4096
 DEFAULT_BLOCKS = (32, CHUNK)
 #: most chunks of pass a (its grid's y extent)
 MAX_CHUNKS = 65535
-#: cap on partial entries per query (n_chunks * k) that pass b merges
+#: pass b's merge budget: partial entries per query (n_chunks * k) where
+#: that leaves two chunks or more; a larger k takes one chunk of k entries
 MAX_PARTIAL = 8192
 #: warps of a block of pass a (its ``__launch_bounds__``)
 WARPS = 8
@@ -84,59 +84,89 @@ def masked_rerank_plain(bits, cells, thresh, queries, data, data_norms, k: int,
     return best_d, best_i
 
 
-def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int, blocks=None):
+class RerankGeometry(NamedTuple):
+    """A launch of ``csrc/masked_rerank.cu``'s pass a: queries a block
+    (lanes), warps, points a chunk, chunks, shared memory bytes, and where
+    the collision table and the top-k heaps live (``"shared"`` or
+    ``"global"``)."""
+
+    lanes: int
+    warps: int
+    chunk: int
+    n_chunks: int
+    smem: int
+    table: str
+    heaps: str
+
+
+def rerank_geometry(n: int, k: int, n_sub: int, k2: int, d: int, blocks=None) -> RerankGeometry:
     """Launch geometry of pass a, as ``csrc/masked_rerank.cu`` lays out
-    shared memory: ``(lanes, warps, chunk, n_chunks, smem_bytes)``.
+    shared memory.
 
     A block takes ``lanes`` queries and ``chunk`` points. ``blocks = (bq,
     bn)`` (default :data:`DEFAULT_BLOCKS`) asks for ``bq`` lanes (32, or
     16 below 32) and chunks of ``bn`` points; lanes are 16 above k = 512
-    whatever is asked, so the top-k state fits. The block's ``warps``
-    share one top-k state and each has its own ring. Shared memory: the
-    heaps (k x lanes entries of 8 bytes), the rings, |q|^2 and the locks
-    (256 bytes), the collision table (N_s x k2 words) and, where they
-    still fit, the query rows at a stride of d + 4 floats (d + 1 if d %
-    4). The chunk count is capped so the partial lists hold at most
-    MAX_PARTIAL entries per query, and at MAX_CHUNKS."""
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"masked_rerank: the kernel supports 0 < k <= {MAX_K}, got {k}")
-    if n_sub > MAX_SUBSPACES:
-        raise ValueError(f"masked_rerank: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
+    whatever is asked, and above k = 1024 they halve (down to 1) until the
+    heaps (k x lanes entries of 8 bytes) fit in shared memory with one
+    warp's ring; past that (k above ~28,900) the heaps live in global
+    memory at 16 lanes. The block's ``warps`` share one top-k state and each
+    has its own ring. Shared memory: the heaps where they fit, the rings,
+    |q|^2 and the locks (256 bytes), the collision table (N_s x k2 words)
+    where it still fits with one ring, else the table is read from global
+    memory, and, where they still fit, the query rows at a stride of d + 4
+    floats (d + 1 if d % 4). The chunk count is capped so that pass b's
+    lists hold at most MAX_PARTIAL entries per query (one chunk where k is
+    larger), and at MAX_CHUNKS. Raises only for k < 1 or N_s < 1."""
+    if k < 1:
+        raise ValueError(f"masked_rerank: k must be positive, got {k}")
+    if n_sub < 1:
+        raise ValueError(f"masked_rerank: N_s must be positive, got {n_sub}")
     bq, bn = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
     lanes = 32 if k <= 512 and bq >= 32 else 16
-    base = n_sub * k2 * 4 + k * lanes * 8 + 256
+    rest = 256 + RING_BYTES  # |q|^2, the locks and one ring
+    while lanes > 1 and k * lanes * 8 + rest > MAX_SMEM:
+        lanes //= 2
+    heaps = k * lanes * 8
+    if heaps + rest > MAX_SMEM:
+        lanes, heaps = 16, 0
+    table = n_sub * k2 * 4
+    if heaps + table + rest > MAX_SMEM:
+        table = 0
+    base = heaps + table + 256
     warps = min(WARPS, (MAX_SMEM - base) // RING_BYTES)
-    if warps < 1:
-        raise ValueError("masked_rerank: collision table and top-k state exceed shared memory")
     smem = base + warps * RING_BYTES
     rows = lanes * (d + 4 if d % 4 == 0 else d + 1) * 4
     if smem + rows <= MAX_SMEM:
         smem += rows
     n_chunks = max(1, min(math.ceil(n / max(bn, 1)), MAX_PARTIAL // k, MAX_CHUNKS))
     chunk = max(1, math.ceil(n / n_chunks))
-    return lanes, warps, chunk, n_chunks, smem
+    return RerankGeometry(lanes, warps, chunk, n_chunks, smem,
+                          "shared" if table else "global", "shared" if heaps else "global")
 
 
 def rerank_resident_warps(n: int, k: int, n_sub: int, k2: int, d: int) -> int:
     """Warps of pass a resident on one SM at this geometry (the CUDA
     occupancy calculator; needs the card)."""
-    lanes, warps, _, _, _ = rerank_geometry(n, k, n_sub, k2, d)
+    g = rerank_geometry(n, k, n_sub, k2, d)
     blocks = ctypes.c_int(0)
     fn = cuda.library("masked_rerank").masked_rerank_occupancy
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    if fn(d, n_sub, k2, k, lanes, warps, ctypes.byref(blocks)) != 0:
+    if fn(d, n_sub, k2, k, g.lanes, g.warps, int(g.table == "shared"),
+          int(g.heaps == "shared"), ctypes.byref(blocks)) != 0:
         raise RuntimeError("masked_rerank: occupancy query failed")
-    return blocks.value * warps
+    return blocks.value * g.warps
 
 
 def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
                        exclude=None, blocks=None):
     """Kernel launch (pass a, then pass b, on the current stream), at
     :func:`rerank_geometry`'s geometry for ``blocks = (bq, bn)`` (default
-    :data:`DEFAULT_BLOCKS`; :data:`cuda.launch_blocks` keeps the launch's).
-    ``exclude`` is a :func:`pack_exclusion` bitmap on the card, or None (a
-    null pointer: the kernel reads no bitmap)."""
+    :data:`DEFAULT_BLOCKS`; :data:`cuda.launch_blocks` keeps the launch's,
+    and :data:`cuda.launch_layouts` counts it under ``table=<place>,
+    heaps=<place>``). Any k >= 1 and N_s >= 1. ``exclude`` is a
+    :func:`pack_exclusion` bitmap on the card, or None (a null pointer: the
+    kernel reads no bitmap)."""
     cuda.check_cuda(
         "masked_rerank", bits, cells, thresh, queries, data, data_norms,
         *(() if exclude is None else (exclude,)),
@@ -150,18 +180,23 @@ def masked_rerank_cuda(bits, cells, thresh, queries, data, data_norms, k: int,
             or (exclude is not None and exclude.shape != ((n + 31) // 32,))):
         raise ValueError("masked_rerank: input shapes disagree")
     blocks = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
-    lanes, warps, chunk, n_chunks, _ = rerank_geometry(n, k, n_sub, k2, d, blocks)
-    part_d = torch.empty((q, n_chunks, k), dtype=torch.float32, device=data.device)
-    part_i = torch.empty((q, n_chunks, k), dtype=torch.int32, device=data.device)
+    g = rerank_geometry(n, k, n_sub, k2, d, blocks)
+    part_d = torch.empty((q, g.n_chunks, k), dtype=torch.float32, device=data.device)
+    part_i = torch.empty((q, g.n_chunks, k), dtype=torch.int32, device=data.device)
     best_d = torch.empty((q, k), dtype=torch.float32, device=data.device)
     best_i = torch.empty((q, k), dtype=torch.int32, device=data.device)
+    heap = None  # the heaps' scratch where they live in global memory: 8-byte entries
+    if g.heaps == "global":
+        heap = torch.empty((q, g.n_chunks, k), dtype=torch.int64, device=data.device)
     cuda.launch(
         "masked_rerank", "masked_rerank_f32", _ARGS,
         *(cuda.ptr(t) for t in (bits, cells, thresh, queries, data, data_norms)),
         ctypes.c_void_p(None) if exclude is None else cuda.ptr(exclude),
         *(cuda.ptr(t) for t in (part_d, part_i, best_d, best_i)),
-        q, n, d, n_sub, k2, k, chunk, n_chunks, lanes, warps, cuda.stream(data.device),
-        blocks=blocks)
+        ctypes.c_void_p(None) if heap is None else cuda.ptr(heap),
+        q, n, d, n_sub, k2, k, g.chunk, g.n_chunks, g.lanes, g.warps,
+        int(g.table == "shared"), cuda.stream(data.device), blocks=blocks,
+        layout=f"table={g.table},heaps={g.heaps}")
     return best_d, best_i
 
 

@@ -12,13 +12,18 @@ that packed table and the per-index cell ids (:func:`cell_ids`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import cuda
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-MAX_SUBSPACES = 16
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+#: the most subspaces a histogram takes: N_s + 1 <= 128 levels, the
+#: reference's bound (``schist_pallas``'s ``n_levels <= 128``)
+MAX_SUBSPACES = 127
+#: the fast kernel's most subspaces (``kMaxSub`` in csrc/collision.cuh)
+FAST_SUBSPACES = 16
 MAX_SMEM = 232448
 #: points per work item of the kernel's persistent grid (the default bn)
 CHUNK = 2048
@@ -31,22 +36,45 @@ DEFAULT_BLOCKS = (256, CHUNK)
 MAX_COUNTERS = 64
 #: depth of each warp's cell-id ring (``kStages`` in csrc/schist.cu)
 STAGES = 3
+#: the wide kernel's fewest points a block (its counts are flushed to the
+#: output once a block)
+WIDE_CHUNK = 16384
 
 
-def schist_geometry(q: int, n_sub: int, k2: int, blocks=None):
-    """Launch geometry of the kernel: (tiles T, warps, smem bytes, query
-    tile groups). T is the most tiles (a power of two, at most 8 and at
-    most ``bq // 32`` of the optional ``blocks = (bq, bn)``, no more than
-    the batch has) whose tables, count registers, per-block counts and
-    cell-id rings fit; warps shrink from 8 before T does. Without blocks
-    they are :data:`DEFAULT_BLOCKS`. Raises only where one tile's table
-    does not fit, as the kernel always has."""
+class SchistGeometry(NamedTuple):
+    """A launch of ``csrc/schist.cu``: query tiles a block, warps, shared
+    memory bytes, query tile groups, where a tile's collision table lives
+    (``"shared"`` or ``"global"``) and whether the wide kernel runs."""
+
+    tiles: int
+    warps: int
+    smem: int
+    groups: int
+    table: str
+    wide: bool
+
+
+def schist_geometry(q: int, n_sub: int, k2: int, blocks=None) -> SchistGeometry:
+    """Launch geometry of the kernel. Up to :data:`FAST_SUBSPACES`
+    subspaces, where one tile's table fits with its counts, the fast kernel:
+    T is the most tiles (a power of two, at most 8 and at most ``bq // 32``
+    of the optional ``blocks = (bq, bn)``, no more than the batch has) whose
+    tables, count registers, per-block counts and cell-id rings fit; warps
+    shrink from 8 before T does. Without blocks they are
+    :data:`DEFAULT_BLOCKS`. Every other shape up to :data:`MAX_SUBSPACES`
+    takes the wide kernel: one tile a block, 8 warps, the (N_s + 1, 32)
+    counts and, where it fits beside them, the table in shared memory, else
+    the table in global memory. Raises only for N_s outside 1 to 127, as
+    the reference does."""
     if not 1 <= n_sub <= MAX_SUBSPACES:
         raise ValueError(f"schist: 1 to {MAX_SUBSPACES} subspaces, got {n_sub}")
-    if (n_sub * k2 + 4 * (n_sub + 1) * 32) * 4 > MAX_SMEM:
-        raise ValueError(f"schist: a {n_sub} x {k2} collision table exceeds shared memory")
     qt = (q + 31) // 32
-    levels = min(1 << n_sub.bit_length(), MAX_SUBSPACES + 1)  # count registers a tile
+    if n_sub > FAST_SUBSPACES or (n_sub * k2 + 4 * (n_sub + 1) * 32) * 4 > MAX_SMEM:
+        counts = (n_sub + 1) * 32 * 4
+        table_in = counts + n_sub * k2 * 4 <= MAX_SMEM
+        return SchistGeometry(1, 8, counts + (n_sub * k2 * 4 if table_in else 0), qt,
+                              "shared" if table_in else "global", True)
+    levels = min(1 << n_sub.bit_length(), FAST_SUBSPACES + 1)  # count registers a tile
     bq = DEFAULT_BLOCKS[0] if blocks is None else int(blocks[0])
     for tiles in (8, 4, 2, 1):
         if tiles > 1 and (32 * tiles > bq or tiles >= 2 * qt or tiles * levels > MAX_COUNTERS):
@@ -55,16 +83,19 @@ def schist_geometry(q: int, n_sub: int, k2: int, blocks=None):
             smem = 4 * (n_sub * (k2 + 1) * tiles + tiles * (n_sub + 1) * 32
                         + warps * STAGES * n_sub * 32)
             if smem <= MAX_SMEM:
-                return tiles, warps, smem, -(-qt // tiles)
+                return SchistGeometry(tiles, warps, smem, -(-qt // tiles), "shared", False)
     raise AssertionError("unreachable: one tile with one warp always fits")
 
 
-def schist_chunk(warps: int, blocks=None) -> int:
-    """Points a work item of the persistent grid: ``bn`` of the optional
+def schist_chunk(warps: int, blocks=None, wide: bool = False) -> int:
+    """Points a work item of the persistent grid (or, for the ``wide``
+    kernel, a block: at least :data:`WIDE_CHUNK`): ``bn`` of the optional
     ``blocks = (bq, bn)`` (default :data:`DEFAULT_BLOCKS`) rounded up to
     whole warp steps of the block (32 points a warp), at most
     :data:`MAX_CHUNK`."""
     bn = DEFAULT_BLOCKS[1] if blocks is None else int(blocks[1])
+    if wide:
+        bn = max(bn, WIDE_CHUNK)
     step = 32 * warps
     return min(max(-(-bn // step), 1) * step, MAX_CHUNK)
 
@@ -128,11 +159,12 @@ def schist_plain(bits, cells, n_levels: int, *, q: int, block: int = 4096):
 
 
 def schist_cuda(bits, cells, n_levels: int, *, q: int, blocks=None) -> torch.Tensor:
-    """Kernel launch: (q, n_levels) int32 histogram; n_levels = N_s + 1.
-    ``blocks = (bq, bn)`` (default :data:`DEFAULT_BLOCKS`) sets the queries
-    a block and the points a work item, as :func:`schist_geometry` and
-    :func:`schist_chunk` clamp them; :data:`cuda.launch_blocks` keeps the
-    launch's."""
+    """Kernel launch: (q, n_levels) int32 histogram; n_levels = N_s + 1,
+    N_s from 1 to 127 and any K. ``blocks = (bq, bn)`` (default
+    :data:`DEFAULT_BLOCKS`) sets the queries a block and the points a work
+    item, as :func:`schist_geometry` and :func:`schist_chunk` clamp them;
+    :data:`cuda.launch_blocks` keeps the launch's, and
+    :data:`cuda.launch_layouts` counts it under ``table=<place>``."""
     cuda.check_cuda("schist", bits, cells, dtypes=(torch.int32, torch.int32))
     qt, n_sub, k2 = bits.shape
     n = cells.shape[1]
@@ -141,9 +173,11 @@ def schist_cuda(bits, cells, n_levels: int, *, q: int, blocks=None) -> torch.Ten
             f"schist: bits {tuple(bits.shape)}, cells {tuple(cells.shape)}, "
             f"n_levels {n_levels}, q {q} disagree")
     blocks = DEFAULT_BLOCKS if blocks is None else (int(blocks[0]), int(blocks[1]))
-    tiles, warps, smem, _groups = schist_geometry(q, n_sub, k2, blocks)
+    g = schist_geometry(q, n_sub, k2, blocks)
     out = torch.empty((q, n_levels), dtype=torch.int32, device=bits.device)
     cuda.launch("schist", "schist_i32", _ARGS, cuda.ptr(bits), cuda.ptr(cells),
-                cuda.ptr(out), q, n, n_sub, k2, tiles, warps, schist_chunk(warps, blocks),
-                smem, cuda.stream(bits.device), blocks=blocks)
+                cuda.ptr(out), q, n, n_sub, k2, g.tiles, g.warps,
+                schist_chunk(g.warps, blocks, g.wide), g.smem, int(g.wide),
+                int(g.table == "shared"), cuda.stream(bits.device), blocks=blocks,
+                layout=f"table={g.table}")
     return out

@@ -15,8 +15,7 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.schist import block_sc, unpack_collision_bits
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-MAX_SUBSPACES = 16
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 MAX_SMEM = 232448
 #: points per block of the kernel's grid
 CHUNK = 8192
@@ -33,21 +32,26 @@ def scscore_plain(bits, cells, *, q: int, block: int = 32768) -> torch.Tensor:
     return out
 
 
+def scscore_table(n_sub: int, k2: int) -> str:
+    """Where a launch keeps a 32-query tile's collision table: ``"shared"``
+    where its N_s x K words fit a block's shared memory, else ``"global"``
+    (read through the L2)."""
+    return "shared" if n_sub * k2 * 4 <= MAX_SMEM else "global"
+
+
 def scscore_cuda(bits, cells, *, q: int) -> torch.Tensor:
-    """Kernel launch: (q, n) int32 SC-scores. The 32-query tile of the
-    collision table must fit in a block's shared memory."""
+    """Kernel launch: (q, n) int32 SC-scores, any N_s and K
+    (:func:`scscore_table` says where the table lives; the launch is counted
+    under ``table=<place>`` in :data:`cuda.launch_layouts`)."""
     cuda.check_cuda("scscore", bits, cells, dtypes=(torch.int32, torch.int32))
     qt, n_sub, k2 = bits.shape
     n = cells.shape[1]
     if cells.shape[0] != n_sub or qt != (q + 31) // 32:
         raise ValueError(
             f"scscore: bits {tuple(bits.shape)}, cells {tuple(cells.shape)}, q {q} disagree")
-    if n_sub > MAX_SUBSPACES:
-        raise ValueError(f"scscore: at most {MAX_SUBSPACES} subspaces, got {n_sub}")
-    if n_sub * k2 * 4 > MAX_SMEM:
-        raise ValueError(f"scscore: a {n_sub} x {k2} collision table exceeds shared memory")
+    table = scscore_table(n_sub, k2)
     out = torch.empty((q, n), dtype=torch.int32, device=bits.device)
     cuda.launch("scscore", "scscore_i32", _ARGS, cuda.ptr(bits), cuda.ptr(cells),
-                cuda.ptr(out), q, n, n_sub, k2, min(CHUNK, max(n, 1)),
-                cuda.stream(bits.device))
+                cuda.ptr(out), q, n, n_sub, k2, min(CHUNK, max(n, 1)), int(table == "shared"),
+                cuda.stream(bits.device), layout=f"table={table}")
     return out

@@ -77,12 +77,8 @@ from repro_torch.ann import AnnIndex, CompactionPolicy, MutableAnnIndex
 from repro_torch.ann.mutable import churn_wave
 from repro_torch.ann.persistence import INDEX_STEP, MUTABLE_FORMAT
 from repro_torch.checkpoint import read_manifest
-from repro_torch.core.config import resolve_rerank, taco_config
-from repro_torch.core.imi import split_halves
+from repro_torch.core.config import taco_config
 from repro_torch.data import even_shard_total, gmm_dataset, make_queries
-from repro_torch.kernels import kmeans_assign, scscore
-from repro_torch.kernels.masked_rerank import rerank_geometry
-from repro_torch.kernels.schist import schist_geometry
 from repro_torch.obs import ObsServer
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obst
@@ -229,8 +225,7 @@ def main(argv=None):
             )
             replayed = (0 if mutable._wal is None
                         else mutable._wal.records_replayed)
-            cfg = mutable.cfg = kernels_on_card(mutable.cfg, device, k_max=args.k,
-                                                d=mutable.d)
+            cfg = mutable.cfg = kernels_on_card(mutable.cfg, device)
             print(f"loaded mutable index from {args.load_index}: "
                   f"n_live={mutable.n_live} d={mutable.d} "
                   f"(replayed {replayed} WAL records, "
@@ -250,7 +245,7 @@ def main(argv=None):
             if args.rerank is not None and args.rerank != index.cfg.rerank:
                 index = index.replace_cfg(rerank=args.rerank)
             index = AnnIndex(sc_index=index.sc_index,
-                             cfg=kernels_on_card(index.cfg, device, k_max=args.k, d=index.d))
+                             cfg=kernels_on_card(index.cfg, device))
             print(f"loaded index from {args.load_index}: n={index.n} "
                   f"d={index.d} ({index.index_bytes / 1e6:.1f} MB, "
                   f"rerank={index.cfg.rerank})", flush=True)
@@ -358,42 +353,14 @@ def main(argv=None):
                   "(load in Perfetto or chrome://tracing)", flush=True)
 
 
-def kernel_refusal(cfg, k_max: int | None = None, d: int | None = None) -> str | None:
-    """Which limit of the port's kernels a config served at ``k_max`` (the
-    largest k a request may ask; default ``cfg.k``) over a ``d``-wide
-    corpus would pass, or None where every kernel its searches and builds
-    launch takes the shapes: the kernels' own geometry functions and
-    limits, asked before any launch (``schist_geometry``, the ``scscore``
-    table, ``kmeans_assign``'s width on the subspace halves and, on the
-    masked-full pipeline, ``rerank_geometry`` at k)."""
-    n_sub, k2 = cfg.n_subspaces, cfg.sqrt_k ** 2
-    k_max = max(cfg.k, k_max or 0)
-    try:
-        schist_geometry(1, n_sub, k2)
-        if resolve_rerank(cfg) == "masked_full":
-            rerank_geometry(1, k_max, n_sub, k2, d or 1)
-    except ValueError as e:
-        return str(e)
-    if n_sub > scscore.MAX_SUBSPACES or n_sub * k2 * 4 > scscore.MAX_SMEM:
-        return f"scscore: a {n_sub} x {k2} collision table exceeds its limits"
-    if not 0 < max(split_halves(cfg.subspace_dim)) <= kmeans_assign.MAX_DIM:
-        return f"kmeans_assign: subspace halves of {cfg.subspace_dim} dims exceed its width"
-    return None
-
-
-def kernels_on_card(cfg, device, *, k_max: int | None = None, d: int | None = None):
+def kernels_on_card(cfg, device):
     """The config a loaded index is served with: on the card ``use_kernels``
     is switched on (a save made with the default config has it off, and
-    would run the plain PyTorch path there) unless a kernel's limits refuse
-    the config at ``k_max`` (:func:`kernel_refusal`, a check made before
-    any launch), in which case the saved config, the reference's answer,
-    stays and the refusal is printed; on the CPU, where the kernels'
-    wrappers run their plain versions anyway, the saved config stays."""
+    would run the plain PyTorch path there; the kernels take every shape the
+    reference takes, so no config stays off them); on the CPU, where the
+    kernels' wrappers run their plain versions anyway, the saved config
+    stays."""
     if device.type == "cpu" or cfg.use_kernels:
-        return cfg
-    why = kernel_refusal(cfg, k_max, d)
-    if why is not None:
-        print(f"serving on {device} through the plain PyTorch path: {why}", flush=True)
         return cfg
     print(f"serving on {device} through the CUDA kernels "
           "(the saved config has use_kernels off)", flush=True)

@@ -239,13 +239,20 @@ def test_kmeans_assign_tiled_screen_cases(dev, w, k, data):
 
 
 def test_kmeans_assign_pairs_kernel_rejects(dev):
-    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_pairs_cuda
+    """What the reference rejects (no centroid, pairs that disagree) is
+    refused; a width past 128, once refused, now runs (the wide path)."""
+    from repro_torch.kernels.kmeans_assign import (
+        kmeans_assign_cuda,
+        kmeans_assign_pairs_cuda,
+        kmeans_assign_pairs_plain,
+    )
 
     with pytest.raises(ValueError):
         kmeans_assign_cuda(torch.zeros((10, 4), device=dev), torch.zeros((0, 4), device=dev))
-    with pytest.raises(ValueError):
-        kmeans_assign_pairs_cuda(torch.zeros((2, 10, 132), device=dev),
-                                 torch.zeros((2, 4, 132), device=dev))
+    xs, cs = torch.zeros((2, 10, 132), device=dev), torch.zeros((2, 4, 132), device=dev)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs)
+    wa, wd = kmeans_assign_pairs_plain(xs, cs)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
     with pytest.raises(ValueError):
         kmeans_assign_pairs_cuda(torch.zeros((2, 10, 4), device=dev),
                                  torch.zeros((3, 4, 4), device=dev))
@@ -357,6 +364,9 @@ def test_schist_kernel_tiles(dev, n_sub, q, k2, n, fill):
     (4, 33, 16, 5000, 16, 10, "all"), (3, 20, 8, 3000, 24, 1024, "all"),
     # threshold N_s + 1: nothing passes, every slot stays (+inf, -1)
     (3, 40, 8, 2000, 24, 100, "none"),
+    # threshold -1 (query-aware selection where every point fits the
+    # budget): every point passes, as at 0
+    (4, 33, 16, 5000, 16, 10, "below"), (20, 33, 64, 5000, 16, 10, "below"),
     # 37 distinct rows: equal distances resolve to the lowest id across
     # chunks, lanes and warps
     (3, 20, 8, 9000, 16, 50, "dup"), (2, 33, 8, 13000, 8, 1024, "dup"),
@@ -375,7 +385,7 @@ def test_masked_rerank_kernel(dev, n_sub, q, sqrt_k, n, d, k, case):
         data = _ints(rng, (n, d), dev)
     queries = _ints(rng, (q, d), dev)
     thresh = {"random": rng.integers(0, n_sub + 1, q), "dup": rng.integers(0, 2, q),
-              "all": np.zeros(q), "none": np.full(q, n_sub + 1)}[case]
+              "all": np.zeros(q), "none": np.full(q, n_sub + 1), "below": np.full(q, -1)}[case]
     thresh = torch.as_tensor(thresh, dtype=torch.int32, device=dev)
     norms = (data * data).sum(1)
     args = (bits, cells, thresh, queries, data, norms, k)
@@ -707,3 +717,199 @@ def test_lm_training_gradients_through_the_kernel(dev):
         assert float((got - want).norm()) <= 1e-4 * float(want.norm())
     attn = rebuild(list(grads["auto"]))["blocks"]["l0"]["attn"]
     assert all(float(attn[name]["w"].norm()) > 0 for name in ("wq", "wk", "wv", "wo"))
+
+
+@pytest.mark.parametrize("w,k", [(129, 3), (160, 100), (250, 64), (960, 1024), (961, 70)])
+def test_kmeans_assign_wide_kernel(dev, w, k):
+    """Widths past 128 (the wide tiled path: points streamed in chunks of
+    64 features): integer inputs bit for bit against the plain version, for
+    one pair and for three of unequal widths padded to w, one launch each,
+    counted as ``tiled_wide``; the recheck count is at least one a point."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.kmeans_assign import (
+        kmeans_assign_cuda,
+        kmeans_assign_pairs_cuda,
+        kmeans_assign_pairs_plain,
+        kmeans_assign_plain,
+        last_tiled,
+        tiled,
+    )
+
+    assert tiled(k, w)
+    rng = np.random.default_rng(w + k)
+    n = 2051
+    x, c = _ints(rng, (n, w), dev, -3, 4), _ints(rng, (k, w), dev, -3, 4)
+    cuda.reset_launch_counts()
+    ga, gd = kmeans_assign_cuda(x, c)
+    assert cuda.launch_counts["kmeans_assign"] == 1
+    assert cuda.launch_layouts["kmeans_assign"] == {"tiled_wide": 1}
+    assert n <= int(last_tiled["rechecks"].item()) <= n * k
+    wa, wd = kmeans_assign_plain(x, c)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+    dims = [w, w - 1, w - 2]
+    xs, cs = _padded_pairs(rng, 3, 1003, k, dims, w, dev, ints=True)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, dims)
+    wa, wd = kmeans_assign_pairs_plain(xs, cs, dims)
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("w,k,run", [(960, 1024, 3), (129, 70, 1), (200, 5, 2)])
+def test_kmeans_assign_wide_kernel_in_runs(dev, w, k, run, monkeypatch):
+    """A scratch of ``run`` row blocks (WIDE_RUN_BYTES cut to it): the
+    launch walks the points in runs, still one launch, and gives bit for
+    bit the one-run launch's answer on floats and the plain version's on
+    integers, for one pair and for three."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import kmeans_assign as K
+
+    rng = np.random.default_rng(w * run + k)
+    n = 5 * K.TILE_POINTS + 17
+    x = torch.as_tensor(rng.standard_normal((n, w)).astype(np.float32), device=dev)
+    c = torch.as_tensor(rng.standard_normal((k, w)).astype(np.float32), device=dev)
+    xs, cs = _padded_pairs(rng, 3, n, k, [w, w - 1, w - 1], w, dev, ints=True)
+    whole = K.kmeans_assign_cuda(x, c)
+    wa, wd = K.kmeans_assign_pairs_plain(xs, cs, [w, w - 1, w - 1])
+    wp = -(-w // K.WIDE_CHUNK) * K.WIDE_CHUNK
+    for pairs in (1, 3):
+        monkeypatch.setattr(K, "WIDE_RUN_BYTES", 4 * pairs * K.TILE_POINTS * (wp + 2) * run)
+        assert K.wide_run_blocks(pairs, n, w, sms=132) == run
+    cuda.reset_launch_counts()
+    monkeypatch.setattr(K, "WIDE_RUN_BYTES", 4 * K.TILE_POINTS * (wp + 2) * run)
+    ga, gd = K.kmeans_assign_cuda(x, c)
+    assert cuda.launch_counts["kmeans_assign"] == 1
+    assert torch.equal(ga, whole[0]) and torch.equal(gd.view(torch.int32),
+                                                     whole[1].view(torch.int32))
+    monkeypatch.setattr(K, "WIDE_RUN_BYTES", 4 * 3 * K.TILE_POINTS * (wp + 2) * run)
+    ga, gd = K.kmeans_assign_pairs_cuda(xs, cs, [w, w - 1, w - 1])
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("d,w,k", [(100, 160, 64), (128, 960, 1024), (37, 200, 5), (3, 130, 13)])
+@pytest.mark.parametrize("data", ["gaussian", "offset", "midway"])
+def test_kmeans_assign_wide_kernel_on_floats(dev, d, w, k, data):
+    """Float inputs through the wide path: pairs of width d zero-padded to
+    w > 128 equal, bit for bit, single launches at width d (the one-tile
+    kernel, or the resident-points tiled path at 1024 lists): zero padding
+    changes no chain, so the wide screen and rechecks must find the same
+    first minimiser as the arithmetic of the kernels already held."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_pairs_cuda
+
+    rng = np.random.default_rng(d * w + k + len(data))
+    n = 3001
+    if data == "offset":
+        x, c = 1e3 + 100 * rng.standard_normal((n, d)), 1e3 + 100 * rng.standard_normal((k, d))
+    elif data == "midway":
+        c = rng.standard_normal((k, d))
+        x = (c[rng.integers(0, k, n)] + c[rng.integers(0, k, n)]) / 2
+    else:
+        x, c = rng.standard_normal((n, d)), rng.standard_normal((k, d))
+    xs = torch.zeros((2, n, w), device=dev)
+    cs = torch.zeros((2, k, w), device=dev)
+    xs[:, :, :d] = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    cs[:, :, :d] = torch.as_tensor(np.asarray(c, np.float32), device=dev)
+    ga, gd = kmeans_assign_pairs_cuda(xs, cs, [d, d])
+    sa, sd = kmeans_assign_cuda(xs[0, :, :d].contiguous(), cs[0, :, :d].contiguous())
+    for p in range(2):
+        assert torch.equal(ga[p], sa)
+        assert torch.equal(gd[p].view(torch.int32), sd.view(torch.int32))
+
+
+#: (N_s, Q, K, n) past the fast collision kernels: N_s above 16, a table
+#: past shared memory (20 x 4096 words, 6 x 16384), both (127 x 1024)
+WIDE_COLLISIONS = [
+    (17, 37, 1024, 20017), (20, 65, 4096, 30011), (127, 33, 64, 5003),
+    (127, 70, 1024, 20017), (6, 33, 16384, 10007), (31, 1, 256, 4099), (40, 96, 100, 8000),
+]
+
+
+@pytest.mark.parametrize("n_sub,q,k2,n", WIDE_COLLISIONS)
+def test_schist_kernel_wide(dev, n_sub, q, k2, n):
+    """The wide schist kernel bit for bit against the plain version on
+    random packed words and on all-ones words; every row sums to n; the
+    launch counted where its table lived."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.schist import schist_cuda, schist_geometry, schist_plain
+
+    rng = np.random.default_rng(n_sub * q + n)
+    qt = (q + 31) // 32
+    g = schist_geometry(q, n_sub, k2)
+    assert g.wide
+    for words in (rng.integers(-2 ** 31, 2 ** 31, (qt, n_sub, k2)),
+                  np.full((qt, n_sub, k2), -1)):
+        bits = torch.as_tensor(words, dtype=torch.int32, device=dev)
+        cells = torch.as_tensor(rng.integers(0, k2, (n_sub, n)), dtype=torch.int32, device=dev)
+        cuda.reset_launch_counts()
+        got = schist_cuda(bits, cells, n_sub + 1, q=q)
+        assert cuda.launch_layouts["schist"] == {f"table={g.table}": 1}
+        assert torch.equal(got, schist_plain(bits, cells, n_sub + 1, q=q))
+        assert bool((got.sum(1) == n).all())
+
+
+@pytest.mark.parametrize("n_sub,q,k2,n", WIDE_COLLISIONS)
+def test_scscore_kernel_wide(dev, n_sub, q, k2, n):
+    """scscore past 16 subspaces or past shared memory bit for bit against
+    the plain version, each launch counted where its table lived."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain, scscore_table
+
+    rng = np.random.default_rng(n_sub + q + n)
+    qt = (q + 31) // 32
+    bits = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (qt, n_sub, k2)), dtype=torch.int32,
+                           device=dev)
+    cells = torch.as_tensor(rng.integers(0, k2, (n_sub, n)), dtype=torch.int32, device=dev)
+    cuda.reset_launch_counts()
+    got = scscore_cuda(bits, cells, q=q)
+    assert cuda.launch_layouts["scscore"] == {f"table={scscore_table(n_sub, k2)}": 1}
+    assert torch.equal(got, scscore_plain(bits, cells, q=q))
+
+
+def test_scscore_kernel_past_127_subspaces(dev):
+    """N_s = 200 (32 SC planes): bit for bit against the plain version."""
+    from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
+
+    rng = np.random.default_rng(200)
+    bits, cells = _collision(rng, 200, 40, 8, 3001, dev)
+    got = scscore_cuda(bits, cells, q=40)
+    assert torch.equal(got, scscore_plain(bits, cells, q=40))
+    assert int(got.max()) > 31
+
+
+@pytest.mark.parametrize("n_sub,sqrt_k,k,n,share", [
+    (6, 32, 1025, 30000, 0.0), (6, 32, 2048, 30000, 0.0), (6, 32, 8192, 30000, 0.0),
+    (6, 32, 8192, 30000, 0.01), (4, 16, 30000, 40000, 0.01),
+    (17, 32, 100, 20000, 0.0), (20, 64, 10, 20000, 0.0), (20, 64, 2048, 20000, 0.01),
+    (127, 32, 50, 20000, 0.0), (127, 8, 1025, 20000, 0.01), (200, 8, 10, 5000, 0.0),
+])
+def test_masked_rerank_kernel_wide(dev, n_sub, sqrt_k, k, n, share):
+    """k past 1024 (fewer lanes; one chunk at 8192; heaps in global memory
+    at 30,000), N_s past 16 (the wide kernel; 200 takes 32 SC planes) and
+    tables past shared memory (20 x 4096): integer inputs bit for bit
+    against the plain version, with and without a tombstone bitmap; ties
+    resolve to the lowest id; no excluded point returned."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.masked_rerank import (
+        masked_rerank_cuda,
+        masked_rerank_plain,
+        pack_exclusion,
+        rerank_geometry,
+    )
+
+    rng = np.random.default_rng(n_sub * k + n)
+    q, d = 40, 24
+    bits, cells = _collision(rng, n_sub, q, sqrt_k, n, dev)
+    data = _ints(rng, (97, d), dev)[torch.as_tensor(rng.integers(0, 97, n), device=dev)]
+    queries = _ints(rng, (q, d), dev)
+    thresh = torch.as_tensor(rng.integers(0, max(1, n_sub // 3), q), dtype=torch.int32,
+                             device=dev)
+    excluded = rng.random(n) < share
+    words = pack_exclusion(excluded).to(dev) if share else None
+    args = (bits, cells, thresh, queries, data, (data * data).sum(1), k)
+    g = rerank_geometry(n, k, n_sub, sqrt_k ** 2, d)
+    cuda.reset_launch_counts()
+    gd, gi = masked_rerank_cuda(*args, words)
+    assert cuda.launch_layouts["masked_rerank"] == {f"table={g.table},heaps={g.heaps}": 1}
+    wd, wi = masked_rerank_plain(*args, words)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    if share:
+        ids = gi[gi >= 0].cpu().numpy()
+        assert not excluded[ids].any()

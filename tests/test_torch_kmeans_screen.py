@@ -4,8 +4,8 @@ the CPU (the kernel itself runs only on the card).
 The emulation follows ``csrc/kmeans_assign.cu``'s tiled path: both sides
 centred on the centroid mean, both operands truncated to TF32 (the low 13
 mantissa bits cleared, as the tensor core reads an f32), the product in f32,
-the per-(row, tile) bound E with the module's SCREEN_GAMMA, SCREEN_EPS and
-SCREEN_KAPPA, the running upper bound U over tiles of TILE_CENTROIDS in
+the per-(row, tile) bound E with the module's window at the row width
+(``screen_window(w)``: G, EPS, KAPPA), the running upper bound U over tiles of TILE_CENTROIDS in
 index order (the kernel's blocks start at different tiles; the answer does
 not depend on the order), a queue of every column with screened <= U + E,
 and at the end a recheck of the queued columns whose lower bound
@@ -19,11 +19,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.kmeans_assign import (
-    SCREEN_EPS,
-    SCREEN_GAMMA,
-    SCREEN_KAPPA,
     TILE_CENTROIDS,
     kmeans_assign_plain,
+    screen_window,
 )
 from repro_torch.kernels.ref import l2dist_ref
 
@@ -38,14 +36,15 @@ def tf32(t: torch.Tensor) -> torch.Tensor:
 def screened_assign(x: torch.Tensor, c: torch.Tensor, centre: bool = True):
     """(assignments, min dists, rechecks a point, largest |screened - exact|
     / per-pair bound) by the kernel's screen and window rule."""
+    gamma, eps, kappa = screen_window(x.shape[1])
     mu = c.mean(0) if centre else torch.zeros(c.shape[1])
     xb, cb = x - mu, c - mu
     xb2, cb2 = (xb * xb).sum(1), (cb * cb).sum(1)
     screened = torch.clamp_min((xb2[:, None] + cb2[None, :]) - 2.0 * (tf32(xb) @ tf32(cb).T), 0.0)
-    a, b = xb2.sqrt() * SCREEN_KAPPA, cb2.sqrt() * SCREEN_KAPPA
-    p, q = (x * x).sum(1).sqrt() * SCREEN_KAPPA, (c * c).sum(1).sqrt() * SCREEN_KAPPA
+    a, b = xb2.sqrt() * kappa, cb2.sqrt() * kappa
+    p, q = (x * x).sum(1).sqrt() * kappa, (c * c).sum(1).sqrt() * kappa
     exact = l2dist_ref(x, c)  # what kmeans_assign_plain takes its argmin of
-    pair_bound = 2 * SCREEN_GAMMA * a[:, None] * b[None, :] + SCREEN_EPS * (
+    pair_bound = 2 * gamma * a[:, None] * b[None, :] + eps * (
         (a[:, None] + b[None, :]) ** 2 + (p[:, None] + q[None, :]) ** 2)
     n, k = exact.shape
     upper = torch.full((n,), torch.inf)
@@ -54,7 +53,7 @@ def screened_assign(x: torch.Tensor, c: torch.Tensor, centre: bool = True):
     for j0 in range(0, k, TILE_CENTROIDS):
         cols = slice(j0, j0 + TILE_CENTROIDS)
         bt, qt = b[cols].max(), q[cols].max()
-        e = 2 * SCREEN_GAMMA * a * bt + SCREEN_EPS * ((a + bt) ** 2 + (p + qt) ** 2)
+        e = 2 * gamma * a * bt + eps * ((a + bt) ** 2 + (p + qt) ** 2)
         d = screened[:, cols]
         upper = torch.minimum(upper, d.min(1).values + e)
         queued[:, cols] = d <= (upper + e)[:, None]
@@ -88,15 +87,19 @@ def _case(name: str, w: int):
             torch.as_tensor(np.asarray(c, np.float32)))
 
 
-@pytest.mark.parametrize("w", [4, 13, 64, 128])
+@pytest.mark.parametrize("w", [4, 13, 64, 128, 129, 960])
 @pytest.mark.parametrize("name", ["gaussian", "integer", "offset", "offset_narrow", "midway"])
 def test_screen_window_keeps_the_exact_answer(name, w):
     """The screened answer equals the plain version bit for bit, and every
-    screened distance lies within the derived bound of the exact one. The
-    window stays small (at most three rechecks a point) except on the
-    narrow offset corpus, where the exact chain's own rounding (~10^3 at
-    |x| ~ 10^3 sqrt(w)) outweighs the distance gaps: there every centroid
-    is rechecked, and the answer is still exact."""
+    screened distance lies within the derived bound of the exact one, at
+    the widths of the one-tile-sized tiled path (up to 128) and of the wide
+    path (129, and GIST's 960, with the window re-derived for the width).
+    The window stays small (at most three rechecks a point) except where
+    the exact chain's own rounding, EPS (p + q)^2, is of the order of the
+    distance gaps: on the narrow offset corpus (~10^3 at |x| ~ 10^3
+    sqrt(w), against gaps of ~1) every centroid is rechecked, and on the
+    offset corpus at 960 dims (~2e5 at |x| ~ 3e4, a quarter of the
+    distances' spread) up to eight a point; the answer is still exact."""
     x, c = _case(name, w)
     got_j, got_d, per_point, worst = screened_assign(x, c)
     want_j, want_d = kmeans_assign_plain(x, c)
@@ -105,7 +108,7 @@ def test_screen_window_keeps_the_exact_answer(name, w):
     assert worst <= 1.0, worst
     assert per_point >= 1.0  # every point rechecks at least its screened best
     if name != "offset_narrow":
-        assert per_point <= 3.0, per_point
+        assert per_point <= (8.0 if (name, w) == ("offset", 960) else 3.0), per_point
 
 
 @pytest.mark.parametrize("w", [4, 128])

@@ -23,6 +23,7 @@ from repro_torch.kernels.schist import (
     MAX_COUNTERS,
     MAX_SMEM,
     STAGES,
+    WIDE_CHUNK,
     collision_bits,
     collision_table,
     schist_chunk,
@@ -58,7 +59,8 @@ def _parent_takes(n_sub, k2):
 @pytest.mark.parametrize("n_sub", [1, 3, 6, 7, 8, 15, 16])
 @pytest.mark.parametrize("k2", [25, 1024, 2048])
 def test_schist_geometry(q, n_sub, k2):
-    tiles, warps, smem, groups = schist_geometry(q, n_sub, k2)
+    tiles, warps, smem, groups, table, wide = schist_geometry(q, n_sub, k2)
+    assert table == "shared" and not wide  # the fast kernel takes these shapes
     qt = (q + 31) // 32
     assert tiles in (1, 2, 4, 8)
     # no more tiles than the batch has, rounded up to a power of two
@@ -79,8 +81,9 @@ def test_schist_geometry_without_blocks_is_the_parents(n_sub, k2):
     kernel had before the cache, so the untuned path launches as it did."""
     for q in (1, 33, 64, 100, 1000, 1024, 1025):
         want = _parent_geometry(q, n_sub, k2)
-        assert schist_geometry(q, n_sub, k2) == want
-        assert schist_geometry(q, n_sub, k2, DEFAULT_BLOCKS) == want
+        assert schist_geometry(q, n_sub, k2)[:4] == want
+        assert schist_geometry(q, n_sub, k2, DEFAULT_BLOCKS)[:4] == want
+        assert schist_geometry(q, n_sub, k2)[4:] == ("shared", False)
         assert schist_chunk(want[1]) == schist_chunk(want[1], DEFAULT_BLOCKS) == CHUNK
 
 
@@ -93,7 +96,7 @@ def test_schist_candidates_give_legal_launches(blocks, n_sub, k2):
     whole warp steps; the shared memory the launch sets."""
     levels = min(1 << n_sub.bit_length(), 17)
     for q in sorted({1000, *ANN_BATCH_BUCKETS}):
-        tiles, warps, smem, groups = schist_geometry(q, n_sub, k2, blocks)
+        tiles, warps, smem, groups, *_ = schist_geometry(q, n_sub, k2, blocks)
         qt = (q + 31) // 32
         assert tiles in (1, 2, 4, 8) and 32 * tiles <= max(blocks[0], 32)
         # the kernel's (tiles, planes) instantiations: T x levels <= 64
@@ -124,28 +127,52 @@ def test_schist_geometry_main_path():
     """Q 1000 (or its 1024 bucket), N_s 6, K 1024: eight tiles, 8 warps,
     four tile groups; N_s 16 at K 2048 holds one tile."""
     for q in (1000, 1024):
-        assert schist_geometry(q, 6, K2) == (8, 8, 222400, 4)
+        assert schist_geometry(q, 6, K2) == (8, 8, 222400, 4, "shared", False)
     assert schist_geometry(1000, 16, 2048)[0] == 1
     assert schist_geometry(37, 6, K2)[:2] == (2, 8)
 
 
 @pytest.mark.parametrize("n_sub", [1, 2, 6, 11, 16])
 def test_schist_geometry_refuses_nothing_new(n_sub):
-    """Every table the kernel took before still fits, with fewer warps
-    where it must; the first one past it is refused as before."""
+    """Every table the fast kernel took before still fits it, with fewer
+    warps where it must; the first one past it, once refused, now takes the
+    wide kernel, and so does a table past shared memory, from global
+    memory."""
     k2 = max(k for k in range(1, 60000) if _parent_takes(n_sub, k))
     for q in (1, 1000):
-        tiles, warps, smem, _g = schist_geometry(q, n_sub, k2)
-        assert tiles == 1 and smem <= MAX_SMEM
-    with pytest.raises(ValueError):
-        schist_geometry(1000, n_sub, k2 + 1)
+        tiles, warps, smem, _g, table, wide = schist_geometry(q, n_sub, k2)
+        assert tiles == 1 and smem <= MAX_SMEM and table == "shared" and not wide
+    for k2_past in (k2 + 1, 4 * k2):
+        _wide_layout(schist_geometry(1000, n_sub, k2_past), 1000, n_sub, k2_past)
+    assert schist_geometry(1000, n_sub, 4 * k2).table == "global"
+
+
+def _wide_layout(g, q, n_sub, k2):
+    """What ``schist_i32`` accepts for the wide kernel: one tile, 8 warps,
+    the (N_s + 1, 32) counts and the table where it is staged, within the
+    block's shared memory; one work item a block of whole warp steps."""
+    counts = (n_sub + 1) * 32 * 4
+    assert g.wide and g.tiles == 1 and g.warps == 8 and g.groups == (q + 31) // 32
+    assert g.smem == counts + (n_sub * k2 * 4 if g.table == "shared" else 0) <= MAX_SMEM
+    assert g.table == ("shared" if counts + n_sub * k2 * 4 <= MAX_SMEM else "global")
+    chunk = schist_chunk(g.warps, DEFAULT_BLOCKS, g.wide)
+    assert chunk % (32 * g.warps) == 0 and chunk >= WIDE_CHUNK
 
 
 def test_schist_geometry_rejects():
+    """What the reference rejects (N_s = 0, and N_s + 1 > 128 levels) is
+    refused; past 16 subspaces, up to 127, and at tables past shared memory
+    the wide kernel takes the shape."""
     with pytest.raises(ValueError):
         schist_geometry(100, 0, K2)
     with pytest.raises(ValueError):
-        schist_geometry(100, 17, K2)
+        schist_geometry(100, 128, K2)
+    for n_sub, k2 in ((17, K2), (20, K2), (127, K2), (127, 64), (20, 4096), (6, 16384)):
+        for q in (1, 100, 1000):
+            _wide_layout(schist_geometry(q, n_sub, k2), q, n_sub, k2)
+    assert schist_geometry(1000, 20, 4096).table == "global"  # 320 KB a tile
+    assert schist_geometry(1000, 127, K2).table == "global"
+    assert schist_geometry(1000, 17, K2).table == "shared"
 
 
 def _transpose(words):
@@ -159,7 +186,7 @@ def _emulate(bits, cells, q, grid, blocks=None):
     geometry of ``blocks``."""
     qt, n_sub, k2 = bits.shape
     n = cells.shape[1]
-    tiles, warps, _smem, groups = schist_geometry(q, n_sub, k2, blocks)
+    tiles, warps, _smem, groups, *_ = schist_geometry(q, n_sub, k2, blocks)
     chunk = schist_chunk(warps, blocks)
     n_planes = n_sub.bit_length()
     row = k2 + 1

@@ -178,27 +178,23 @@ def test_kernels_on_card_switches_use_kernels_on_for_the_card_only(capsys):
 
 @pytest.mark.parametrize("rerank", ["masked_full", "auto"])
 def test_kernels_on_card_keeps_the_plain_path_where_a_kernel_refuses(capsys, rerank):
-    """A masked-full config at k = 2000 (past masked_rerank's 1024) stays on
-    the plain path on the card, the refusing limit printed, and is decided
-    before any launch (the device is only named: no card is needed); at
-    k = 10 the kernels are switched on. A --k past the limit refuses a
-    k = 10 save too; the gather pipeline has no such limit."""
-    for k, on in ((2000, False), (10, True)):
-        cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, k=k, rerank=rerank)
-        got = serve_ann.kernels_on_card(cfg, torch.device("cuda"), d=128)
-        out = capsys.readouterr().out
-        assert got.use_kernels is on
-        if on:
-            assert got == dataclasses.replace(cfg, use_kernels=True)
-            assert "through the CUDA kernels" in out
-        else:
-            assert got is cfg
-            assert "plain PyTorch path" in out and "k <= 1024, got 2000" in out
-    cfg = taco_config(n_subspaces=6, subspace_dim=8, n_clusters=1024, k=10, rerank=rerank)
-    assert not serve_ann.kernels_on_card(cfg, torch.device("cuda"), k_max=2000).use_kernels
-    gather = dataclasses.replace(cfg, rerank="gather", k=2000)
-    assert serve_ann.kernels_on_card(gather, torch.device("cuda")).use_kernels
-    assert serve_ann.kernel_refusal(dataclasses.replace(cfg, n_subspaces=17)) is not None
+    """No kernel refuses a config any more, so no loaded config keeps the
+    plain path on the card: a masked-full config at k = 2000 (past the 1024
+    masked_rerank once took), at N_s = 17 (past the 16 of the collision
+    kernels) and at a 20 x 4096 table (past shared memory) is switched onto
+    the kernels, with no plain route printed, and so is the gather
+    pipeline. The device is only named: no card is needed."""
+    cases = [dict(n_subspaces=6, n_clusters=1024, k=2000),
+             dict(n_subspaces=17, n_clusters=1024, k=10),
+             dict(n_subspaces=20, n_clusters=4096, k=10)]
+    for case in cases:
+        cfg = taco_config(subspace_dim=8, rerank=rerank, **case)
+        for c in (cfg, dataclasses.replace(cfg, rerank="gather")):
+            got = serve_ann.kernels_on_card(c, torch.device("cuda"))
+            out = capsys.readouterr().out
+            assert got == dataclasses.replace(c, use_kernels=True)
+            assert "through the CUDA kernels" in out and "plain PyTorch path" not in out
+    assert not hasattr(serve_ann, "kernel_refusal")
 
 
 @pytest.mark.parametrize("mutable", [False, True], ids=["immutable", "mutable"])
@@ -216,9 +212,9 @@ def test_a_loaded_default_config_save_is_served_with_the_kernels(tmp_path, capsy
     index.mutable().save(path) if mutable else index.save(path)
     seen = []
 
-    def on_card(c, device, **limits):
+    def on_card(c, device):
         assert device.type == "cpu"
-        seen.append(serve_ann.kernels_on_card.__wrapped__(c, torch.device("cuda"), **limits))
+        seen.append(serve_ann.kernels_on_card.__wrapped__(c, torch.device("cuda")))
         return seen[-1]
 
     on_card.__wrapped__ = serve_ann.kernels_on_card
