@@ -1,0 +1,7 @@
+"""``masked_rerank``'s share of its roofline in the traced window
+(:func:`anns_bench.rooflines.share`)."""
+from anns_bench.rooflines import share
+
+
+def read(ctx):
+    return share(ctx, "masked_rerank")
