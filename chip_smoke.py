@@ -543,7 +543,6 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
     ``kernel``, from torch.profiler's kernel durations over ``reps`` calls
     of ``fn`` after one warm-up (None where the trace has no such kernel):
     the kernel alone, without the launch path a CUDA-event window holds."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -553,12 +552,37 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
             fn()
         torch.cuda.synchronize()
     total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
-            us = getattr(evt, "self_device_time_total", None)
-            total += us if us is not None else getattr(evt, "self_cuda_time_total", 0)
-            count += evt.count
+    for us, n, key in profile_rows(prof.key_averages())[0]:
+        if kernel in key:
+            total += us
+            count += n
     return total / count / 1e3 if count else None
+
+
+def profile_rows(averages) -> tuple[list, list]:
+    """(device, host) rows ``(us, count, key)`` of a profiler's
+    ``key_averages()``, those with some time. A device row is an event on
+    the card's timeline that is no user annotation, by its own device time:
+    the profiler copies each ``record_function`` range (the port's query
+    stages) onto that timeline, and such a row's time is the range's whole
+    length, not work of the card. A host row is a host event by its own
+    (self) CPU time."""
+    from torch.autograd import DeviceType
+
+    device, host = [], []
+    for evt in averages:
+        if evt.device_type == DeviceType.CUDA:
+            if evt.is_user_annotation:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            rows = device
+        else:
+            us, rows = evt.self_cpu_time_total, host
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    return device, host
 
 
 def timed(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -1385,11 +1409,11 @@ def profile_call(torch, fn, label: str) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler,
     and the device's busy share of the window. Only device-side events
     count: a host-side op (``aten::...``) also reports the device time of
-    the kernels it launched, and summing both would count that time twice.
-    Also kept: every kernel's time and count (``device_ops``, for sums by
+    the kernels it launched, and summing both would count that time twice;
+    nor do the stage spans the profiler copies onto the card's timeline
+    (:func:`profile_rows`). Also kept: every kernel's time and count (``device_ops``, for sums by
     kind), the number of kernels, and the top host operations by their own
     (self) CPU time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1398,17 +1422,7 @@ def profile_call(torch, fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows, host = [], []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            if evt.self_cpu_time_total > 0:
-                host.append((evt.self_cpu_time_total, evt.count, evt.key))
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, evt.count, evt.key))
+    rows, host = profile_rows(prof.key_averages())
     rows.sort(reverse=True)
     host.sort(reverse=True)
     total = sum(r[0] for r in rows)
@@ -1438,7 +1452,6 @@ def profile_build(torch, corpus_np, cfg, label: str):
     outside the device's: the CPU generator's ``randperm``s, the pageable
     host-to-device copy of the corpus, ``eigh``'s solver, one-time set-up
     in the process's first build, and the waits on the device."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.ann import AnnIndex
@@ -1452,17 +1465,7 @@ def profile_build(torch, corpus_np, cfg, label: str):
     wall_us = build_s * 1e6
     print(f"{label}: build {build_s:.3f} s (profiled), index_bytes {index.index_bytes}",
           flush=True)
-    device, host = [], []
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0)
-            rows = device
-        else:
-            us, rows = evt.self_cpu_time_total, host
-        if us > 0:
-            rows.append((us, evt.count, evt.key))
+    device, host = profile_rows(prof.key_averages())
     device.sort(reverse=True)
     host.sort(reverse=True)
     busy = sum(r[0] for r in device)

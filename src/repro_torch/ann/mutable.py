@@ -508,10 +508,13 @@ class MutableSearcher(Searcher):
             count = count + st.n_delta_live  # exact scan, per query
 
         ids, dists = _merge_topk(streams, k, bucket, dev)
-        return AnnBatchResult(
-            ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
-            truncated=truncated.cpu().numpy(), candidate_count=count.cpu().numpy(),
-        )
+        with obst.stage("searcher.to_host", dev):
+            res = AnnBatchResult(
+                ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
+                truncated=truncated.cpu().numpy(), candidate_count=count.cpu().numpy(),
+            )
+        obst.settle_stages(batch=True)
+        return res
 
 
 def churn_wave(mutable, rng, live_ids, n_inserts: int, *, engine=None,

@@ -49,6 +49,7 @@ from repro_torch.core.config import SCConfig, resolve_rerank
 from repro_torch.core.taco import SCIndex, query_with_stats
 from repro_torch.kernels import autotune
 from repro_torch.obs import metrics as obsm
+from repro_torch.obs.trace import settle_stages, stage
 
 # Process-wide searcher metric families (repro_torch.obs registry): the
 # function cache's behaviour across every searcher instance.
@@ -94,10 +95,11 @@ def _padded_on(q, bucket: int, device) -> torch.Tensor:
     """(n, d) queries padded to ``bucket`` rows by repeating the last row
     (:func:`pad_rows`' rule), as float32 on ``device``. A tensor is padded on
     its way there, never through the host."""
-    if not torch.is_tensor(q):
-        return torch.from_numpy(pad_rows(q, bucket)).to(device)
-    q = q.to(device, torch.float32)
-    return torch.cat([q, q[-1:].expand(bucket - q.shape[0], -1)])
+    with stage("searcher.pad", device):
+        if not torch.is_tensor(q):
+            return torch.from_numpy(pad_rows(q, bucket)).to(device)
+        q = q.to(device, torch.float32)
+        return torch.cat([q, q[-1:].expand(bucket - q.shape[0], -1)])
 
 
 def warm_load_autotune(autotune_cache: str | None) -> int:
@@ -222,7 +224,8 @@ class Searcher:
             q = q[None]
         n_rows = q.shape[0]
         bucket = bucket_size(n_rows, self.buckets)
-        res = self.run_padded(bucket, k, cfg, _padded_on(q, bucket, self.device))
+        with stage("searcher.batch", self.device):
+            res = self.run_padded(bucket, k, cfg, _padded_on(q, bucket, self.device))
         stats = {"truncated": res.truncated[:n_rows],
                  "candidate_count": res.candidate_count[:n_rows]}
         ids, dists = res.ids[:n_rows], res.dists[:n_rows]
@@ -260,12 +263,15 @@ class SingleDeviceSearcher(Searcher):
 
     def run_padded(self, bucket, k, cfg, queries) -> AnnBatchResult:
         ids, dists, truncated, count = self.run_padded_device(bucket, k, cfg, queries)
-        return AnnBatchResult(
-            ids=ids.to(torch.int32).cpu().numpy(),
-            dists=dists.to(torch.float32).cpu().numpy(),
-            truncated=truncated.cpu().numpy(),
-            candidate_count=count.to(torch.int32).cpu().numpy(),
-        )
+        with stage("searcher.to_host", self.device):
+            res = AnnBatchResult(
+                ids=ids.to(torch.int32).cpu().numpy(),
+                dists=dists.to(torch.float32).cpu().numpy(),
+                truncated=truncated.cpu().numpy(),
+                candidate_count=count.to(torch.int32).cpu().numpy(),
+            )
+        settle_stages(batch=True)
+        return res
 
 
 def _no_axes(data_axes, query_axes) -> None:
@@ -329,8 +335,12 @@ class ShardedSearcher(Searcher):
 
     def run_padded(self, bucket, k, cfg, queries) -> AnnBatchResult:
         ids, dists, stats = self.fn_for(bucket, k, cfg)(queries)
-        shard_candidates = stats["shard_candidates"].cpu().numpy()
-        shard_truncated = stats["shard_truncated"].cpu().numpy()
+        with stage("searcher.to_host", self.device):
+            shard_candidates = stats["shard_candidates"].cpu().numpy()
+            shard_truncated = stats["shard_truncated"].cpu().numpy()
+            ids = ids.to(torch.int32).cpu().numpy()
+            dists = dists.to(torch.float32).cpu().numpy()
+        settle_stages(batch=True)
         # shard_candidates is the pre-clamp per-shard DEMAND; clamp each
         # shard at its static gather cap so candidate_count keeps the
         # single-device meaning ('actually re-ranked') on either placement.
@@ -341,8 +351,8 @@ class ShardedSearcher(Searcher):
         else:
             count = shard_candidates.sum(axis=1)
         return AnnBatchResult(
-            ids=ids.to(torch.int32).cpu().numpy(),
-            dists=dists.to(torch.float32).cpu().numpy(),
+            ids=ids,
+            dists=dists,
             truncated=shard_truncated.any(axis=1),
             candidate_count=count.astype(np.int32),
             shard_candidates=shard_candidates,

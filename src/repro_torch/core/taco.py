@@ -39,6 +39,7 @@ from repro_torch.core.selection import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.schist import cell_ids, collision_bits, collision_table
+from repro_torch.obs.trace import stage
 from repro_torch.utils import resolve_device, round_bf16, topk_smallest
 
 
@@ -234,12 +235,13 @@ def _centroid_distances(index: SCIndex, queries: torch.Tensor, use_kernels: bool
     centroids through bfloat16 first, so both passes read identically
     derived distances. Every (subspace, half) pair goes through one batched
     ``l2dist`` (one kernel launch on the card with ``use_kernels``)."""
-    pq = _project(index, queries)
-    if precision == "bf16":
-        pq = round_bf16(pq)
-    cents = index.stacked_centroids_bf16 if precision == "bf16" else index.stacked_centroids
-    dists = ops.l2dist_pairs(pq, _half_slices(index.sub_dims), cents,
-                             impl="auto" if use_kernels else "torch")
+    with stage("taco.centroid_dists", queries.device):
+        pq = _project(index, queries)
+        if precision == "bf16":
+            pq = round_bf16(pq)
+        cents = index.stacked_centroids_bf16 if precision == "bf16" else index.stacked_centroids
+        dists = ops.l2dist_pairs(pq, _half_slices(index.sub_dims), cents,
+                                 impl="auto" if use_kernels else "torch")
     n_sub = len(index.subspaces)
     return dists[:n_sub], dists[n_sub:]
 
@@ -248,8 +250,9 @@ def _collision_inputs(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
     """Alg. 6 lines 3-5 without the SC matrix: centroid distances,
     activation thresholds, the per-index cell ids and the retrieved counts."""
     d1s, d2s = _centroid_distances(index, queries, cfg.use_kernels, cfg.precision)
-    taus, retrieved = activation_taus(
-        d1s, d2s, index.cell_sizes, cfg.alpha * index.n, method=cfg.activation)
+    with stage("taco.activation", queries.device):
+        taus, retrieved = activation_taus(
+            d1s, d2s, index.cell_sizes, cfg.alpha * index.n, method=cfg.activation)
     return d1s, d2s, index.cells, taus, retrieved
 
 
@@ -259,12 +262,13 @@ def compute_sc_scores(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
     the packed collision table (the ``scscore`` kernel on the card), else
     through the plain per-subspace gathers of :func:`sc_scores`."""
     d1s, d2s, cells, taus, retrieved = _collision_inputs(index, queries, cfg)
-    if cfg.use_kernels:
-        bits = collision_bits(collision_table(d1s, d2s, taus))
-        sc = ops.scscore(bits, cells, q=queries.shape[0])
-    else:
-        a1s, a2s = index.assignments
-        sc = sc_scores(d1s, d2s, a1s, a2s, taus)
+    with stage("taco.collide", queries.device):
+        if cfg.use_kernels:
+            bits = collision_bits(collision_table(d1s, d2s, taus))
+            sc = ops.scscore(bits, cells, q=queries.shape[0])
+        else:
+            a1s, a2s = index.assignments
+            sc = sc_scores(d1s, d2s, a1s, a2s, taus)
     return sc, {"taus": taus, "retrieved": retrieved}
 
 
@@ -343,9 +347,11 @@ def query_with_stats(index: SCIndex, queries, cfg: SCConfig, *, k: int | None = 
     sc, stats = compute_sc_scores(index, queries, cfg)
     # floor the cap at the runtime k so large-k overrides stay servable
     cap = min(index.n, max(cfg.cap_for(index.n), k))
-    cand_ids, valid, thresh, count = select_candidates(
-        sc, float(cfg.beta * index.n), cfg.n_subspaces, cap, mode=cfg.selection)
-    ids, dists = rerank(index.data, queries, cand_ids, valid, k, data_norms_of(index))
+    with stage("taco.select", queries.device):
+        cand_ids, valid, thresh, count = select_candidates(
+            sc, float(cfg.beta * index.n), cfg.n_subspaces, cap, mode=cfg.selection)
+    with stage("taco.rerank", queries.device):
+        ids, dists = rerank(index.data, queries, cand_ids, valid, k, data_norms_of(index))
     stats.update(
         sc_threshold=thresh,
         candidate_count=torch.clamp_max(count, cap),  # actually re-ranked
@@ -367,20 +373,24 @@ def _query_masked_full(index: SCIndex, queries: torch.Tensor, cfg: SCConfig, k: 
     candidate_count (== candidate_demand, nothing is clamped), truncated."""
     impl = "auto" if cfg.use_kernels else "torch"
     d1s, d2s, cells, taus, retrieved = _collision_inputs(index, queries, cfg)
-    bits = collision_bits(collision_table(d1s, d2s, taus))
+    dev = queries.device
+    with stage("taco.collide", dev):
+        bits = collision_bits(collision_table(d1s, d2s, taus))
     q = queries.shape[0]
-    hist = ops.schist(bits, cells, cfg.n_subspaces + 1, q=q, impl=impl)
-    beta_n = float(cfg.beta * index.n)
-    if cfg.selection == "query_aware":
-        thresh, demand = query_aware_threshold(hist, beta_n, cfg.n_subspaces)
-    elif cfg.selection == "fixed":
-        thresh, demand = fixed_threshold_from_hist(hist, beta_n, index.n)
-    else:
-        raise ValueError(f"unknown selection mode {cfg.selection!r}")
-    ids, dists = ops.masked_rerank(
-        bits, cells, thresh, index.data, data_norms_of(index), queries, k,
-        impl=impl, precision=cfg.precision, exclude=exclude,
-    )
+    with stage("taco.select", dev):
+        hist = ops.schist(bits, cells, cfg.n_subspaces + 1, q=q, impl=impl)
+        beta_n = float(cfg.beta * index.n)
+        if cfg.selection == "query_aware":
+            thresh, demand = query_aware_threshold(hist, beta_n, cfg.n_subspaces)
+        elif cfg.selection == "fixed":
+            thresh, demand = fixed_threshold_from_hist(hist, beta_n, index.n)
+        else:
+            raise ValueError(f"unknown selection mode {cfg.selection!r}")
+    with stage("taco.rerank", dev):
+        ids, dists = ops.masked_rerank(
+            bits, cells, thresh, index.data, data_norms_of(index), queries, k,
+            impl=impl, precision=cfg.precision, exclude=exclude,
+        )
     stats = {
         "taus": taus,
         "retrieved": retrieved,

@@ -61,7 +61,7 @@ from contextlib import contextmanager
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "counter", "gauge", "histogram", "default_registry",
-    "render_prometheus", "snapshot", "set_enabled", "enabled",
+    "render_prometheus", "snapshot",
     "now", "timed", "RELATIVE_ERROR_BOUND",
 ]
 
@@ -70,23 +70,6 @@ def now() -> float:
     """Monotonic high-resolution timestamp in seconds (the blessed
     serving-stack clock: O001 points direct perf_counter users here)."""
     return time.perf_counter()
-
-
-# ------------------------------------------------------- enable switch --
-# Checked (one global load) at the top of every inc()/observe(): the
-# bench's metrics-on-vs-off overhead row needs a kill switch that leaves
-# the call sites in place.
-_enabled = True
-
-
-def set_enabled(flag: bool) -> None:
-    """Globally enable/disable metric accumulation (reads still work)."""
-    global _enabled
-    _enabled = bool(flag)
-
-
-def enabled() -> bool:
-    return _enabled
 
 
 # ------------------------------------------------------------- metrics --
@@ -110,8 +93,6 @@ class Counter:
         return cell
 
     def inc(self, n: float = 1.0) -> None:
-        if not _enabled:
-            return
         try:
             cell = self._tls.cell
         except AttributeError:
@@ -140,8 +121,6 @@ class Gauge:
         self._value = 0.0  # single attribute store: atomic under the GIL
 
     def set(self, v: float) -> None:
-        if not _enabled:
-            return
         self._value = float(v)
 
     @property
@@ -219,8 +198,6 @@ class Histogram:
         return sh
 
     def observe(self, v: float) -> None:
-        if not _enabled:
-            return
         try:
             sh = self._tls.shard
         except AttributeError:

@@ -26,8 +26,32 @@ Export: :meth:`Tracer.to_chrome` renders the ring as a Chrome
 ``trace_event`` JSON object (``{"traceEvents": [...]}`` of ``"ph": "X"``
 complete events) that loads directly in ``chrome://tracing`` or
 https://ui.perfetto.dev; :meth:`Tracer.dump_chrome` writes it to a file
-(a server's trace output). Timestamps are microseconds on the
-process-monotonic clock relative to tracer creation.
+(a server's trace output). Durations come from the process-monotonic
+clock (:func:`~repro_torch.obs.metrics.now`); each span's start is placed
+on the Unix-epoch clock that ``torch.profiler`` (Kineto) stamps its events
+with, through the pair of readings the tracer takes at creation. So
+``to_chrome`` writes ``ts`` in microseconds after a ``baseTimeNanoseconds``
+on that clock, as the profiler's own export does: base + ts places a span
+of either trace of one process on one axis.
+
+Query stages: :func:`stage` opens the named stages of the port's query
+path (``searcher.batch``, ``taco.activation``, ...). With no
+``torch.profiler`` recording it is one check of the profiler's flag and
+returns a shared no-op. While a profiler records it opens a
+``torch.profiler.record_function`` range (the trace's clock), times the
+stage on its device (a CUDA event pair on the current stream on the card,
+the host clock on the CPU) and adds the seconds to the counter
+``taco_stage_seconds_total{stage=...}``. An event pair spans the stream's
+time from the stage's first launch to its last op's end, so it holds the
+dispatch gaps between the stage's ops as well as their device time. Event
+pairs wait in a bounded queue until :func:`settle_stages` finds them
+complete, which the searchers' ``run_padded`` call where a batch's results
+have reached the host; it also counts the timed batch in
+``taco_stage_batches_total``. Nothing here waits for the card. The leaf
+stages of a batch settle in that batch; ``searcher.batch`` ends after its
+settle and ``searcher.to_host`` just before it, so their seconds may come
+at a later settle. A caller of ``core.taco.query`` that settles nothing leaves at
+most :data:`PENDING_CAP` pairs queued, the oldest falling out unread.
 """
 from __future__ import annotations
 
@@ -35,11 +59,14 @@ import itertools
 import json
 import random
 import threading
+import time
 from collections import deque
 
+from repro_torch.obs import metrics as _metrics
 from repro_torch.obs.metrics import now
 
-__all__ = ["Span", "Tracer", "NULL_SPAN", "default_tracer", "set_default_tracer"]
+__all__ = ["Span", "Tracer", "NULL_SPAN", "default_tracer", "set_default_tracer",
+           "NULL_STAGE", "PENDING_CAP", "stage", "settle_stages"]
 
 
 class Span:
@@ -129,6 +156,8 @@ class Tracer:
         self._ids = itertools.count(1)  # C-level next(): atomic under GIL
         self._rand = random.Random(seed)
         self._epoch = now()
+        #: the Unix-epoch nanoseconds of ``_epoch`` (Kineto's clock)
+        self.epoch_unix_ns = time.time_ns()
         self.started = 0  # sampled roots (informational, approximate)
         self.dropped = 0  # unsampled roots
 
@@ -172,7 +201,9 @@ class Tracer:
 
     def to_chrome(self) -> dict:
         """The ring as a Chrome ``trace_event`` JSON object (Perfetto /
-        ``chrome://tracing`` load it directly)."""
+        ``chrome://tracing`` load it directly). ``ts`` is microseconds after
+        ``baseTimeNanoseconds``, the tracer's creation on the Unix-epoch
+        clock of a ``torch.profiler`` export."""
         events = []
         threads: dict[int, str] = {}
         for s in self.spans():
@@ -201,7 +232,8 @@ class Tracer:
                 "tid": tid,
                 "args": {"name": tname},
             })
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": self.epoch_unix_ns}
 
     def dump_chrome(self, path: str) -> int:
         """Write :meth:`to_chrome` JSON to ``path``; returns the number of
@@ -230,3 +262,120 @@ def set_default_tracer(tracer: Tracer) -> Tracer:
     prev = _default
     _default = tracer
     return prev
+
+
+# ------------------------------------------------------------ stages --
+_M_STAGE_SECONDS = _metrics.counter(
+    "taco_stage_seconds_total",
+    "Seconds of each query stage on its device's stream, dispatch gaps "
+    "included, while a torch.profiler records",
+    labelnames=("stage",),
+)
+_M_STAGE_BATCHES = _metrics.counter(
+    "taco_stage_batches_total",
+    "Query batches whose stages were timed (while a torch.profiler records)",
+)
+#: event pairs that may wait unread (the oldest fall out past it)
+PENDING_CAP = 1024
+#: (stage, start event, end event) on the card, not yet read
+_pending: deque = deque(maxlen=PENDING_CAP)
+
+
+def _first_check() -> bool:
+    """Import torch once and put its profiler flag in ``_profiling``'s
+    place, so every later check is one C call."""
+    global _profiling
+    import torch
+
+    _profiling = torch._C._autograd._profiler_enabled
+    return _profiling()
+
+
+#: whether a ``torch.profiler`` records (torch's own flag after the first call)
+_profiling = _first_check
+
+
+class _NullStage:
+    """The shared no-op :func:`stage` returns when no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullStage":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+NULL_STAGE = _NullStage()
+
+
+class _Stage:
+    """One timed stage: a ``record_function`` range around a CUDA event
+    pair on the device's current stream (a card) or two host-clock
+    readings (the CPU, where the work is done when the host returns)."""
+
+    __slots__ = ("name", "device", "_range", "_t0", "_start")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = device
+        self._range = self._t0 = self._start = None
+
+    def __enter__(self) -> "_Stage":
+        import torch
+
+        if self.device is not None:
+            self.device = torch.device(self.device)
+            if self.device.type != "cuda":
+                self.device = None
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        if self.device is None:
+            self._t0 = now()
+        else:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.device is None:
+            _M_STAGE_SECONDS.labels(stage=self.name).inc(now() - self._t0)
+        else:
+            import torch
+
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _pending.append((self.name, self._start, end))
+        self._range.__exit__(exc_type, exc, tb)
+
+
+def stage(name: str, device=None):
+    """A context around one stage of the query path. While a
+    ``torch.profiler`` records: a ``record_function(name)`` range, and the
+    stage's time on ``device`` (the host clock unless it is a card) added
+    to ``taco_stage_seconds_total{stage=name}``. Otherwise the shared
+    no-op :data:`NULL_STAGE`, after one check of the profiler's flag."""
+    if not _profiling():
+        return NULL_STAGE
+    return _Stage(name, device)
+
+
+def settle_stages(batch: bool = False) -> None:
+    """Add each pending stage whose end event has completed to
+    ``taco_stage_seconds_total``; the others stay for a later call
+    (``Event.query``: this never waits for the card). Called where a
+    batch's results have reached the host; with ``batch`` it also counts
+    that batch in ``taco_stage_batches_total`` if a profiler records."""
+    if batch and _profiling():
+        _M_STAGE_BATCHES.inc()
+    for _ in range(len(_pending)):
+        try:
+            item = _pending.popleft()
+        except IndexError:  # another thread settled the rest
+            return
+        name, start, end = item
+        if end.query():
+            _M_STAGE_SECONDS.labels(stage=name).inc(start.elapsed_time(end) / 1e3)
+        else:
+            _pending.append(item)

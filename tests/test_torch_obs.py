@@ -1,7 +1,7 @@
 """The port's own observability package (``repro_torch.obs``): the stdlib
 cases of ``tests/test_obs_metrics.py`` and ``tests/test_obs_trace.py`` run
 on the copy — counter/gauge/histogram semantics, per-thread shard
-exactness, the percentile error bound, Prometheus text, the enable switch,
+exactness, the percentile error bound, Prometheus text,
 the HTTP export surface, sampling, the bounded ring and Chrome export —
 plus the port's own contract: its registry is a separate object from the
 reference's, the metric families the port's modules register carry the
@@ -205,25 +205,6 @@ def test_histogram_concurrent_exactness():
         t.join()
     assert h.count == n_threads * per
     assert len(h._shards) == n_threads  # fixed memory: one cell per thread
-
-
-# ------------------------------------------------------ enable switch --
-def test_set_enabled_kill_switch():
-    reg = MetricsRegistry()
-    c = reg.counter("t_total")
-    h = reg.histogram("t_seconds")
-    g = reg.gauge("t_depth")
-    try:
-        obsm.set_enabled(False)
-        assert not obsm.enabled()
-        c.inc()
-        h.observe(1.0)
-        g.set(5)
-        assert c.value == 0.0 and h.count == 0 and g.value == 0.0
-    finally:
-        obsm.set_enabled(True)
-    c.inc()
-    assert c.value == 1.0
 
 
 # ----------------------------------------------------------- exports --
