@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits nonzero:
   1. device  — require CUDA, print the card's name and power limit;
-  2. build   — compile the six kernels (one nvcc per source, in parallel);
+  2. build   — compile the seven kernels (one nvcc per source, in parallel);
   3. kernels — hold each ANN kernel against its plain PyTorch version on the
                card at the main path's shapes and at a ragged shape, on
                integer inputs (bitwise) and float inputs (stated tolerances),
@@ -28,7 +28,10 @@ Phases, in order; any failure exits nonzero:
                point; l2dist, schist, scscore and masked_rerank (k = 10 and
                100) are also held against their plain versions at every
                bucket the serving engine pads a batch to (1 to 256 queries)
-               over the 10^6 points, and timed at the bucket of 64;
+               over the 10^6 points, and timed at the bucket of 64; the
+               sort activation kernel at the benchmark's batches (N_s, Q,
+               sqrt_k) = (6, 10240, 32), (6, 1024, 32) and (20, 1024, 64),
+               tau and retrieved bit for bit against its plain version;
   3b. autotune — the kernel autotuner (repro_torch.kernels.autotune) on
                the card: schist and masked_rerank searched over their eight
                (bq, bn) candidates each (about 10 s of budget an op) on the
@@ -447,24 +450,27 @@ SOURCES = {
     "scscore": ("src/repro_torch/csrc/scscore.cu", "src/repro/kernels/scscore.py:63"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:99"),
+    "activation": ("src/repro_torch/csrc/activation.cu", "src/repro/core/activation.py:57"),
 }
 #: the kernels each path must launch in its own run
 PATHS = {
     "build": ("kmeans_assign",),
-    "masked": ("l2dist", "schist", "masked_rerank"),
-    "autotune_search": ("l2dist", "schist", "masked_rerank"),
-    "gather": ("l2dist", "scscore"),
+    "masked": ("l2dist", "schist", "masked_rerank", "activation"),
+    "autotune_search": ("l2dist", "schist", "masked_rerank", "activation"),
+    "gather": ("l2dist", "scscore", "activation"),
+    # SuCo's linear activation stays on torch
+    "suco_gather": ("l2dist", "scscore"),
     "flash": ("flash_attention",),
-    "persist": ("l2dist", "schist", "masked_rerank", "scscore"),
-    "mutable": ("l2dist", "schist", "masked_rerank"),
-    "mutable_gather": ("l2dist", "scscore"),
+    "persist": ("l2dist", "schist", "masked_rerank", "scscore", "activation"),
+    "mutable": ("l2dist", "schist", "masked_rerank", "activation"),
+    "mutable_gather": ("l2dist", "scscore", "activation"),
     "compact": ("kmeans_assign",),
-    "engine": ("l2dist", "schist", "masked_rerank", "scscore"),
-    "serve": ("l2dist", "schist", "masked_rerank", "kmeans_assign"),
-    "serve_load": ("l2dist", "scscore"),
-    "sharded": ("l2dist", "schist", "masked_rerank", "scscore"),
-    "sharded_engine": ("l2dist", "schist", "masked_rerank", "scscore"),
-    "sharded_serve": ("l2dist", "scscore"),
+    "engine": ("l2dist", "schist", "masked_rerank", "scscore", "activation"),
+    "serve": ("l2dist", "schist", "masked_rerank", "kmeans_assign", "activation"),
+    "serve_load": ("l2dist", "scscore", "activation"),
+    "sharded": ("l2dist", "schist", "masked_rerank", "scscore", "activation"),
+    "sharded_engine": ("l2dist", "schist", "masked_rerank", "scscore", "activation"),
+    "sharded_serve": ("l2dist", "scscore", "activation"),
     "sharded_build": ("kmeans_assign",),
     "lm_serve": ("flash_attention",),
     "lm_prefill": ("flash_attention",),
@@ -472,9 +478,9 @@ PATHS = {
     "ivf_build": ("kmeans_assign",),
     "wide_ivf_build": ("kmeans_assign",),
     "wide_build": ("kmeans_assign",),
-    "wide_masked": ("l2dist", "schist", "masked_rerank"),
-    "wide_gather": ("l2dist", "scscore"),
-    "wide_big_k": ("l2dist", "schist", "masked_rerank"),
+    "wide_masked": ("l2dist", "schist", "masked_rerank", "activation"),
+    "wide_gather": ("l2dist", "scscore", "activation"),
+    "wide_big_k": ("l2dist", "schist", "masked_rerank", "activation"),
     "train": ("flash_attention",),
     "train_grads": ("flash_attention",),
     "train_smoke": ("flash_attention",),
@@ -841,6 +847,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
 
     from repro_torch.core.activation import activation_taus
     from repro_torch.core.selection import query_aware_threshold
+    from repro_torch.kernels.activation import sort_activation_cuda
     from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda, kmeans_assign_plain
     from repro_torch.core.taco import _half_slices
     from repro_torch.kernels.l2dist import (
@@ -864,6 +871,7 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
         schist_plain,
         unpack_collision_bits,
     )
+    from repro_torch.kernels.ref import sort_activation_ref
     from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
 
     dev = torch.device("cuda")
@@ -955,6 +963,37 @@ def phase_kernels(torch, corpus, queries, rng) -> dict:
                                 suco=rows["suco"], ragged=rows["ragged"],
                                 ivf=ivf_assign_case(torch, corpus, ints, rng))
     del x, c
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ activation --
+    # the benchmark's batches: SIFT1M's masked (6, 10240, 32) and gather
+    # (6, 1024, 32), GIST1M's (20, 1024, 64); sizes of n points, alpha 0.05
+    def activation_case(n_sub, q, sqrt_k):
+        k2 = sqrt_k * sqrt_k
+        cells = T(rng.integers(0, k2, (n_sub, n)))
+        sizes = torch.stack([torch.bincount(c, minlength=k2) for c in cells])
+        sizes = sizes.to(torch.int32).reshape(n_sub, sqrt_k, sqrt_k)
+        d1s = T(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
+        d2s = T(rng.uniform(0, 4, (n_sub, q, sqrt_k)).astype(np.float32))
+        alpha_n = 0.05 * n
+        got = sort_activation_cuda(d1s, d2s, sizes, alpha_n)
+        want = sort_activation_ref(d1s, d2s, sizes[:, None], alpha_n)
+        for g, w, what in zip(got, want, ("tau", "retrieved")):
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"activation {what} {(n_sub, q, sqrt_k)}")
+        # N_s Q K cell sums; both halves' f32 distances, int32 sizes, two f32 outputs
+        b, by = bound_ms(4 * (2 * n_sub * q * sqrt_k + n_sub * k2 + 2 * n_sub * q),
+                         n_sub * q * k2)
+        return dict(
+            max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            ms=timed(torch, lambda: sort_activation_cuda(d1s, d2s, sizes, alpha_n), 20),
+            plain_ms=timed(torch, lambda: sort_activation_ref(d1s, d2s, sizes[:, None], alpha_n),
+                           2),
+            bound_ms=b, bound_by=by, library_ms=None, shape=f"N_s {n_sub}, Q {q}, K {k2}")
+
+    res["activation"] = dict(activation_case(n_sub, 10240, sqrt_k),
+                             shapes=[activation_case(n_sub, 1024, sqrt_k),
+                                     activation_case(20, 1024, 64)])
     torch.cuda.empty_cache()
 
     # ------------------------------------------- schist + masked_rerank --
@@ -1686,7 +1725,8 @@ def phase_gather(torch, taco_index, corpus_np, queries, gt, masked_runs) -> tupl
     summary.update(suco_build_s=build_s, suco_build_launches=build_launches)
     suco.search(queries[:8])
     settings = [(k, "fixed") for k in (10, 100)]
-    runs, launches = run_path(torch, "gather", lambda: search_runs(torch, suco, queries, settings),
+    runs, launches = run_path(torch, "suco_gather",
+                              lambda: search_runs(torch, suco, queries, settings),
                               expect={"l2dist": 3 * len(settings)})
     summary["suco_launches"] = launches
     for (k, sel), run in runs.items():
@@ -7421,6 +7461,7 @@ def main(argv=None) -> int:
             launches[name] += count
     # the tiled and wide phases' shapes, beside each kernel's main-path one
     wide_shapes = {
+        "activation": kernels["activation"]["shapes"],
         "kmeans_assign": [kernels["kmeans_assign"]["ivf"], wide["ivf"]["assign"]],
         "schist": [wide["taco"]["kernels"]["schist"], wide["n_sub_127"]["schist"]],
         "scscore": [wide["taco"]["kernels"]["scscore"], wide["n_sub_127"]["scscore"]],

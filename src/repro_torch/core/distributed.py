@@ -280,7 +280,7 @@ def make_distributed_query_with_stats(views, cfg: SCConfig, index: SCIndex, n_gl
         queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
         d1s, d2s = _centroid_distances(index, queries, cfg.use_kernels)
         taus, _retrieved = activation_taus(d1s, d2s, index.cell_sizes, alpha_n,
-                                           method=cfg.activation)
+                                           method=cfg.activation, impl=impl)
         table_bits = collision_bits(collision_table(d1s, d2s, taus))
         bits = [table_bits.to(v.device) for v in views]
         qs = [queries.to(v.device) for v in views]

@@ -252,7 +252,8 @@ def _collision_inputs(index: SCIndex, queries: torch.Tensor, cfg: SCConfig):
     d1s, d2s = _centroid_distances(index, queries, cfg.use_kernels, cfg.precision)
     with stage("taco.activation", queries.device):
         taus, retrieved = activation_taus(
-            d1s, d2s, index.cell_sizes, cfg.alpha * index.n, method=cfg.activation)
+            d1s, d2s, index.cell_sizes, cfg.alpha * index.n, method=cfg.activation,
+            impl="auto" if cfg.use_kernels else "torch")
     return d1s, d2s, index.cells, taus, retrieved
 
 

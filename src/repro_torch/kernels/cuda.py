@@ -31,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("l2dist", "kmeans_assign", "schist", "masked_rerank", "scscore", "flash_attention")
+KERNELS = ("l2dist", "kmeans_assign", "schist", "masked_rerank", "scscore", "flash_attention",
+           "activation")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import autotune
+from repro_torch.kernels.activation import sort_activation_cuda
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFunction,
     flash_attention_cuda,
@@ -40,6 +41,7 @@ from repro_torch.kernels.masked_rerank import (
     masked_rerank_cuda,
     masked_rerank_plain,
 )
+from repro_torch.kernels.ref import sort_activation_ref
 from repro_torch.kernels.schist import schist_cuda, schist_plain
 from repro_torch.kernels.scscore import scscore_cuda, scscore_plain
 from repro_torch.utils import round_bf16
@@ -111,6 +113,16 @@ def scscore(bits, cells, *, q: int, impl: str = "auto") -> torch.Tensor:
     if not _use_kernel(impl, bits):
         return scscore_plain(bits, cells, q=q)
     return scscore_cuda(bits.contiguous(), cells.contiguous(), q=q)
+
+
+def sort_activation(d1s, d2s, sizes, alpha_n, impl: str = "auto"):
+    """Sort activation of every (subspace, query) problem: (taus (N_s, Q),
+    retrieved (N_s, Q)) float32 from d1s, d2s (N_s, Q, sqrt_k) and the
+    subspaces' sizes (N_s, sqrt_k, sqrt_k) (int32 on the kernel route). The
+    kernel (one launch on the card) returns the plain version's bits."""
+    if not _use_kernel(impl, d1s):
+        return sort_activation_ref(d1s, d2s, sizes[:, None], alpha_n)
+    return sort_activation_cuda(_f32(d1s), _f32(d2s), sizes.contiguous(), alpha_n)
 
 
 def masked_rerank(bits, cells, thresh, data, data_norms, queries, k: int,

@@ -913,3 +913,130 @@ def test_masked_rerank_kernel_wide(dev, n_sub, sqrt_k, k, n, share):
     if share:
         ids = gi[gi >= 0].cpu().numpy()
         assert not excluded[ids].any()
+
+
+def _activation_problem(rng, n_sub, q, sqrt_k, dev, kind="float", size_hi=6):
+    shape = (n_sub, q, sqrt_k)
+    if kind == "float":
+        d1s, d2s = (rng.uniform(0, 5, shape) for _ in range(2))
+    elif kind == "int":  # many equal cell sums
+        d1s, d2s = (rng.integers(0, 4, shape) for _ in range(2))
+    else:  # negative sums, -0.0 + -0.0 = -0.0 and x + -x = +0.0
+        vals = np.array([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0], np.float32)
+        d1s, d2s = (rng.choice(vals, shape) for _ in range(2))
+    sizes = rng.integers(0, size_hi, (n_sub, sqrt_k, sqrt_k))
+    return (torch.as_tensor(d1s.astype(np.float32), device=dev),
+            torch.as_tensor(d2s.astype(np.float32), device=dev),
+            torch.as_tensor(sizes.astype(np.int32), device=dev))
+
+
+def _same_activation(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["float", "int", "signed_zero"])
+@pytest.mark.parametrize("sqrt_k", [1, 4, 5, 12, 32, 40, 64, 65])
+def test_sort_activation_kernel(dev, sqrt_k, kind):
+    """The kernel against the plain sort_activation, tau and retrieved as
+    bits: small and ragged sqrt_k with keys in registers, 40 and 64 (1,600
+    and 4,096 cells) with keys in shared memory, 65 (4,225 cells) past both; ties, negative and signed-zero sums; alpha_n 0, one cell's
+    weight, a cumulative weight, the total and past it."""
+    from repro_torch.core.activation import sort_activation
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.activation import cells_layout, sort_activation_cuda
+
+    place = "registers" if sqrt_k <= 32 else "shared" if sqrt_k <= 64 else "global"
+    assert cells_layout(sqrt_k) == place
+    rng = np.random.default_rng(sqrt_k * 10 + len(kind))
+    d1s, d2s, sizes = _activation_problem(rng, 3, 37, sqrt_k, dev, kind)
+    flat = sizes[0].flatten().long()
+    total = int(flat.sum())
+    for alpha_n in (0.0, float(flat.max()), float(flat[: flat.numel() // 3].sum()),
+                    float(total), total + 7.5, 0.05 * total):
+        cuda.reset_launch_counts()
+        got = sort_activation_cuda(d1s, d2s, sizes, alpha_n)
+        assert cuda.launch_counts["activation"] == 1
+        assert cuda.launch_layouts["activation"] == {f"cells={place}": 1}
+        _same_activation(got, sort_activation(d1s, d2s, sizes[:, None], alpha_n))
+
+
+@pytest.mark.parametrize("n_sub,q,sqrt_k,n", [(6, 10240, 32, 10 ** 6), (20, 1024, 64, 10 ** 6)])
+def test_sort_activation_kernel_at_the_cells_shapes(dev, n_sub, q, sqrt_k, n):
+    """SIFT1M's and GIST1M's batches (N_s, Q, sqrt_k) with sizes that sum to
+    n a subspace and alpha n = 0.05 n; then a repeat call gives the same
+    bits."""
+    from repro_torch.core.activation import sort_activation
+    from repro_torch.kernels.activation import sort_activation_cuda
+
+    rng = np.random.default_rng(q)
+    d1s, d2s, _ = _activation_problem(rng, n_sub, q, sqrt_k, dev)
+    cells = torch.as_tensor(rng.integers(0, sqrt_k ** 2, (n_sub, n)), device=dev)
+    sizes = torch.stack([torch.bincount(c, minlength=sqrt_k ** 2) for c in cells])
+    sizes = sizes.to(torch.int32).reshape(n_sub, sqrt_k, sqrt_k)
+    got = sort_activation_cuda(d1s, d2s, sizes, 0.05 * n)
+    _same_activation(got, sort_activation(d1s, d2s, sizes[:, None], 0.05 * n))
+    _same_activation(sort_activation_cuda(d1s, d2s, sizes, 0.05 * n), got)
+
+
+def test_sort_activation_kernel_repeats(dev):
+    from repro_torch.kernels.activation import sort_activation_cuda
+
+    d1s, d2s, sizes = _activation_problem(np.random.default_rng(3), 4, 300, 12, dev, "int")
+    first = sort_activation_cuda(d1s, d2s, sizes, 40.0)
+    for _ in range(3):
+        _same_activation(sort_activation_cuda(d1s, d2s, sizes, 40.0), first)
+
+
+def test_sort_activation_kernel_on_large_sizes(dev):
+    """Sizes whose absolute total passes int32 take the int64 route in the
+    kernel: tau and retrieved as an int64 transcription of the same
+    arithmetic gives them (the plain version's f32 sums are not exact
+    there)."""
+    from repro_torch.kernels.activation import sort_activation_cuda
+
+    rng = np.random.default_rng(9)
+    d1s, d2s, _ = _activation_problem(rng, 2, 5, 4, dev, "int")
+    sizes = torch.full((2, 4, 4), 2 ** 28, dtype=torch.int32, device=dev)
+    taus, ret = sort_activation_cuda(d1s, d2s, sizes, 3.0 * 2 ** 28)
+    sums = (d1s[..., :, None] + d2s[..., None, :]).flatten(-2)
+    for s in range(2):
+        for qi in range(5):
+            ordered = torch.sort(sums[s, qi], stable=True)
+            tau = ordered.values[2]  # the third cell reaches 3 x 2^28
+            assert taus[s, qi] == tau
+            below = int((sums[s, qi] < tau).sum()) * 2 ** 28
+            ties = int((sums[s, qi] == tau).sum())
+            want = below + max(1, 3 - below // 2 ** 28) * 2 ** 28
+            assert ties >= 1 and ret[s, qi] == float(want)
+
+
+@pytest.mark.parametrize("rerank", ["gather", "masked_full"])
+def test_query_activation_kernel_matches_the_torch_route(dev, rerank, monkeypatch):
+    """query_with_stats with use_kernels on the card, the activation once
+    through the kernel and once forced onto the torch route by
+    activation_taus' impl: ids, distances, taus and retrieved bit for bit;
+    one activation launch a query."""
+    from repro_torch.core import taco
+    from repro_torch.core.config import taco_config
+    from repro_torch.kernels import cuda
+
+    rng = np.random.default_rng(8)
+    data = torch.as_tensor(rng.standard_normal((20000, 32)).astype(np.float32))
+    queries = torch.as_tensor(rng.standard_normal((300, 32)).astype(np.float32), device=dev)
+    cfg = taco_config(n_subspaces=4, subspace_dim=8, n_clusters=256, alpha=0.05, beta=0.02,
+                      rerank=rerank, k=10, use_kernels=True)
+    index = taco.build(data, cfg, device=dev)
+    cuda.reset_launch_counts()
+    gi, gd, gs = taco.query_with_stats(index, queries, cfg)
+    assert cuda.launch_counts["activation"] == 1
+    real = taco.activation_taus
+    monkeypatch.setattr(taco, "activation_taus",
+                        lambda *a, impl="auto", **kw: real(*a, impl="torch", **kw))
+    cuda.reset_launch_counts()
+    wi, wd, ws = taco.query_with_stats(index, queries, cfg)
+    assert cuda.launch_counts["activation"] == 0
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    for key in ("taus", "retrieved"):
+        assert torch.equal(gs[key].view(torch.int32), ws[key].view(torch.int32)), key
